@@ -1,0 +1,211 @@
+"""Schedule IR of the port: ONE generator lowers (TemporalPlan, patches,
+exchange policy) into a typed stream of interval events, and every executor
+interprets that stream (reference: ``repro.core.events``, DESIGN.md §10).
+
+This slice lowers the image axes — steps x patches under a boundary-exchange
+policy:
+
+    stream   := Warmup*  adaptive*
+    adaptive := ComputeInterval  Exchange  Replan?
+
+    Warmup(m)             one synchronous full-image fine step
+    ComputeInterval(m0,R) R fine steps of stale-KV patch compute
+                          (per-worker substeps = R / ratio)
+    Exchange(m, kind)     the interval boundary; ``kind`` comes from the
+                          :class:`repro_torch.core.comm.BoundaryExchange`
+                          policy: "full", "skip" or "predict"
+    Replan(m, plan)       an online re-allocation took effect at boundary m
+
+The stage, guidance, sequence and frame events of the reference come with
+the slices that port those axes. Replying to an :class:`Exchange` with
+``gen.send((plan, patches))`` re-allocates the remaining fine steps, exactly
+as in the reference. The trace records keep every field of the reference so
+that records from the two packages compare equal.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Iterator, List, Optional, Sequence, Tuple
+
+from repro_torch.core import comm as comm_lib
+from repro_torch.core.schedule import TemporalPlan
+
+
+# ----------------------------------------------------------------------
+# trace records (replayed by the latency simulator)
+# ----------------------------------------------------------------------
+
+@dataclasses.dataclass
+class IntervalEvent:
+    """One executed interval: per-worker (sub-steps, patch rows) plus the
+    boundary-exchange kind that followed it. The provenance fields of the
+    later axes (fill, uncond_fresh, seq_hops, frames) keep their image-path
+    values in this slice."""
+    fine_step: int                       # first fine step of the interval
+    substeps: List[int]                  # steps executed by each worker
+    patches: List[int]                   # token-rows per worker
+    synchronous: bool = False            # warmup intervals sync every layer
+    exchange: str = "full"               # boundary kind after this interval
+    fill: bool = False
+    uncond_fresh: bool = True
+    seq_hops: int = 0
+    frames: int = 1
+
+
+@dataclasses.dataclass
+class ExecutionTrace:
+    events: List[IntervalEvent]
+    plan: Optional[TemporalPlan]
+    patches: List[int]
+    n_tokens: int                        # full image tokens (comm sizing)
+    latent_bytes: int
+    kv_bytes_per_worker: List[int]
+    stages: Optional[List[int]] = None
+    act_row_bytes: int = 0
+    guidance: Optional[object] = None
+    seq: Optional[object] = None
+    frames: Optional[object] = None
+    cond_tokens: int = 0
+
+
+# ----------------------------------------------------------------------
+# the IR event types
+# ----------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class Warmup:
+    """One synchronous fine step: every worker runs the full-image forward."""
+    fine_step: int
+    substeps: Tuple[int, ...]            # 1 for each active worker, else 0
+    patches: Tuple[int, ...]
+
+
+@dataclasses.dataclass(frozen=True)
+class ComputeInterval:
+    """R = ``length`` fine steps of patch compute against stale buffers."""
+    fine_step: int                       # first fine step of the interval
+    length: int                          # fine steps in the interval (lcm)
+    substeps: Tuple[int, ...]            # length // ratio_i per active worker
+    ratios: Tuple[int, ...]
+    patches: Tuple[int, ...]
+
+    @property
+    def workers(self) -> List[int]:
+        return [i for i, s in enumerate(self.substeps) if s > 0]
+
+
+@dataclasses.dataclass(frozen=True)
+class Exchange:
+    """The boundary after a compute interval. ``kind`` is the policy verdict;
+    the final boundary of a run is always "full" (the image must assemble)."""
+    fine_step: int                       # first fine step AFTER the interval
+    kind: str                            # "full" | "skip" | "predict"
+    index: int                           # 0-based boundary counter
+    substeps: Tuple[int, ...]            # of the interval that just ended
+    patches: Tuple[int, ...]
+    last: bool
+
+
+@dataclasses.dataclass(frozen=True)
+class Replan:
+    """An online re-allocation (sent into the generator) took effect."""
+    fine_step: int
+    plan: TemporalPlan
+    patches: Tuple[int, ...]
+
+
+def active_workers(plan: TemporalPlan, patches: Sequence[int]) -> List[int]:
+    """The workers that actually execute: planned active AND own >=1 row."""
+    return [i for i in plan.active if patches[i] > 0]
+
+
+# ----------------------------------------------------------------------
+# lowering
+# ----------------------------------------------------------------------
+
+def lower(plan: TemporalPlan, patches: Sequence[int],
+          policy: Optional[comm_lib.BoundaryExchange] = None) -> Iterator:
+    """Lower (plan, patches, exchange policy) into events (see the module
+    docstring). A coroutine-style generator: reply to an :class:`Exchange`
+    with ``gen.send((new_plan, new_patches))`` to re-allocate the remaining
+    fine steps (the new plan's interval LCM must divide them); the generator
+    then emits a :class:`Replan` and continues."""
+    policy = policy or comm_lib.get_exchange("sync")
+    patches = list(patches)
+    n = len(patches)
+    # fine steps count in ABSOLUTE coordinates of the original plan; a
+    # replanned TemporalPlan covers the remaining steps (its m_base is the
+    # remaining count) and only contributes ratios/activity from then on
+    m_base = plan.m_base
+    workers = active_workers(plan, patches)
+    for m in range(plan.m_warmup):
+        yield Warmup(m, tuple(1 if i in workers else 0 for i in range(n)),
+                     tuple(patches))
+    m0 = plan.m_warmup
+    boundary = 0
+    while m0 + plan.lcm <= m_base:
+        R = plan.lcm
+        workers = active_workers(plan, patches)
+        subs = tuple(R // plan.ratios[i] if i in workers else 0
+                     for i in range(n))
+        yield ComputeInterval(m0, R, subs, tuple(plan.ratios), tuple(patches))
+        m0 += R
+        last = m0 + plan.lcm > m_base
+        kind = "full" if last else policy.kind(boundary)
+        upd = yield Exchange(m0, kind, boundary, subs, tuple(patches), last)
+        boundary += 1
+        if upd is not None:
+            plan, patches = upd
+            patches = list(patches)
+            if (m_base - m0) % plan.lcm:
+                raise ValueError(
+                    f"replanned LCM {plan.lcm} must divide the remaining "
+                    f"{m_base - m0} fine steps")
+            yield Replan(m0, plan, tuple(patches))
+
+
+# ----------------------------------------------------------------------
+# replay: event stream -> trace records / full ExecutionTrace
+# ----------------------------------------------------------------------
+
+def record(interval: ComputeInterval, kind: str) -> IntervalEvent:
+    """The trace record for one adaptive interval + its boundary kind."""
+    return IntervalEvent(interval.fine_step, list(interval.substeps),
+                         list(interval.patches), exchange=kind)
+
+
+def warmup_record(ev: Warmup) -> IntervalEvent:
+    return IntervalEvent(ev.fine_step, list(ev.substeps), list(ev.patches),
+                         synchronous=True)
+
+
+def replay(plan: TemporalPlan, patches: Sequence[int],
+           policy: Optional[comm_lib.BoundaryExchange] = None
+           ) -> List[IntervalEvent]:
+    """Trace records of the whole schedule without executing any numerics —
+    the latency-only path (`simulate.build_trace`) and the numerics path
+    (`patch_parallel.run_schedule`) both derive their records from
+    :func:`lower`, so they are structurally identical by construction."""
+    out: List[IntervalEvent] = []
+    pending: Optional[ComputeInterval] = None
+    for ev in lower(plan, patches, policy):
+        if isinstance(ev, Warmup):
+            out.append(warmup_record(ev))
+        elif isinstance(ev, ComputeInterval):
+            pending = ev
+        elif isinstance(ev, Exchange):
+            out.append(record(pending, ev.kind))
+    return out
+
+
+def make_trace(records: List[IntervalEvent], plan: TemporalPlan,
+               patches: Sequence[int], cfg, batch: int) -> ExecutionTrace:
+    """Byte-size provenance shared by every trace producer (K/V is priced
+    at 2 bytes per element, the latent at 4, as in the reference)."""
+    H = cfg.latent_size
+    lat_bytes = int(batch * H * H * cfg.channels * 4)
+    kv_bytes = [int(2 * cfg.n_layers * batch * pr * cfg.tokens_per_side
+                    * cfg.d_model * 2) for pr in patches]
+    act_row = int(batch * cfg.tokens_per_side * cfg.d_model * 4)
+    return ExecutionTrace(records, plan, list(patches), cfg.n_tokens,
+                          lat_bytes, kv_bytes, act_row_bytes=act_row)

@@ -1,0 +1,415 @@
+"""Unified STADI pipeline of the port: one config object, pluggable planners
+and execution backends (reference: ``repro.core.pipeline``, DESIGN.md §8).
+
+    cfg    = get_config("tiny-dit").reduced()
+    params = dit.init_params(torch.Generator("cuda").manual_seed(0), cfg)
+    sched  = sampler.linear_schedule(T=1000)
+    config = StadiConfig.from_occupancies([0.0, 0.6], m_base=16, m_warmup=4)
+    pipe   = StadiPipeline(cfg, params, sched, config)       # on "cuda"
+    result = pipe.generate(x_T, cond)          # result.image, result.trace
+
+Backends registered in this slice:
+
+    "emulated"  exact-numerics logical-worker engine (patch_parallel) — the
+                heterogeneous workers are logical workers on one device
+    "simulate"  trace-only latency modeling (no numerics; needs a CostModel)
+
+The pipeline runs on ``cuda`` unless the caller passes ``device="cpu"``; with
+no CUDA device and no explicit CPU request it raises. On the card every
+attention runs the hand-written CUDA kernel; ``PipelineResult.kernel_stats``
+reports how many times each kernel was launched during the call (the
+reference reports trace-time kernel hits and misses instead).
+
+``rebalance_every=k`` turns on online rebalancing (emulated backend): every k
+adaptive intervals the per-device interval latencies — synthesized from the
+cost model at ``measured_speeds`` — feed a
+:class:`repro_torch.core.hetero.OnlineProfiler`; when its speed estimate
+drifts past ``rebalance_threshold`` the remaining fine steps are re-planned.
+"""
+from __future__ import annotations
+
+import dataclasses
+import inspect
+from typing import Callable, Dict, List, Optional, Protocol, Sequence, Tuple
+
+import torch
+
+from repro_torch.configs.diffusion import DiTConfig
+from repro_torch.core import hetero
+from repro_torch.core import patch_parallel as pp
+from repro_torch.core import simulate as sim
+from repro_torch.core.comm import get_exchange
+from repro_torch.core.events import ExecutionTrace
+from repro_torch.core.hetero import DeviceProfile
+from repro_torch.core.planners import ExecutionPlan, get_planner
+from repro_torch.core.sampler import NoiseSchedule
+from repro_torch.core.simulate import CostModel
+from repro_torch.kernels import ops as kops
+
+#: where the reference's later axes, planners and backends arrive in the
+#: port (ROADMAP.md queue 1)
+_LATER = {
+    "spmd": "the multi-GPU slice (queue 1 item 7)",
+    "guidance": "the guidance slice (queue 1 item 8)",
+    "spmd_guidance": "the guidance slice (queue 1 item 8)",
+    "stadi_guidance": "the guidance slice (queue 1 item 8)",
+    "plan_cache_dir": "the serving slice (queue 1 item 9)",
+    "stages": "the pipefuse slice (queue 1 item 10)",
+    "pipefuse": "the pipefuse slice (queue 1 item 10)",
+    "spmd_pipefuse": "the pipefuse slice (queue 1 item 10)",
+    "stadi_pipefuse": "the pipefuse slice (queue 1 item 10)",
+    "seq": "the sequence-parallel slice (queue 1 item 11)",
+    "spmd_seq": "the sequence-parallel slice (queue 1 item 11)",
+    "stadi_seq": "the sequence-parallel slice (queue 1 item 11)",
+    "frames": "the frames slice (queue 1 item 12)",
+    "spmd_frames": "the frames slice (queue 1 item 12)",
+    "stadi_video": "the frames slice (queue 1 item 12)",
+    "prompt": "the prompt-conditioning slice (queue 1 item 13)",
+}
+
+
+def later_slice(name: str) -> NotImplementedError:
+    """The error for a reference feature this slice of the port lacks."""
+    return NotImplementedError(f"{name!r} is not ported yet: it comes with "
+                               f"{_LATER[name]} of ROADMAP.md")
+
+
+def resolve_device(device=None) -> torch.device:
+    """The device an entry point runs on: ``cuda`` unless the caller names
+    another. Raises when CUDA is asked for (or implied) and absent — never
+    falls back to the CPU."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: the port runs on the GPU unless "
+                           "the caller passes device='cpu'")
+    return dev
+
+
+@dataclasses.dataclass(frozen=True)
+class StadiConfig:
+    """Everything STADI needs to know that is not the model or the input."""
+    cluster: Tuple[DeviceProfile, ...]
+    # schedule knobs (paper §IV, Eq. 4 / Eq. 5)
+    m_base: int = 16
+    m_warmup: int = 4
+    a: float = 0.75
+    b: float = 0.25
+    tiers: Tuple[int, ...] = (1, 2)
+    granularity: int = 1
+    min_patch: Optional[int] = None
+    # strategy selection
+    planner: str = "stadi"
+    backend: str = "emulated"
+    # boundary-exchange policy (DESIGN.md §10): "sync" | "stale_async" |
+    # "predictive"; exchange_refresh = E => one corrective full refresh
+    # every E interval boundaries (ignored by "sync")
+    exchange: str = "sync"
+    exchange_refresh: int = 2
+    # axes of the reference that later slices bring; a value other than the
+    # default raises NotImplementedError naming that slice
+    num_stages: int = 1
+    guidance: str = "none"
+    cfg_scale: float = 0.0
+    seq_shards: int = 1
+    num_frames: int = 1
+    plan_cache_dir: Optional[str] = None
+    # latency modeling ("simulate" backend; also latency reporting elsewhere)
+    cost_model: Optional[CostModel] = None
+    # online rebalancing (beyond-paper, DESIGN.md §7.1)
+    rebalance_every: int = 0             # adaptive intervals between checks; 0 = off
+    rebalance_threshold: float = 0.2     # max relative speed drift tolerated
+    profiler_alpha: float = 0.5          # EWMA weight for OnlineProfiler
+
+    @classmethod
+    def from_occupancies(cls, occupancies: Sequence[float],
+                         capabilities: Optional[Sequence[float]] = None,
+                         **knobs) -> "StadiConfig":
+        """Paper's experimental grid: homogeneous GPUs + per-device occupancy."""
+        cluster = tuple(hetero.make_cluster(occupancies, capabilities))
+        return cls(cluster=cluster, **knobs)
+
+    @property
+    def speeds(self) -> List[float]:
+        return [d.v for d in self.cluster]
+
+    @property
+    def n_devices(self) -> int:
+        return len(self.cluster)
+
+
+@dataclasses.dataclass
+class ReplanEvent:
+    """One online re-allocation (fine-step granularity provenance)."""
+    fine_step: int
+    drift: float
+    speeds_before: List[float]
+    speeds_after: List[float]
+    plan: ExecutionPlan
+
+
+@dataclasses.dataclass
+class PipelineResult:
+    """What ``StadiPipeline.generate`` returns, for every backend.
+
+    image is None for the trace-only "simulate" backend; latency_s is None
+    unless a cost model was configured. kernel_stats is
+    ``{"launches": {kernel: n}}``: CUDA kernel launches during this call
+    (empty on the CPU, where every wrapper runs its plain version).
+    """
+    image: Optional[torch.Tensor]
+    trace: ExecutionTrace
+    plan: ExecutionPlan
+    latency_s: Optional[float] = None
+    replans: List[ReplanEvent] = dataclasses.field(default_factory=list)
+    kernel_stats: Dict = dataclasses.field(default_factory=dict)
+
+
+class Executor(Protocol):
+    """A backend: executes an ExecutionPlan, returns (image | None, trace)."""
+
+    def __call__(self, params, model_cfg: DiTConfig, sched: NoiseSchedule,
+                 x_T, cond, plan: ExecutionPlan, config: StadiConfig,
+                 interval_hook=None) -> Tuple[Optional[torch.Tensor], ExecutionTrace]:
+        ...
+
+
+# ----------------------------------------------------------------------
+# executor registry: declarative backend capabilities (DESIGN.md §14)
+# ----------------------------------------------------------------------
+
+#: the ONE normalized executor call signature
+EXECUTOR_KWARGS = ("params", "model_cfg", "sched", "x_T", "cond", "plan",
+                   "config", "interval_hook")
+
+#: every feature token a plan can demand from a backend
+PLAN_FEATURES = ("stages", "guidance.fused", "guidance.split",
+                 "guidance.interleaved", "seq", "frames")
+
+
+@dataclasses.dataclass(frozen=True)
+class BackendSpec:
+    """One registered executor plus the plan features it can execute
+    (``supports``) and those it needs a plan to demand (``requires``)."""
+    fn: Executor
+    supports: frozenset
+    requires: frozenset
+
+
+EXECUTORS: Dict[str, BackendSpec] = {}
+
+
+def register_executor(name: str, *, supports: Sequence[str] = (),
+                      requires: Sequence[str] = ()
+                      ) -> Callable[[Executor], Executor]:
+    supports_f, requires_f = frozenset(supports), frozenset(requires)
+    bad = (supports_f | requires_f) - set(PLAN_FEATURES)
+    if bad:
+        raise ValueError(f"executor {name!r} declares unknown capability "
+                         f"tokens {sorted(bad)}; known: {PLAN_FEATURES}")
+
+    def deco(fn: Executor) -> Executor:
+        sig = tuple(inspect.signature(fn).parameters)
+        if sig != EXECUTOR_KWARGS:
+            raise TypeError(f"executor {name!r} must accept exactly the "
+                            f"normalized kwargs {EXECUTOR_KWARGS}, got {sig}")
+        EXECUTORS[name] = BackendSpec(fn, supports_f, requires_f)
+        return fn
+    return deco
+
+
+def get_executor_spec(name: str) -> BackendSpec:
+    if name in _LATER and name not in EXECUTORS:
+        raise later_slice(name)
+    try:
+        return EXECUTORS[name]
+    except KeyError:
+        raise KeyError(f"unknown backend {name!r}; registered: "
+                       f"{sorted(EXECUTORS)}") from None
+
+
+def get_executor(name: str) -> Executor:
+    return get_executor_spec(name).fn
+
+
+def required_features(plan: ExecutionPlan) -> List[str]:
+    """Feature tokens a plan demands of a backend, in the check order
+    (stages, guidance, seq, frames)."""
+    feats: List[str] = []
+    if plan.stages is not None and len(plan.stages) > 1:
+        feats.append("stages")
+    if plan.guidance is not None:
+        feats.append("guidance." + plan.guidance.mode)
+    if plan.seq is not None and len(plan.seq.segments) > 1:
+        feats.append("seq")
+    if plan.frames is not None and plan.frames.num_frames > 1:
+        feats.append("frames")
+    return feats
+
+
+def check_backend_can_run(plan: ExecutionPlan, config: StadiConfig) -> None:
+    """Reject plan/backend mismatches from the capability declarations:
+    every demanded feature must be in the backend's ``supports``; every
+    ``requires`` token must be demanded by the plan."""
+    spec = get_executor_spec(config.backend)
+    feats = required_features(plan)
+    for f in feats:
+        if f not in spec.supports:
+            raise ValueError(f"{config.backend!r} does not support the "
+                             f"planned {f!r}")
+    for req in spec.requires:
+        if req not in feats:
+            raise ValueError(f"backend {config.backend!r} requires a plan "
+                             f"demanding {req!r}")
+
+
+@register_executor("emulated")
+def emulated_executor(params, model_cfg, sched, x_T, cond, plan, config,
+                      interval_hook=None):
+    res = pp.run_schedule(params, model_cfg, sched, x_T, cond,
+                          plan.temporal, plan.patches,
+                          interval_hook=interval_hook,
+                          exchange=config.exchange,
+                          exchange_refresh=config.exchange_refresh)
+    return res.image, res.trace
+
+
+@register_executor("simulate")
+def simulate_executor(params, model_cfg, sched, x_T, cond, plan, config,
+                      interval_hook=None):
+    batch = int(x_T.shape[0]) if x_T is not None else 1
+    trace = sim.build_trace(plan.temporal, plan.patches, model_cfg,
+                            batch=batch, exchange=config.exchange,
+                            exchange_refresh=config.exchange_refresh)
+    return None, trace
+
+
+def _to_device(tree, device):
+    return {k: (_to_device(v, device) if isinstance(v, dict) else v.to(device))
+            for k, v in tree.items()}
+
+
+class StadiPipeline:
+    """One-call STADI inference: plan -> execute -> (optionally) rebalance.
+
+    model_cfg/params/sched describe the denoiser; config describes the
+    cluster and strategy; ``device`` is where the numerics run (``cuda``
+    unless given). ``generate`` is the only entry point callers need;
+    ``plan`` is the one planning entry point.
+    """
+
+    def __init__(self, model_cfg: DiTConfig, params, sched: NoiseSchedule,
+                 config: StadiConfig, device=None):
+        later = {"stages": config.num_stages != 1,
+                 "guidance": config.guidance != "none" or config.cfg_scale > 0.0,
+                 "seq": config.seq_shards != 1,
+                 "frames": config.num_frames != 1,
+                 "plan_cache_dir": config.plan_cache_dir is not None,
+                 "prompt": model_cfg.cross_attn}
+        for name, asked in later.items():
+            if asked:
+                raise later_slice(name)
+        if config.planner in _LATER:
+            raise later_slice(config.planner)
+        get_planner(config.planner)      # fail fast on typos
+        get_executor(config.backend)
+        get_exchange(config.exchange, config.exchange_refresh)
+        self.device = resolve_device(device)
+        self.model_cfg = model_cfg
+        self.params = _to_device(params, self.device)
+        self.sched = sched
+        self.config = config
+
+    @property
+    def p_total(self) -> int:
+        return self.model_cfg.tokens_per_side
+
+    def plan(self, speeds: Optional[Sequence[float]] = None) -> ExecutionPlan:
+        """Run the configured planner (no execution)."""
+        speeds = list(speeds) if speeds is not None else self.config.speeds
+        return get_planner(self.config.planner)(speeds, self.config,
+                                                self.p_total)
+
+    def generate(self, x_T=None, cond=None, *,
+                 measured_speeds: Optional[Sequence[float]] = None
+                 ) -> PipelineResult:
+        """Plan and execute one generation on the pipeline's device.
+
+        measured_speeds: ground-truth effective speeds the run experiences
+        (defaults to the configured cluster's). When they drift from the
+        planned speeds and ``rebalance_every`` is on, the profiler detects it
+        and the remaining steps are re-planned mid-run.
+        """
+        config = self.config
+        plan = self.plan()
+        check_backend_can_run(plan, config)
+        replans: List[ReplanEvent] = []
+        hook = None
+        if config.rebalance_every > 0:
+            if config.backend != "emulated":
+                raise ValueError("rebalance_every requires the 'emulated' "
+                                 f"backend, not {config.backend!r}")
+            hook = self._make_rebalance_hook(plan, measured_speeds, replans)
+        if config.backend == "simulate" and config.cost_model is None:
+            raise ValueError("the 'simulate' backend needs config.cost_model")
+        if x_T is not None:
+            x_T = x_T.to(self.device)
+        if cond is not None:
+            cond = torch.as_tensor(cond).to(self.device)
+        before = kops.launch_counts()
+        image, trace = get_executor(config.backend)(
+            params=self.params, model_cfg=self.model_cfg, sched=self.sched,
+            x_T=x_T, cond=cond, plan=plan, config=config,
+            interval_hook=hook)
+        launches = {k: n - before.get(k, 0)
+                    for k, n in kops.launch_counts().items()
+                    if n != before.get(k, 0)}
+        latency = None
+        if config.cost_model is not None:
+            lat_speeds = (list(measured_speeds) if measured_speeds is not None
+                          else config.speeds)
+            latency = sim.simulate_trace(trace, lat_speeds, config.cost_model)
+        return PipelineResult(image, trace, plan, latency, replans,
+                              {"launches": launches})
+
+    # ------------------------------------------------------------------
+    # online rebalancing (beyond-paper §7.1): OnlineProfiler in the hot path
+    # ------------------------------------------------------------------
+
+    def _make_rebalance_hook(self, plan: ExecutionPlan,
+                             measured_speeds: Optional[Sequence[float]],
+                             replans: List[ReplanEvent]):
+        config = self.config
+        cm = config.cost_model or CostModel(t_fixed=1e-3, t_row=1e-3)
+        true_speeds = (list(measured_speeds) if measured_speeds is not None
+                       else config.speeds)
+        profiler = hetero.OnlineProfiler(plan.speeds, alpha=config.profiler_alpha)
+        state = {"baseline": list(plan.speeds), "since": 0}
+
+        def hook(next_fine_step: int, ev):
+            # feed measured per-device interval latencies into the profiler;
+            # work is nominal seconds at v=1 so observed_v converges on the
+            # device's true effective speed
+            hetero.feed_profiler(profiler, cm, ev.substeps, ev.patches,
+                                 true_speeds)
+            state["since"] += 1
+            if state["since"] < config.rebalance_every:
+                return None
+            state["since"] = 0
+            drift = profiler.drift(state["baseline"])
+            if drift <= config.rebalance_threshold:
+                return None
+            f_rem = plan.temporal.m_base - next_fine_step
+            tiers = tuple(t for t in config.tiers if f_rem % t == 0) or (1,)
+            knobs = dataclasses.replace(config, m_base=f_rem, m_warmup=0,
+                                        tiers=tiers)
+            new = get_planner(config.planner)(profiler.speeds, knobs,
+                                              self.p_total)
+            if f_rem % new.temporal.lcm:
+                return None              # cannot fit an interval; keep going
+            replans.append(ReplanEvent(next_fine_step, drift,
+                                       list(state["baseline"]),
+                                       list(profiler.speeds), new))
+            state["baseline"] = list(profiler.speeds)
+            return new.temporal, new.patches
+
+        return hook

@@ -1,0 +1,95 @@
+"""Diffusion samplers of the port: the VP noise schedules and DDIM /
+DPM-Solver-1 (paper Lemma 1). Reference: ``repro.core.sampler``.
+
+alpha_t = sqrt(alpha_bar_t), sigma_t = sqrt(1 - alpha_bar_t),
+lambda_t = log(alpha_t / sigma_t). The schedule lives on the CPU in float32;
+``ddim_step`` turns it into two float32 coefficients on the host, so a step
+on the card costs no device-to-host synchronization.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Callable
+
+import torch
+
+
+@dataclasses.dataclass(frozen=True)
+class NoiseSchedule:
+    """Discrete schedule over T training steps with continuous accessors."""
+    T: int
+    alpha_bar: torch.Tensor       # [T+1] float32 on the CPU; alpha_bar[0] = 1
+    betas: torch.Tensor           # [T+1]; betas[0] = 0
+
+    def alpha(self, t):
+        return torch.sqrt(self._ab(t))
+
+    def sigma(self, t):
+        return torch.sqrt(1.0 - self._ab(t))
+
+    def lam(self, t):
+        ab = self._ab(t)
+        return 0.5 * (torch.log(ab) - torch.log1p(-ab))
+
+    def _ab(self, t):
+        """Linear interpolation of alpha_bar at (possibly fractional) t."""
+        t = torch.as_tensor(t, dtype=torch.float32)
+        lo = torch.clamp(torch.floor(t).to(torch.int64), 0, self.T)
+        hi = torch.clamp(lo + 1, 0, self.T)
+        w = t - lo
+        return (1 - w) * self.alpha_bar[lo] + w * self.alpha_bar[hi]
+
+
+def linear_schedule(T: int = 1000, beta_min: float = 1e-4,
+                    beta_max: float = 2e-2) -> NoiseSchedule:
+    betas = torch.cat([torch.zeros(1),
+                       torch.linspace(beta_min, beta_max, T, dtype=torch.float32)])
+    alpha_bar = torch.cumprod(1.0 - betas, dim=0)
+    return NoiseSchedule(T, alpha_bar, betas)
+
+
+def cosine_schedule(T: int = 1000, s: float = 8e-3) -> NoiseSchedule:
+    t = torch.arange(T + 1, dtype=torch.float32) / T
+    f = torch.cos((t + s) / (1 + s) * math.pi / 2) ** 2
+    alpha_bar = torch.clamp(f / f[0], 1e-5, 1.0)
+    ab_prev = torch.cat([torch.ones(1), alpha_bar[:-1]])
+    betas = torch.clamp(1 - alpha_bar / ab_prev, 0.0, 0.999)
+    return NoiseSchedule(T, alpha_bar, betas)
+
+
+def ddim_timesteps(T: int, M: int) -> torch.Tensor:
+    """M+1 decreasing int32 timesteps t_0=T .. t_M=0 (paper Lemma 1 grid).
+
+    Equal, entry for entry, to the reference's
+    ``jnp.round(jnp.linspace(T, 0, M + 1))``: that grid lands on exact .5
+    values, so its last float32 bit decides the rounding. XLA computes
+    ``T * (1 - i * float32(1/M))`` (the division becomes a reciprocal
+    multiply), which is reproduced here; ``torch.linspace`` and
+    ``np.linspace`` both round differently on some (T, M)."""
+    s = torch.arange(M, dtype=torch.float32) * torch.tensor(1.0 / M,
+                                                            dtype=torch.float32)
+    t = torch.round(T * (1 - s)).to(torch.int32)      # round half to even
+    return torch.cat([t, torch.zeros(1, dtype=torch.int32)])
+
+
+def ddim_step(sched: NoiseSchedule, x, eps, t_from, t_to):
+    """One Lemma-1 update from t_{m-1}=t_from to t_m=t_to (t_to < t_from),
+    computed in float32 and cast back to x's dtype."""
+    a_from, a_to = sched.alpha(t_from), sched.alpha(t_to)
+    s_from, s_to = sched.sigma(t_from), sched.sigma(t_to)
+    # sigma_to * (e^{h} - 1) == a_to*s_from/a_from - s_to exactly (VP param);
+    # this form is finite at the t_to = 0 endpoint where lambda -> +inf.
+    coef = float(a_to * s_from / a_from - s_to)
+    ratio = float(a_to / a_from)
+    out = ratio * x.float() - coef * eps.float()
+    return out.to(x.dtype)
+
+
+def ddim_sample(eps_fn: Callable, sched: NoiseSchedule, x_T, M: int):
+    """eps_fn(x, t) -> eps with t a Python int. Returns x_0."""
+    ts = ddim_timesteps(sched.T, M).tolist()
+    x = x_T
+    for m in range(M):
+        x = ddim_step(sched, x, eps_fn(x, ts[m]), ts[m], ts[m + 1])
+    return x

@@ -1,0 +1,139 @@
+"""Heterogeneous-cluster latency model (reference: ``repro.core.simulate``).
+
+Heterogeneous wall-clock is modeled by replaying an :class:`ExecutionTrace`
+against per-device effective speeds with a per-step cost model
+
+    t_i(P) = (t_fixed + t_row * P) / v_i          [seconds]
+
+The t_fixed term is the paper's Fig. 9 observation that single-step delay is
+not linear in the patch size. Communication depends on each boundary's
+exchange kind: "full" charges the uneven latent all-gather (per-worker padded
+slab rows) plus link latency, with async KV publication masked by compute and
+only the excess charged; "skip" and "predict" move no bytes (DESIGN.md §10).
+
+The trace is built by replaying the SAME event stream the emulated engine
+interprets (:func:`repro_torch.core.events.replay`). This slice prices
+unstaged, unguided, attention-unsharded, single-frame traces; the staged,
+guided, sequence and frame cost models come with the slices that port those
+axes.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import List, Sequence
+
+from repro_torch.core import comm as comm_lib
+from repro_torch.core import events as ir
+from repro_torch.core.events import ExecutionTrace
+
+#: the slice of the port that brings each trace axis's cost model
+_LATER_AXES = (("stages", "the pipefuse slice (ROADMAP queue 1 item 10)"),
+               ("guidance", "the guidance slice (ROADMAP queue 1 item 8)"),
+               ("seq", "the sequence-parallel slice (ROADMAP queue 1 item 11)"),
+               ("frames", "the frames slice (ROADMAP queue 1 item 12)"))
+
+
+def build_trace(plan, patches: Sequence[int], cfg, batch: int = 1,
+                exchange: str = "sync",
+                exchange_refresh: int = 2) -> ExecutionTrace:
+    """Schedule trace without running numerics (latency-only replay of
+    :func:`repro_torch.core.events.lower` for (plan, patches, policy))."""
+    policy = comm_lib.get_exchange(exchange, exchange_refresh)
+    records = ir.replay(plan, patches, policy)
+    return ir.make_trace(records, plan, list(patches), cfg, batch)
+
+
+@dataclasses.dataclass
+class CostModel:
+    t_fixed: float            # per-step fixed overhead (s) at v=1
+    t_row: float              # per token-row marginal cost (s) at v=1
+    link_bw: float = 25e9     # bytes/s (PCIe4 x16 ~ paper's testbed)
+    link_latency: float = 30e-6
+    # per context-token-row x full-head attention K/V read cost (s) at v=1
+    # (DESIGN.md §13); 0.0 reproduces the model without the context term
+    t_ctx: float = 0.0
+    # per query-row x prompt-token cross-attention read cost (s) at v=1
+    # (DESIGN.md §17); 0.0 for class-conditional models
+    t_xattn: float = 0.0
+
+    def step_time(self, rows: int, v: float) -> float:
+        return (self.t_fixed + self.t_row * rows) / max(v, 1e-9)
+
+    def attn_time(self, ctx_rows: int, heads_frac: float, v: float) -> float:
+        """Per-step attention context-read time: proportional to context
+        rows x resident head fraction, independent of query rows."""
+        return self.t_ctx * ctx_rows * heads_frac / max(v, 1e-9)
+
+    def xattn_time(self, rows: int, cond_tokens: int, v: float) -> float:
+        """Per-eval prompt cross-attention read time (DESIGN.md §17)."""
+        return self.t_xattn * rows * cond_tokens / max(v, 1e-9)
+
+
+def fit_cost_model(rows: Sequence[int], times: Sequence[float], **kw) -> CostModel:
+    """Least-squares fit t = t_fixed + t_row * rows."""
+    n = len(rows)
+    sx = sum(rows); sy = sum(times)
+    sxx = sum(r * r for r in rows); sxy = sum(r * t for r, t in zip(rows, times))
+    denom = n * sxx - sx * sx
+    t_row = (n * sxy - sx * sy) / denom if denom else 0.0
+    t_fixed = max((sy - t_row * sx) / n, 1e-6)
+    return CostModel(t_fixed=t_fixed, t_row=max(t_row, 1e-9), **kw)
+
+
+def _kv_bytes_per_row(trace: ExecutionTrace) -> float:
+    """Staged-K/V wire bytes per token row, derived from the trace's initial
+    allocation so post-replan events are charged for their ACTUAL slabs."""
+    for b, p in zip(trace.kv_bytes_per_worker, trace.patches):
+        if p > 0:
+            return b / p
+    return 0.0
+
+
+def simulate_trace(trace: ExecutionTrace, speeds: Sequence[float],
+                   cm: CostModel) -> float:
+    """End-to-end makespan (s) of a schedule on devices with given speeds."""
+    for field, slice_name in _LATER_AXES:
+        value = getattr(trace, field)
+        if value is not None and (field != "stages" or len(value) > 1):
+            raise NotImplementedError(
+                f"pricing a trace with {field}={value!r} comes with "
+                f"{slice_name}")
+    total = 0.0
+    kv_row = _kv_bytes_per_row(trace)
+    for ev in trace.events:
+        compute = 0.0
+        parts: List[int] = []            # workers that actually exchanged
+        total_rows = max(sum(ev.patches), 1)
+        for i, (sub, rows) in enumerate(zip(ev.substeps, ev.patches)):
+            if sub == 0 or rows == 0:
+                continue
+            parts.append(i)
+            # every patch worker reads the FULL context's K/V with all heads
+            step_t = cm.step_time(rows, speeds[i]) \
+                + cm.attn_time(total_rows, 1.0, speeds[i]) \
+                + cm.xattn_time(rows, trace.cond_tokens, speeds[i])
+            compute = max(compute, sub * step_t)
+        row_bytes = trace.latent_bytes / total_rows
+        # uneven all-gather of x: per-worker padded slab wire bytes — a lone
+        # worker (or an all-skip boundary) moves nothing
+        gather_rows = comm_lib.uneven_all_gather_rows(
+            [ev.patches[i] for i in parts])
+        if ev.synchronous:
+            # warmup: per-step activation sync (staged K/V) + latent slabs
+            comm_bytes = gather_rows * row_bytes
+            if len(parts) > 1:
+                comm_bytes += sum(kv_row * ev.patches[i] for i in parts)
+                total += compute + comm_bytes / cm.link_bw + cm.link_latency
+            else:
+                total += compute
+            continue
+        if ev.exchange != "full" or len(parts) <= 1:
+            # stale/predictive boundary (or nothing to exchange): pure
+            # compute — no gather, no KV broadcast, no link latency
+            total += compute
+            continue
+        comm = gather_rows * row_bytes / cm.link_bw + cm.link_latency
+        # async KV publication is masked by compute; charge only the excess
+        async_bytes = max(kv_row * ev.patches[i] for i in parts)
+        total += max(compute, async_bytes / cm.link_bw) + comm
+    return total

@@ -1,0 +1,306 @@
+"""DiT denoiser (arXiv:2212.09748) with patch-parallel support — the port of
+``repro.models.diffusion.dit``.
+
+Tokens are row-major over the latent grid; a *patch* is a contiguous range of
+token ROWS (STADI's allocatable unit, P_total = tokens_per_side rows).
+``forward_patch`` computes eps for a local row range while attending over
+full-image K/V assembled from (fresh local) ⊕ (stale remote) buffers — the
+DistriFusion mechanism that STADI schedules.
+
+Parameters keep the reference's pytree: a dict with the per-block leaves
+stacked ``[L, ...]`` under ``"blocks"``; a Python loop over L takes the place
+of ``lax.scan``. Every attention — the buffered patch read and the
+full-image warm-up read alike — goes through
+:func:`repro_torch.kernels.ops.stale_kv_attention`, which runs the
+hand-written CUDA kernel for CUDA tensors and its plain version for CPU
+tensors. Dtypes follow JAX's promotion rule: a product of activations and
+weights of two float dtypes runs in the wider one.
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.diffusion import DiTConfig
+from repro_torch.kernels import ops as kops
+from repro_torch.models import layers
+
+#: the reserved class id of the unconditional branch (selects the zero
+#: class embedding); the port's copy of ``repro.core.guidance.NULL_COND``
+NULL_COND = -1
+
+
+def _torch_dtype(name: str) -> torch.dtype:
+    return {"float32": torch.float32, "bfloat16": torch.bfloat16}[name]
+
+
+def _linear(x, w, b=None):
+    """x @ w (+ b) in the wider of the two dtypes, as JAX promotes."""
+    dt = torch.promote_types(x.dtype, w.dtype)
+    y = x.to(dt) @ w.to(dt)
+    return y if b is None else y + b
+
+
+# ----------------------------------------------------------------------
+# patchify helpers
+# ----------------------------------------------------------------------
+
+def patchify(x, patch: int):
+    """[B,H,W,C] -> [B, (H/p)*(W/p), p*p*C], row-major token grid."""
+    B, H, W, C = x.shape
+    hp, wp = H // patch, W // patch
+    x = x.reshape(B, hp, patch, wp, patch, C).permute(0, 1, 3, 2, 4, 5)
+    return x.reshape(B, hp * wp, patch * patch * C)
+
+
+def unpatchify(tok, patch: int, hp: int, wp: int, channels: int):
+    B = tok.shape[0]
+    x = tok.reshape(B, hp, wp, patch, patch, channels).permute(0, 1, 3, 2, 4, 5)
+    return x.reshape(B, hp * patch, wp * patch, channels)
+
+
+def pos_embed_2d(hp: int, wp: int, dim: int, device=None):
+    """Fixed 2D sin-cos positional embedding [hp*wp, dim], ``[sin, cos]``
+    order per axis (the timestep embedding uses ``[cos, sin]``)."""
+    def _1d(n, d):
+        pos = torch.arange(n, dtype=torch.float32, device=device)
+        omega = torch.exp(-math.log(10_000.0)
+                          * torch.arange(d // 2, dtype=torch.float32,
+                                         device=device) / (d // 2))
+        out = pos[:, None] * omega[None]
+        return torch.cat([torch.sin(out), torch.cos(out)], dim=-1)   # [n, d]
+
+    eh = _1d(hp, dim // 2)
+    ew = _1d(wp, dim // 2)
+    grid = torch.cat([eh[:, None].expand(hp, wp, dim // 2),
+                      ew[None, :].expand(hp, wp, dim // 2)], dim=-1)
+    return grid.reshape(hp * wp, dim)
+
+
+# ----------------------------------------------------------------------
+# params
+# ----------------------------------------------------------------------
+
+def init_params(gen: torch.Generator, cfg: DiTConfig):
+    """Untrained DiT params (adaLN-zero) drawn from ``gen`` on its device.
+    The draws are torch's, so they differ from the reference's
+    ``jax.random`` draws; tests carry the reference's params through
+    :mod:`repro_torch.bridge` instead."""
+    if cfg.cross_attn:
+        raise NotImplementedError("prompt cross-attention params come with "
+                                  "the prompt-conditioning slice (ROADMAP "
+                                  "queue 1 item 13)")
+    dt = _torch_dtype(cfg.param_dtype)
+    D, L = cfg.d_model, cfg.n_layers
+    Fd = int(cfg.mlp_ratio * D)
+    dev = gen.device
+    zeros = lambda *shape: torch.zeros(shape, dtype=dt, device=dev)
+    blocks = {
+        "qkv": layers.dense_init(gen, (L, D, 3 * D), dt),
+        "wo": layers.dense_init(gen, (L, D, D), dt, scale=1.0 / math.sqrt(2 * L * D)),
+        "w1": layers.dense_init(gen, (L, D, Fd), dt),
+        "w2": layers.dense_init(gen, (L, Fd, D), dt, scale=1.0 / math.sqrt(2 * L * Fd)),
+        "mod_w": zeros(L, D, 6 * D),                     # adaLN-zero init
+        "mod_b": zeros(L, 6 * D),
+    }
+    return {
+        "patch_embed": layers.dense_init(gen, (cfg.token_dim, D), dt),
+        "patch_bias": zeros(D),
+        "t_w1": layers.dense_init(gen, (256, D), dt),
+        "t_w2": layers.dense_init(gen, (D, D), dt),
+        "cond_embed": layers.embed_init(gen, (cfg.n_classes, D), dt),
+        "blocks": blocks,
+        "final_mod_w": zeros(D, 2 * D),
+        "final_mod_b": zeros(2 * D),
+        "final_proj": zeros(D, cfg.token_dim),           # zero-init output
+    }
+
+
+def nondegenerate_params(params, gen: torch.Generator):
+    """Untrained params are adaLN-zero: modulation gates and the output head
+    are exactly zero, so eps ignores attention (and the stale-KV buffers)
+    entirely. This replaces those zeros with small draws from ``gen`` so
+    remote K/V genuinely influences the trajectory. Returns a modified copy.
+
+    Unlike the reference, whose ``jax.random.normal`` draws turn these four
+    leaves into float32 even in a bf16 model, every leaf keeps its dtype
+    here, so a bf16 model stays bf16 end to end."""
+    def draw(like, std):
+        w = torch.randn(like.shape, generator=gen, dtype=torch.float32,
+                        device=gen.device)
+        return (std * w).to(device=like.device, dtype=like.dtype)
+
+    params = dict(params)
+    blk = dict(params["blocks"])
+    blk["mod_w"] = draw(blk["mod_w"], 0.02)
+    blk["mod_b"] = draw(blk["mod_b"], 0.02)
+    params["blocks"] = blk
+    params["final_mod_w"] = draw(params["final_mod_w"], 0.02)
+    params["final_proj"] = draw(params["final_proj"], 0.05)
+    return params
+
+
+# ----------------------------------------------------------------------
+# block math
+# ----------------------------------------------------------------------
+
+def _modulate(x, shift, scale):
+    """x * (1 + scale) + shift, one fused elementwise kernel."""
+    return torch.addcmul(shift[:, None], x, 1 + scale[:, None])
+
+
+def _ln(x, eps=1e-6):
+    """Affine-free layer norm with float32 statistics (population variance,
+    as the reference's ``jnp.var``), in x's dtype. ``F.layer_norm``
+    accumulates in float32 for bf16 inputs, so this is one fused kernel where
+    the reference's formula would be seven."""
+    return F.layer_norm(x, (x.shape[-1],), eps=eps)
+
+
+def _cond_vector(params, cfg, t, cond, B):
+    """Timestep + class conditioning vector [B, D]. ``t`` is a number (or a
+    0-d tensor); ``cond`` None, or class ids broadcastable to [B] where the
+    reserved :data:`NULL_COND` selects the zero (unconditional) embedding."""
+    dev = params["t_w1"].device
+    tt = torch.full((B,), float(t), dtype=torch.float32, device=dev)
+    temb = layers.sinusoidal_embedding(tt, 256)
+    temb = _linear(F.silu(_linear(temb.to(params["t_w1"].dtype),
+                                  params["t_w1"])), params["t_w2"])
+    if cond is None:
+        return F.silu(temb)
+    cond = torch.as_tensor(cond, device=dev)
+    if cond.ndim >= 2:
+        raise NotImplementedError("prompt-token conditioning comes with the "
+                                  "prompt-conditioning slice (ROADMAP queue 1 "
+                                  "item 13)")
+    idx = cond.to(torch.int64).expand(B)
+    gathered = params["cond_embed"][idx.clamp(min=0)]
+    cemb = torch.where((idx >= 0)[:, None], gathered, torch.zeros_like(gathered))
+    return F.silu(temb + cemb)
+
+
+# ----------------------------------------------------------------------
+# forward
+# ----------------------------------------------------------------------
+
+def embed_patch(params, cfg: DiTConfig, x_rows, t, cond, row_start: int):
+    """Pre-block embedding of a row-patch: patchify + patch embed + 2D pos
+    embed + conditioning vector. Returns (h [B,Nl,D], c [B,D])."""
+    B = x_rows.shape[0]
+    wp = cfg.tokens_per_side
+    tok = patchify(x_rows, cfg.patch_size)               # [B, Nl, token_dim]
+    Nl = tok.shape[1]
+    start = row_start * wp
+    pe = pos_embed_2d(wp, wp, cfg.d_model, device=tok.device)[start:start + Nl]
+    h = _linear(tok, params["patch_embed"]) + params["patch_bias"] \
+        + pe.to(tok.dtype)
+    return h, _cond_vector(params, cfg, t, cond, B)
+
+
+def block_stack(blocks, cfg: DiTConfig, h, c, tok_start: int,
+                buffers: Optional[Tuple] = None, return_kv: bool = True,
+                valid_tokens=None, enable=None, attend_fn=None,
+                prompt_ctx=None):
+    """Run a stack of DiT blocks over hidden states ``h`` [B, Nl, D].
+
+    blocks:  dict of per-block params, leading axis = block count
+    buffers: None (attention over the patch's own tokens: exact when the
+             patch is the whole image) or (buf_k, buf_v) each
+             [n_blocks, B, N_total, H, hd] — the stale K/V context; the
+             patch's own rows are read fresh instead (DistriFusion)
+    Returns (h', kvs) with kvs the fresh (k, v), each [n_blocks, B, Nl, H,
+    hd], or None when ``return_kv`` is False.
+
+    The reference's ``valid_tokens`` padding, ``enable`` stage mask,
+    ``attend_fn`` hook and ``prompt_ctx`` cross-attention serve the SPMD,
+    pipefuse, sequence and prompt slices of the port, which bring them.
+    """
+    for name, value, slice_name in (
+            ("valid_tokens", valid_tokens, "the spmd slice (item 7)"),
+            ("enable", enable, "the pipefuse slice (item 10)"),
+            ("attend_fn", attend_fn, "the sequence-parallel slice (item 11)"),
+            ("prompt_ctx", prompt_ctx, "the prompt-conditioning slice (item 13)")):
+        if value is not None:
+            raise NotImplementedError(f"block_stack({name}=...) comes with "
+                                      f"{slice_name} of ROADMAP queue 1")
+    B, Nl, D = h.shape
+    H = cfg.n_heads
+    hd = D // H
+    n_blocks = blocks["qkv"].shape[0]
+    x = h
+    ks, vs = [], []
+    for i in range(n_blocks):
+        bp = {name: leaf[i] for name, leaf in blocks.items()}
+        mod = _linear(c.to(x.dtype), bp["mod_w"], bp["mod_b"])
+        sh1, sc1, g1, sh2, sc2, g2 = mod.chunk(6, dim=-1)
+        xn = _modulate(_ln(x), sh1, sc1)
+        qkv = _linear(xn, bp["qkv"]).reshape(B, Nl, 3, H, hd)
+        q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+        if buffers is None:
+            # all-fresh layout: the context is the patch itself
+            att = kops.stale_kv_attention(q, k, v, k, v, tok_start=0)
+        else:
+            att = kops.stale_kv_attention(q, k, v, buffers[0][i].to(q.dtype),
+                                          buffers[1][i].to(q.dtype),
+                                          tok_start=tok_start)
+        x2 = torch.addcmul(x, g1[:, None], _linear(att.reshape(B, Nl, D), bp["wo"]))
+        xn = _modulate(_ln(x2), sh2, sc2)
+        hmid = _linear(F.gelu(_linear(xn, bp["w1"]), approximate="tanh"),
+                       bp["w2"])
+        x = torch.addcmul(x2, g2[:, None], hmid)
+        if return_kv:
+            ks.append(k)
+            vs.append(v)
+    return x, ((torch.stack(ks), torch.stack(vs)) if return_kv else None)
+
+
+def final_head(params, cfg: DiTConfig, h, c, rows_tok: int):
+    """adaLN-zero output head: hidden states -> eps rows."""
+    mod = _linear(c.to(h.dtype), params["final_mod_w"], params["final_mod_b"])
+    sh, sc = mod.chunk(2, dim=-1)
+    out = _linear(_modulate(_ln(h), sh, sc), params["final_proj"])
+    return unpatchify(out, cfg.patch_size, rows_tok, cfg.tokens_per_side,
+                      cfg.channels)
+
+
+def forward_patch(params, cfg: DiTConfig, x_rows, t, cond, row_start: int,
+                  buffers: Optional[Tuple] = None, return_kv: bool = True):
+    """Denoise a row-patch with stale remote K/V.
+
+    x_rows: [B, rows_local, W, C] latent slab (full width).
+    buffers: None (local-only attention: exact when patch == full image)
+             or (buf_k, buf_v) each [L, B, N_total, H, hd] — stale K/V for
+             the WHOLE image; the local rows are read fresh instead.
+    row_start: first token-row of this patch (positional embeddings and the
+             fresh rows' offset in the context).
+    Returns (eps_rows [B, rows_local, W, C], (fresh_k, fresh_v)
+    [L,B,Nl,H,hd] or None).
+    """
+    rows_tok = x_rows.shape[1] // cfg.patch_size         # token rows in patch
+    h, c = embed_patch(params, cfg, x_rows, t, cond, row_start)
+    tok_start = row_start * cfg.tokens_per_side
+    h, kvs = block_stack(params["blocks"], cfg, h, c, tok_start,
+                         buffers=buffers, return_kv=return_kv)
+    return final_head(params, cfg, h, c, rows_tok), kvs
+
+
+def forward(params, cfg: DiTConfig, x, t, cond=None):
+    """Full-image denoiser: [B,H,W,C] -> eps [B,H,W,C] (the Origin path)."""
+    eps, _ = forward_patch(params, cfg, x, t, cond, 0, buffers=None,
+                           return_kv=False)
+    return eps
+
+
+def buffer_shape(cfg: DiTConfig, batch: int):
+    D, H = cfg.d_model, cfg.n_heads
+    return (cfg.n_layers, batch, cfg.n_tokens, H, D // H)
+
+
+def init_buffers(cfg: DiTConfig, batch: int, dtype=None, *, device):
+    dt = dtype or _torch_dtype(cfg.dtype)
+    shape = buffer_shape(cfg, batch)
+    return (torch.zeros(shape, dtype=dt, device=device),
+            torch.zeros(shape, dtype=dt, device=device))
