@@ -21,6 +21,12 @@
 //     shared memory, and keeps the softmax state and the output accumulator
 //     in registers. hd is zero-padded to a multiple of 16 (72 -> 80) in
 //     shared memory only; the padded lanes contribute exact zeros.
+//     Q K^T is exact products of bf16 inputs summed in fp32. The
+//     probabilities P are fp32; mma.sync takes bf16, so P V runs as two
+//     products, bf16(P) V + bf16(P - bf16(P)) V, which carries P to about 16
+//     mantissa bits (the reference keeps p @ v in fp32). That costs half as
+//     many tensor-core operations again as one bf16 P V; the one rounding
+//     to bf16 left is that of the output.
 //   * fp32 runs every product as fp32 FMA on the CUDA cores, so it holds the
 //     reference to 5e-5 (tensor-core TF32 would not): one thread owns one
 //     query row, its scaled q row and accumulator in registers.
@@ -82,6 +88,16 @@ __device__ __forceinline__ void mma_16816(float (&d)[4], const uint32_t (&a)[4],
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // lo in the low half
   return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// Split each of two fp32 values x into two bf16 terms, x = big + small to
+// about 16 mantissa bits: `big` packs the rounded values (a in the low
+// half), `small` packs what that rounding lost.
+__device__ __forceinline__ void split_bf16(float a, float b, uint32_t& big, uint32_t& small) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(a, b);
+  const float2 r = __bfloat1622float2(v);
+  big = *reinterpret_cast<uint32_t*>(&v);
+  small = pack_bf16(a - r.x, b - r.y);
 }
 
 __device__ __forceinline__ void cp_async_16(void* smem, const void* gmem, bool fill) {
@@ -247,19 +263,24 @@ stale_kv_attention_mma_kernel(const __nv_bfloat16* __restrict__ q,
     m_hi = mx_hi;
 
     // O += P V: the score accumulators of two adjacent key tiles are exactly
-    // the A fragment of one 16-key k-step
+    // the A fragment of one 16-key k-step. P is fed as two bf16 terms (its
+    // rounding and the remainder), so P V keeps P to about 16 bits, as the
+    // reference's fp32 p @ v does, instead of bf16's 8.
 #pragma unroll
     for (int kk = 0; kk < kMmaBK / 16; ++kk) {
-      const uint32_t pa[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]),
-                              pack_bf16(s[2 * kk][2], s[2 * kk][3]),
-                              pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-                              pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
+      uint32_t pa[4], pr[4];
+      split_bf16(s[2 * kk][0], s[2 * kk][1], pa[0], pr[0]);
+      split_bf16(s[2 * kk][2], s[2 * kk][3], pa[1], pr[1]);
+      split_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1], pa[2], pr[2]);
+      split_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3], pa[3], pr[3]);
 #pragma unroll
       for (int d = 0; d < DTILES; d += 2) {
         uint32_t vb[4];
         ldmatrix_x4_trans(vb, vt + (16 * kk + 8 * (mat % 2) + mrow) * SROW + 8 * (d + mat / 2));
         mma_16816(o[d], pa, vb[0], vb[1]);
         mma_16816(o[d + 1], pa, vb[2], vb[3]);
+        mma_16816(o[d], pr, vb[0], vb[1]);
+        mma_16816(o[d + 1], pr, vb[2], vb[3]);
       }
     }
   }
@@ -435,7 +456,6 @@ extern "C" int stale_kv_attention_launch(int dtype, int hd, const void* q, const
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (hd) {
     case 32: return launch<32>(dtype, q, k_fresh, v_fresh, k_stale, v_stale, out, st, B, H, Nl, N, tok_start, scale_log2, s);
-    case 64: return launch<64>(dtype, q, k_fresh, v_fresh, k_stale, v_stale, out, st, B, H, Nl, N, tok_start, scale_log2, s);
     case 72: return launch<72>(dtype, q, k_fresh, v_fresh, k_stale, v_stale, out, st, B, H, Nl, N, tok_start, scale_log2, s);
     default: return cudaErrorInvalidValue;
   }

@@ -154,8 +154,9 @@ def stale_kv_attention(q, k_fresh, v_fresh, k_stale, v_stale, *,
                          "must be 16-byte aligned, strides multiples of 8")
     lib = load_library().lib
     out = torch.empty((B, Nl, H, hd), dtype=q.dtype, device=q.device)
-    err = skv.launch(lib, q, k_fresh, v_fresh, k_stale, v_stale, out,
-                     tok_start, hd ** -0.5)
+    with torch.cuda.device(q.device):      # launch on the operands' card
+        err = skv.launch(lib, q, k_fresh, v_fresh, k_stale, v_stale, out,
+                         tok_start, hd ** -0.5)
     if err != 0:
         raise RuntimeError(f"stale_kv_attention launch failed: CUDA error {err}")
     _launches["stale_kv_attention"] += 1

@@ -7,8 +7,9 @@ for the whole image come from the stale buffer except the patch's own rows,
 which come from the fresh K/V of this step. The CUDA kernel chooses the
 source pointer per key row, so it needs no tile alignment of ``tok_start``
 (the TPU form selected per block and refused unaligned layouts). bf16 inputs
-run a tensor-core body (``mma.sync``), float32 inputs a CUDA-core FMA body
-that keeps full fp32 precision.
+run a tensor-core body (``mma.sync``, with the probabilities fed as two bf16
+terms so P·V keeps them to about 16 bits), float32 inputs a CUDA-core FMA
+body that keeps full fp32 precision.
 
 This module only marshals arguments; :func:`repro_torch.kernels.ops.
 stale_kv_attention` is the public wrapper that validates inputs, picks the
@@ -22,7 +23,7 @@ import torch
 
 #: head dims the CUDA source instantiates (tiny-dit and its reduced form: 32;
 #: sdxl-dit: 72)
-SUPPORTED_HEAD_DIMS = (32, 64, 72)
+SUPPORTED_HEAD_DIMS = (32, 72)
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
