@@ -22,7 +22,7 @@ import torch
 
 @dataclasses.dataclass
 class Published:
-    k: torch.Tensor         # [L, B, N_tokens, H, hd]
+    k: torch.Tensor         # [L, B, N_tokens, H, hd] ([2, L, ...] guided)
     v: torch.Tensor
     step: int = 0           # fine-step index of last merge
 
@@ -34,13 +34,15 @@ def publish_local(pending: Dict[int, Tuple], worker: int, k_local, v_local,
 
 
 def merge(published: Published, pending: Dict[int, Tuple],
-          step: int) -> Published:
-    """Apply all queued regional updates into NEW tensors (the token axis is
-    2); ``published`` itself is left untouched."""
+          step: int, axis: int = 2) -> Published:
+    """Apply all queued regional updates into NEW tensors; ``published``
+    itself is left untouched. ``axis`` is the token axis: 2 for plain
+    [L,B,N,H,hd] buffers, 3 for the branch-stacked [2,L,B,N,H,hd] guidance
+    buffers (DESIGN.md §12)."""
     k, v = published.k.clone(), published.v.clone()
     for _, (kl, vl, start) in sorted(pending.items()):
-        k[:, :, start:start + kl.shape[2]] = kl.to(k.dtype)
-        v[:, :, start:start + vl.shape[2]] = vl.to(v.dtype)
+        k.narrow(axis, start, kl.shape[axis]).copy_(kl)
+        v.narrow(axis, start, vl.shape[axis]).copy_(vl)
     return Published(k, v, step)
 
 

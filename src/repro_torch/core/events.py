@@ -2,11 +2,11 @@
 exchange policy) into a typed stream of interval events, and every executor
 interprets that stream (reference: ``repro.core.events``, DESIGN.md §10).
 
-This slice lowers the image axes — steps x patches under a boundary-exchange
-policy:
+This port lowers the image axes — steps x patches under a boundary-exchange
+policy — and the guidance axis:
 
     stream   := Warmup*  adaptive*
-    adaptive := ComputeInterval  Exchange  Replan?
+    adaptive := GuidanceExchange?  ComputeInterval  Exchange  Replan?
 
     Warmup(m)             one synchronous full-image fine step
     ComputeInterval(m0,R) R fine steps of stale-KV patch compute
@@ -15,9 +15,12 @@ policy:
                           :class:`repro_torch.core.comm.BoundaryExchange`
                           policy: "full", "skip" or "predict"
     Replan(m, plan)       an online re-allocation took effect at boundary m
+    GuidanceExchange(m)   split/interleaved CFG: the coming interval combines
+                          eps across the cond/uncond device groups; ``fresh``
+                          says whether the uncond branch is recomputed
 
-The stage, guidance, sequence and frame events of the reference come with
-the slices that port those axes. Replying to an :class:`Exchange` with
+The stage, sequence and frame events of the reference come with the slices
+that port those axes. Replying to an :class:`Exchange` with
 ``gen.send((plan, patches))`` re-allocates the remaining fine steps, exactly
 as in the reference. The trace records keep every field of the reference so
 that records from the two packages compare equal.
@@ -39,8 +42,8 @@ from repro_torch.core.schedule import TemporalPlan
 class IntervalEvent:
     """One executed interval: per-worker (sub-steps, patch rows) plus the
     boundary-exchange kind that followed it. The provenance fields of the
-    later axes (fill, uncond_fresh, seq_hops, frames) keep their image-path
-    values in this slice."""
+    later axes (fill, seq_hops, frames) keep their image-path values in this
+    port; ``uncond_fresh`` records the guidance verdict."""
     fine_step: int                       # first fine step of the interval
     substeps: List[int]                  # steps executed by each worker
     patches: List[int]                   # token-rows per worker
@@ -107,6 +110,19 @@ class Exchange:
 
 
 @dataclasses.dataclass(frozen=True)
+class GuidanceExchange:
+    """Cross-branch epsilon reconciliation (DESIGN.md §12), emitted before
+    each adaptive interval of a split/interleaved guidance plan. ``fresh`` is
+    False on interleaved reuse intervals: straggler pairs reuse the guidance
+    delta cached at the last refresh interval (their uncond device idles);
+    other pairs always compute fresh."""
+    fine_step: int                       # first fine step of the interval
+    mode: str                            # "split" | "interleaved"
+    fresh: bool                          # uncond branch recomputed?
+    index: int                           # 0-based adaptive interval counter
+
+
+@dataclasses.dataclass(frozen=True)
 class Replan:
     """An online re-allocation (sent into the generator) took effect."""
     fine_step: int
@@ -124,15 +140,22 @@ def active_workers(plan: TemporalPlan, patches: Sequence[int]) -> List[int]:
 # ----------------------------------------------------------------------
 
 def lower(plan: TemporalPlan, patches: Sequence[int],
-          policy: Optional[comm_lib.BoundaryExchange] = None) -> Iterator:
-    """Lower (plan, patches, exchange policy) into events (see the module
-    docstring). A coroutine-style generator: reply to an :class:`Exchange`
-    with ``gen.send((new_plan, new_patches))`` to re-allocate the remaining
-    fine steps (the new plan's interval LCM must divide them); the generator
-    then emits a :class:`Replan` and continues."""
+          policy: Optional[comm_lib.BoundaryExchange] = None,
+          guidance=None) -> Iterator:
+    """Lower (plan, patches, exchange policy[, guidance]) into events (see
+    the module docstring). A coroutine-style generator: reply to an
+    :class:`Exchange` with ``gen.send((new_plan, new_patches))`` to
+    re-allocate the remaining fine steps (the new plan's interval LCM must
+    divide them); the generator then emits a :class:`Replan` and continues.
+
+    ``guidance`` (a :class:`~repro_torch.core.guidance.GuidancePlan`): split
+    and interleaved plans emit a :class:`GuidanceExchange` before every
+    adaptive interval with the uncond-recompute verdict; fused guidance
+    emits nothing (the combine is worker-local)."""
     policy = policy or comm_lib.get_exchange("sync")
     patches = list(patches)
     n = len(patches)
+    guided_exchange = guidance is not None and guidance.mode != "fused"
     # fine steps count in ABSOLUTE coordinates of the original plan; a
     # replanned TemporalPlan covers the remaining steps (its m_base is the
     # remaining count) and only contributes ratios/activity from then on
@@ -144,6 +167,9 @@ def lower(plan: TemporalPlan, patches: Sequence[int],
     m0 = plan.m_warmup
     boundary = 0
     while m0 + plan.lcm <= m_base:
+        if guided_exchange:
+            yield GuidanceExchange(m0, guidance.mode,
+                                   guidance.uncond_fresh(boundary), boundary)
         R = plan.lcm
         workers = active_workers(plan, patches)
         subs = tuple(R // plan.ratios[i] if i in workers else 0
@@ -168,10 +194,12 @@ def lower(plan: TemporalPlan, patches: Sequence[int],
 # replay: event stream -> trace records / full ExecutionTrace
 # ----------------------------------------------------------------------
 
-def record(interval: ComputeInterval, kind: str) -> IntervalEvent:
+def record(interval: ComputeInterval, kind: str,
+           uncond_fresh: bool = True) -> IntervalEvent:
     """The trace record for one adaptive interval + its boundary kind."""
     return IntervalEvent(interval.fine_step, list(interval.substeps),
-                         list(interval.patches), exchange=kind)
+                         list(interval.patches), exchange=kind,
+                         uncond_fresh=uncond_fresh)
 
 
 def warmup_record(ev: Warmup) -> IntervalEvent:
@@ -180,26 +208,31 @@ def warmup_record(ev: Warmup) -> IntervalEvent:
 
 
 def replay(plan: TemporalPlan, patches: Sequence[int],
-           policy: Optional[comm_lib.BoundaryExchange] = None
-           ) -> List[IntervalEvent]:
+           policy: Optional[comm_lib.BoundaryExchange] = None,
+           guidance=None) -> List[IntervalEvent]:
     """Trace records of the whole schedule without executing any numerics —
     the latency-only path (`simulate.build_trace`) and the numerics path
     (`patch_parallel.run_schedule`) both derive their records from
     :func:`lower`, so they are structurally identical by construction."""
     out: List[IntervalEvent] = []
     pending: Optional[ComputeInterval] = None
-    for ev in lower(plan, patches, policy):
+    fresh = True
+    for ev in lower(plan, patches, policy, guidance):
         if isinstance(ev, Warmup):
             out.append(warmup_record(ev))
+        elif isinstance(ev, GuidanceExchange):
+            fresh = ev.fresh
         elif isinstance(ev, ComputeInterval):
             pending = ev
         elif isinstance(ev, Exchange):
-            out.append(record(pending, ev.kind))
+            out.append(record(pending, ev.kind, uncond_fresh=fresh))
+            fresh = True
     return out
 
 
 def make_trace(records: List[IntervalEvent], plan: TemporalPlan,
-               patches: Sequence[int], cfg, batch: int) -> ExecutionTrace:
+               patches: Sequence[int], cfg, batch: int,
+               guidance=None) -> ExecutionTrace:
     """Byte-size provenance shared by every trace producer (K/V is priced
     at 2 bytes per element, the latent at 4, as in the reference)."""
     H = cfg.latent_size
@@ -208,4 +241,5 @@ def make_trace(records: List[IntervalEvent], plan: TemporalPlan,
                     * cfg.d_model * 2) for pr in patches]
     act_row = int(batch * cfg.tokens_per_side * cfg.d_model * 4)
     return ExecutionTrace(records, plan, list(patches), cfg.n_tokens,
-                          lat_bytes, kv_bytes, act_row_bytes=act_row)
+                          lat_bytes, kv_bytes, act_row_bytes=act_row,
+                          guidance=guidance)

@@ -8,11 +8,16 @@ and execution backends (reference: ``repro.core.pipeline``, DESIGN.md §8).
     pipe   = StadiPipeline(cfg, params, sched, config)       # on "cuda"
     result = pipe.generate(x_T, cond)          # result.image, result.trace
 
-Backends registered in this slice:
+Backends registered in the port:
 
     "emulated"  exact-numerics logical-worker engine (patch_parallel) — the
                 heterogeneous workers are logical workers on one device
     "simulate"  trace-only latency modeling (no numerics; needs a CostModel)
+
+``cfg_scale > 0`` makes every generation guided (classifier-free guidance,
+DESIGN.md §12): plain planners get the fused placement, and the
+``stadi_guidance`` planner searches fused vs split (or runs the placement
+``guidance`` pins: fused, split or interleaved).
 
 The pipeline runs on ``cuda`` unless the caller passes ``device="cpu"``; with
 no CUDA device and no explicit CPU request it raises. On the card every
@@ -40,6 +45,7 @@ from repro_torch.core import patch_parallel as pp
 from repro_torch.core import simulate as sim
 from repro_torch.core.comm import get_exchange
 from repro_torch.core.events import ExecutionTrace
+from repro_torch.core.guidance import GUIDANCE_MODES, GuidancePlan
 from repro_torch.core.hetero import DeviceProfile
 from repro_torch.core.planners import ExecutionPlan, get_planner
 from repro_torch.core.sampler import NoiseSchedule
@@ -50,9 +56,7 @@ from repro_torch.kernels import ops as kops
 #: port (ROADMAP.md queue 1)
 _LATER = {
     "spmd": "the multi-GPU slice (queue 1 item 7)",
-    "guidance": "the guidance slice (queue 1 item 8)",
-    "spmd_guidance": "the guidance slice (queue 1 item 8)",
-    "stadi_guidance": "the guidance slice (queue 1 item 8)",
+    "spmd_guidance": "the multi-GPU slice (queue 1 item 7)",
     "plan_cache_dir": "the serving slice (queue 1 item 9)",
     "stages": "the pipefuse slice (queue 1 item 10)",
     "pipefuse": "the pipefuse slice (queue 1 item 10)",
@@ -105,11 +109,21 @@ class StadiConfig:
     # every E interval boundaries (ignored by "sync")
     exchange: str = "sync"
     exchange_refresh: int = 2
+    # classifier-free guidance (DESIGN.md §12): cfg_scale > 0 turns every
+    # generation into a guided one (eps = eps_u + w*(eps_c - eps_u));
+    # guidance picks the placement — "none" means fused for plain planners,
+    # or lets the stadi_guidance planner search; "split"/"interleaved" need
+    # planner="stadi_guidance". uncond_refresh is the interleaved reuse
+    # cadence. latent_bytes / kv_row_bytes are byte provenance for the
+    # guided planner's cost model; StadiPipeline fills them in (leave 0).
+    guidance: str = "none"
+    cfg_scale: float = 0.0
+    uncond_refresh: int = 2
+    latent_bytes: int = 0
+    kv_row_bytes: int = 0
     # axes of the reference that later slices bring; a value other than the
     # default raises NotImplementedError naming that slice
     num_stages: int = 1
-    guidance: str = "none"
-    cfg_scale: float = 0.0
     seq_shards: int = 1
     num_frames: int = 1
     plan_cache_dir: Optional[str] = None
@@ -262,25 +276,49 @@ def check_backend_can_run(plan: ExecutionPlan, config: StadiConfig) -> None:
                              f"demanding {req!r}")
 
 
-@register_executor("emulated")
+_GUIDANCE_FEATURES = ("guidance.fused", "guidance.split",
+                      "guidance.interleaved")
+
+
+@register_executor("emulated", supports=_GUIDANCE_FEATURES)
 def emulated_executor(params, model_cfg, sched, x_T, cond, plan, config,
                       interval_hook=None):
     res = pp.run_schedule(params, model_cfg, sched, x_T, cond,
                           plan.temporal, plan.patches,
                           interval_hook=interval_hook,
                           exchange=config.exchange,
-                          exchange_refresh=config.exchange_refresh)
+                          exchange_refresh=config.exchange_refresh,
+                          guidance=plan.guidance)
     return res.image, res.trace
 
 
-@register_executor("simulate")
+@register_executor("simulate", supports=_GUIDANCE_FEATURES)
 def simulate_executor(params, model_cfg, sched, x_T, cond, plan, config,
                       interval_hook=None):
     batch = int(x_T.shape[0]) if x_T is not None else 1
     trace = sim.build_trace(plan.temporal, plan.patches, model_cfg,
                             batch=batch, exchange=config.exchange,
-                            exchange_refresh=config.exchange_refresh)
+                            exchange_refresh=config.exchange_refresh,
+                            guidance=plan.guidance)
     return None, trace
+
+
+def _resolve_guidance(plan: ExecutionPlan, config: StadiConfig):
+    """The GuidancePlan an executor runs: the plan's own (from the
+    stadi_guidance planner) or, for plain planners with ``cfg_scale`` set,
+    the fused placement. None = unguided."""
+    if plan.guidance is not None:
+        return plan.guidance
+    if config.cfg_scale <= 0.0 and config.guidance == "none":
+        return None
+    if config.guidance in ("split", "interleaved"):
+        raise ValueError(
+            f"guidance={config.guidance!r} placement pairs devices across "
+            "branch groups — plan it with planner='stadi_guidance' "
+            f"(planner {config.planner!r} allocates per-device workers)")
+    if config.cfg_scale <= 0.0:
+        raise ValueError(f"guidance={config.guidance!r} needs cfg_scale > 0")
+    return GuidancePlan("fused", config.cfg_scale)
 
 
 def _to_device(tree, device):
@@ -300,7 +338,6 @@ class StadiPipeline:
     def __init__(self, model_cfg: DiTConfig, params, sched: NoiseSchedule,
                  config: StadiConfig, device=None):
         later = {"stages": config.num_stages != 1,
-                 "guidance": config.guidance != "none" or config.cfg_scale > 0.0,
                  "seq": config.seq_shards != 1,
                  "frames": config.num_frames != 1,
                  "plan_cache_dir": config.plan_cache_dir is not None,
@@ -313,6 +350,16 @@ class StadiPipeline:
         get_planner(config.planner)      # fail fast on typos
         get_executor(config.backend)
         get_exchange(config.exchange, config.exchange_refresh)
+        if config.guidance != "none" and config.guidance not in GUIDANCE_MODES:
+            raise ValueError(f"unknown guidance mode {config.guidance!r}; "
+                             f"one of {('none',) + GUIDANCE_MODES}")
+        if config.guidance != "none" and config.cfg_scale <= 0.0:
+            raise ValueError(f"guidance={config.guidance!r} needs "
+                             "cfg_scale > 0")
+        guided = config.cfg_scale > 0.0 or config.guidance != "none"
+        if guided and config.rebalance_every:
+            raise ValueError("online rebalancing is not supported with "
+                             "guidance (the branch pairing is static)")
         self.device = resolve_device(device)
         self.model_cfg = model_cfg
         self.params = _to_device(params, self.device)
@@ -323,11 +370,26 @@ class StadiPipeline:
     def p_total(self) -> int:
         return self.model_cfg.tokens_per_side
 
+    def _plan_knobs(self) -> StadiConfig:
+        """The config with the model-derived byte sizes filled in, which the
+        guided planner's cost model prices — what planners actually see."""
+        knobs = self.config
+        if knobs.latent_bytes == 0:
+            cfg = self.model_cfg
+            knobs = dataclasses.replace(
+                knobs,
+                latent_bytes=int(cfg.latent_size ** 2 * cfg.channels * 4),
+                kv_row_bytes=int(2 * cfg.n_layers * cfg.tokens_per_side
+                                 * cfg.d_model * 2))
+        return knobs
+
     def plan(self, speeds: Optional[Sequence[float]] = None) -> ExecutionPlan:
-        """Run the configured planner (no execution)."""
+        """Run the configured planner (no execution); the plan's guidance is
+        resolved from the planner output or the config in the same pass."""
         speeds = list(speeds) if speeds is not None else self.config.speeds
-        return get_planner(self.config.planner)(speeds, self.config,
-                                                self.p_total)
+        knobs = self._plan_knobs()
+        raw = get_planner(self.config.planner)(speeds, knobs, self.p_total)
+        return dataclasses.replace(raw, guidance=_resolve_guidance(raw, knobs))
 
     def generate(self, x_T=None, cond=None, *,
                  measured_speeds: Optional[Sequence[float]] = None

@@ -11,17 +11,21 @@ consumes. Registered planners:
     "temporal"  +TA: Eq. 4 steps, equal patches
     "stadi"     +TA+SA: Eq. 4 steps, Eq. 5 patches (the paper's Algorithm 1)
     "makespan"  beyond-paper exhaustive-over-tiers makespan-optimal allocator
+    "stadi_guidance"  joint (steps, patches, CFG placement) search
 
-The joint planners of the later axes (stadi_pipefuse, stadi_guidance,
-stadi_seq, stadi_video) come with the slices that port those axes.
+The joint planners of the other axes (stadi_pipefuse, stadi_seq,
+stadi_video) come with the slices that port those axes.
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Callable, Dict, List, Optional, Protocol, Sequence, runtime_checkable
 
+from repro_torch.core import comm as comm_lib
+from repro_torch.core import guidance as guide_lib
 from repro_torch.core import schedule as sched_lib
 from repro_torch.core.schedule import TemporalPlan
+from repro_torch.core.simulate import CostModel
 
 
 @dataclasses.dataclass(frozen=True)
@@ -33,9 +37,11 @@ class ExecutionPlan:
     planner:  provenance — registry name of the planner that produced it
     speeds:   the effective speeds the plan was computed from
     modeled_interval_cost: planner-modeled cost per fine-step interval
-        (the makespan planner fills this in)
-    stages / guidance / seq / frames: the later axes of the reference's
-        six-axis plan; None on every plan this slice's planners return.
+        (the makespan and stadi_guidance planners fill this in)
+    guidance: the :class:`~repro_torch.core.guidance.GuidancePlan` of a
+        guided run (None = unguided)
+    stages / seq / frames: the later axes of the reference's six-axis plan;
+        None on every plan the port's planners return.
     """
     temporal: TemporalPlan
     patches: List[int]
@@ -57,7 +63,9 @@ class Planner(Protocol):
     """Anything callable as ``planner(speeds, knobs, p_total)``.
 
     ``knobs`` is any object exposing ``m_base``, ``m_warmup``, ``a``, ``b``,
-    ``tiers``, ``granularity`` and ``min_patch`` (in practice a
+    ``tiers``, ``granularity`` and ``min_patch``; ``stadi_guidance`` also
+    reads ``cfg_scale``, ``guidance``, ``uncond_refresh``, ``cost_model``,
+    ``latent_bytes`` and ``kv_row_bytes`` (in practice a
     :class:`~repro_torch.core.pipeline.StadiConfig`).
     """
 
@@ -159,3 +167,100 @@ def makespan_planner(speeds, knobs, p_total) -> ExecutionPlan:
         granularity=knobs.granularity, tiers=knobs.tiers, b=knobs.b)
     return ExecutionPlan(plan, patches, "makespan", list(speeds),
                          modeled_interval_cost=cost)
+
+
+def _guided_plan_cost(plan: ExecutionPlan, speeds, p_total: int, cm,
+                      kv_row: float, latent_bytes: float) -> float:
+    """Modeled seconds of one adaptive interval ending in a full boundary,
+    under the guided cost model of :func:`repro_torch.core.simulate.
+    _simulate_guided` (fused serializes both branches' staged K/V; split
+    runs the branch domains concurrently and pays only the per-substep
+    epsilon combine across them). With no byte provenance (kv_row == 0)
+    this is the compute-only makespan. Interleaved costs average the
+    fresh/stale interval mix over the uncond_refresh cadence."""
+    g = plan.guidance
+    t = plan.temporal
+    R = t.lcm
+    row_bytes = latent_bytes / max(p_total, 1)
+
+    def interval_cost(fresh: bool) -> float:
+        compute, eps_bytes, kv_bytes, hops = 0.0, 0.0, 0.0, 0
+        for i in plan.active:
+            sub = R // t.ratios[i]
+            rows = plan.patches[i]
+            if g.mode == "fused":
+                step_t = cm.t_fixed + cm.t_row * rows * 2.0
+                tt = sub * step_t / max(speeds[i], 1e-9)
+            else:
+                vc = speeds[g.cond_devices[i]]
+                vu = speeds[g.uncond_devices[i]]
+                step_t = cm.t_fixed + cm.t_row * rows
+                if fresh or not g.worker_reuses(i):
+                    tt = sub * step_t / max(min(vc, vu), 1e-9)
+                else:                    # reuse: uncond idles, cond runs
+                    tt = sub * step_t / max(vc, 1e-9)
+            compute = max(compute, tt)
+            eps_sub = sub if fresh or not g.worker_reuses(i) else 0
+            eps_bytes += 2 * eps_sub * rows * row_bytes
+            kv_bytes += kv_row * rows
+            hops = max(hops, eps_sub)
+        eps_t = 0.0
+        if g.mode != "fused":
+            eps_t = eps_bytes / cm.link_bw + hops * cm.link_latency
+        branch_factor = 2.0 if g.mode == "fused" else 1.0
+        kv_t = branch_factor * kv_bytes / cm.link_bw
+        gather_rows = comm_lib.uneven_all_gather_rows(
+            [plan.patches[i] for i in plan.active])
+        gather_t = gather_rows * row_bytes / cm.link_bw
+        return max(compute, kv_t) + gather_t + cm.link_latency + eps_t
+
+    if g.mode != "interleaved":
+        return interval_cost(True)
+    E = g.uncond_refresh
+    return (interval_cost(True) + (E - 1) * interval_cost(False)) / E
+
+
+@register_planner("stadi_guidance")
+def stadi_guidance_planner(speeds, knobs, p_total) -> ExecutionPlan:
+    """Joint (steps, patches, guidance placement) search (DESIGN.md §12).
+
+    Candidates: FUSED — the plain STADI plan over all devices, every worker
+    computing both CFG branches; SPLIT — the cluster bipartitioned by
+    :func:`repro_torch.core.guidance.guidance_groups`, logical workers =
+    rank-paired (cond, uncond) devices, the STADI allocator run over the
+    pairwise-min speeds; INTERLEAVED — split placement + uncond reuse on the
+    ``knobs.uncond_refresh`` cadence (lossy, so only considered when
+    forced). ``knobs.guidance`` pins the mode ("none" = auto over
+    fused/split); candidates are scored by :func:`_guided_plan_cost` with
+    the byte provenance ``knobs.latent_bytes``/``kv_row_bytes`` (which
+    ``StadiPipeline`` fills in) and the cheapest wins. Needs
+    ``knobs.cfg_scale > 0``.
+    """
+    scale = knobs.cfg_scale
+    if scale <= 0.0:
+        raise ValueError("the stadi_guidance planner plans GUIDED "
+                         "generation: set cfg_scale > 0 (and optionally "
+                         "guidance='fused'|'split'|'interleaved')")
+    mode = knobs.guidance
+    cm = knobs.cost_model or CostModel(t_fixed=1e-3, t_row=1e-3)
+    modes = [mode] if mode != "none" else ["fused", "split"]
+    candidates = []
+    for m in modes:
+        if m == "fused":
+            base = stadi_planner(speeds, knobs, p_total)
+            gp = guide_lib.GuidancePlan("fused", scale)
+        else:
+            if len(speeds) < 2:
+                if mode != "none":       # forced split on one device
+                    guide_lib.guidance_groups(speeds)   # raises with context
+                continue
+            gp = guide_lib.split_plan(speeds, m, scale,
+                                      uncond_refresh=knobs.uncond_refresh)
+            base = stadi_planner(gp.pair_speeds(speeds), knobs, p_total)
+        cand = dataclasses.replace(base, planner="stadi_guidance",
+                                   speeds=list(speeds), guidance=gp)
+        cost = _guided_plan_cost(cand, speeds, p_total, cm,
+                                 knobs.kv_row_bytes, knobs.latent_bytes)
+        candidates.append(dataclasses.replace(cand,
+                                              modeled_interval_cost=cost))
+    return min(candidates, key=lambda c: c.modeled_interval_cost)

@@ -1,5 +1,6 @@
-"""Diffusion samplers of the port: the VP noise schedules and DDIM /
-DPM-Solver-1 (paper Lemma 1). Reference: ``repro.core.sampler``.
+"""Diffusion samplers of the port: the VP noise schedules, DDIM /
+DPM-Solver-1 (paper Lemma 1) and the classifier-free-guidance combiners.
+Reference: ``repro.core.sampler``.
 
 alpha_t = sqrt(alpha_bar_t), sigma_t = sqrt(1 - alpha_bar_t),
 lambda_t = log(alpha_t / sigma_t). The schedule lives on the CPU in float32;
@@ -71,6 +72,29 @@ def ddim_timesteps(T: int, M: int) -> torch.Tensor:
                                                             dtype=torch.float32)
     t = torch.round(T * (1 - s)).to(torch.int32)      # round half to even
     return torch.cat([t, torch.zeros(1, dtype=torch.int32)])
+
+
+def cfg_combine(eps_c, eps_u, scale):
+    """The CFG combiner ``eps_u + w * (eps_c - eps_u)`` in fp32, cast back to
+    eps_c's dtype (DESIGN.md §12). The formula ``forward_cfg`` uses; the
+    engine's guided steps compute the same with kernel K3
+    (:func:`repro_torch.kernels.ops.cfg_epilogue`)."""
+    ec = eps_c.float()
+    eu = eps_u.float()
+    return (eu + scale * (ec - eu)).to(eps_c.dtype)
+
+
+def cfg_delta(eps_c, eps_u):
+    """The guidance direction ``eps_c - eps_u`` (fp32): what interleaved
+    guidance caches, since it drifts far more slowly across fine steps than
+    eps_u itself."""
+    return eps_c.float() - eps_u.float()
+
+
+def cfg_apply_delta(eps_c, delta, scale):
+    """Interleaved reuse combiner ``eps_c + (w-1) * delta`` — exactly
+    :func:`cfg_combine` when ``delta`` is this step's true eps_c - eps_u."""
+    return (eps_c.float() + (scale - 1.0) * delta).to(eps_c.dtype)
 
 
 def ddim_step(sched: NoiseSchedule, x, eps, t_from, t_to):

@@ -12,10 +12,10 @@ slab rows) plus link latency, with async KV publication masked by compute and
 only the excess charged; "skip" and "predict" move no bytes (DESIGN.md §10).
 
 The trace is built by replaying the SAME event stream the emulated engine
-interprets (:func:`repro_torch.core.events.replay`). This slice prices
-unstaged, unguided, attention-unsharded, single-frame traces; the staged,
-guided, sequence and frame cost models come with the slices that port those
-axes.
+interprets (:func:`repro_torch.core.events.replay`). The port prices
+unstaged, attention-unsharded, single-frame traces, unguided or guided (the
+fabric-contention model of DESIGN.md §12); the staged, sequence and frame
+cost models come with the slices that port those axes.
 """
 from __future__ import annotations
 
@@ -28,19 +28,20 @@ from repro_torch.core.events import ExecutionTrace
 
 #: the slice of the port that brings each trace axis's cost model
 _LATER_AXES = (("stages", "the pipefuse slice (ROADMAP queue 1 item 10)"),
-               ("guidance", "the guidance slice (ROADMAP queue 1 item 8)"),
                ("seq", "the sequence-parallel slice (ROADMAP queue 1 item 11)"),
                ("frames", "the frames slice (ROADMAP queue 1 item 12)"))
 
 
 def build_trace(plan, patches: Sequence[int], cfg, batch: int = 1,
-                exchange: str = "sync",
-                exchange_refresh: int = 2) -> ExecutionTrace:
+                exchange: str = "sync", exchange_refresh: int = 2,
+                guidance=None) -> ExecutionTrace:
     """Schedule trace without running numerics (latency-only replay of
-    :func:`repro_torch.core.events.lower` for (plan, patches, policy))."""
+    :func:`repro_torch.core.events.lower` for (plan, patches, policy[,
+    guidance])); a guided trace carries its uncond-refresh provenance."""
     policy = comm_lib.get_exchange(exchange, exchange_refresh)
-    records = ir.replay(plan, patches, policy)
-    return ir.make_trace(records, plan, list(patches), cfg, batch)
+    records = ir.replay(plan, patches, policy, guidance)
+    return ir.make_trace(records, plan, list(patches), cfg, batch,
+                         guidance=guidance)
 
 
 @dataclasses.dataclass
@@ -89,6 +90,79 @@ def _kv_bytes_per_row(trace: ExecutionTrace) -> float:
     return 0.0
 
 
+# ----------------------------------------------------------------------
+# classifier-free guidance costing (DESIGN.md §12)
+# ----------------------------------------------------------------------
+#
+# The binding constraint CFG adds is fabric contention: fused guidance
+# doubles every staged-K/V payload and broadcasts both branches over one
+# fabric domain; split guidance maps the two branch groups onto disjoint
+# domains that broadcast concurrently, and only the per-substep epsilon
+# combine (latent-sized) crosses between them. Interleaved guidance also
+# idles straggler pairs' uncond devices on non-refresh intervals.
+
+def _guided_eps_seconds(ev, g, cm: CostModel, row_bytes: float,
+                        pairs: List[int], fresh: bool) -> float:
+    """Cross-group epsilon traffic of one interval: each pair exchanges its
+    slab's eps both ways at every substep it executes — none for reusing
+    (straggler) workers on interleaved reuse intervals."""
+    subs = {i: (ev.substeps[i] if fresh or not g.worker_reuses(i) else 0)
+            for i in pairs}
+    bytes_ = sum(2 * subs[i] * ev.patches[i] * row_bytes for i in pairs)
+    hops = max(subs.values(), default=0)
+    return bytes_ / cm.link_bw + hops * cm.link_latency
+
+
+def _simulate_guided(trace: ExecutionTrace, speeds: Sequence[float],
+                     cm: CostModel) -> float:
+    g = trace.guidance
+    kv_row = _kv_bytes_per_row(trace)
+    rows_total = max(sum(trace.patches), 1)
+    row_bytes = trace.latent_bytes / rows_total
+    # prompt-token read: per-row like t_row, paid by each branch a device
+    # evaluates (2x fused, 1x per split/interleaved device)
+    t_row_eff = cm.t_row + cm.t_xattn * trace.cond_tokens
+    total = 0.0
+    for ev in trace.events:
+        parts = [i for i, (sub, rows) in
+                 enumerate(zip(ev.substeps, ev.patches))
+                 if sub > 0 and rows > 0]
+        if not parts:
+            continue
+        fresh = ev.uncond_fresh
+        compute = 0.0
+        for i in parts:
+            step_t = cm.t_fixed + t_row_eff * ev.patches[i] \
+                * (2.0 if g.mode == "fused" else 1.0)
+            if g.mode == "fused":
+                t = ev.substeps[i] * step_t / max(speeds[i], 1e-9)
+            else:                        # worker i is a device PAIR
+                vc = speeds[g.cond_devices[i]]
+                vu = speeds[g.uncond_devices[i]]
+                if fresh or not g.worker_reuses(i):
+                    t = ev.substeps[i] * step_t / max(min(vc, vu), 1e-9)
+                else:                    # reuse: uncond idles, cond runs
+                    t = ev.substeps[i] * step_t / max(vc, 1e-9)
+            compute = max(compute, t)
+        eps_t = 0.0
+        if g.mode != "fused":
+            eps_t = _guided_eps_seconds(ev, g, cm, row_bytes, parts, fresh)
+        gather_rows = comm_lib.uneven_all_gather_rows(
+            [ev.patches[i] for i in parts])
+        kind = "full" if ev.synchronous else ev.exchange
+        if kind != "full" or len(parts) <= 1:
+            total += compute + eps_t     # no broadcast, no gather
+            continue
+        # "full" boundary: each branch domain broadcasts its staged K/V —
+        # fused serializes both branches on one fabric, split runs the two
+        # domains concurrently (one branch's worth of bytes)
+        branch_factor = 2.0 if g.mode == "fused" else 1.0
+        kv_bytes = branch_factor * sum(kv_row * ev.patches[i] for i in parts)
+        comm = gather_rows * row_bytes / cm.link_bw + cm.link_latency
+        total += max(compute, kv_bytes / cm.link_bw) + comm + eps_t
+    return total
+
+
 def simulate_trace(trace: ExecutionTrace, speeds: Sequence[float],
                    cm: CostModel) -> float:
     """End-to-end makespan (s) of a schedule on devices with given speeds."""
@@ -98,6 +172,8 @@ def simulate_trace(trace: ExecutionTrace, speeds: Sequence[float],
             raise NotImplementedError(
                 f"pricing a trace with {field}={value!r} comes with "
                 f"{slice_name}")
+    if trace.guidance is not None:
+        return _simulate_guided(trace, speeds, cm)
     total = 0.0
     kv_row = _kv_bytes_per_row(trace)
     for ev in trace.events:

@@ -22,6 +22,7 @@ import ctypes
 import dataclasses
 import functools
 import hashlib
+import numbers
 import os
 import pathlib
 import subprocess
@@ -30,6 +31,7 @@ from typing import Dict
 
 import torch
 
+from repro_torch.kernels import cfg_epilogue as cfe
 from repro_torch.kernels import ref
 from repro_torch.kernels import stale_kv_attention as skv
 
@@ -102,6 +104,7 @@ def load_library() -> Library:
         os.replace(tmp, path)     # atomic: concurrent builders never see half a file
     lib = ctypes.CDLL(str(path))
     skv.bind(lib)
+    cfe.bind(lib)
     return Library(lib, path, seconds, log)
 
 
@@ -161,3 +164,54 @@ def stale_kv_attention(q, k_fresh, v_fresh, k_stale, v_stale, *,
         raise RuntimeError(f"stale_kv_attention launch failed: CUDA error {err}")
     _launches["stale_kv_attention"] += 1
     return out
+
+
+# ----------------------------------------------------------------------
+# kernel K3: classifier-free-guidance epilogue
+# ----------------------------------------------------------------------
+
+def cfg_epilogue(eps_c, eps_u, scale, *, with_delta: bool = True):
+    """Fused CFG epilogue (reference ``repro.kernels.ops.cfg_epilogue``):
+    ``(combine, delta)`` in one elementwise pass over the branch pair, with
+    ``delta = f32(eps_c) - f32(eps_u)`` (float32) and ``combine = f32(eps_u)
+    + scale * delta`` cast to eps's dtype; the combine alone when
+    ``with_delta`` is False.
+
+    eps_c/eps_u: contiguous tensors of one shape and dtype (the two halves
+    of a branch-batched eps are). scale: a Python number or a 0-d tensor;
+    per-lane scale tensors belong to the serving lanes."""
+    if isinstance(scale, torch.Tensor):
+        if scale.dim():
+            raise NotImplementedError(
+                "per-lane CFG scales come with the serving slice (ROADMAP "
+                "queue 1 item 9); cfg_epilogue takes one scalar scale")
+    elif not isinstance(scale, numbers.Real):
+        raise TypeError(f"scale must be a number or a 0-d tensor, got "
+                        f"{type(scale).__name__}")
+    if eps_c.shape != eps_u.shape or eps_c.dtype != eps_u.dtype:
+        raise ValueError(f"eps_c {tuple(eps_c.shape)} {eps_c.dtype} and eps_u "
+                         f"{tuple(eps_u.shape)} {eps_u.dtype} must match in "
+                         "shape and dtype")
+    if eps_c.device != eps_u.device:
+        raise ValueError("eps_c and eps_u must lie on one device")
+    if eps_c.device.type == "cpu":
+        comb, d = ref.cfg_epilogue_ref(eps_c, eps_u, scale)
+        return (comb, d) if with_delta else comb
+    if eps_c.device.type != "cuda":
+        raise ValueError(f"no cfg_epilogue kernel for {eps_c.device}")
+    if eps_c.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"eps must be float32 or bfloat16, got {eps_c.dtype}")
+    if not (eps_c.is_contiguous() and eps_u.is_contiguous()):
+        raise ValueError("cfg_epilogue reads eps_c and eps_u as flat "
+                         "contiguous arrays")
+    out = torch.empty_like(eps_c, memory_format=torch.contiguous_format)
+    delta = (torch.empty(eps_c.shape, dtype=torch.float32, device=eps_c.device)
+             if with_delta else None)
+    if eps_c.numel():
+        lib = load_library().lib
+        with torch.cuda.device(eps_c.device):
+            err = cfe.launch(lib, eps_c, eps_u, out, delta, float(scale))
+        if err != 0:
+            raise RuntimeError(f"cfg_epilogue launch failed: CUDA error {err}")
+        _launches["cfg_epilogue"] += 1
+    return (out, delta) if with_delta else out

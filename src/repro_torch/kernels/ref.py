@@ -24,3 +24,14 @@ def stale_kv_attention_ref(q, k_fresh, v_fresh, k_stale, v_stale,
     full_v[:, tok_start:tok_start + Nl] = v_fresh.to(v_stale.dtype)
     out = layers.attend(q.float(), full_k.float(), full_v.float(), scale=scale)
     return out.to(q.dtype)
+
+
+def cfg_epilogue_ref(eps_c, eps_u, scale):
+    """Plain version of kernel K3: ``(combine, delta)`` with ``delta =
+    f32(eps_c) - f32(eps_u)`` and ``combine = eps_dtype(f32(eps_u) + scale *
+    delta)``, the same fp32 op order as ``repro_torch.core.sampler.
+    cfg_combine``/``cfg_delta`` (``repro.kernels.ops._cfg_epilogue_ref``)."""
+    ec = eps_c.float()
+    eu = eps_u.float()
+    d = ec - eu
+    return (eu + scale * d).to(eps_c.dtype), d

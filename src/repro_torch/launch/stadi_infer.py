@@ -1,14 +1,14 @@
 """STADI inference driver of the port (reference: ``repro.launch.stadi_infer``).
 
 Thin CLI over :class:`repro_torch.core.pipeline.StadiPipeline`; strategy
-selection is ``--planner`` (uniform / spatial / temporal / stadi / makespan)
-and ``--backend`` (emulated / simulate). It runs on the GPU unless
-``--device cpu`` is given. Weights are random (``--seed``), as in the
-reference driver.
+selection is ``--planner`` (uniform / spatial / temporal / stadi / makespan /
+stadi_guidance) and ``--backend`` (emulated / simulate); ``--cfg-scale``
+turns on classifier-free guidance. It runs on the GPU unless ``--device
+cpu`` is given. Weights are random (``--seed``), as in the reference driver.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.stadi_infer --arch sdxl-dit \
-      --occupancies 0.0,0.5 --m-base 16 --m-warmup 4
+      --occupancies 0.0,0.5 --m-base 16 --m-warmup 4 [--cfg-scale 4.0]
 """
 from __future__ import annotations
 
@@ -20,9 +20,6 @@ import time
 _LATER_FLAGS = {
     "--spmd": "the multi-GPU slice (queue 1 item 7)",
     "--check-vs-emulation": "the multi-GPU slice (queue 1 item 7)",
-    "--cfg-scale": "the guidance slice (queue 1 item 8)",
-    "--guidance": "the guidance slice (queue 1 item 8)",
-    "--uncond-refresh": "the guidance slice (queue 1 item 8)",
     "--num-stages": "the pipefuse slice (queue 1 item 10)",
     "--micro-patches": "the pipefuse slice (queue 1 item 10)",
     "--seq-shards": "the sequence-parallel slice (queue 1 item 11)",
@@ -48,11 +45,25 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--batch", type=int, default=1)
     ap.add_argument("--planner", default="stadi",
                     choices=["uniform", "spatial", "temporal", "stadi",
-                             "makespan"])
+                             "makespan", "stadi_guidance"])
     ap.add_argument("--backend", default="emulated",
                     choices=["emulated", "simulate"])
     ap.add_argument("--cond", type=int, default=0,
                     help="class id to condition on")
+    ap.add_argument("--cfg-scale", type=float, default=0.0,
+                    help="classifier-free guidance weight w (DESIGN.md "
+                         "§12): 0 = unguided; > 0 runs CFG "
+                         "(eps_u + w*(eps_c - eps_u))")
+    ap.add_argument("--guidance", default="none",
+                    choices=["none", "fused", "split", "interleaved"],
+                    help="CFG placement: fused-batch on every worker, "
+                         "split cond/uncond device groups, or interleaved "
+                         "uncond reuse; split/interleaved need "
+                         "--planner stadi_guidance ('none' + --cfg-scale "
+                         "lets stadi_guidance auto-search)")
+    ap.add_argument("--uncond-refresh", type=int, default=2,
+                    help="interleaved guidance: recompute the uncond "
+                         "branch every E adaptive intervals")
     ap.add_argument("--rebalance-every", type=int, default=0)
     ap.add_argument("--exchange", default="sync",
                     choices=["sync", "stale_async", "predictive"],
@@ -113,11 +124,14 @@ def main(argv=None):
         occ, caps, m_base=args.m_base, m_warmup=args.m_warmup,
         a=args.a, b=args.b, planner=args.planner, backend=args.backend,
         rebalance_every=args.rebalance_every, exchange=args.exchange,
-        exchange_refresh=args.exchange_refresh, **knobs)
+        exchange_refresh=args.exchange_refresh, guidance=args.guidance,
+        cfg_scale=args.cfg_scale, uncond_refresh=args.uncond_refresh,
+        **knobs)
     pipe = StadiPipeline(cfg, params, sched, config, device=device)
     plan = pipe.plan()
     print(f"speeds={config.speeds} steps={plan.temporal.steps} "
-          f"ratios={plan.temporal.ratios} patches={plan.patches}")
+          f"ratios={plan.temporal.ratios} patches={plan.patches} "
+          f"guidance={plan.guidance}")
 
     if device.type == "cuda":
         from repro_torch.kernels import ops

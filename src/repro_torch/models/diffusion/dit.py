@@ -25,12 +25,10 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.diffusion import DiTConfig
+from repro_torch.core import sampler
+from repro_torch.core.guidance import NULL_COND
 from repro_torch.kernels import ops as kops
 from repro_torch.models import layers
-
-#: the reserved class id of the unconditional branch (selects the zero
-#: class embedding); the port's copy of ``repro.core.guidance.NULL_COND``
-NULL_COND = -1
 
 
 def _torch_dtype(name: str) -> torch.dtype:
@@ -292,6 +290,63 @@ def forward(params, cfg: DiTConfig, x, t, cond=None):
     eps, _ = forward_patch(params, cfg, x, t, cond, 0, buffers=None,
                            return_kv=False)
     return eps
+
+
+def _class_conds(cond) -> torch.Tensor:
+    cond = torch.as_tensor(cond)
+    if cond.ndim >= 2:
+        raise NotImplementedError("guidance over prompt tokens comes with the "
+                                  "prompt-conditioning slice (ROADMAP queue 1 "
+                                  "item 13)")
+    return cond.to(torch.int32)
+
+
+def null_like(cond) -> torch.Tensor:
+    """The unconditional branch of class conds: the reserved
+    :data:`NULL_COND` id in cond's shape."""
+    return torch.full_like(_class_conds(cond), NULL_COND)
+
+
+def guidance_conds(cond) -> torch.Tensor:
+    """Branch-stacked class conds: row 0 the conditional branch, row 1 the
+    unconditional one (:data:`NULL_COND`); [2, B] for conds [B]."""
+    cond = _class_conds(cond)
+    return torch.stack([cond, null_like(cond)])
+
+
+def forward_patch_cfg(params, cfg: DiTConfig, x_rows, t, cond, row_start: int,
+                      buffers: Optional[Tuple] = None, return_kv: bool = True):
+    """Both guidance branches of :func:`forward_patch` in ONE forward — the
+    port's form of the reference's ``jax.vmap`` over the branch axis. The
+    branches are folded into the batch: x repeated to 2B rows, the conds of
+    :func:`guidance_conds` flattened to 2B, so every attention runs K1 once
+    for both branches.
+
+    buffers: None or branch-stacked (buf_k, buf_v), each [2, L, B, N, H, hd]
+    (branch 0 conditional). Each layer reads them as [2B, N, H, hd]: a
+    strided view at B = 1, a copy of the buffer at B > 1.
+    Returns (eps2 [2, B, rows, W, C], branch-stacked fresh (k, v) [2, L, B,
+    Nl, H, hd] or None)."""
+    B = x_rows.shape[0]
+    conds = guidance_conds(cond).to(x_rows.device).reshape(2, -1)
+    conds = conds.expand(2, B).reshape(2 * B)
+    if buffers is not None:
+        buffers = tuple(b.transpose(0, 1).flatten(1, 2) for b in buffers)
+    eps, kvs = forward_patch(params, cfg, torch.cat([x_rows, x_rows]), t,
+                             conds, row_start, buffers=buffers,
+                             return_kv=return_kv)
+    if kvs is not None:
+        kvs = tuple(k.unflatten(1, (2, B)).transpose(0, 1) for k in kvs)
+    return eps.unflatten(0, (2, B)), kvs
+
+
+def forward_cfg(params, cfg: DiTConfig, x, t, cond, scale):
+    """Fused-batch classifier-free guidance over the full image, the guided
+    "Origin": both branches in one forward, combined by the sampler's
+    :func:`~repro_torch.core.sampler.cfg_combine` (as the reference's
+    ``forward_cfg`` is)."""
+    eps2, _ = forward_patch_cfg(params, cfg, x, t, cond, 0, return_kv=False)
+    return sampler.cfg_combine(eps2[0], eps2[1], scale)
 
 
 def buffer_shape(cfg: DiTConfig, batch: int):

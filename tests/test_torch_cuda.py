@@ -1,8 +1,11 @@
 """Card-only tests of the port's CUDA kernels (marker ``cuda``): each kernel
-against its plain PyTorch version at the shapes ``chip_smoke.py`` checks.
+against its plain PyTorch version at the shapes ``chip_smoke.py`` checks,
+and the guided path on the card against the CPU.
 They skip on a machine without a CUDA device. No JAX here: the machine
 with the card has none. Run them there with
 ``PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py``."""
+import math
+
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -139,3 +142,123 @@ def test_stale_kv_kernel_counts_launches(cuda):
     ops.stale_kv_attention(q, kf, vf, ks, vs, tok_start=64)
     ops.stale_kv_attention(q, kf, vf, ks, vs, tok_start=0)
     assert ops.launch_counts() == {"stale_kv_attention": 2}
+
+
+# ----------------------------------------------------------------------
+# kernel K3: the CFG epilogue
+# ----------------------------------------------------------------------
+
+# sdxl-dit's eps per branch on the main path (the two patches and the full
+# image), an odd length for the scalar tail
+K3_SHAPES = [(1, 72, 128, 4), (1, 56, 128, 4), (1, 128, 128, 4), (36865,)]
+
+
+def _k3_inputs(shape, dtype, device, offset=0, seed=0):
+    """eps_c, eps_u of ``shape``; ``offset`` elements into a larger buffer,
+    so offset 1 gives contiguous tensors that are not 16-byte aligned."""
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    n = math.prod(shape)
+    out = []
+    for _ in range(2):
+        flat = torch.randn(n + offset, generator=g).to(dtype).to(device)
+        out.append(flat[offset:].view(shape))
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", K3_SHAPES)
+def test_cfg_epilogue_kernel_bitwise(cuda, shape, dtype, offset):
+    """Delta and combine bitwise equal to the plain version's eager
+    ``eu + w * d`` on the card (the kernel rounds each product and sum to
+    nearest, with no FMA, and the bf16 output once)."""
+    ec, eu = _k3_inputs(shape, dtype, cuda, offset)
+    for scale in (4.0, 7.5, torch.tensor(1.5)):
+        comb, delta = ops.cfg_epilogue(ec, eu, scale)
+        want_comb, want_delta = ref.cfg_epilogue_ref(ec, eu, scale)
+        torch.cuda.synchronize()
+        assert comb.dtype == dtype and delta.dtype == torch.float32
+        assert torch.equal(delta, want_delta)
+        assert torch.equal(comb, want_comb)
+
+
+@pytest.mark.cuda
+def test_cfg_epilogue_counts_launches_and_skips_delta(cuda):
+    ec, eu = _k3_inputs((1, 72, 128, 4), torch.bfloat16, cuda)
+    ops.reset_launch_counts()
+    comb, _ = ops.cfg_epilogue(ec, eu, 4.0)
+    only = ops.cfg_epilogue(ec, eu, 4.0, with_delta=False)
+    assert ops.launch_counts() == {"cfg_epilogue": 2}
+    assert torch.equal(only, comb)
+
+
+@pytest.mark.cuda
+def test_cfg_epilogue_wrapper_refuses(cuda):
+    ec, eu = _k3_inputs((4, 8, 8, 4), torch.float32, cuda)
+    with pytest.raises(ValueError, match="shape and dtype"):
+        ops.cfg_epilogue(ec, eu.to(torch.bfloat16), 4.0)
+    with pytest.raises(ValueError, match="contiguous"):
+        ops.cfg_epilogue(ec.transpose(1, 2), eu.transpose(1, 2), 4.0)
+    with pytest.raises(NotImplementedError, match="serving"):
+        ops.cfg_epilogue(ec, eu, torch.full((4, 1, 1, 1), 4.0, device=cuda))
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        ops.cfg_epilogue(ec.half(), eu.half(), 4.0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_stale_kv_kernel_batch2_from_branch_stacked_buffer(cuda, dtype):
+    """Both guidance branches of one layer in one launch: the stale K/V are
+    a strided [2, N, H, hd] view of the branch-stacked [2, L, 1, N, H, hd]
+    buffer, as dit.forward_patch_cfg hands them over at batch 1."""
+    N, Nl, tok, H, hd, L = 4096, 2304, 0, 16, 72, 3
+    g = torch.Generator(device="cpu").manual_seed(2)
+    mk = lambda *shape, std=1.0: (std * torch.randn(*shape, generator=g)).to(
+        dtype).to(cuda)
+    buf_k, buf_v = mk(2, L, 1, N, H, hd, std=QK_STD), mk(2, L, 1, N, H, hd)
+    qkv = mk(2, Nl, 3, H, hd, std=QK_STD)
+    ks = buf_k.transpose(0, 1).flatten(1, 2)[1]
+    vs = buf_v.transpose(0, 1).flatten(1, 2)[1]
+    assert ks.shape == (2, N, H, hd) and ks.data_ptr() == buf_k[0, 1].data_ptr()
+    q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+    out = ops.stale_kv_attention(q, k, v, ks, vs, tok_start=tok)
+    want = ref.stale_kv_attention_ref(q, k, v, ks, vs, tok)
+    torch.cuda.synchronize()
+    _assert_within_bars(out, want, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["fused", "interleaved"])
+def test_guided_generate_on_card_matches_cpu(cuda, mode):
+    """tiny-dit.reduced() in fp32, guided: the card's image (K1 at batch 2,
+    K3) against the CPU's (plain versions), and K3 launched once per guided
+    eval whose uncond branch is fresh."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import sampler
+    from repro_torch.core.pipeline import StadiConfig, StadiPipeline
+    from repro_torch.models.diffusion import dit
+
+    cfg = get_config("tiny-dit").reduced()
+    gen = torch.Generator(device="cpu").manual_seed(0)
+    params = dit.nondegenerate_params(dit.init_params(gen, cfg), gen)
+    x_T = torch.randn(1, cfg.latent_size, cfg.latent_size, cfg.channels,
+                      generator=gen)
+    cond = torch.tensor([3])
+    knobs = dict(m_base=16, m_warmup=4, cfg_scale=4.0)
+    if mode == "interleaved":
+        knobs.update(planner="stadi_guidance", guidance="interleaved")
+    config = StadiConfig.from_occupancies([0.0, 0.0, 0.5, 0.5], **knobs)
+    res = {d: StadiPipeline(cfg, params, sampler.linear_schedule(1000), config,
+                            device=d).generate(x_T, cond) for d in ("cpu", cuda)}
+    img, want = res[cuda].image.cpu(), res["cpu"].image
+    assert ((img - want).norm() / want.norm()).item() < 1e-3
+    trace = res[cuda].trace
+    evals = fresh = 0
+    for e in trace.events:                 # one eval per warm-up step
+        subs = [1] if e.synchronous else e.substeps
+        evals += sum(subs)
+        fresh += sum(s for i, s in enumerate(subs) if e.synchronous
+                     or e.uncond_fresh or not trace.guidance.worker_reuses(i))
+    assert res[cuda].kernel_stats["launches"]["cfg_epilogue"] == fresh
+    assert (fresh < evals) == (mode == "interleaved")

@@ -177,7 +177,8 @@ def test_entry_points_refuse_without_device_and_later_slices(setup):
         from repro_torch.launch import stadi_infer
         with pytest.raises(RuntimeError, match="no CUDA device"):
             stadi_infer.main(["--reduced"])
-    for knobs, match in (({"cfg_scale": 3.0}, "guidance"),
+    for knobs, match in (({"backend": "spmd_guidance", "cfg_scale": 3.0},
+                          "multi-GPU"),
                          ({"num_stages": 2}, "pipefuse"),
                          ({"seq_shards": 2}, "sequence"),
                          ({"num_frames": 2}, "frames"),

@@ -159,7 +159,7 @@ def test_planners_equal(speeds, name, p_total, tiers):
 
 def test_planner_registry():
     assert set(tplan.PLANNERS) == {"uniform", "spatial", "temporal", "stadi",
-                                   "makespan"}
+                                   "makespan", "stadi_guidance"}
     assert set(tplan.PLANNERS) <= set(jplan.PLANNERS)
     with pytest.raises(KeyError):
         tplan.get_planner("nope")
