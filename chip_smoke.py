@@ -1,11 +1,13 @@
 """Smoke run of the PyTorch/CUDA port on one GPU: builds the hand-written
 kernels from this checkout, holds each against its plain PyTorch version at
 the shapes of the paths it drives, drives the main path (STADI on sdxl-dit at
-full width) and the guided paths (classifier-free guidance, fused and
-interleaved) through ``StadiPipeline.generate``, and checks card-vs-CPU
-images.
+full width), the guided paths (classifier-free guidance, fused and
+interleaved) through ``StadiPipeline.generate`` and the multi-rank paths
+(spmd, unguided, fused and split guidance) on gloo ranks that share the
+card, and checks card-vs-CPU images.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --nccl     # only phase 10, over NCCL on 4 cards
 
 Phases (any failure raises, so the script exits non-zero):
   1. the card: name and power limit (nvidia-smi), TF32 off for fp32 products
@@ -27,23 +29,45 @@ Phases (any failure raises, so the script exits non-zero):
      graph replay) of the kernel, the plain version and the nearest library
      calls (torch.lerp and a torch.sub into fp32), and the wrapper's eager
      time per call, which the host's launch overhead sets.
-  6. the main path: sdxl-dit (28 layers, bf16, random nondegenerate weights
+  6. K2 (the padded multi-rank form of K1) against its plain version at the
+     spmd main path's rank layouts (slab 2304 rows, tok_start 0 / valid
+     2304 and tok_start 2304 / valid 1792, buffer 6400 rows of which 4096
+     real) and at tok_start 0 / valid 1792, batch 1 and 2, fp32 and bf16,
+     inputs random everywhere (scratch included), with K1's bars. Each bar
+     must reject three planted faults wherever they change the function:
+     valid_tokens ignored, the scratch key mask dropped, tok_start one
+     64-key tile off. Times of the kernel, the plain version and
+     scaled_dot_product_attention on the materialized, masked K/V.
+  7. K5 (K2 over both guidance branches) with uncond_fresh 0 and 1: the
+     bars and faults of phase 6.
+  8. the main path: sdxl-dit (28 layers, bf16, random nondegenerate weights
      from a seed), 2 logical workers at occupancies [0.0, 0.5], planner
      stadi, backend emulated, exchange sync; finite image, and K1 launched
      once per layer of every forward the trace shows. One more generate
      runs under ``torch.profiler``: its device time by kernel and the
      device idle share are printed.
-  7. the guided paths on the same model, cfg_scale 4.0: fused (the main
+  9. the guided paths on the same model, cfg_scale 4.0: fused (the main
      path's plan) and interleaved (4 devices at [0.0, 0.0, 0.5, 0.5],
      planner stadi_guidance); finite images, K1 once per layer of every
      guided eval and K3 once per eval whose uncond branch is fresh, both
-     derived from the trace; each profiled as in phase 6.
-  8. tiny-dit.reduced() in fp32, unguided, fused and interleaved: the card's
+     derived from the trace; each profiled as in phase 8.
+ 10. the multi-rank paths on gloo ranks sharing the card (gloo passes the
+     CUDA tensors through host memory): sdxl-dit backend spmd on 2 ranks
+     (the main path's cluster), unguided and fused guided, and backend
+     spmd_guidance on 4 ranks at [0.0, 0.0, 0.5, 0.5] (split); each rank's
+     K1, K2 and K3 launches equal to its trace's count, finite images equal
+     on every rank, relative error against the emulated image on the card
+     < 1e-2 (bf16, 16 steps). tiny-dit.reduced() fp32 through the same
+     backends (sync, stale_async, fused, split) against the emulated image
+     on the CPU, < 1e-3. Per-rank seconds are printed; ranks that share a
+     card take turns on it, so they are not a multi-GPU makespan.
+ 11. tiny-dit.reduced() in fp32, unguided, fused and interleaved: the card's
      image (through K1 and K3) against the CPU's (through the plain
      versions), relative error < 1e-3
 Every path is driven with the launch counters set to 0 just before it and
-read just after. The second-to-last line is the kernels' JSON record, the
-last line the device record.
+read just after (on every rank for the multi-rank paths). The
+second-to-last line is the kernels' JSON record, the last line the device
+record.
 """
 import dataclasses
 import json
@@ -54,6 +78,7 @@ import subprocess
 import sys
 import time
 
+import numpy as np
 import torch
 
 #: published dense peaks (NVIDIA data sheet, SXM part): bf16 tensor FLOP/s,
@@ -325,6 +350,173 @@ def phase_k3(ops, ref, dev, peaks):
     return first
 
 
+# K2's layouts: (tok_start, valid_tokens) of rank 0 and rank 1 of the spmd
+# main path (patches [36, 28] token rows of 64 tokens, slab Nl_max 2304),
+# and rank 0 of the reversed split [28, 36], the one layout of the three at
+# which ignoring valid_tokens changes the output (at the other two the slab's
+# scratch rows land on keys the scratch mask removes anyway)
+K2_N, K2_NL, K2_NPAD = 4096, 2304, 6400
+K2_LAYOUTS = [(0, 2304), (2304, 1792), (0, 1792)]
+
+
+def k2_inputs(dtype, dev, gen, B, lead=()):
+    """q, k_fresh, v_fresh of [*lead, B, Nl_max, 16, 72] and the stale
+    K/V of [*lead, B, Npad, 16, 72]: random everywhere, the slab's rows past
+    valid_tokens and the buffer's scratch tail included, so that a dropped
+    mask or blend shows; q and k of std QK_STD as for K1."""
+    def mk(n, std):
+        return (std * torch.randn(*lead, B, n, 16, 72, generator=gen)
+                ).to(dtype).to(dev)
+    return (mk(K2_NL, QK_STD), mk(K2_NL, QK_STD), mk(K2_NL, 1.0),
+            mk(K2_NPAD, QK_STD), mk(K2_NPAD, 1.0))
+
+
+def k2_planted_faults(plain, args, tok, valid):
+    """K2's output under planted faults, from its plain version ``plain``
+    (called as ``plain(*args, tok_start, valid_tokens, n_tokens)``):
+    valid_tokens ignored (the whole slab fresh), the scratch key mask
+    dropped, tok_start off by one 64-key tile."""
+    shifted = tok + TILE if tok + TILE <= K2_NPAD - K2_NL else tok - TILE
+    return {"valid_tokens ignored": plain(*args, tok, K2_NL, K2_N),
+            "scratch mask dropped": plain(*args, tok, valid, K2_NPAD),
+            f"tok_start {shifted - tok:+d}": plain(*args, shifted, valid, K2_N)}
+
+
+def k2_bound_ms(B, tok, valid, dtype, peaks):
+    """Least time for K2's work: every slab row's query against the n_tokens
+    real keys, 4*B*H*Nl_max*n_tokens*hd operations at the input type's
+    peak, or its bytes (q and the output once; the fresh rows the function
+    reads and the stale rows it reads, each once) at the memory rate."""
+    H, hd = 16, 72
+    flops = 4 * B * H * K2_NL * K2_N * hd
+    fresh = max(0, min(valid, K2_N - tok))
+    elem = torch.tensor([], dtype=dtype).element_size()
+    nbytes = elem * B * H * hd * (2 * K2_NL + 2 * fresh + 2 * (K2_N - fresh))
+    ops_ms = flops / (peaks[0] if dtype == torch.bfloat16 else peaks[1]) * 1e3
+    bytes_ms = nbytes / peaks[2] * 1e3
+    return max(ops_ms, bytes_ms), ("operations" if ops_ms >= bytes_ms else "bytes")
+
+
+def k2_library_call(args, tok, valid):
+    """The library yardstick for K2 (and K5 folded to batch 2B): one
+    scaled_dot_product_attention call over the K/V materialized with the
+    fresh rows written in, the scratch keys masked by a boolean mask."""
+    q, kf, vf, ks, vs = args
+    full_k, full_v = ks.clone(), vs.clone()
+    full_k[:, tok:tok + valid] = kf[:, :valid]
+    full_v[:, tok:tok + valid] = vf[:, :valid]
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, full_k, full_v))
+    keep = (torch.arange(ks.shape[1], device=q.device) < K2_N)[None, :]
+    return lambda: torch.nn.functional.scaled_dot_product_attention(
+        qt, kt, vt, attn_mask=keep)
+
+
+def check_with_faults(label, out, want, faults, dtype, line):
+    """Hold ``out`` to ``want`` with K1's bars, and require the bar to
+    reject every planted fault that changes the function at this layout (a
+    fault whose plain output is within 1e-6 norm-relative of the correct
+    plain output is reported as unchanged there, not as rejected)."""
+    err, rel, ok = k1_reading(out, want, dtype)
+    readings = {}
+    for name, bad in faults.items():
+        moved = ((bad.float() - want.float()).norm() / want.float().norm()).item()
+        if moved < 1e-6:
+            readings[name] = {"unchanged_at_this_layout": moved}
+            continue
+        e, r, passed = k1_reading(out, bad, dtype)
+        readings[name] = {"max_abs_err": e, "norm_rel_err": r,
+                          "rejected": not passed}
+    line.update(max_abs_err=err, norm_rel_err=rel, ok=ok,
+                planted_faults=readings)
+    print(label, json.dumps(line), flush=True)
+    check(ok, f"{label}: kernel disagrees with its plain version: {line}")
+    check(all(f.get("rejected", True) for f in readings.values()),
+          f"{label}: the bar lets a planted fault through: {line}")
+    return readings
+
+
+def phase_k2(ops, ref, dev, peaks):
+    """K2 against its plain version at the spmd main path's layouts, batch
+    1 and 2 (fused guidance), fp32 and bf16, with planted faults; times at
+    the bf16 layouts of the path. Returns the timed readings, the batch-1
+    rank-0 one first."""
+    gen = torch.Generator(device="cpu").manual_seed(SEED + 4)
+    timed, rejected = [], set()
+    for dtype in (torch.float32, torch.bfloat16):
+        for B in (1, 2):
+            for tok, valid in K2_LAYOUTS:
+                args = k2_inputs(dtype, dev, gen, B)
+                out = ops.stale_kv_attention_padded(*args, tok, valid,
+                                                    n_tokens=K2_N)
+                want = ref.stale_kv_attention_padded_ref(*args, tok, valid, K2_N)
+                line = {"kernel": "stale_kv_attention_padded", "dtype": str(dtype),
+                        "batch": B, "tok_start": tok, "valid_tokens": valid,
+                        "n_tokens": K2_N, "Nl_max": K2_NL, "Npad": K2_NPAD,
+                        "bar": BARS[dtype], "norm_bar": NORM_BARS[dtype]}
+                if dtype == torch.bfloat16 and (tok, valid) != K2_LAYOUTS[2]:
+                    bound_ms, bound_by = k2_bound_ms(B, tok, valid, dtype, peaks)
+                    line.update(
+                        ms=time_ms(lambda: ops.stale_kv_attention_padded(
+                            *args, tok, valid, n_tokens=K2_N)),
+                        plain_ms=time_ms(lambda: ref.stale_kv_attention_padded_ref(
+                            *args, tok, valid, K2_N), reps=3),
+                        library_ms=time_ms(k2_library_call(args, tok, valid)),
+                        bound_ms=bound_ms, bound_by=bound_by)
+                faults = check_with_faults(
+                    "k2_check", out, want, k2_planted_faults(
+                        ref.stale_kv_attention_padded_ref, args, tok, valid),
+                    dtype, line)
+                rejected |= {n for n, f in faults.items() if f.get("rejected")}
+                if "ms" in line:
+                    timed.append(line)
+    check(len(rejected) == 3, f"K2: not every planted fault was shown "
+          f"rejected at some layout: {sorted(rejected)}")
+    return timed
+
+
+def phase_k5(ops, ref, dev, peaks):
+    """K5 (both guidance branches in one launch) against its plain version
+    with uncond_fresh 0 and 1, fp32 and bf16, at the layouts and with the
+    planted faults of K2; times at rank 1's bf16 layout. Returns that
+    reading with uncond_fresh 1."""
+    gen = torch.Generator(device="cpu").manual_seed(SEED + 5)
+    reading, rejected = None, set()
+    for dtype in (torch.float32, torch.bfloat16):
+        for uncond_fresh in (1, 0):
+            for tok, valid in K2_LAYOUTS:
+                args = k2_inputs(dtype, dev, gen, 1, lead=(2,))
+                out = ops.stale_kv_attention_guided(*args, tok, valid,
+                                                    uncond_fresh, n_tokens=K2_N)
+
+                def plain(*a, uf=uncond_fresh):
+                    return ref.stale_kv_attention_guided_ref(*a[:-1], uf, a[-1])
+                want = plain(*args, tok, valid, K2_N)
+                line = {"kernel": "stale_kv_attention_guided", "dtype": str(dtype),
+                        "uncond_fresh": uncond_fresh, "tok_start": tok,
+                        "valid_tokens": valid, "n_tokens": K2_N,
+                        "Nl_max": K2_NL, "Npad": K2_NPAD}
+                if (dtype == torch.bfloat16 and uncond_fresh == 1
+                        and (tok, valid) == K2_LAYOUTS[1]):
+                    bound_ms, bound_by = k2_bound_ms(2, tok, valid, dtype, peaks)
+                    line.update(
+                        ms=time_ms(lambda: ops.stale_kv_attention_guided(
+                            *args, tok, valid, 1, n_tokens=K2_N)),
+                        plain_ms=time_ms(lambda: plain(*args, tok, valid, K2_N),
+                                         reps=3),
+                        library_ms=time_ms(k2_library_call(
+                            [t.flatten(0, 1) for t in args], tok, valid)),
+                        bound_ms=bound_ms, bound_by=bound_by)
+                faults = check_with_faults(
+                    "k5_check", out, want,
+                    k2_planted_faults(plain, args, tok, valid), dtype, line)
+                rejected |= {n for n, f in faults.items() if f.get("rejected")}
+                if "ms" in line:
+                    reading = line
+    check(len(rejected) == 3, f"K5: not every planted fault was shown "
+          f"rejected at some layout: {sorted(rejected)}")
+    return reading
+
+
 def _expected_launches(result, n_layers):
     """Launches a generate must make, from its trace: K1 once per layer of
     every denoiser eval (one full-image eval per warm-up step, one patch
@@ -374,7 +566,38 @@ def profile_generate(pipe, x_T, cond, wall_s, label, top=12):
                         for n, us, c in kernels[:top]]}), flush=True)
 
 
-def drive_path(ops, label, cfg, params, config, dev):
+def sdxl_setup(dev):
+    """sdxl-dit at full width (bf16) with random nondegenerate weights, its
+    x_T and class, all from SEED on ``dev``: the script and every rank of
+    the spmd phase build the same."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.diffusion import dit
+
+    cfg = get_config("sdxl-dit")
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    params = dit.nondegenerate_params(dit.init_params(gen, cfg), gen)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 3)
+    x_T = torch.randn(1, cfg.latent_size, cfg.latent_size, cfg.channels,
+                      generator=gen, device=dev).to(torch.bfloat16)
+    cond = torch.tensor([SEED % cfg.n_classes], device=dev)
+    return cfg, params, x_T, cond
+
+
+def tiny_setup():
+    """tiny-dit.reduced() in fp32, weights, x_T and classes from SEED on the
+    CPU (the pipeline moves them to its device)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.diffusion import dit
+
+    cfg = get_config("tiny-dit").reduced()
+    gen = torch.Generator(device="cpu").manual_seed(SEED)
+    params = dit.nondegenerate_params(dit.init_params(gen, cfg), gen)
+    x_T = torch.randn(2, cfg.latent_size, cfg.latent_size, cfg.channels,
+                      generator=gen)
+    return cfg, params, x_T, torch.tensor([1, 2])
+
+
+def drive_path(ops, label, cfg, params, x_T, cond, config, dev):
     """Drive one path through ``StadiPipeline.generate`` on sdxl-dit: a
     warm-up call, then a generate with the launch counters set to 0 just
     before it and read just after, checked against the trace, then one
@@ -384,10 +607,6 @@ def drive_path(ops, label, cfg, params, config, dev):
 
     sched = sampler.linear_schedule(1000)
     pipe = StadiPipeline(cfg, params, sched, config, device=dev)
-    gen = torch.Generator(device=dev).manual_seed(SEED + 3)
-    x_T = torch.randn(1, cfg.latent_size, cfg.latent_size, cfg.channels,
-                      generator=gen, device=dev).to(torch.bfloat16)
-    cond = torch.tensor([SEED % cfg.n_classes], device=dev)
     plan = pipe.plan()
     print(f"{label} plan: planner={plan.planner} steps={plan.temporal.steps} "
           f"ratios={plan.temporal.ratios} patches={plan.patches} "
@@ -426,13 +645,9 @@ def drive_path(ops, label, cfg, params, config, dev):
 def phase_paths(ops, dev):
     """The main path and the two guided paths on one set of sdxl-dit
     weights. Returns {label: launches}."""
-    from repro_torch.configs import get_config
     from repro_torch.core.pipeline import StadiConfig
-    from repro_torch.models.diffusion import dit
 
-    cfg = get_config("sdxl-dit")
-    gen = torch.Generator(device=dev).manual_seed(SEED)
-    params = dit.nondegenerate_params(dit.init_params(gen, cfg), gen)
+    cfg, params, x_T, cond = sdxl_setup(dev)
     main = StadiConfig.from_occupancies([0.0, 0.5], m_base=16, m_warmup=4,
                                         planner="stadi", backend="emulated",
                                         exchange="sync")
@@ -443,24 +658,17 @@ def phase_paths(ops, dev):
             [0.0, 0.0, 0.5, 0.5], m_base=16, m_warmup=4, cfg_scale=CFG_SCALE,
             planner="stadi_guidance", guidance="interleaved"),
     }
-    return {label: drive_path(ops, label, cfg, params, config, dev)
+    return {label: drive_path(ops, label, cfg, params, x_T, cond, config, dev)
             for label, config in paths.items()}
 
 
 def phase_cross_device(dev):
     """tiny-dit.reduced() in fp32 on the card and on the CPU: unguided,
     guided fused and guided interleaved."""
-    from repro_torch.configs import get_config
     from repro_torch.core import sampler
     from repro_torch.core.pipeline import StadiConfig, StadiPipeline
-    from repro_torch.models.diffusion import dit
 
-    cfg = get_config("tiny-dit").reduced()
-    gen = torch.Generator(device="cpu").manual_seed(SEED)
-    params = dit.nondegenerate_params(dit.init_params(gen, cfg), gen)
-    x_T = torch.randn(2, cfg.latent_size, cfg.latent_size, cfg.channels,
-                      generator=gen)
-    cond = torch.tensor([1, 2])
+    cfg, params, x_T, cond = tiny_setup()
     configs = {
         "unguided": StadiConfig.from_occupancies([0.0, 0.5], m_base=8,
                                                  m_warmup=2),
@@ -481,6 +689,188 @@ def phase_cross_device(dev):
         check(rel < 1e-3, f"{label}: card image differs from the CPU image: {rel}")
         rels[label] = rel
     return rels
+
+
+def spmd_paths():
+    """The multi-rank paths: label -> (model, ranks, config). sdxl-dit at
+    full width on the main path's cluster (unguided and fused guidance, 2
+    ranks) and the split placement (4 ranks); tiny-dit.reduced() in fp32
+    under each exchange kind and placement the card-vs-CPU check covers."""
+    from repro_torch.core.pipeline import StadiConfig
+
+    occ = StadiConfig.from_occupancies
+    main = occ([0.0, 0.5], m_base=16, m_warmup=4, planner="stadi",
+               backend="spmd", exchange="sync")
+    split = occ([0.0, 0.0, 0.5, 0.5], m_base=16, m_warmup=4,
+                cfg_scale=CFG_SCALE, planner="stadi_guidance",
+                guidance="split", backend="spmd_guidance")
+    tiny = occ([0.0, 0.5], m_base=8, m_warmup=2, backend="spmd")
+    return {
+        "spmd": ("sdxl", 2, main),
+        "spmd_fused": ("sdxl", 2, dataclasses.replace(main, cfg_scale=CFG_SCALE)),
+        "spmd_split": ("sdxl", 4, split),
+        "tiny_spmd_sync": ("tiny", 2, tiny),
+        "tiny_spmd_stale_async": ("tiny", 2, dataclasses.replace(
+            tiny, exchange="stale_async")),
+        "tiny_spmd_fused": ("tiny", 2, dataclasses.replace(tiny, cfg_scale=CFG_SCALE)),
+        "tiny_spmd_split": ("tiny", 4, dataclasses.replace(
+            split, m_base=8, m_warmup=2)),
+    }
+
+
+def expected_rank_launches(result, n_layers, rank):
+    """Launches one rank's generate must make, from its trace: K1 once per
+    layer of each full-image warm-up forward (one bootstrap forward when
+    there is no warm-up), K2 once per layer of each of its patch worker's
+    substeps (a rank skips its inactive substeps), and on fused guidance K3
+    once per eval that uses eps."""
+    trace = result.trace
+    idx = rank % len(trace.patches)
+    warm = sum(1 for e in trace.events if e.synchronous)
+    patch = sum(e.substeps[idx] for e in trace.events if not e.synchronous)
+    expected = {"stale_kv_attention": n_layers * max(warm, 1),
+                "stale_kv_attention_padded": n_layers * patch}
+    if trace.guidance is not None and trace.guidance.mode == "fused":
+        expected["cfg_epilogue"] = warm + patch
+    return expected
+
+
+def time_in_gathers(pipe, x_T, cond, device):
+    """One more generate with each uneven all-gather of the exchanges timed
+    on the host, the card synchronised before and after it: (wall seconds,
+    seconds in the gathers). A gather's time includes gloo's staging
+    through host memory and the wait for the slowest rank to arrive."""
+    from repro_torch.core import comm
+
+    gather, spent = comm.uneven_all_gather_padded, [0.0]
+
+    def timed(*args, **kw):
+        torch.cuda.synchronize(device)
+        t0 = time.perf_counter()
+        out = gather(*args, **kw)
+        torch.cuda.synchronize(device)
+        spent[0] += time.perf_counter() - t0
+        return out
+    comm.uneven_all_gather_padded = timed
+    try:
+        t0 = time.perf_counter()
+        pipe.generate(x_T, cond)
+        torch.cuda.synchronize(device)
+        return time.perf_counter() - t0, spent[0]
+    finally:
+        comm.uneven_all_gather_padded = gather
+
+
+def spmd_rank(ctx, jobs):
+    """One rank of the spmd phase: for each job, an optional warm-up
+    generate, then a generate with the launch counters set to 0 just before
+    it and read just after, and on sdxl-dit one more with the exchanges'
+    gathers timed. Returns per job its seconds, launches, the trace-derived
+    launches, peak memory, gather time and image."""
+    from repro_torch.core import sampler
+    from repro_torch.core.pipeline import StadiPipeline
+    from repro_torch.kernels import ops
+
+    models, out = {}, {}
+    for label, model, config in jobs:
+        if model not in models:
+            models[model] = sdxl_setup(ctx.device) if model == "sdxl" else tiny_setup()
+        cfg, params, x_T, cond = models[model]
+        pipe = StadiPipeline(cfg, params, sampler.linear_schedule(1000), config,
+                             device=ctx.device)
+        if model == "sdxl":                      # first call: cuBLAS warm-up
+            pipe.generate(x_T, cond)
+            torch.cuda.synchronize(ctx.device)
+        torch.cuda.reset_peak_memory_stats(ctx.device)
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        res = pipe.generate(x_T, cond)
+        torch.cuda.synchronize(ctx.device)
+        seconds = time.perf_counter() - t0
+        launches = ops.launch_counts()
+        peak_gib = torch.cuda.max_memory_allocated(ctx.device) / 2**30
+        timed = (time_in_gathers(pipe, x_T, cond, ctx.device)
+                 if model == "sdxl" else (None, None))
+        out[label] = {"seconds": seconds, "launches": launches,
+                      "expected": expected_rank_launches(res, cfg.n_layers, ctx.rank),
+                      "kernel_stats": res.kernel_stats,
+                      "peak_gib": peak_gib, "timed_wall_s": timed[0],
+                      "gather_s": timed[1], "patches": res.plan.patches,
+                      "image": res.image.float().cpu().numpy()}
+    return out
+
+
+def phase_spmd(dev, dist_backend="gloo"):
+    """The multi-rank paths: launches per rank equal to the trace's, finite
+    images equal on every rank, sdxl-dit against the port's emulated image
+    on the card (relative error < 1e-2, bf16 over 16 steps), tiny-dit fp32
+    against the emulated image on the CPU (< 1e-3). With gloo the ranks
+    share the card; with NCCL each rank has a card of its own (4 cards).
+    Returns {label: per-rank results}."""
+    from repro_torch.core import sampler
+    from repro_torch.core.pipeline import StadiPipeline
+    from repro_torch.launch import ranks
+
+    paths = spmd_paths()
+    refs = {}
+    for model, device, bar in (("sdxl", dev, 1e-2), ("tiny", "cpu", 1e-3)):
+        cfg, params, x_T, cond = sdxl_setup(dev) if model == "sdxl" else tiny_setup()
+        for label, (m, _, config) in paths.items():
+            if m == model:
+                emu = dataclasses.replace(config, backend="emulated")
+                img = StadiPipeline(cfg, params, sampler.linear_schedule(1000), emu,
+                                    device=device).generate(x_T, cond).image
+                refs[label] = (img.float().cpu().numpy(), bar, device)
+        del params
+    torch.cuda.empty_cache()
+    shared = dist_backend == "gloo"
+    print(f"spmd transport: torch.distributed {dist_backend} collectives "
+          "(all_gather, all_reduce) called on the CUDA tensors themselves"
+          + ("; gloo stages them through host memory, comm.py adds no staging"
+             if shared else "; one card per rank"), flush=True)
+    results = {}
+    for world in (2, 4):
+        jobs = [(label, m, config) for label, (m, w, config) in paths.items()
+                if w == world]
+        t0 = time.perf_counter()
+        per_rank = ranks.spawn(spmd_rank, world, device_type="cuda",
+                               dist_backend=dist_backend, args=(jobs,),
+                               timeout=900 if shared else 300)
+        print(f"spmd phase: {world} {dist_backend} ranks on "
+              f"{'one card' if shared else f'{world} cards'} ran "
+              f"{[j[0] for j in jobs]} in {time.perf_counter() - t0:.1f} s "
+              "(process start included)", flush=True)
+        for label, _, _ in jobs:
+            want, bar, ref_device = refs[label]
+            outs = [r[label] for r in per_rank]
+            rels = [float(np.linalg.norm(o["image"] - want) / np.linalg.norm(want))
+                    for o in outs]
+            line = {"path": label, "ranks": world, "patches": outs[0]["patches"],
+                    "seconds_per_rank": [o["seconds"] for o in outs],
+                    "seconds_note": ("ranks share one card, gloo transport, "
+                                     "not a makespan" if shared else
+                                     "one card per rank, NCCL"),
+                    "peak_gib_per_rank": [o["peak_gib"] for o in outs],
+                    "gathers_timed_run": {"wall_s": [o["timed_wall_s"] for o in outs],
+                                          "in_gathers_s": [o["gather_s"] for o in outs]},
+                    "launches_per_rank": [o["launches"] for o in outs],
+                    "expected_per_rank": [o["expected"] for o in outs],
+                    "rel_err_vs_emulated": rels, "bar": bar,
+                    "emulated_on": str(ref_device)}
+            print("spmd_check", json.dumps(line), flush=True)
+            for r, o in enumerate(outs):
+                check(bool(np.isfinite(o["image"]).all()),
+                      f"{label}: rank {r} image not finite")
+                check(o["launches"] == o["expected"],
+                      f"{label}: rank {r} launches {o['launches']}, the trace "
+                      f"needs {o['expected']}")
+                check(o["kernel_stats"] == {"launches": o["launches"]},
+                      f"{label}: rank {r} kernel_stats mismatch")
+                check(np.array_equal(o["image"], outs[0]["image"]),
+                      f"{label}: rank {r} returned another image than rank 0")
+            check(max(rels) < bar, f"{label}: spmd vs emulated {rels} (bar {bar})")
+            results[label] = outs
+    return results
 
 
 def main():
@@ -506,29 +896,61 @@ def main():
 
     lib = ops.load_library()
     print(f"build: {lib.path.name} in {lib.build_seconds:.1f} s", flush=True)
+    if sys.argv[1:] == ["--nccl"]:
+        # the multi-rank paths alone, over NCCL with one card per rank
+        check(torch.cuda.device_count() >= 4, "--nccl needs 4 cards")
+        spmd = phase_spmd(dev, dist_backend="nccl")
+        print(json.dumps({"nccl_makespan_s": {
+            label: max(o["seconds"] for o in outs)
+            for label, outs in spmd.items()}}), flush=True)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
+        return 0
+    check(not sys.argv[1:], f"unknown arguments {sys.argv[1:]}; the one "
+          "option is --nccl (the multi-rank paths on 4 cards)")
     k1 = phase_kernels(ops, ref, layers, dev, peaks)
     k1_b2 = phase_k1_batch2(ops, ref, layers, dev, peaks)
     k3 = phase_k3(ops, ref, dev, peaks)
+    k2_timed = phase_k2(ops, ref, dev, peaks)
+    k2 = k2_timed[0]
+    k5 = phase_k5(ops, ref, dev, peaks)
     launches = phase_paths(ops, dev)
+    spmd = phase_spmd(dev)
     phase_cross_device(dev)
+    for label, outs in spmd.items():      # launches summed over the ranks
+        launches[label] = {}
+        for o in outs:
+            for kernel, n in o["launches"].items():
+                launches[label][kernel] = launches[label].get(kernel, 0) + n
 
     def entry(name, source, replaces, reading, main_label):
         return {"name": name, "route": "cuda", "source": source,
-                "replaces": replaces, "launches": launches[main_label][name],
+                "replaces": replaces,
+                "launches": launches[main_label].get(name, 0),
                 "max_abs_err": reading["max_abs_err"], "ms": reading["ms"],
                 "plain_ms": reading["plain_ms"], "bound_ms": reading["bound_ms"],
                 "bound_by": reading["bound_by"],
                 "library_ms": reading["library_ms"],
                 "launches_by_path": {label: n.get(name, 0)
                                      for label, n in launches.items()}}
+    skv_cu = "src/repro_torch/kernels/csrc/stale_kv_attention.cu"
     record = {"kernels": [
-        {**entry("stale_kv_attention",
-                 "src/repro_torch/kernels/csrc/stale_kv_attention.cu",
+        {**entry("stale_kv_attention", skv_cu,
                  "src/repro/kernels/stale_kv_attention.py:69", k1, "main_path"),
          "batch2_ms": k1_b2["ms"], "batch2_bound_ms": k1_b2["bound_ms"]},
         {**entry("cfg_epilogue", "src/repro_torch/kernels/csrc/cfg_epilogue.cu",
                  "src/repro/kernels/cfg_epilogue.py:34", k3, "guided_fused"),
          "eager_ms": k3["eager_ms"]},
+        {**entry("stale_kv_attention_padded", skv_cu,
+                 "src/repro/kernels/stale_kv_attention.py:161", k2, "spmd"),
+         "launches_per_rank": [o["launches"].get("stale_kv_attention_padded", 0)
+                               for o in spmd["spmd"]],
+         "timed_layouts": [{k: line[k] for k in (
+             "batch", "tok_start", "valid_tokens", "ms", "plain_ms",
+             "library_ms", "bound_ms")} for line in k2_timed]},
+        {**entry("stale_kv_attention_guided", skv_cu,
+                 "src/repro/kernels/stale_kv_attention.py:268", k5, "spmd_fused"),
+         "on_a_path": False},
     ]}
     print(json.dumps(record), flush=True)
     print(json.dumps({"ok": True, "device": {

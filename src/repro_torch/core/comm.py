@@ -1,5 +1,17 @@
-"""Boundary-exchange policies and the analytic wire-row helpers — the
-framework-free half of ``repro.core.comm`` (DESIGN.md §10).
+"""Uneven-tensor collectives (paper §V-A "All-Gather for uneven sized
+tensors") on ``torch.distributed``, boundary-exchange policies and the
+analytic wire-row helpers (reference: ``repro.core.comm``, DESIGN.md §10).
+
+The paper works around NCCL's lack of an uneven all_gather in two ways, and
+both are here: (1) pad every rank's tensor to the largest size, all_gather,
+keep the valid prefixes (:func:`uneven_all_gather_padded`); (2) one
+broadcast from each source rank, each of its own size
+(:func:`uneven_all_gather_broadcast`). The reference runs them inside
+``shard_map`` bodies over a mesh axis name; here every rank calls them with
+the ``torch.distributed`` process group of the ranks that exchange (None:
+the default group). Both run on the tensors' device: NCCL for CUDA tensors,
+gloo for CPU tensors, and gloo for CUDA tensors when the ranks were started
+with it by name (it stages them through host memory).
 
 The :class:`BoundaryExchange` policy decides, per interval boundary, whether
 the latent/KV exchange happens synchronously ("full"), is skipped against
@@ -9,14 +21,80 @@ refresh cadence), or is replaced by local extrapolation of the remote slabs
 events`) consults the policy when lowering; executors only ever see the
 resulting per-boundary kind.
 
-The collectives themselves (padded and broadcast uneven all-gathers, the
-stage handoff) and the sequence-parallel "ring" policy come with the
-multi-device slices of the port.
+The stage handoff and the sequence-parallel "ring" policy come with the
+pipefuse and sequence-parallel slices of the port.
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Callable, Dict, Sequence
+
+import torch
+import torch.distributed as dist
+
+
+def pad_to(x, rows: int, axis: int = 0):
+    """Zero-pad ``x`` along ``axis`` to ``rows`` (no-op if already there)."""
+    pad = rows - x.shape[axis]
+    if pad <= 0:
+        return x
+    shape = list(x.shape)
+    shape[axis] = pad
+    return torch.cat([x, x.new_zeros(shape)], dim=axis)
+
+
+def _group_size(group, sizes: Sequence[int]) -> int:
+    n = len(sizes)
+    if dist.get_world_size(group) != n:
+        raise ValueError(f"{n} sizes for a group of "
+                         f"{dist.get_world_size(group)} ranks")
+    return n
+
+
+def uneven_all_gather_padded(x_local, sizes: Sequence[int], group=None,
+                             axis: int = 0):
+    """Strategy 1: pad to max -> all_gather -> concat valid prefixes.
+
+    x_local: this rank's slab, ALREADY padded by the caller to max(sizes)
+    along ``axis`` (its first sizes[my_rank] entries are real); sizes in
+    group-rank order. Returns the concatenation of every rank's valid
+    prefix, [sum(sizes), ...] along ``axis``, on every rank."""
+    n = _group_size(group, sizes)
+    if x_local.shape[axis] != max(sizes):
+        raise ValueError(f"the local slab has {x_local.shape[axis]} rows on "
+                         f"axis {axis}; it must be padded to {max(sizes)}")
+    x = x_local.contiguous()
+    parts = [torch.empty_like(x) for _ in range(n)]
+    dist.all_gather(parts, x, group=group)
+    return torch.cat([parts[i].narrow(axis, 0, sizes[i]) for i in range(n)],
+                     dim=axis)
+
+
+def uneven_all_gather_broadcast(x_local, sizes: Sequence[int], group=None,
+                                axis: int = 0):
+    """Strategy 2: one broadcast per source rank, each carrying only that
+    rank's sizes[src] real rows (no padding on the wire).
+
+    Same contract as :func:`uneven_all_gather_padded`."""
+    n = _group_size(group, sizes)
+    if x_local.shape[axis] != max(sizes):
+        raise ValueError(f"the local slab has {x_local.shape[axis]} rows on "
+                         f"axis {axis}; it must be padded to {max(sizes)}")
+    group = group or dist.group.WORLD
+    me = dist.get_rank(group)
+    parts = []
+    for src in range(n):
+        if sizes[src] == 0:
+            continue
+        if src == me:
+            buf = x_local.narrow(axis, 0, sizes[src]).contiguous()
+        else:
+            shape = list(x_local.shape)
+            shape[axis] = sizes[src]
+            buf = x_local.new_empty(shape)
+        dist.broadcast(buf, src=dist.get_global_rank(group, src), group=group)
+        parts.append(buf)
+    return torch.cat(parts, dim=axis)
 
 
 def ring_hop_rows(segments: Sequence[int]) -> int:

@@ -12,7 +12,16 @@ Backends registered in the port:
 
     "emulated"  exact-numerics logical-worker engine (patch_parallel) — the
                 heterogeneous workers are logical workers on one device
+    "spmd"      one torch.distributed rank per worker (core/spmd.run_spmd),
+                unguided or fused guidance
+    "spmd_guidance"  split guidance on 2 * n_pairs ranks, the cond/uncond
+                branch groups (core/spmd.run_spmd_guidance)
     "simulate"  trace-only latency modeling (no numerics; needs a CostModel)
+
+The two multi-rank backends run inside the ranks of an initialized process
+group (:mod:`repro_torch.launch.ranks` starts them): every rank calls
+``generate`` with the same inputs, on its own device, and gets the full
+image back.
 
 ``cfg_scale > 0`` makes every generation guided (classifier-free guidance,
 DESIGN.md §12): plain planners get the fused placement, and the
@@ -55,8 +64,6 @@ from repro_torch.kernels import ops as kops
 #: where the reference's later axes, planners and backends arrive in the
 #: port (ROADMAP.md queue 1)
 _LATER = {
-    "spmd": "the multi-GPU slice (queue 1 item 7)",
-    "spmd_guidance": "the multi-GPU slice (queue 1 item 7)",
     "plan_cache_dir": "the serving slice (queue 1 item 9)",
     "stages": "the pipefuse slice (queue 1 item 10)",
     "pipefuse": "the pipefuse slice (queue 1 item 10)",
@@ -199,6 +206,10 @@ EXECUTOR_KWARGS = ("params", "model_cfg", "sched", "x_T", "cond", "plan",
 PLAN_FEATURES = ("stages", "guidance.fused", "guidance.split",
                  "guidance.interleaved", "seq", "frames")
 
+#: valid ``requires=`` tokens besides PLAN_FEATURES: a bare axis prefix
+#: ("guidance") satisfied by any mode of that axis
+_REQUIRE_PREFIXES = ("guidance", "seq", "stages", "frames")
+
 
 @dataclasses.dataclass(frozen=True)
 class BackendSpec:
@@ -216,7 +227,8 @@ def register_executor(name: str, *, supports: Sequence[str] = (),
                       requires: Sequence[str] = ()
                       ) -> Callable[[Executor], Executor]:
     supports_f, requires_f = frozenset(supports), frozenset(requires)
-    bad = (supports_f | requires_f) - set(PLAN_FEATURES)
+    bad = ((supports_f - set(PLAN_FEATURES))
+           | (requires_f - set(PLAN_FEATURES) - set(_REQUIRE_PREFIXES)))
     if bad:
         raise ValueError(f"executor {name!r} declares unknown capability "
                          f"tokens {sorted(bad)}; known: {PLAN_FEATURES}")
@@ -260,20 +272,50 @@ def required_features(plan: ExecutionPlan) -> List[str]:
     return feats
 
 
+#: per-(backend, feature) rejection messages more specific than the
+#: generic capability complaint (the reference's own table)
+_BACKEND_FEATURE_ERRORS: Dict[Tuple[str, str], str] = {
+    ("spmd", "guidance.split"):
+        "{mode!r} guidance on SPMD needs the guidance mesh axis: use "
+        "backend='spmd_guidance'",
+    ("spmd", "guidance.interleaved"):
+        "{mode!r} guidance on SPMD needs the guidance mesh axis: use "
+        "backend='spmd_guidance'",
+    ("spmd_guidance", "guidance.fused"):
+        "backend 'spmd_guidance' runs the split guidance mesh; fused CFG "
+        "runs on the plain 'spmd' backend",
+    ("spmd_guidance", "guidance.interleaved"):
+        "interleaved uncond reuse is not implemented on SPMD; use the "
+        "'emulated' or 'pipefuse' backend",
+}
+
+#: messages for a backend whose ``requires`` declaration is unmet
+_BACKEND_REQUIRES_ERRORS: Dict[Tuple[str, str], str] = {
+    ("spmd_guidance", "guidance"):
+        "backend 'spmd_guidance' needs a guided plan: set cfg_scale > 0 "
+        "with planner='stadi_guidance' and guidance='split'",
+}
+
+
 def check_backend_can_run(plan: ExecutionPlan, config: StadiConfig) -> None:
     """Reject plan/backend mismatches from the capability declarations:
     every demanded feature must be in the backend's ``supports``; every
-    ``requires`` token must be demanded by the plan."""
+    ``requires`` token must be demanded by the plan (a feature family such
+    as "guidance" is met by any of its members)."""
     spec = get_executor_spec(config.backend)
     feats = required_features(plan)
     for f in feats:
         if f not in spec.supports:
-            raise ValueError(f"{config.backend!r} does not support the "
-                             f"planned {f!r}")
+            msg = _BACKEND_FEATURE_ERRORS.get((config.backend, f))
+            raise ValueError(
+                msg.format(mode=plan.guidance.mode) if msg else
+                f"{config.backend!r} does not support the planned {f!r}")
     for req in spec.requires:
-        if req not in feats:
-            raise ValueError(f"backend {config.backend!r} requires a plan "
-                             f"demanding {req!r}")
+        if not any(f == req or f.startswith(req + ".") for f in feats):
+            raise ValueError(
+                _BACKEND_REQUIRES_ERRORS.get((config.backend, req))
+                or f"backend {config.backend!r} requires a plan demanding "
+                f"{req!r}")
 
 
 _GUIDANCE_FEATURES = ("guidance.fused", "guidance.split",
@@ -290,6 +332,41 @@ def emulated_executor(params, model_cfg, sched, x_T, cond, plan, config,
                           exchange_refresh=config.exchange_refresh,
                           guidance=plan.guidance)
     return res.image, res.trace
+
+
+@register_executor("spmd", supports=("guidance.fused",))
+def spmd_executor(params, model_cfg, sched, x_T, cond, plan, config,
+                  interval_hook=None):
+    # interval_hook is never passed here: generate() rejects rebalancing on
+    # every backend but the emulated one
+    from repro_torch.core import spmd
+    img = spmd.run_spmd(params, model_cfg, sched, x_T, cond, plan.temporal,
+                        plan.patches, exchange=config.exchange,
+                        exchange_refresh=config.exchange_refresh,
+                        guidance=plan.guidance)
+    return img, _spmd_trace(model_cfg, x_T, plan, config)
+
+
+@register_executor("spmd_guidance", supports=("guidance.split",),
+                   requires=("guidance",))
+def spmd_guidance_executor(params, model_cfg, sched, x_T, cond, plan, config,
+                           interval_hook=None):
+    """Split CFG over the cond/uncond branch groups of 2 * n_pairs ranks."""
+    from repro_torch.core import spmd
+    img = spmd.run_spmd_guidance(params, model_cfg, sched, x_T, cond,
+                                 plan.temporal, plan.patches, plan.guidance,
+                                 exchange=config.exchange,
+                                 exchange_refresh=config.exchange_refresh)
+    return img, _spmd_trace(model_cfg, x_T, plan, config)
+
+
+def _spmd_trace(model_cfg, x_T, plan, config) -> ExecutionTrace:
+    """The multi-rank executors' trace: replayed from the plan, as the
+    reference builds it (their numerics follow the same event stream)."""
+    return sim.build_trace(plan.temporal, plan.patches, model_cfg,
+                           batch=int(x_T.shape[0]), exchange=config.exchange,
+                           exchange_refresh=config.exchange_refresh,
+                           guidance=plan.guidance)
 
 
 @register_executor("simulate", supports=_GUIDANCE_FEATURES)

@@ -1,12 +1,28 @@
-// Stale-KV patch attention on Hopper (sm_90a).
+// Stale-KV patch attention on Hopper (sm_90a): kernels K1, K2 and K5 of the
+// port, one body with three entry points.
 //
-// Replaces the TPU kernel src/repro/kernels/stale_kv_attention.py,
-// function stale_kv_attention_bhsd (body _stale_kernel, update
-// _online_softmax_update). It computes the same function: bidirectional
-// attention of a local patch's queries over the whole-image context, where
-// key t comes from the fresh local K/V when 0 <= t - tok_start < Nl and from
-// the stale full-image buffer otherwise; online softmax in fp32, output in
-// the input dtype.
+// Replaces the TPU kernels of src/repro/kernels/stale_kv_attention.py:
+//   K1 stale_kv_attention_bhsd (body _stale_kernel, update
+//      _online_softmax_update): bidirectional attention of a local patch's
+//      queries over the whole-image context, where key t comes from the
+//      fresh local K/V when 0 <= t - tok_start < Nl and from the stale
+//      full-image buffer otherwise; online softmax in fp32, output in the
+//      input dtype.
+//   K2 stale_kv_attention_padded_bhsd (body _padded_kernel): the multi-rank
+//      form. The slab has Nl_max rows of which the first valid_tokens are
+//      real; key t is fresh when 0 <= t - tok_start < valid_tokens, stale
+//      otherwise, and keys t >= n_tokens (the buffer's scratch tail) are
+//      masked. Query rows >= valid_tokens are scratch: computed, and dropped
+//      by the caller. tok_start and valid_tokens are launch arguments, so
+//      one build serves every rank's layout (the TPU form carried them as
+//      scalar prefetch).
+//   K5 stale_kv_attention_guided_bhsd (body _guided_kernel): K2 with a
+//      leading guidance-branch axis of 2, folded into the batch; branch 1
+//      (unconditional) is fresh over valid_tokens * uncond_fresh rows.
+// The body takes the count N of keys it visits (K1: the context length;
+// K2, K5: n_tokens, so the scratch keys are never visited, which masks them
+// exactly) and a fresh-row count per batch row (valid_lo for batch rows
+// below b_split, valid_hi from there on).
 //
 // What bounds it on this card: at the main-path shapes of sdxl-dit (B=1,
 // H=16, hd=72, N=4096, Nl=2304) one launch does 4*H*Nl*N*hd = 43.5 GFLOP
@@ -139,7 +155,8 @@ stale_kv_attention_mma_kernel(const __nv_bfloat16* __restrict__ q,
                               const __nv_bfloat16* __restrict__ v_stale,
                               __nv_bfloat16* __restrict__ out, Strides sq, Strides skf,
                               Strides svf, Strides sks, Strides svs, Strides so, int H,
-                              int Nl, int N, int tok_start, float scale_log2) {
+                              int Nl, int N, int tok_start, int valid_lo, int valid_hi,
+                              int b_split, float scale_log2) {
   static_assert(HD % 8 == 0, "head dim must be a multiple of 8 (16-byte rows)");
   constexpr int HDP = (HD + 15) / 16 * 16;  // padded to the mma depth
   constexpr int SROW = HDP + 8;             // +16 bytes: conflict-free ldmatrix
@@ -156,22 +173,24 @@ stale_kv_attention_mma_kernel(const __nv_bfloat16* __restrict__ q,
   const int b = blockIdx.y / H;
   const int h = blockIdx.y - b * H;
   const int q0 = blockIdx.x * kMmaBQ;
+  const int valid = b < b_split ? valid_lo : valid_hi;  // fresh rows of this batch row
 
-  // key row t of the context: fresh if the patch covers it, else stale
+  // key row t of the context: fresh if the patch's valid rows cover it,
+  // else stale; keys t >= N are never staged
   auto stage_kv = [&](int k0, int st) {
     stage_rows<HD, SROW>(k_s[st], kMmaBK, q, [&](int r) -> const __nv_bfloat16* {
       const int t = k0 + r;
       if (t >= N) return nullptr;
       const int tl = t - tok_start;
-      return (tl >= 0 && tl < Nl) ? k_fresh + b * skf.b + (int64_t)tl * skf.s + h * skf.h
-                                  : k_stale + b * sks.b + (int64_t)t * sks.s + h * sks.h;
+      return (tl >= 0 && tl < valid) ? k_fresh + b * skf.b + (int64_t)tl * skf.s + h * skf.h
+                                     : k_stale + b * sks.b + (int64_t)t * sks.s + h * sks.h;
     });
     stage_rows<HD, SROW>(v_s[st], kMmaBK, q, [&](int r) -> const __nv_bfloat16* {
       const int t = k0 + r;
       if (t >= N) return nullptr;
       const int tl = t - tok_start;
-      return (tl >= 0 && tl < Nl) ? v_fresh + b * svf.b + (int64_t)tl * svf.s + h * svf.h
-                                  : v_stale + b * svs.b + (int64_t)t * svs.s + h * svs.h;
+      return (tl >= 0 && tl < valid) ? v_fresh + b * svf.b + (int64_t)tl * svf.s + h * svf.h
+                                     : v_stale + b * svs.b + (int64_t)t * svs.s + h * svs.h;
     });
   };
 
@@ -321,7 +340,7 @@ stale_kv_attention_fma_kernel(const float* __restrict__ q, const float* __restri
                               const float* __restrict__ v_stale, float* __restrict__ out,
                               Strides sq, Strides skf, Strides svf, Strides sks, Strides svs,
                               Strides so, int H, int Nl, int N, int tok_start,
-                              float scale_log2) {
+                              int valid_lo, int valid_hi, int b_split, float scale_log2) {
   static_assert(HD % 4 == 0, "head dim must be a multiple of 4 for 16-byte shared loads");
   __shared__ __align__(16) float k_tile[kFmaBK][HD];
   __shared__ __align__(16) float v_tile[kFmaBK][HD];
@@ -330,6 +349,7 @@ stale_kv_attention_fma_kernel(const float* __restrict__ q, const float* __restri
   const int h = blockIdx.y - b * H;
   const int row = blockIdx.x * kFmaBQ + threadIdx.x;
   const bool valid = row < Nl;
+  const int fresh_rows = b < b_split ? valid_lo : valid_hi;
 
   float qr[HD];
   float acc[HD];
@@ -351,7 +371,7 @@ stale_kv_attention_fma_kernel(const float* __restrict__ q, const float* __restri
       float kx = 0.f, vx = 0.f;
       if (t < N) {
         const int tl = t - tok_start;
-        if (tl >= 0 && tl < Nl) {
+        if (tl >= 0 && tl < fresh_rows) {
           kx = k_fresh[b * skf.b + (int64_t)tl * skf.s + h * skf.h + d];
           vx = v_fresh[b * svf.b + (int64_t)tl * svf.s + h * svf.h + d];
         } else {
@@ -415,48 +435,87 @@ stale_kv_attention_fma_kernel(const float* __restrict__ q, const float* __restri
 template <int HD>
 cudaError_t launch(int dtype, const void* q, const void* kf, const void* vf, const void* ks,
                    const void* vs, void* out, const Strides* st, int B, int H, int Nl, int N,
-                   int tok_start, float scale_log2, cudaStream_t stream) {
+                   int tok_start, int valid_lo, int valid_hi, int b_split, float scale_log2,
+                   cudaStream_t stream) {
   if (dtype == 1) {
     using bf = __nv_bfloat16;
     const dim3 grid((Nl + kMmaBQ - 1) / kMmaBQ, B * H);
     stale_kv_attention_mma_kernel<HD><<<grid, kMmaThreads, 0, stream>>>(
         static_cast<const bf*>(q), static_cast<const bf*>(kf), static_cast<const bf*>(vf),
         static_cast<const bf*>(ks), static_cast<const bf*>(vs), static_cast<bf*>(out), st[0],
-        st[1], st[2], st[3], st[4], st[5], H, Nl, N, tok_start, scale_log2);
+        st[1], st[2], st[3], st[4], st[5], H, Nl, N, tok_start, valid_lo, valid_hi, b_split,
+        scale_log2);
   } else {
     const dim3 grid((Nl + kFmaBQ - 1) / kFmaBQ, B * H);
     stale_kv_attention_fma_kernel<HD><<<grid, kFmaBQ, 0, stream>>>(
         static_cast<const float*>(q), static_cast<const float*>(kf),
         static_cast<const float*>(vf), static_cast<const float*>(ks),
         static_cast<const float*>(vs), static_cast<float*>(out), st[0], st[1], st[2], st[3],
-        st[4], st[5], H, Nl, N, tok_start, scale_log2);
+        st[4], st[5], H, Nl, N, tok_start, valid_lo, valid_hi, b_split, scale_log2);
   }
   return cudaGetLastError();
 }
 
-}  // namespace
-
-// Plain C entry point, bound with ctypes.
-//   dtype: 0 = float32 (CUDA-core body), 1 = bfloat16 (tensor-core body);
-//          all six tensors share it. The bf16 body reads 16-byte row chunks:
-//          pointers 16-byte aligned, strides multiples of 8 elements.
-//   strides: 18 int64 element strides, (b, s, h) for q, k_fresh, v_fresh,
-//            k_stale, v_stale, out in that order; hd must be contiguous
-//   scale: the softmax scale (hd ** -0.5 for the DiT)
-// Returns cudaGetLastError() after the launch (0 = launched).
-extern "C" int stale_kv_attention_launch(int dtype, int hd, const void* q, const void* k_fresh,
-                                         const void* v_fresh, const void* k_stale,
-                                         const void* v_stale, void* out, const int64_t* strides,
-                                         int B, int H, int Nl, int N, int tok_start, float scale,
-                                         void* stream) {
+// Unpack the strides and dispatch on the head dim.
+int dispatch(int dtype, int hd, const void* q, const void* kf, const void* vf, const void* ks,
+             const void* vs, void* out, const int64_t* strides, int B, int H, int Nl, int N,
+             int tok_start, int valid_lo, int valid_hi, int b_split, float scale, void* stream) {
   if (dtype != 0 && dtype != 1) return cudaErrorInvalidValue;
   Strides st[6];
   for (int i = 0; i < 6; ++i) st[i] = {strides[3 * i], strides[3 * i + 1], strides[3 * i + 2]};
   const float scale_log2 = scale * 1.4426950408889634f;  // log2(e)
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (hd) {
-    case 32: return launch<32>(dtype, q, k_fresh, v_fresh, k_stale, v_stale, out, st, B, H, Nl, N, tok_start, scale_log2, s);
-    case 72: return launch<72>(dtype, q, k_fresh, v_fresh, k_stale, v_stale, out, st, B, H, Nl, N, tok_start, scale_log2, s);
+    case 32: return launch<32>(dtype, q, kf, vf, ks, vs, out, st, B, H, Nl, N, tok_start, valid_lo, valid_hi, b_split, scale_log2, s);
+    case 72: return launch<72>(dtype, q, kf, vf, ks, vs, out, st, B, H, Nl, N, tok_start, valid_lo, valid_hi, b_split, scale_log2, s);
     default: return cudaErrorInvalidValue;
   }
+}
+
+}  // namespace
+
+// Plain C entry points, bound with ctypes. Common arguments:
+//   dtype: 0 = float32 (CUDA-core body), 1 = bfloat16 (tensor-core body);
+//          all six tensors share it. The bf16 body reads 16-byte row chunks:
+//          pointers 16-byte aligned, strides multiples of 8 elements.
+//   strides: 18 int64 element strides, (b, s, h) for q, k_fresh, v_fresh,
+//            k_stale, v_stale, out in that order; hd must be contiguous
+//   Nl: query rows (and rows of the fresh K/V)
+//   scale: the softmax scale (hd ** -0.5 for the DiT)
+// Each returns cudaGetLastError() after the launch (0 = launched).
+
+// K1: N context keys; the Nl fresh rows sit at tok_start.
+extern "C" int stale_kv_attention_launch(int dtype, int hd, const void* q, const void* k_fresh,
+                                         const void* v_fresh, const void* k_stale,
+                                         const void* v_stale, void* out, const int64_t* strides,
+                                         int B, int H, int Nl, int N, int tok_start, float scale,
+                                         void* stream) {
+  return dispatch(dtype, hd, q, k_fresh, v_fresh, k_stale, v_stale, out, strides, B, H, Nl, N,
+                  tok_start, Nl, Nl, B, scale, stream);
+}
+
+// K2: the slab's first valid_tokens rows are fresh at tok_start; the stale
+// buffer's keys from n_tokens on are scratch and masked.
+extern "C" int stale_kv_attention_padded_launch(int dtype, int hd, const void* q,
+                                                const void* k_fresh, const void* v_fresh,
+                                                const void* k_stale, const void* v_stale,
+                                                void* out, const int64_t* strides, int B, int H,
+                                                int Nl, int n_tokens, int tok_start,
+                                                int valid_tokens, float scale, void* stream) {
+  return dispatch(dtype, hd, q, k_fresh, v_fresh, k_stale, v_stale, out, strides, B, H, Nl,
+                  n_tokens, tok_start, valid_tokens, valid_tokens, B, scale, stream);
+}
+
+// K5: 2 * B batch rows, the conditional branch (rows < B) then the
+// unconditional one, whose fresh rows are valid_tokens * uncond_fresh.
+extern "C" int stale_kv_attention_guided_launch(int dtype, int hd, const void* q,
+                                                const void* k_fresh, const void* v_fresh,
+                                                const void* k_stale, const void* v_stale,
+                                                void* out, const int64_t* strides, int B, int H,
+                                                int Nl, int n_tokens, int tok_start,
+                                                int valid_tokens, int uncond_fresh, float scale,
+                                                void* stream) {
+  return dispatch(dtype, hd, q, k_fresh, v_fresh, k_stale, v_stale, out, strides, 2 * B, H, Nl,
+                  n_tokens, tok_start, valid_tokens, uncond_fresh ? valid_tokens : 0, B, scale,
+                  stream);
 }

@@ -109,12 +109,61 @@ def load_library() -> Library:
 
 
 # ----------------------------------------------------------------------
-# kernel K1: stale-KV patch attention
+# kernel K1: stale-KV patch attention (and the checks K2 and K5 share)
 # ----------------------------------------------------------------------
+
+def _check_cuda_operands(kernel: str, tensors) -> None:
+    """What the CUDA bodies take: one CUDA device, float32 or bfloat16 for
+    all, an instantiated head dim, a contiguous head dim, and for bf16
+    16-byte rows."""
+    q = tensors[0]
+    if q.device.type != "cuda":
+        raise ValueError(f"no {kernel} kernel for {q.device}")
+    if len({t.dtype for t in tensors}) != 1 or q.dtype not in (torch.float32,
+                                                               torch.bfloat16):
+        raise ValueError("operands must all be float32 or all bfloat16, got "
+                         f"{[t.dtype for t in tensors]}")
+    if q.shape[-1] not in skv.SUPPORTED_HEAD_DIMS:
+        raise ValueError(f"head dim {q.shape[-1]} not instantiated; the kernel "
+                         f"takes {skv.SUPPORTED_HEAD_DIMS}")
+    if any(t.stride(-1) != 1 for t in tensors):
+        raise ValueError("the head dim (last axis) must be contiguous")
+    if q.dtype == torch.bfloat16 and any(
+            t.data_ptr() % 16 or any(st % 8 for st in t.stride()[:-1])
+            for t in tensors):
+        raise ValueError("the bf16 kernel reads 16-byte row chunks: pointers "
+                         "must be 16-byte aligned, strides multiples of 8")
+
+
+def _check_padded_layout(q, k_fresh, v_fresh, k_stale, v_stale, tok_start,
+                         valid_tokens, n_tokens) -> None:
+    """Shapes and run-time layout of K2 (and of each K5 branch)."""
+    B, Nl, H, hd = q.shape
+    Npad = k_stale.shape[1]
+    if k_fresh.shape != q.shape or v_fresh.shape != q.shape:
+        raise ValueError(f"fresh K/V {tuple(k_fresh.shape)}/"
+                         f"{tuple(v_fresh.shape)} must match q {tuple(q.shape)}")
+    if k_stale.shape != (B, Npad, H, hd) or v_stale.shape != k_stale.shape:
+        raise ValueError(f"stale K/V {tuple(k_stale.shape)}/"
+                         f"{tuple(v_stale.shape)} must be [B, Npad, H, hd] = "
+                         f"[{B}, Npad, {H}, {hd}]")
+    if not 0 < n_tokens <= Npad:
+        raise ValueError(f"n_tokens={n_tokens} must lie in (0, {Npad}], the "
+                         "buffer's rows")
+    if not 0 <= valid_tokens <= Nl:
+        raise ValueError(f"valid_tokens={valid_tokens} must lie in [0, {Nl}], "
+                         "the slab's rows")
+    if not 0 <= tok_start <= Npad - Nl:
+        raise ValueError(f"tok_start={tok_start} puts the {Nl}-row slab "
+                         f"outside the {Npad}-row scratch-padded buffer")
+    if len({t.device for t in (q, k_fresh, v_fresh, k_stale, v_stale)}) != 1:
+        raise ValueError("all operands must lie on one device")
+
 
 def stale_kv_attention(q, k_fresh, v_fresh, k_stale, v_stale, *,
                        tok_start: int):
-    """DistriFusion hot op (reference ``repro.kernels.ops.stale_kv_attention``).
+    """Kernel K1, the DistriFusion hot op (reference
+    ``repro.kernels.ops.stale_kv_attention``).
 
     q/k_fresh/v_fresh: [B, Nl, H, hd] local fresh; k_stale/v_stale:
     [B, N, H, hd] whole-image stale buffer. Returns [B, Nl, H, hd] in q's
@@ -139,22 +188,7 @@ def stale_kv_attention(q, k_fresh, v_fresh, k_stale, v_stale, *,
     if q.device.type == "cpu":
         return ref.stale_kv_attention_ref(q, k_fresh, v_fresh, k_stale,
                                           v_stale, tok_start)
-    if q.device.type != "cuda":
-        raise ValueError(f"no stale_kv_attention kernel for {q.device}")
-    if len({t.dtype for t in tensors}) != 1 or q.dtype not in (torch.float32,
-                                                               torch.bfloat16):
-        raise ValueError("operands must all be float32 or all bfloat16, got "
-                         f"{[t.dtype for t in tensors]}")
-    if hd not in skv.SUPPORTED_HEAD_DIMS:
-        raise ValueError(f"head dim {hd} not instantiated; the kernel takes "
-                         f"{skv.SUPPORTED_HEAD_DIMS}")
-    if any(t.stride(3) != 1 for t in tensors):
-        raise ValueError("the head dim (last axis) must be contiguous")
-    if q.dtype == torch.bfloat16 and any(
-            t.data_ptr() % 16 or any(st % 8 for st in t.stride()[:3])
-            for t in tensors):
-        raise ValueError("the bf16 kernel reads 16-byte row chunks: pointers "
-                         "must be 16-byte aligned, strides multiples of 8")
+    _check_cuda_operands("stale_kv_attention", tensors)
     lib = load_library().lib
     out = torch.empty((B, Nl, H, hd), dtype=q.dtype, device=q.device)
     with torch.cuda.device(q.device):      # launch on the operands' card
@@ -164,6 +198,89 @@ def stale_kv_attention(q, k_fresh, v_fresh, k_stale, v_stale, *,
         raise RuntimeError(f"stale_kv_attention launch failed: CUDA error {err}")
     _launches["stale_kv_attention"] += 1
     return out
+
+
+# ----------------------------------------------------------------------
+# kernels K2 and K5: the multi-rank (padded) forms of K1
+# ----------------------------------------------------------------------
+
+def stale_kv_attention_padded(q, k_fresh, v_fresh, k_stale, v_stale,
+                              tok_start: int, valid_tokens: int, *,
+                              n_tokens: int):
+    """Kernel K2, the padded-layout DistriFusion hot op of the multi-rank
+    executors (reference ``repro.kernels.ops.stale_kv_attention_padded``).
+
+    q/k_fresh/v_fresh: [B, Nl_max, H, hd] local slab padded to the largest
+    patch, its first ``valid_tokens`` rows real; k_stale/v_stale:
+    [B, Npad, H, hd] whole-image stale buffer, scratch-padded past
+    ``n_tokens`` real keys. Key t is fresh when ``0 <= t - tok_start <
+    valid_tokens``, stale otherwise, and masked when ``t >= n_tokens``.
+    Returns [B, Nl_max, H, hd] in q's dtype; rows past ``valid_tokens`` are
+    scratch, for the caller to drop. ``tok_start`` and ``valid_tokens`` are
+    launch arguments: one build serves every rank's layout."""
+    tok_start, valid_tokens = int(tok_start), int(valid_tokens)
+    _check_padded_layout(q, k_fresh, v_fresh, k_stale, v_stale, tok_start,
+                         valid_tokens, n_tokens)
+    if q.device.type == "cpu":
+        return ref.stale_kv_attention_padded_ref(
+            q, k_fresh, v_fresh, k_stale, v_stale, tok_start, valid_tokens,
+            n_tokens)
+    tensors = (q, k_fresh, v_fresh, k_stale, v_stale)
+    _check_cuda_operands("stale_kv_attention_padded", tensors)
+    lib = load_library().lib
+    out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    with torch.cuda.device(q.device):
+        err = skv.launch_padded(lib, *tensors, out, tok_start, valid_tokens,
+                                n_tokens, q.shape[-1] ** -0.5)
+    if err != 0:
+        raise RuntimeError("stale_kv_attention_padded launch failed: CUDA "
+                           f"error {err}")
+    _launches["stale_kv_attention_padded"] += 1
+    return out
+
+
+def stale_kv_attention_guided(q, k_fresh, v_fresh, k_stale, v_stale,
+                              tok_start: int, valid_tokens: int,
+                              uncond_fresh: int, *, n_tokens: int):
+    """Kernel K5, K2 over both guidance branches in one launch (reference
+    ``repro.kernels.ops.stale_kv_attention_guided``).
+
+    Operands carry a leading branch axis of 2 (0 conditional, 1
+    unconditional): q/fresh [2, B, Nl_max, H, hd], stale [2, B, Npad, H,
+    hd]. The unconditional branch's fresh rows are ``valid_tokens *
+    uncond_fresh``: with 0 it attends the stale buffer as is (interleaved
+    guidance's reuse). Returns [2, B, Nl_max, H, hd]. The branch axis is
+    folded into the batch; an operand whose two leading axes do not fold
+    into one stride is copied."""
+    tok_start, valid_tokens = int(tok_start), int(valid_tokens)
+    if uncond_fresh not in (0, 1):
+        raise ValueError(f"uncond_fresh must be 0 or 1, got {uncond_fresh!r}")
+    uncond_fresh = int(uncond_fresh)
+    if q.dim() != 5 or q.shape[0] != 2:
+        raise ValueError(f"q {tuple(q.shape)} must be [2, B, Nl_max, H, hd]: "
+                         "the leading axis is the guidance branch")
+    tensors = (q, k_fresh, v_fresh, k_stale, v_stale)
+    if any(t.dim() != 5 or t.shape[0] != 2 for t in tensors):
+        raise ValueError("every operand needs the leading branch axis of 2")
+    _check_padded_layout(*(t[0] for t in tensors), tok_start, valid_tokens,
+                         n_tokens)
+    if any(t.shape != u.shape for t, u in zip(tensors, (q, q, q, k_stale, k_stale))):
+        raise ValueError("operand shapes disagree between the branches")
+    if q.device.type == "cpu":
+        return ref.stale_kv_attention_guided_ref(
+            *tensors, tok_start, valid_tokens, uncond_fresh, n_tokens)
+    folded = tuple(t.flatten(0, 1) for t in tensors)
+    _check_cuda_operands("stale_kv_attention_guided", folded)
+    lib = load_library().lib
+    out = torch.empty(folded[0].shape, dtype=q.dtype, device=q.device)
+    with torch.cuda.device(q.device):
+        err = skv.launch_guided(lib, *folded, out, tok_start, valid_tokens,
+                                uncond_fresh, n_tokens, q.shape[-1] ** -0.5)
+    if err != 0:
+        raise RuntimeError("stale_kv_attention_guided launch failed: CUDA "
+                           f"error {err}")
+    _launches["stale_kv_attention_guided"] += 1
+    return out.unflatten(0, (2, q.shape[1]))
 
 
 # ----------------------------------------------------------------------

@@ -6,6 +6,8 @@ from __future__ import annotations
 
 from typing import Optional
 
+import torch
+
 from repro_torch.models import layers
 
 
@@ -24,6 +26,49 @@ def stale_kv_attention_ref(q, k_fresh, v_fresh, k_stale, v_stale,
     full_v[:, tok_start:tok_start + Nl] = v_fresh.to(v_stale.dtype)
     out = layers.attend(q.float(), full_k.float(), full_v.float(), scale=scale)
     return out.to(q.dtype)
+
+
+def stale_kv_attention_padded_ref(q, k_fresh, v_fresh, k_stale, v_stale,
+                                  tok_start: int, valid_tokens: int,
+                                  n_tokens: int, scale: Optional[float] = None):
+    """Plain version of kernel K2, in the public [B, S, H, hd] layout: the
+    reference's SPMD branch of ``dit.block_stack`` (mask-blend, update-slice,
+    masked attend).
+
+    q/k_fresh/v_fresh: [B, Nl_max, H, hd] slab, its first ``valid_tokens``
+    rows real; k_stale/v_stale: [B, Npad, H, hd] buffer, keys from
+    ``n_tokens`` on scratch. The slab's rows past ``valid_tokens`` are
+    blended back to the buffer's current values before the slab is written
+    at ``tok_start``, and scratch keys are masked out of the fp32 softmax.
+    Returns [B, Nl_max, H, hd] in q's dtype, scratch query rows included."""
+    Nl = q.shape[1]
+    fresh = (torch.arange(Nl, device=q.device) < valid_tokens)[None, :, None, None]
+    full_k = k_stale.clone()
+    full_v = v_stale.clone()
+    rows = slice(tok_start, tok_start + Nl)
+    full_k[:, rows] = torch.where(fresh, k_fresh.to(k_stale.dtype), k_stale[:, rows])
+    full_v[:, rows] = torch.where(fresh, v_fresh.to(v_stale.dtype), v_stale[:, rows])
+    keys = (torch.arange(k_stale.shape[1], device=q.device) < n_tokens)
+    out = layers.attend(q.float(), full_k.float(), full_v.float(),
+                        mask=keys[None, None, None, :], scale=scale)
+    return out.to(q.dtype)
+
+
+def stale_kv_attention_guided_ref(q, k_fresh, v_fresh, k_stale, v_stale,
+                                  tok_start: int, valid_tokens: int,
+                                  uncond_fresh: int, n_tokens: int,
+                                  scale: Optional[float] = None):
+    """Plain version of kernel K5: :func:`stale_kv_attention_padded_ref` for
+    each of the two guidance branches of the leading axis (0 conditional,
+    1 unconditional); the unconditional branch's fresh rows are
+    ``valid_tokens * uncond_fresh`` (0: it attends the stale buffer as is).
+    Operands [2, B, S, H, hd]; returns [2, B, Nl_max, H, hd]."""
+    valid = (valid_tokens, valid_tokens * int(uncond_fresh))
+    return torch.stack([
+        stale_kv_attention_padded_ref(q[g], k_fresh[g], v_fresh[g],
+                                      k_stale[g], v_stale[g], tok_start,
+                                      valid[g], n_tokens, scale)
+        for g in range(2)])
 
 
 def cfg_epilogue_ref(eps_c, eps_u, scale):

@@ -1,8 +1,15 @@
-"""Stale-KV patch attention (kernel K1) on Hopper: the ctypes binding of
-``csrc/stale_kv_attention.cu``.
+"""Stale-KV patch attention on Hopper (kernels K1, K2 and K5): the ctypes
+binding of ``csrc/stale_kv_attention.cu``.
 
-Reference: ``repro.kernels.stale_kv_attention.stale_kv_attention_bhsd``, the
-TPU kernel it replaces. Q comes from the local fresh patch; keys and values
+Reference: ``repro.kernels.stale_kv_attention.stale_kv_attention_bhsd`` (K1),
+``stale_kv_attention_padded_bhsd`` (K2) and ``stale_kv_attention_guided_bhsd``
+(K5), the TPU kernels they replace. K2 is K1 for the multi-rank executors:
+the slab is padded to the largest patch, only its first ``valid_tokens``
+rows are fresh, and the stale buffer's scratch tail (keys from ``n_tokens``
+on) is masked; ``tok_start`` and ``valid_tokens`` are launch arguments, so
+one build serves every rank. K5 is K2 over both guidance branches, the
+unconditional one fresh only when ``uncond_fresh``; it runs as K2 at batch
+2B with a fresh-row count per branch. Q comes from the local fresh patch; keys and values
 for the whole image come from the stale buffer except the patch's own rows,
 which come from the fresh K/V of this step. The CUDA kernel chooses the
 source pointer per key row, so it needs no tile alignment of ``tok_start``
@@ -12,8 +19,9 @@ terms so P·V keeps them to about 16 bits), float32 inputs a CUDA-core FMA
 body that keeps full fp32 precision.
 
 This module only marshals arguments; :func:`repro_torch.kernels.ops.
-stale_kv_attention` is the public wrapper that validates inputs, picks the
-plain version for CPU tensors and counts launches.
+stale_kv_attention`, ``stale_kv_attention_padded`` and
+``stale_kv_attention_guided`` are the public wrappers that validate inputs,
+pick the plain version for CPU tensors and count launches.
 """
 from __future__ import annotations
 
@@ -28,28 +36,64 @@ SUPPORTED_HEAD_DIMS = (32, 72)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
+_COMMON = [ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 6 + [
+    ctypes.POINTER(ctypes.c_int64)]
+
+
 def bind(lib: ctypes.CDLL) -> None:
-    """Declare the C signature of ``stale_kv_attention_launch``."""
-    fn = lib.stale_kv_attention_launch
-    fn.argtypes = ([ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 6
-                   + [ctypes.POINTER(ctypes.c_int64)] + [ctypes.c_int] * 5
-                   + [ctypes.c_float, ctypes.c_void_p])
-    fn.restype = ctypes.c_int
+    """Declare the C signatures of the three entry points."""
+    for name, n_ints in (("stale_kv_attention_launch", 5),
+                         ("stale_kv_attention_padded_launch", 6),
+                         ("stale_kv_attention_guided_launch", 7)):
+        fn = getattr(lib, name)
+        fn.argtypes = (_COMMON + [ctypes.c_int] * n_ints
+                       + [ctypes.c_float, ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+
+
+def _pointers_and_strides(*tensors):
+    """Data pointers, then the (b, s, h) element strides of every tensor."""
+    strides = [st for t in tensors for st in t.stride()[:3]]
+    return ([t.data_ptr() for t in tensors],
+            (ctypes.c_int64 * len(strides))(*strides))
 
 
 def launch(lib: ctypes.CDLL, q, k_fresh, v_fresh, k_stale, v_stale,
            out, tok_start: int, scale: float) -> int:
-    """Launch the kernel on the current stream; returns the CUDA error code
-    of the launch (0 = launched). All tensors are [B, S, H, hd] CUDA tensors
-    of one dtype with a contiguous last dim (checked by the caller)."""
+    """Launch K1 on the current stream; returns the CUDA error code of the
+    launch (0 = launched). All tensors are [B, S, H, hd] CUDA tensors of one
+    dtype with a contiguous last dim (checked by the caller)."""
     B, Nl, H, hd = q.shape
-    N = k_stale.shape[1]
-    strides = []
-    for t in (q, k_fresh, v_fresh, k_stale, v_stale, out):
-        strides += [t.stride(0), t.stride(1), t.stride(2)]
-    c_strides = (ctypes.c_int64 * len(strides))(*strides)
+    ptrs, strides = _pointers_and_strides(q, k_fresh, v_fresh, k_stale,
+                                          v_stale, out)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     return lib.stale_kv_attention_launch(
-        _DTYPE_CODES[q.dtype], hd, q.data_ptr(), k_fresh.data_ptr(),
-        v_fresh.data_ptr(), k_stale.data_ptr(), v_stale.data_ptr(),
-        out.data_ptr(), c_strides, B, H, Nl, N, tok_start, scale, stream)
+        _DTYPE_CODES[q.dtype], hd, *ptrs, strides, B, H, Nl,
+        k_stale.shape[1], tok_start, scale, stream)
+
+
+def launch_padded(lib: ctypes.CDLL, q, k_fresh, v_fresh, k_stale, v_stale,
+                  out, tok_start: int, valid_tokens: int, n_tokens: int,
+                  scale: float) -> int:
+    """Launch K2: q/fresh/out [B, Nl_max, H, hd], stale [B, Npad, H, hd]."""
+    B, Nl, H, hd = q.shape
+    ptrs, strides = _pointers_and_strides(q, k_fresh, v_fresh, k_stale,
+                                          v_stale, out)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    return lib.stale_kv_attention_padded_launch(
+        _DTYPE_CODES[q.dtype], hd, *ptrs, strides, B, H, Nl, n_tokens,
+        tok_start, valid_tokens, scale, stream)
+
+
+def launch_guided(lib: ctypes.CDLL, q, k_fresh, v_fresh, k_stale, v_stale,
+                  out, tok_start: int, valid_tokens: int, uncond_fresh: int,
+                  n_tokens: int, scale: float) -> int:
+    """Launch K5 on the branch-folded views: q/fresh/out [2B, Nl_max, H, hd],
+    stale [2B, Npad, H, hd], the conditional branch's B rows first."""
+    B2, Nl, H, hd = q.shape
+    ptrs, strides = _pointers_and_strides(q, k_fresh, v_fresh, k_stale,
+                                          v_stale, out)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    return lib.stale_kv_attention_guided_launch(
+        _DTYPE_CODES[q.dtype], hd, *ptrs, strides, B2 // 2, H, Nl, n_tokens,
+        tok_start, valid_tokens, uncond_fresh, scale, stream)

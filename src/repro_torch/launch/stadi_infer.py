@@ -2,24 +2,34 @@
 
 Thin CLI over :class:`repro_torch.core.pipeline.StadiPipeline`; strategy
 selection is ``--planner`` (uniform / spatial / temporal / stadi / makespan /
-stadi_guidance) and ``--backend`` (emulated / simulate); ``--cfg-scale``
+stadi_guidance) and ``--backend`` (emulated / simulate / spmd /
+spmd_guidance; ``--spmd`` is short for ``--backend spmd``); ``--cfg-scale``
 turns on classifier-free guidance. It runs on the GPU unless ``--device
 cpu`` is given. Weights are random (``--seed``), as in the reference driver.
+
+The multi-rank backends start one rank per device of the cluster
+(:mod:`repro_torch.launch.ranks`): NCCL with one card per rank, or gloo with
+``--dist-backend gloo``, which also lets the ranks share fewer cards (their
+times are then not a multi-GPU makespan); CPU ranks always run gloo.
+``--check-vs-emulation`` also runs the emulated backend in this process and
+holds the ranks' image to it (relative error < 1e-3).
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.stadi_infer --arch sdxl-dit \
       --occupancies 0.0,0.5 --m-base 16 --m-warmup 4 [--cfg-scale 4.0]
+  PYTHONPATH=src python -m repro_torch.launch.stadi_infer --device cpu \
+      --reduced --spmd --check-vs-emulation
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
+import sys
 import time
 
 #: reference flags and choices that later slices of the port bring
 _LATER_FLAGS = {
-    "--spmd": "the multi-GPU slice (queue 1 item 7)",
-    "--check-vs-emulation": "the multi-GPU slice (queue 1 item 7)",
     "--num-stages": "the pipefuse slice (queue 1 item 10)",
     "--micro-patches": "the pipefuse slice (queue 1 item 10)",
     "--seq-shards": "the sequence-parallel slice (queue 1 item 11)",
@@ -47,7 +57,17 @@ def _parser() -> argparse.ArgumentParser:
                     choices=["uniform", "spatial", "temporal", "stadi",
                              "makespan", "stadi_guidance"])
     ap.add_argument("--backend", default="emulated",
-                    choices=["emulated", "simulate"])
+                    choices=["emulated", "simulate", "spmd", "spmd_guidance"])
+    ap.add_argument("--spmd", action="store_true",
+                    help="short for --backend spmd")
+    ap.add_argument("--dist-backend", default=None, choices=["nccl", "gloo"],
+                    help="collectives of the multi-rank backends: NCCL (the "
+                         "default on CUDA, one card per rank) or gloo (CPU "
+                         "ranks; on CUDA only when named, and ranks may then "
+                         "share cards)")
+    ap.add_argument("--check-vs-emulation", action="store_true",
+                    help="multi-rank backends: also run the emulated backend "
+                         "and require relative error < 1e-3")
     ap.add_argument("--cond", type=int, default=0,
                     help="class id to condition on")
     ap.add_argument("--cfg-scale", type=float, default=0.0,
@@ -77,27 +97,17 @@ def _parser() -> argparse.ArgumentParser:
     return ap
 
 
-def main(argv=None):
-    ap = _parser()
-    args, rest = ap.parse_known_args(argv)
-    for tok in rest:
-        flag = tok.split("=", 1)[0]
-        if flag in _LATER_FLAGS:
-            ap.error(f"{flag} is not ported yet: it comes with "
-                     f"{_LATER_FLAGS[flag]} of ROADMAP.md")
-    if rest:
-        ap.error(f"unrecognized arguments: {' '.join(rest)}")
-
+def _setup(args, device):
+    """Model, weights, noise, class and pipeline config of a run, all from
+    ``args`` and its seed: every rank and the parent build the same."""
     import torch
 
     from repro_torch.configs import get_config
     from repro_torch.core import sampler as sampler_lib
-    from repro_torch.core.pipeline import (StadiConfig, StadiPipeline,
-                                           resolve_device)
+    from repro_torch.core.pipeline import StadiConfig
     from repro_torch.core.simulate import CostModel
     from repro_torch.models.diffusion import dit
 
-    device = resolve_device(args.device)
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
@@ -127,24 +137,102 @@ def main(argv=None):
         exchange_refresh=args.exchange_refresh, guidance=args.guidance,
         cfg_scale=args.cfg_scale, uncond_refresh=args.uncond_refresh,
         **knobs)
+    return cfg, params, sched, x_T, cond, config
+
+
+def _rank_generate(ctx, argv):
+    """One rank of a multi-rank run: the same setup as the parent, on the
+    rank's device, then ``generate``. Returns what the parent prints."""
+    import torch
+
+    from repro_torch.core.pipeline import StadiPipeline
+
+    args = _parse(argv)
+    cfg, params, sched, x_T, cond, config = _setup(args, ctx.device)
+    pipe = StadiPipeline(cfg, params, sched, config, device=ctx.device)
+    t0 = time.perf_counter()
+    res = pipe.generate(x_T, cond)
+    if ctx.device.type == "cuda":
+        torch.cuda.synchronize(ctx.device)
+    return {"rank": ctx.rank, "seconds": time.perf_counter() - t0,
+            "launches": res.kernel_stats["launches"],
+            "image": res.image.float().cpu().numpy()}
+
+
+def _parse(argv):
+    ap = _parser()
+    args, rest = ap.parse_known_args(argv)
+    for tok in rest:
+        flag = tok.split("=", 1)[0]
+        if flag in _LATER_FLAGS:
+            ap.error(f"{flag} is not ported yet: it comes with "
+                     f"{_LATER_FLAGS[flag]} of ROADMAP.md")
+    if rest:
+        ap.error(f"unrecognized arguments: {' '.join(rest)}")
+    if args.spmd:
+        args.backend = "spmd"
+    return args
+
+
+def main(argv=None):
+    argv = sys.argv[1:] if argv is None else list(argv)
+    args = _parse(argv)
+
+    import numpy as np
+    import torch
+
+    from repro_torch.core.pipeline import StadiPipeline, resolve_device
+
+    device = resolve_device(args.device)
+    cfg, params, sched, x_T, cond, config = _setup(args, device)
     pipe = StadiPipeline(cfg, params, sched, config, device=device)
     plan = pipe.plan()
     print(f"speeds={config.speeds} steps={plan.temporal.steps} "
           f"ratios={plan.temporal.ratios} patches={plan.patches} "
           f"guidance={plan.guidance}")
+    summary = {"patches": plan.patches, "steps": plan.temporal.steps,
+               "planner": args.planner, "backend": args.backend,
+               "device": str(device)}
+
+    if args.backend in ("spmd", "spmd_guidance"):
+        from repro_torch.launch import ranks
+        world = config.n_devices
+        per_rank = ranks.spawn(_rank_generate, world, device_type=device.type,
+                               dist_backend=args.dist_backend, args=(argv,))
+        backend = ranks.resolve_backend(device.type, world, args.dist_backend)
+        img = per_rank[0]["image"]
+        same = all(np.array_equal(r["image"], img) for r in per_rank)
+        finite = bool(np.isfinite(img).all())
+        shared = (device.type == "cuda"
+                  and world > torch.cuda.device_count())
+        print(f"{args.backend} run on {world} {device.type} ranks ({backend}"
+              f"{'; ranks share the cards: not a makespan' if shared else ''}"
+              f"): seconds per rank "
+              f"{[round(r['seconds'], 3) for r in per_rank]}, image "
+              f"{img.shape} finite={finite} same on every rank={same}, "
+              f"launches per rank {[r['launches'] for r in per_rank]}")
+        summary.update(ranks=world, dist_backend=backend, finite=finite)
+        if args.check_vs_emulation:
+            emu = StadiPipeline(cfg, params, sched, dataclasses.replace(
+                config, backend="emulated"), device=device)
+            ref = emu.generate(x_T, cond).image.float().cpu().numpy()
+            err = float(np.linalg.norm(img - ref) / np.linalg.norm(ref))
+            print(f"rel_err_vs_emulation={err:.3e}")
+            if not err < 1e-3:
+                raise AssertionError(f"rel_err_vs_emulation {err} >= 1e-3")
+            summary["rel_err_vs_emulation"] = err
+        print(json.dumps(summary))
+        return summary
 
     if device.type == "cuda":
         from repro_torch.kernels import ops
         ops.load_library()                 # build the kernels outside the timing
     t0 = time.perf_counter()
     res = pipe.generate(x_T, cond)
-    summary = {"patches": plan.patches, "steps": plan.temporal.steps,
-               "planner": args.planner, "backend": args.backend,
-               "device": str(device)}
     if res.image is None:                  # trace-only backend
         print(f"{args.backend} run: modeled latency {res.latency_s:.6f}s")
         print(json.dumps({**summary, "latency_s": res.latency_s}))
-        return
+        return summary
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     seconds = time.perf_counter() - t0
@@ -153,6 +241,7 @@ def main(argv=None):
           f"{tuple(res.image.shape)} finite={finite} "
           f"kernel_stats={json.dumps(res.kernel_stats, sort_keys=True)}")
     print(json.dumps({**summary, "finite": finite}))
+    return summary
 
 
 if __name__ == "__main__":

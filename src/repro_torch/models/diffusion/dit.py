@@ -13,7 +13,10 @@ of ``lax.scan``. Every attention — the buffered patch read and the
 full-image warm-up read alike — goes through
 :func:`repro_torch.kernels.ops.stale_kv_attention`, which runs the
 hand-written CUDA kernel for CUDA tensors and its plain version for CPU
-tensors. Dtypes follow JAX's promotion rule: a product of activations and
+tensors. With ``valid_tokens`` set (the multi-rank executors' slab padded
+to the largest patch), the buffered read goes through
+:func:`repro_torch.kernels.ops.stale_kv_attention_padded` (kernel K2)
+instead. Dtypes follow JAX's promotion rule: a product of activations and
 weights of two float dtypes runs in the wider one.
 """
 from __future__ import annotations
@@ -193,6 +196,9 @@ def embed_patch(params, cfg: DiTConfig, x_rows, t, cond, row_start: int):
     Nl = tok.shape[1]
     start = row_start * wp
     pe = pos_embed_2d(wp, wp, cfg.d_model, device=tok.device)[start:start + Nl]
+    # a slab padded past the image's last row (the multi-rank executors)
+    # gets zero positional embeddings on its scratch tail, as in the reference
+    pe = F.pad(pe, (0, 0, 0, Nl - pe.shape[0]))
     h = _linear(tok, params["patch_embed"]) + params["patch_bias"] \
         + pe.to(tok.dtype)
     return h, _cond_vector(params, cfg, t, cond, B)
@@ -200,7 +206,8 @@ def embed_patch(params, cfg: DiTConfig, x_rows, t, cond, row_start: int):
 
 def block_stack(blocks, cfg: DiTConfig, h, c, tok_start: int,
                 buffers: Optional[Tuple] = None, return_kv: bool = True,
-                valid_tokens=None, enable=None, attend_fn=None,
+                valid_tokens: Optional[int] = None, enable=None,
+                attend_fn=None, ctx_tokens: Optional[int] = None,
                 prompt_ctx=None):
     """Run a stack of DiT blocks over hidden states ``h`` [B, Nl, D].
 
@@ -209,17 +216,23 @@ def block_stack(blocks, cfg: DiTConfig, h, c, tok_start: int,
              patch is the whole image) or (buf_k, buf_v) each
              [n_blocks, B, N_total, H, hd] — the stale K/V context; the
              patch's own rows are read fresh instead (DistriFusion)
+    valid_tokens: None, or the multi-rank layout: ``h`` is a slab padded to
+             the largest patch whose first ``valid_tokens`` rows are real,
+             and the buffers are scratch-padded to ``cfg.n_tokens + Nl``
+             rows; every buffered read runs kernel K2, which reads only the
+             real rows fresh and masks the scratch keys. Rows past
+             ``valid_tokens`` are computed and left for the caller to drop.
     Returns (h', kvs) with kvs the fresh (k, v), each [n_blocks, B, Nl, H,
     hd], or None when ``return_kv`` is False.
 
-    The reference's ``valid_tokens`` padding, ``enable`` stage mask,
-    ``attend_fn`` hook and ``prompt_ctx`` cross-attention serve the SPMD,
-    pipefuse, sequence and prompt slices of the port, which bring them.
+    The reference's ``enable`` stage mask, ``attend_fn`` hook, frame
+    ``ctx_tokens`` and ``prompt_ctx`` cross-attention serve the pipefuse,
+    sequence, frames and prompt slices of the port, which bring them.
     """
     for name, value, slice_name in (
-            ("valid_tokens", valid_tokens, "the spmd slice (item 7)"),
             ("enable", enable, "the pipefuse slice (item 10)"),
             ("attend_fn", attend_fn, "the sequence-parallel slice (item 11)"),
+            ("ctx_tokens", ctx_tokens, "the frames slice (item 12)"),
             ("prompt_ctx", prompt_ctx, "the prompt-conditioning slice (item 13)")):
         if value is not None:
             raise NotImplementedError(f"block_stack({name}=...) comes with "
@@ -240,6 +253,12 @@ def block_stack(blocks, cfg: DiTConfig, h, c, tok_start: int,
         if buffers is None:
             # all-fresh layout: the context is the patch itself
             att = kops.stale_kv_attention(q, k, v, k, v, tok_start=0)
+        elif valid_tokens is not None:
+            # padded multi-rank layout: fresh over the real rows only,
+            # scratch keys masked (kernel K2)
+            att = kops.stale_kv_attention_padded(
+                q, k, v, buffers[0][i].to(q.dtype), buffers[1][i].to(q.dtype),
+                tok_start, valid_tokens, n_tokens=cfg.n_tokens)
         else:
             att = kops.stale_kv_attention(q, k, v, buffers[0][i].to(q.dtype),
                                           buffers[1][i].to(q.dtype),
@@ -265,7 +284,8 @@ def final_head(params, cfg: DiTConfig, h, c, rows_tok: int):
 
 
 def forward_patch(params, cfg: DiTConfig, x_rows, t, cond, row_start: int,
-                  buffers: Optional[Tuple] = None, return_kv: bool = True):
+                  buffers: Optional[Tuple] = None, return_kv: bool = True,
+                  valid_tokens: Optional[int] = None):
     """Denoise a row-patch with stale remote K/V.
 
     x_rows: [B, rows_local, W, C] latent slab (full width).
@@ -274,6 +294,9 @@ def forward_patch(params, cfg: DiTConfig, x_rows, t, cond, row_start: int,
              the WHOLE image; the local rows are read fresh instead.
     row_start: first token-row of this patch (positional embeddings and the
              fresh rows' offset in the context).
+    valid_tokens: the multi-rank executors' padded layout — number of REAL
+             local tokens (the rest pads the slab to the largest patch);
+             the buffers are then scratch-padded (see :func:`block_stack`).
     Returns (eps_rows [B, rows_local, W, C], (fresh_k, fresh_v)
     [L,B,Nl,H,hd] or None).
     """
@@ -281,7 +304,8 @@ def forward_patch(params, cfg: DiTConfig, x_rows, t, cond, row_start: int,
     h, c = embed_patch(params, cfg, x_rows, t, cond, row_start)
     tok_start = row_start * cfg.tokens_per_side
     h, kvs = block_stack(params["blocks"], cfg, h, c, tok_start,
-                         buffers=buffers, return_kv=return_kv)
+                         buffers=buffers, return_kv=return_kv,
+                         valid_tokens=valid_tokens)
     return final_head(params, cfg, h, c, rows_tok), kvs
 
 
@@ -315,7 +339,8 @@ def guidance_conds(cond) -> torch.Tensor:
 
 
 def forward_patch_cfg(params, cfg: DiTConfig, x_rows, t, cond, row_start: int,
-                      buffers: Optional[Tuple] = None, return_kv: bool = True):
+                      buffers: Optional[Tuple] = None, return_kv: bool = True,
+                      valid_tokens: Optional[int] = None):
     """Both guidance branches of :func:`forward_patch` in ONE forward — the
     port's form of the reference's ``jax.vmap`` over the branch axis. The
     branches are folded into the batch: x repeated to 2B rows, the conds of
@@ -325,6 +350,8 @@ def forward_patch_cfg(params, cfg: DiTConfig, x_rows, t, cond, row_start: int,
     buffers: None or branch-stacked (buf_k, buf_v), each [2, L, B, N, H, hd]
     (branch 0 conditional). Each layer reads them as [2B, N, H, hd]: a
     strided view at B = 1, a copy of the buffer at B > 1.
+    valid_tokens: as in :func:`forward_patch`; both branches are fresh over
+    the same rows, so the padded read runs K2 at batch 2B.
     Returns (eps2 [2, B, rows, W, C], branch-stacked fresh (k, v) [2, L, B,
     Nl, H, hd] or None)."""
     B = x_rows.shape[0]
@@ -334,7 +361,7 @@ def forward_patch_cfg(params, cfg: DiTConfig, x_rows, t, cond, row_start: int,
         buffers = tuple(b.transpose(0, 1).flatten(1, 2) for b in buffers)
     eps, kvs = forward_patch(params, cfg, torch.cat([x_rows, x_rows]), t,
                              conds, row_start, buffers=buffers,
-                             return_kv=return_kv)
+                             return_kv=return_kv, valid_tokens=valid_tokens)
     if kvs is not None:
         kvs = tuple(k.unflatten(1, (2, B)).transpose(0, 1) for k in kvs)
     return eps.unflatten(0, (2, B)), kvs

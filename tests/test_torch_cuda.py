@@ -1,9 +1,10 @@
 """Card-only tests of the port's CUDA kernels (marker ``cuda``): each kernel
 against its plain PyTorch version at the shapes ``chip_smoke.py`` checks,
-and the guided path on the card against the CPU.
-They skip on a machine without a CUDA device. No JAX here: the machine
+the guided path on the card against the CPU, and ``run_spmd`` on two gloo
+ranks that share the card against the CPU. They skip on a machine without a CUDA device. No JAX here: the machine
 with the card has none. Run them there with
 ``PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py``."""
+import dataclasses
 import math
 
 import pytest
@@ -262,3 +263,138 @@ def test_guided_generate_on_card_matches_cpu(cuda, mode):
                      or e.uncond_fresh or not trace.guidance.worker_reuses(i))
     assert res[cuda].kernel_stats["launches"]["cfg_epilogue"] == fresh
     assert (fresh < evals) == (mode == "interleaved")
+
+
+# ----------------------------------------------------------------------
+# kernels K2 and K5: the multi-rank (padded) forms
+# ----------------------------------------------------------------------
+
+# sdxl-dit's spmd main path: slab Nl_max 2304 (patches [36, 28] token rows),
+# buffer n_tokens 4096 + 2304 scratch rows; (tok_start, valid_tokens) of
+# rank 0, rank 1, and rank 0 of the reversed split [28, 36], the layout at
+# which ignoring valid_tokens changes the output
+K2_N, K2_NL, K2_NPAD = 4096, 2304, 6400
+K2_LAYOUTS = [(0, 2304), (2304, 1792), (0, 1792)]
+
+
+def _k2_inputs(dtype, device, B=1, lead=(), seed=3):
+    """Random everywhere, the slab rows past valid_tokens and the buffer's
+    scratch tail included, so a dropped mask or blend shows."""
+    g = torch.Generator(device="cpu").manual_seed(seed)
+
+    def mk(n, std):
+        return (std * torch.randn(*lead, B, n, 16, 72, generator=g)).to(
+            dtype).to(device)
+    return (mk(K2_NL, QK_STD), mk(K2_NL, QK_STD), mk(K2_NL, 1.0),
+            mk(K2_NPAD, QK_STD), mk(K2_NPAD, 1.0))
+
+
+def _k2_faults(plain, args, tok, valid):
+    """Planted faults from the plain version: valid_tokens ignored, the
+    scratch key mask dropped, tok_start one 64-key tile off."""
+    return [plain(*args, tok, K2_NL, K2_N), plain(*args, tok, valid, K2_NPAD),
+            plain(*args, tok + TILE, valid, K2_N)]
+
+
+def _assert_rejects_faults(out, want, faults, dtype):
+    """Every fault that changes the function at this layout is outside
+    the bars."""
+    for bad in faults:
+        moved = ((bad.float() - want.float()).norm() / want.float().norm()).item()
+        if moved >= 1e-6:
+            assert not _within_bars(out, bad, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B", [1, 2])
+@pytest.mark.parametrize("tok,valid", K2_LAYOUTS)
+def test_k2_kernel_matches_plain_and_rejects_faults(cuda, tok, valid, B, dtype):
+    args = _k2_inputs(dtype, cuda, B)
+    ops.reset_launch_counts()
+    out = ops.stale_kv_attention_padded(*args, tok, valid, n_tokens=K2_N)
+    assert ops.launch_counts() == {"stale_kv_attention_padded": 1}
+    want = ref.stale_kv_attention_padded_ref(*args, tok, valid, K2_N)
+    torch.cuda.synchronize()
+    assert out.shape == args[0].shape and out.dtype == dtype
+    _assert_within_bars(out, want, dtype)
+    _assert_rejects_faults(out, want, _k2_faults(
+        ref.stale_kv_attention_padded_ref, args, tok, valid), dtype)
+
+
+@pytest.mark.cuda
+def test_k2_faults_show_somewhere(cuda):
+    """The valid_tokens fault changes nothing at the main path's two
+    layouts (the slab's scratch rows land on masked keys there) and shows
+    at the third; the other two faults show at every layout."""
+    args = _k2_inputs(torch.float32, cuda)
+    moved = []
+    for tok, valid in K2_LAYOUTS:
+        want = ref.stale_kv_attention_padded_ref(*args, tok, valid, K2_N)
+        moved.append([((bad - want).norm() / want.norm()).item() > 1e-6
+                      for bad in _k2_faults(ref.stale_kv_attention_padded_ref,
+                                            args, tok, valid)])
+    assert moved == [[False, True, True], [False, True, True], [True, True, True]]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("uncond_fresh", [0, 1])
+def test_k5_kernel_matches_plain_and_rejects_faults(cuda, uncond_fresh, dtype):
+    tok, valid = K2_LAYOUTS[2]
+    args = _k2_inputs(dtype, cuda, lead=(2,), seed=4)
+
+    def plain(*a):
+        return ref.stale_kv_attention_guided_ref(*a[:-1], uncond_fresh, a[-1])
+    ops.reset_launch_counts()
+    out = ops.stale_kv_attention_guided(*args, tok, valid, uncond_fresh,
+                                        n_tokens=K2_N)
+    assert ops.launch_counts() == {"stale_kv_attention_guided": 1}
+    want = plain(*args, tok, valid, K2_N)
+    torch.cuda.synchronize()
+    assert out.shape == args[0].shape
+    _assert_within_bars(out, want, dtype)
+    _assert_rejects_faults(out, want, _k2_faults(plain, args, tok, valid), dtype)
+
+
+def _tiny_generate(config, device):
+    """tiny-dit.reduced() in fp32 with weights and noise from seed 0."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import sampler
+    from repro_torch.core.pipeline import StadiPipeline
+    from repro_torch.models.diffusion import dit
+
+    cfg = get_config("tiny-dit").reduced()
+    gen = torch.Generator(device="cpu").manual_seed(0)
+    params = dit.nondegenerate_params(dit.init_params(gen, cfg), gen)
+    x_T = torch.randn(1, cfg.latent_size, cfg.latent_size, cfg.channels,
+                      generator=gen)
+    return StadiPipeline(cfg, params, sampler.linear_schedule(1000), config,
+                         device=device).generate(x_T, torch.tensor([3]))
+
+
+def _shared_card_rank(ctx, config):
+    res = _tiny_generate(config, ctx.device)
+    return res.image.cpu(), res.kernel_stats["launches"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cfg_scale", [0.0, 4.0])
+def test_spmd_two_gloo_ranks_on_one_card_match_cpu(cuda, cfg_scale):
+    """run_spmd on 2 gloo ranks sharing the card (K1, K2, and K3 when
+    guided) against the emulated image on the CPU (plain versions)."""
+    from repro_torch.core.pipeline import StadiConfig
+    from repro_torch.launch import ranks
+
+    config = StadiConfig.from_occupancies([0.0, 0.5], m_base=8, m_warmup=2,
+                                          cfg_scale=cfg_scale, backend="spmd")
+    out = ranks.spawn(_shared_card_rank, 2, device_type="cuda",
+                      dist_backend="gloo", args=(config,), timeout=600)
+    want = _tiny_generate(dataclasses.replace(config, backend="emulated"),
+                          "cpu").image
+    for img, launches in out:
+        assert ((img - want).norm() / want.norm()).item() < 1e-3
+        assert launches["stale_kv_attention_padded"] > 0
+        assert ("cfg_epilogue" in launches) == (cfg_scale > 0)
+    assert out[0][1]["stale_kv_attention_padded"] == \
+        2 * out[1][1]["stale_kv_attention_padded"]      # ratios [1, 2]

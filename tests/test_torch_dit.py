@@ -121,7 +121,7 @@ def test_block_stack_refuses_later_slices(model):
     _, _, tcfg, tparams, *_ = model
     h = torch.zeros(1, 8, tcfg.d_model)
     c = torch.zeros(1, tcfg.d_model)
-    for kw in ({"valid_tokens": 8}, {"enable": torch.ones(2, dtype=torch.bool)},
+    for kw in ({"ctx_tokens": 8}, {"enable": torch.ones(2, dtype=torch.bool)},
                {"attend_fn": lambda *a: a[0]}, {"prompt_ctx": (h, None)}):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             tdit.block_stack(tparams["blocks"], tcfg, h, c, 0, **kw)

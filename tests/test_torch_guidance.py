@@ -427,5 +427,7 @@ def test_guided_pipeline_errors(setup):
         mk(dataclasses.replace(conf, rebalance_every=1))
     with pytest.raises(ValueError, match="class condition"):
         mk(conf).generate(torch.from_numpy(x_T), None)
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
-        mk(dataclasses.replace(conf, backend="spmd_guidance"))
+    # a fused plan on the split-guidance ranks: the reference's message
+    with pytest.raises(ValueError, match="plain 'spmd' backend"):
+        mk(dataclasses.replace(conf, backend="spmd_guidance")).generate(
+            torch.from_numpy(x_T), torch.from_numpy(cond))

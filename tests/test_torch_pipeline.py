@@ -177,14 +177,22 @@ def test_entry_points_refuse_without_device_and_later_slices(setup):
         from repro_torch.launch import stadi_infer
         with pytest.raises(RuntimeError, match="no CUDA device"):
             stadi_infer.main(["--reduced"])
-    for knobs, match in (({"backend": "spmd_guidance", "cfg_scale": 3.0},
-                          "multi-GPU"),
-                         ({"num_stages": 2}, "pipefuse"),
+    for knobs, match in (({"num_stages": 2}, "pipefuse"),
                          ({"seq_shards": 2}, "sequence"),
                          ({"num_frames": 2}, "frames"),
                          ({"plan_cache_dir": "x"}, "serving"),
-                         ({"backend": "spmd"}, "multi-GPU"),
                          ({"planner": "stadi_seq"}, "sequence")):
         bad = dataclasses.replace(conf, **knobs)
         with pytest.raises(NotImplementedError, match=match):
             tpipe.StadiPipeline(tcfg, tparams, sched, bad, device="cpu")
+    # the multi-rank backends are ported: outside the ranks of a process
+    # group they refuse to run
+    for knobs in ({"backend": "spmd"}, {"backend": "spmd_guidance",
+                                        "cfg_scale": 3.0,
+                                        "planner": "stadi_guidance",
+                                        "guidance": "split"}):
+        pipe = tpipe.StadiPipeline(tcfg, tparams, sched,
+                                   dataclasses.replace(conf, **knobs),
+                                   device="cpu")
+        with pytest.raises(RuntimeError, match="process group"):
+            pipe.generate(torch.from_numpy(x_T), torch.from_numpy(cond))
