@@ -3,11 +3,11 @@ kernels from this checkout, holds each against its plain PyTorch version at
 the shapes of the paths it drives, drives the main path (STADI on sdxl-dit at
 full width), the guided paths (classifier-free guidance, fused and
 interleaved) through ``StadiPipeline.generate`` and the multi-rank paths
-(spmd, unguided, fused and split guidance) on gloo ranks that share the
-card, and checks card-vs-CPU images.
+(spmd, unguided, fused and split guidance, and spmd_seq, sequence-parallel
+attention) on gloo ranks that share the card, and checks card-vs-CPU images.
 
     python3 chip_smoke.py
-    python3 chip_smoke.py --nccl     # only phase 10, over NCCL on 4 cards
+    python3 chip_smoke.py --nccl     # only phase 11, over NCCL on 4 cards
 
 Phases (any failure raises, so the script exits non-zero):
   1. the card: name and power limit (nvidia-smi), TF32 off for fp32 products
@@ -40,28 +40,40 @@ Phases (any failure raises, so the script exits non-zero):
      scaled_dot_product_attention on the materialized, masked K/V.
   7. K5 (K2 over both guidance branches) with uncond_fresh 0 and 1: the
      bars and faults of phase 6.
-  8. the main path: sdxl-dit (28 layers, bf16, random nondegenerate weights
+  8. K4 (one ring segment of spmd_seq with its fp32 LSE) against its plain
+     version at the spmd_seq path's hop shapes (q [1, 4608, 8, 72], k/v the
+     strided second head group of a [1, 3200, 16, 72] segment, valid_len
+     3200 and 896), at valid_len 0 (an empty segment: out 0, lse -1e30)
+     and at an unaligned 1001, fp32 and bf16, with K1's bars on out and
+     lse. Each bar must reject three planted faults: valid_len ignored, the
+     segment shifted by one 64-key tile, the LSE without its log l term.
+     Times of the kernel, the plain version and scaled_dot_product_attention
+     over k[:, :valid_len] (unmasked; it returns no LSE).
+  9. the main path: sdxl-dit (28 layers, bf16, random nondegenerate weights
      from a seed), 2 logical workers at occupancies [0.0, 0.5], planner
      stadi, backend emulated, exchange sync; finite image, and K1 launched
      once per layer of every forward the trace shows. One more generate
      runs under ``torch.profiler``: its device time by kernel and the
      device idle share are printed.
-  9. the guided paths on the same model, cfg_scale 4.0: fused (the main
+  10. the guided paths on the same model, cfg_scale 4.0: fused (the main
      path's plan) and interleaved (4 devices at [0.0, 0.0, 0.5, 0.5],
      planner stadi_guidance); finite images, K1 once per layer of every
      guided eval and K3 once per eval whose uncond branch is fresh, both
      derived from the trace; each profiled as in phase 8.
- 10. the multi-rank paths on gloo ranks sharing the card (gloo passes the
+ 11. the multi-rank paths on gloo ranks sharing the card (gloo passes the
      CUDA tensors through host memory): sdxl-dit backend spmd on 2 ranks
-     (the main path's cluster), unguided and fused guided, and backend
-     spmd_guidance on 4 ranks at [0.0, 0.0, 0.5, 0.5] (split); each rank's
-     K1, K2 and K3 launches equal to its trace's count, finite images equal
-     on every rank, relative error against the emulated image on the card
-     < 1e-2 (bf16, 16 steps). tiny-dit.reduced() fp32 through the same
-     backends (sync, stale_async, fused, split) against the emulated image
+     (the main path's cluster), unguided and fused guided, backend
+     spmd_guidance on 4 ranks at [0.0, 0.0, 0.5, 0.5] (split), and backend
+     spmd_seq on 2 x 2 ranks (the main path's cluster, seq_shards 2,
+     exchange ring; timed on its one generate, its collectives timed
+     between card synchronisations); each rank's K1, K2, K3 and K4
+     launches equal to its trace's count, finite images equal on every
+     rank, relative error against the emulated image on the card < 1e-2
+     (bf16, 16 steps). tiny-dit.reduced() fp32 through the same backends
+     (sync, stale_async, fused, split, spmd_seq) against the emulated image
      on the CPU, < 1e-3. Per-rank seconds are printed; ranks that share a
      card take turns on it, so they are not a multi-GPU makespan.
- 11. tiny-dit.reduced() in fp32, unguided, fused and interleaved: the card's
+ 12. tiny-dit.reduced() in fp32, unguided, fused and interleaved: the card's
      image (through K1 and K3) against the CPU's (through the plain
      versions), relative error < 1e-3
 Every path is driven with the launch counters set to 0 just before it and
@@ -517,6 +529,124 @@ def phase_k5(ops, ref, dev, peaks):
     return reading
 
 
+# K4's cases: spmd_seq's two hops on sdxl-dit at S = 2 (segments of 3200 rows
+# of the 6400-row scratch-padded buffer, 4096 keys real: 3200 and 896 real),
+# an empty segment (as at S = 4) and a length aligned to no tile
+K4_SQ, K4_HS, K4_T = 4608, 8, 3200
+K4_VALIDS = [3200, 896, 0, 1001]
+
+
+def k4_inputs(dtype, dev, gen):
+    """q [1, 4608, 8, 72] (the Ulysses-scattered slab of both seq members);
+    k, v the second head group of a [1, 3200, 16, 72] segment, strided
+    views as the ring reads them; q and k of std QK_STD."""
+    q = (QK_STD * torch.randn(1, K4_SQ, K4_HS, 72, generator=gen)).to(dtype)
+    hold = torch.randn(2, 1, K4_T, 2 * K4_HS, 72, generator=gen)
+    hold[0] *= QK_STD
+    hold = hold.to(dtype).to(dev)
+    return q.to(dev), hold[0][:, :, K4_HS:], hold[1][:, :, K4_HS:]
+
+
+def k4_planted_faults(ref, q, k, v, valid):
+    """K4's (out, lse) under planted faults, from its plain version:
+    valid_len ignored, the segment shifted by one 64-key tile (zeros past
+    its end), the LSE without its log l term (the row max alone)."""
+    def shift(t):
+        return torch.cat([t[:, TILE:], torch.zeros_like(t[:, :TILE])], 1)
+    want_out, _ = ref.lse_attention_ref(q, k, v, valid)
+    faults = {"valid_len ignored": ref.lse_attention_ref(q, k, v, k.shape[1]),
+              f"segment shifted +{TILE}": ref.lse_attention_ref(
+                  q, shift(k), shift(v), valid)}
+    if valid:
+        scores = torch.einsum("bshd,bthd->bsht", q.float(), k[:, :valid].float())
+        faults["lse without log l"] = (want_out,
+                                       scores.amax(-1) * q.shape[-1] ** -0.5)
+    return faults
+
+
+def k4_reading(out, lse, want, dtype):
+    """(max abs error of out, its norm-relative error, max abs error of the
+    lse, within the bars: K1's for out in its dtype, fp32's on the lse)."""
+    err, rel, ok = k1_reading(out, want[0], dtype)
+    lerr, _, lok = k1_reading(lse, want[1], torch.float32)
+    return err, rel, lerr, ok and lok
+
+
+def k4_bound_ms(valid, dtype, peaks):
+    """Least time for K4's work on this segment: 4*Hs*Sq*valid*hd operations
+    at the input type's peak, or the bytes (q and out once, the valid K/V
+    rows once, the fp32 lse once) at the memory rate."""
+    flops = 4 * K4_HS * K4_SQ * valid * 72
+    elem = torch.tensor([], dtype=dtype).element_size()
+    nbytes = elem * K4_HS * 72 * (2 * K4_SQ + 2 * valid) + 4 * K4_SQ * K4_HS
+    ops_ms = flops / (peaks[0] if dtype == torch.bfloat16 else peaks[1]) * 1e3
+    bytes_ms = nbytes / peaks[2] * 1e3
+    return max(ops_ms, bytes_ms), ("operations" if ops_ms >= bytes_ms else "bytes")
+
+
+def phase_k4(ops, ref, dev, peaks):
+    """K4 against its plain version at spmd_seq's hop shapes, an empty and an
+    unaligned segment, fp32 and bf16, with planted faults; times at the two
+    bf16 hops of the path. Returns the timed readings, valid 3200 first."""
+    F = torch.nn.functional
+    gen = torch.Generator(device="cpu").manual_seed(SEED + 6)
+    timed, rejected = [], set()
+    for dtype in (torch.float32, torch.bfloat16):
+        for valid in K4_VALIDS:
+            q, k, v = k4_inputs(dtype, dev, gen)
+            out, lse = ops.lse_attention(q, k, v, valid)
+            want = ref.lse_attention_ref(q, k, v, valid)
+            line = {"kernel": "lse_attention", "dtype": str(dtype),
+                    "q": list(q.shape), "kv": list(k.shape), "kv_strided":
+                    not k.is_contiguous(), "valid_len": valid,
+                    "bar": BARS[dtype], "norm_bar": NORM_BARS[dtype]}
+            if valid == 0:            # out 0, lse the sentinel: zero weight
+                ok = (torch.equal(out, torch.zeros_like(out))
+                      and torch.equal(lse, want[1])
+                      and lse.max().item() <= -1e29)
+                line.update(max_abs_err=(out.float() - want[0].float()).abs()
+                            .max().item(), lse_max=lse.max().item(), ok=ok)
+                print("k4_check", json.dumps(line), flush=True)
+                check(ok, f"K4 at an empty segment: {line}")
+                continue
+            err, rel, lerr, ok = k4_reading(out, lse, want, dtype)
+            readings = {}
+            for name, bad in k4_planted_faults(ref, q, k, v, valid).items():
+                moved = max(((b.float() - w.float()).norm()
+                             / w.float().norm()).item() for b, w in zip(bad, want))
+                if moved < 1e-6:
+                    readings[name] = {"unchanged_at_this_layout": moved}
+                    continue
+                e, r, le, passed = k4_reading(out, lse, bad, dtype)
+                readings[name] = {"max_abs_err": e, "norm_rel_err": r,
+                                  "lse_max_abs_err": le, "rejected": not passed}
+                if not passed:
+                    rejected.add(name)
+            line.update(max_abs_err=err, norm_rel_err=rel, lse_max_abs_err=lerr,
+                        ok=ok, planted_faults=readings)
+            if dtype == torch.bfloat16 and valid in (3200, 896):
+                bound_ms, bound_by = k4_bound_ms(valid, dtype, peaks)
+                qt, kt, vt = (t.transpose(1, 2) for t in (q, k[:, :valid],
+                                                          v[:, :valid]))
+                line.update(
+                    ms=time_ms(lambda: ops.lse_attention(q, k, v, valid)),
+                    plain_ms=time_ms(lambda: ref.lse_attention_ref(
+                        q, k, v, valid), reps=3),
+                    library_ms=time_ms(lambda: F.scaled_dot_product_attention(
+                        qt, kt, vt)),
+                    library_call="scaled_dot_product_attention over "
+                                 "k[:, :valid_len], unmasked; no LSE returned",
+                    bound_ms=bound_ms, bound_by=bound_by)
+                timed.append(line)
+            print("k4_check", json.dumps(line), flush=True)
+            check(ok, f"K4 disagrees with its plain version: {line}")
+            check(all(f.get("rejected", True) for f in readings.values()),
+                  f"the K4 bar lets a planted fault through: {line}")
+    check(len(rejected) == 3, f"K4: not every planted fault was shown "
+          f"rejected at some segment: {sorted(rejected)}")
+    return timed
+
+
 def _expected_launches(result, n_layers):
     """Launches a generate must make, from its trace: K1 once per layer of
     every denoiser eval (one full-image eval per warm-up step, one patch
@@ -694,8 +824,9 @@ def phase_cross_device(dev):
 def spmd_paths():
     """The multi-rank paths: label -> (model, ranks, config). sdxl-dit at
     full width on the main path's cluster (unguided and fused guidance, 2
-    ranks) and the split placement (4 ranks); tiny-dit.reduced() in fp32
-    under each exchange kind and placement the card-vs-CPU check covers."""
+    ranks; sequence-parallel at seq_shards 2, 2 x 2 ranks) and the split
+    placement (4 ranks); tiny-dit.reduced() in fp32 under each exchange
+    kind and placement the card-vs-CPU check covers."""
     from repro_torch.core.pipeline import StadiConfig
 
     occ = StadiConfig.from_occupancies
@@ -705,6 +836,8 @@ def spmd_paths():
                 cfg_scale=CFG_SCALE, planner="stadi_guidance",
                 guidance="split", backend="spmd_guidance")
     tiny = occ([0.0, 0.5], m_base=8, m_warmup=2, backend="spmd")
+    seq = dataclasses.replace(main, seq_shards=2, exchange="ring",
+                              backend="spmd_seq")
     return {
         "spmd": ("sdxl", 2, main),
         "spmd_fused": ("sdxl", 2, dataclasses.replace(main, cfg_scale=CFG_SCALE)),
@@ -715,58 +848,83 @@ def spmd_paths():
         "tiny_spmd_fused": ("tiny", 2, dataclasses.replace(tiny, cfg_scale=CFG_SCALE)),
         "tiny_spmd_split": ("tiny", 4, dataclasses.replace(
             split, m_base=8, m_warmup=2)),
+        "spmd_seq": ("sdxl", 4, seq),
+        "tiny_spmd_seq": ("tiny", 4, dataclasses.replace(
+            seq, m_base=8, m_warmup=2)),
     }
 
 
 def expected_rank_launches(result, n_layers, rank):
     """Launches one rank's generate must make, from its trace: K1 once per
     layer of each full-image warm-up forward (one bootstrap forward when
-    there is no warm-up), K2 once per layer of each of its patch worker's
-    substeps (a rank skips its inactive substeps), and on fused guidance K3
-    once per eval that uses eps."""
+    there is no warm-up), and per layer of each of its patch worker's
+    substeps (a rank skips its inactive substeps) K2 once, or on a
+    seq-sharded trace K4 once per ring hop its records name (seq_hops + 1
+    segments) and no K2; on fused guidance K3 once per eval that uses eps.
+    Rank s * N + d is worker d's."""
     trace = result.trace
     idx = rank % len(trace.patches)
     warm = sum(1 for e in trace.events if e.synchronous)
     patch = sum(e.substeps[idx] for e in trace.events if not e.synchronous)
-    expected = {"stale_kv_attention": n_layers * max(warm, 1),
-                "stale_kv_attention_padded": n_layers * patch}
+    expected = {"stale_kv_attention": n_layers * max(warm, 1)}
+    if trace.seq is not None:
+        expected["lse_attention"] = n_layers * sum(
+            e.substeps[idx] * (e.seq_hops + 1)
+            for e in trace.events if not e.synchronous)
+    else:
+        expected["stale_kv_attention_padded"] = n_layers * patch
     if trace.guidance is not None and trace.guidance.mode == "fused":
         expected["cfg_epilogue"] = warm + patch
     return expected
 
 
-def time_in_gathers(pipe, x_T, cond, device):
-    """One more generate with each uneven all-gather of the exchanges timed
-    on the host, the card synchronised before and after it: (wall seconds,
-    seconds in the gathers). A gather's time includes gloo's staging
-    through host memory and the wait for the slowest rank to arrive."""
+#: the collectives of core/comm.py that the multi-rank paths call
+COLLECTIVES = ("uneven_all_gather_padded", "ulysses_scatter_heads",
+               "ulysses_gather_heads", "ring_hop")
+
+
+def timed_generate(pipe, x_T, cond, device):
+    """One generate with each collective of ``COLLECTIVES`` timed on the
+    host, the card synchronised before and after it: (the result, wall
+    seconds, seconds in each collective). A collective's time includes
+    gloo's staging through host memory and the wait for the slowest rank to
+    arrive; the synchronisations are in the wall time too."""
     from repro_torch.core import comm
 
-    gather, spent = comm.uneven_all_gather_padded, [0.0]
+    originals = {name: getattr(comm, name) for name in COLLECTIVES}
+    spent = dict.fromkeys(COLLECTIVES, 0.0)
 
-    def timed(*args, **kw):
-        torch.cuda.synchronize(device)
-        t0 = time.perf_counter()
-        out = gather(*args, **kw)
-        torch.cuda.synchronize(device)
-        spent[0] += time.perf_counter() - t0
-        return out
-    comm.uneven_all_gather_padded = timed
+    def timed(name):
+        def call(*args, **kw):
+            torch.cuda.synchronize(device)
+            t0 = time.perf_counter()
+            out = originals[name](*args, **kw)
+            torch.cuda.synchronize(device)
+            spent[name] += time.perf_counter() - t0
+            return out
+        return call
+    for name in COLLECTIVES:
+        setattr(comm, name, timed(name))
     try:
         t0 = time.perf_counter()
-        pipe.generate(x_T, cond)
+        res = pipe.generate(x_T, cond)
         torch.cuda.synchronize(device)
-        return time.perf_counter() - t0, spent[0]
+        return res, time.perf_counter() - t0, spent
     finally:
-        comm.uneven_all_gather_padded = gather
+        for name, fn in originals.items():
+            setattr(comm, name, fn)
 
 
 def spmd_rank(ctx, jobs):
     """One rank of the spmd phase: for each job, an optional warm-up
     generate, then a generate with the launch counters set to 0 just before
-    it and read just after, and on sdxl-dit one more with the exchanges'
-    gathers timed. Returns per job its seconds, launches, the trace-derived
-    launches, peak memory, gather time and image."""
+    it and read just after, and on sdxl-dit one more with the collectives
+    timed. Over gloo the sdxl-dit spmd_seq job, whose collectives take tens
+    of seconds there, runs one generate only, cold and with its collectives
+    timed. Returns per job its seconds, launches, the trace-derived
+    launches, peak memory, collective times and image."""
+    import torch.distributed as dist
+
     from repro_torch.core import sampler
     from repro_torch.core.pipeline import StadiPipeline
     from repro_torch.kernels import ops
@@ -778,24 +936,36 @@ def spmd_rank(ctx, jobs):
         cfg, params, x_T, cond = models[model]
         pipe = StadiPipeline(cfg, params, sampler.linear_schedule(1000), config,
                              device=ctx.device)
-        if model == "sdxl":                      # first call: cuBLAS warm-up
+        single = (model == "sdxl" and config.backend == "spmd_seq"
+                  and dist.get_backend() == "gloo")
+        if model == "sdxl" and not single:       # first call: cuBLAS warm-up
             pipe.generate(x_T, cond)
             torch.cuda.synchronize(ctx.device)
         torch.cuda.reset_peak_memory_stats(ctx.device)
         ops.reset_launch_counts()
         t0 = time.perf_counter()
-        res = pipe.generate(x_T, cond)
-        torch.cuda.synchronize(ctx.device)
-        seconds = time.perf_counter() - t0
+        if single:
+            res, seconds, spent = timed_generate(pipe, x_T, cond, ctx.device)
+        else:
+            res = pipe.generate(x_T, cond)
+            torch.cuda.synchronize(ctx.device)
+            seconds = time.perf_counter() - t0
         launches = ops.launch_counts()
         peak_gib = torch.cuda.max_memory_allocated(ctx.device) / 2**30
-        timed = (time_in_gathers(pipe, x_T, cond, ctx.device)
-                 if model == "sdxl" else (None, None))
+        if model == "sdxl" and not single:
+            _, timed_s, spent = timed_generate(pipe, x_T, cond, ctx.device)
+        elif single:
+            timed_s = seconds
+        else:
+            timed_s = spent = None
         out[label] = {"seconds": seconds, "launches": launches,
                       "expected": expected_rank_launches(res, cfg.n_layers, ctx.rank),
                       "kernel_stats": res.kernel_stats,
-                      "peak_gib": peak_gib, "timed_wall_s": timed[0],
-                      "gather_s": timed[1], "patches": res.plan.patches,
+                      "peak_gib": peak_gib, "timed_wall_s": timed_s,
+                      "collective_s": spent, "single_generate": single,
+                      "patches": res.plan.patches,
+                      "seq": None if res.plan.seq is None else [
+                          list(res.plan.seq.heads), list(res.plan.seq.segments)],
                       "image": res.image.float().cpu().numpy()}
     return out
 
@@ -845,14 +1015,19 @@ def phase_spmd(dev, dist_backend="gloo"):
             outs = [r[label] for r in per_rank]
             rels = [float(np.linalg.norm(o["image"] - want) / np.linalg.norm(want))
                     for o in outs]
+            note = ("ranks share one card, gloo transport, not a makespan"
+                    if shared else "one card per rank, NCCL")
+            if outs[0]["single_generate"]:
+                note += ("; one cold generate (no warm-up call), its "
+                         "collectives timed between card synchronisations")
             line = {"path": label, "ranks": world, "patches": outs[0]["patches"],
+                    "seq": outs[0]["seq"],
                     "seconds_per_rank": [o["seconds"] for o in outs],
-                    "seconds_note": ("ranks share one card, gloo transport, "
-                                     "not a makespan" if shared else
-                                     "one card per rank, NCCL"),
+                    "seconds_note": note,
                     "peak_gib_per_rank": [o["peak_gib"] for o in outs],
-                    "gathers_timed_run": {"wall_s": [o["timed_wall_s"] for o in outs],
-                                          "in_gathers_s": [o["gather_s"] for o in outs]},
+                    "collectives_timed_run": {
+                        "wall_s": [o["timed_wall_s"] for o in outs],
+                        "in_collectives_s": [o["collective_s"] for o in outs]},
                     "launches_per_rank": [o["launches"] for o in outs],
                     "expected_per_rank": [o["expected"] for o in outs],
                     "rel_err_vs_emulated": rels, "bar": bar,
@@ -914,6 +1089,8 @@ def main():
     k2_timed = phase_k2(ops, ref, dev, peaks)
     k2 = k2_timed[0]
     k5 = phase_k5(ops, ref, dev, peaks)
+    k4_timed = phase_k4(ops, ref, dev, peaks)
+    k4 = k4_timed[0]
     launches = phase_paths(ops, dev)
     spmd = phase_spmd(dev)
     phase_cross_device(dev)
@@ -951,6 +1128,14 @@ def main():
         {**entry("stale_kv_attention_guided", skv_cu,
                  "src/repro/kernels/stale_kv_attention.py:268", k5, "spmd_fused"),
          "on_a_path": False},
+        {**entry("lse_attention", skv_cu,
+                 "src/repro/kernels/stale_kv_attention.py:371", k4, "spmd_seq"),
+         "launches_per_rank": [o["launches"].get("lse_attention", 0)
+                               for o in spmd["spmd_seq"]],
+         "library_call": k4["library_call"],
+         "timed_hops": [{k: line[k] for k in (
+             "valid_len", "ms", "plain_ms", "library_ms", "bound_ms")}
+             for line in k4_timed]},
     ]}
     print(json.dumps(record), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -21,8 +21,13 @@ refresh cadence), or is replaced by local extrapolation of the remote slabs
 events`) consults the policy when lowering; executors only ever see the
 resulting per-boundary kind.
 
-The stage handoff and the sequence-parallel "ring" policy come with the
-pipefuse and sequence-parallel slices of the port.
+Sequence-parallel attention (DESIGN.md §13) adds the "ring" policy and two
+collectives over the ranks of one seq group: the Ulysses head scatter and
+its regather (:func:`ulysses_scatter_heads`, :func:`ulysses_gather_heads`,
+the reference's tiled ``jax.lax.all_to_all``) and the ring hop
+(:func:`ring_hop`, its ``ppermute`` to the next member). Both are built on
+``all_to_all_single``, which gloo and NCCL both take; the stage handoff comes
+with the pipefuse slice of the port.
 """
 from __future__ import annotations
 
@@ -95,6 +100,55 @@ def uneven_all_gather_broadcast(x_local, sizes: Sequence[int], group=None,
         dist.broadcast(buf, src=dist.get_global_rank(group, src), group=group)
         parts.append(buf)
     return torch.cat(parts, dim=axis)
+
+
+def ulysses_scatter_heads(q, group=None):
+    """Ulysses head scatter over the S ranks of ``group`` (reference: the
+    tiled ``jax.lax.all_to_all(q, "seq", split_axis=2, concat_axis=1)``).
+
+    q: [B, Nl, H, hd] on every member, H divisible by S. Member j gets head
+    group j (``H / S`` heads) of every member's q, the members' token blocks
+    concatenated in member order: [B, S * Nl, H / S, hd]."""
+    S = dist.get_world_size(group)
+    B, Nl, H, hd = q.shape
+    if H % S:
+        raise ValueError(f"{H} heads do not scatter evenly over {S} ranks")
+    send = q.reshape(B, Nl, S, H // S, hd).permute(2, 0, 1, 3, 4).contiguous()
+    got = torch.empty_like(send)
+    dist.all_to_all_single(got, send, group=group)
+    return got.permute(1, 0, 2, 3, 4).reshape(B, S * Nl, H // S, hd)
+
+
+def ulysses_gather_heads(att, group=None):
+    """The regather that undoes :func:`ulysses_scatter_heads` (reference:
+    ``jax.lax.all_to_all(att, "seq", split_axis=1, concat_axis=2)``):
+    att [B, S * Nl, H / S, hd], token block i for member i; member j gets
+    its own token block with every member's head group, [B, Nl, H, hd]."""
+    S = dist.get_world_size(group)
+    B, SNl, Hs, hd = att.shape
+    send = att.reshape(B, S, SNl // S, Hs, hd).transpose(0, 1).contiguous()
+    got = torch.empty_like(send)
+    dist.all_to_all_single(got, send, group=group)
+    return got.permute(1, 2, 0, 3, 4).reshape(B, SNl // S, S * Hs, hd)
+
+
+def ring_hop(x, group=None):
+    """One ring hop over the ranks of ``group`` (reference:
+    ``jax.lax.ppermute(x, "seq", [(s, (s + 1) % S)])``): every member sends
+    ``x`` to the next member and returns what the previous one sent. An
+    ``all_to_all_single`` with one non-zero split each way: gloo and NCCL
+    both take it for CUDA tensors, where gloo's point-to-point ``send`` /
+    ``recv`` refuse them (torch 2.11)."""
+    S = dist.get_world_size(group)
+    me = dist.get_rank(group)
+    flat = x.contiguous().view(-1)
+    send_sizes = [0] * S
+    recv_sizes = [0] * S
+    send_sizes[(me + 1) % S] = flat.numel()
+    recv_sizes[(me - 1) % S] = flat.numel()
+    got = torch.empty_like(flat)
+    dist.all_to_all_single(got, flat, recv_sizes, send_sizes, group=group)
+    return got.view(x.shape)
 
 
 def ring_hop_rows(segments: Sequence[int]) -> int:
@@ -199,3 +253,15 @@ def _predictive(refresh_every: int) -> BoundaryExchange:
     back to stale reuse until two refreshes have landed)."""
     return BoundaryExchange("predictive", refresh_every=refresh_every,
                             degraded_kind="predict")
+
+
+@register_exchange("ring")
+def _ring(refresh_every: int) -> BoundaryExchange:
+    """Sequence-parallel ring staging (DESIGN.md §13): between full
+    refreshes the cross-worker boundary is skipped, the stale_async verdict,
+    while within each worker the ring hops of every attention keep
+    forwarding per-segment K/V, so hops carry stale neighbours the way
+    DistriFusion halos do. The boundary kinds stay "skip"/"full"; what the
+    policy adds is keyed off the IR's SeqShard events."""
+    return BoundaryExchange("ring", refresh_every=refresh_every,
+                            degraded_kind="skip")

@@ -3,10 +3,10 @@ exchange policy) into a typed stream of interval events, and every executor
 interprets that stream (reference: ``repro.core.events``, DESIGN.md §10).
 
 This port lowers the image axes — steps x patches under a boundary-exchange
-policy — and the guidance axis:
+policy — and the guidance and sequence axes:
 
     stream   := Warmup*  adaptive*
-    adaptive := GuidanceExchange?  ComputeInterval  Exchange  Replan?
+    adaptive := GuidanceExchange?  SeqShard?  ComputeInterval  Exchange  Replan?
 
     Warmup(m)             one synchronous full-image fine step
     ComputeInterval(m0,R) R fine steps of stale-KV patch compute
@@ -18,9 +18,12 @@ policy — and the guidance axis:
     GuidanceExchange(m)   split/interleaved CFG: the coming interval combines
                           eps across the cond/uncond device groups; ``fresh``
                           says whether the uncond branch is recomputed
+    SeqShard(m)           a seq-sharded plan: every attention of the coming
+                          interval scatters its heads over the shards and
+                          runs ``hops`` ring hops of K/V segments
 
-The stage, sequence and frame events of the reference come with the slices
-that port those axes. Replying to an :class:`Exchange` with
+The stage and frame events of the reference come with the slices that port
+those axes. Replying to an :class:`Exchange` with
 ``gen.send((plan, patches))`` re-allocates the remaining fine steps, exactly
 as in the reference. The trace records keep every field of the reference so
 that records from the two packages compare equal.
@@ -41,9 +44,10 @@ from repro_torch.core.schedule import TemporalPlan
 @dataclasses.dataclass
 class IntervalEvent:
     """One executed interval: per-worker (sub-steps, patch rows) plus the
-    boundary-exchange kind that followed it. The provenance fields of the
-    later axes (fill, seq_hops, frames) keep their image-path values in this
-    port; ``uncond_fresh`` records the guidance verdict."""
+    boundary-exchange kind that followed it. ``uncond_fresh`` records the
+    guidance verdict and ``seq_hops`` the ring hops of every attention; the
+    provenance fields of the later axes (fill, frames) keep their image-path
+    values in this port."""
     fine_step: int                       # first fine step of the interval
     substeps: List[int]                  # steps executed by each worker
     patches: List[int]                   # token-rows per worker
@@ -123,6 +127,25 @@ class GuidanceExchange:
 
 
 @dataclasses.dataclass(frozen=True)
+class SeqShard:
+    """Sequence-parallel attention staging (DESIGN.md §13), emitted before
+    each adaptive interval of a seq-sharded plan: every attention of the
+    coming interval scatters its heads over ``len(heads)`` shards and
+    assembles the context through ``hops`` ring hops of the segments. It
+    carries no numerics: the "ring" policy's degraded boundaries leave the
+    cross-worker buffers stale while the ring keeps each worker's own
+    context fresh."""
+    fine_step: int                       # first fine step of the interval
+    heads: Tuple[int, ...]               # attention heads per seq shard
+    segments: Tuple[int, ...]            # ring segment token-rows per shard
+    index: int                           # 0-based adaptive interval counter
+
+    @property
+    def hops(self) -> int:
+        return len(self.segments) - 1
+
+
+@dataclasses.dataclass(frozen=True)
 class Replan:
     """An online re-allocation (sent into the generator) took effect."""
     fine_step: int
@@ -141,7 +164,7 @@ def active_workers(plan: TemporalPlan, patches: Sequence[int]) -> List[int]:
 
 def lower(plan: TemporalPlan, patches: Sequence[int],
           policy: Optional[comm_lib.BoundaryExchange] = None,
-          guidance=None) -> Iterator:
+          guidance=None, seq_shards=None) -> Iterator:
     """Lower (plan, patches, exchange policy[, guidance]) into events (see
     the module docstring). A coroutine-style generator: reply to an
     :class:`Exchange` with ``gen.send((new_plan, new_patches))`` to
@@ -151,11 +174,17 @@ def lower(plan: TemporalPlan, patches: Sequence[int],
     ``guidance`` (a :class:`~repro_torch.core.guidance.GuidancePlan`): split
     and interleaved plans emit a :class:`GuidanceExchange` before every
     adaptive interval with the uncond-recompute verdict; fused guidance
-    emits nothing (the combine is worker-local)."""
+    emits nothing (the combine is worker-local).
+
+    ``seq_shards`` (a :class:`~repro_torch.core.seqpar.SeqPlan`): a plan with
+    more than one shard emits a :class:`SeqShard` before every adaptive
+    interval; a single-shard plan emits nothing, so its stream is the
+    unsharded one."""
     policy = policy or comm_lib.get_exchange("sync")
     patches = list(patches)
     n = len(patches)
     guided_exchange = guidance is not None and guidance.mode != "fused"
+    seq_sharded = seq_shards is not None and len(seq_shards.segments) > 1
     # fine steps count in ABSOLUTE coordinates of the original plan; a
     # replanned TemporalPlan covers the remaining steps (its m_base is the
     # remaining count) and only contributes ratios/activity from then on
@@ -170,6 +199,9 @@ def lower(plan: TemporalPlan, patches: Sequence[int],
         if guided_exchange:
             yield GuidanceExchange(m0, guidance.mode,
                                    guidance.uncond_fresh(boundary), boundary)
+        if seq_sharded:
+            yield SeqShard(m0, tuple(seq_shards.heads),
+                           tuple(seq_shards.segments), boundary)
         R = plan.lcm
         workers = active_workers(plan, patches)
         subs = tuple(R // plan.ratios[i] if i in workers else 0
@@ -195,11 +227,11 @@ def lower(plan: TemporalPlan, patches: Sequence[int],
 # ----------------------------------------------------------------------
 
 def record(interval: ComputeInterval, kind: str,
-           uncond_fresh: bool = True) -> IntervalEvent:
+           uncond_fresh: bool = True, seq_hops: int = 0) -> IntervalEvent:
     """The trace record for one adaptive interval + its boundary kind."""
     return IntervalEvent(interval.fine_step, list(interval.substeps),
                          list(interval.patches), exchange=kind,
-                         uncond_fresh=uncond_fresh)
+                         uncond_fresh=uncond_fresh, seq_hops=seq_hops)
 
 
 def warmup_record(ev: Warmup) -> IntervalEvent:
@@ -209,7 +241,7 @@ def warmup_record(ev: Warmup) -> IntervalEvent:
 
 def replay(plan: TemporalPlan, patches: Sequence[int],
            policy: Optional[comm_lib.BoundaryExchange] = None,
-           guidance=None) -> List[IntervalEvent]:
+           guidance=None, seq_shards=None) -> List[IntervalEvent]:
     """Trace records of the whole schedule without executing any numerics —
     the latency-only path (`simulate.build_trace`) and the numerics path
     (`patch_parallel.run_schedule`) both derive their records from
@@ -217,22 +249,26 @@ def replay(plan: TemporalPlan, patches: Sequence[int],
     out: List[IntervalEvent] = []
     pending: Optional[ComputeInterval] = None
     fresh = True
-    for ev in lower(plan, patches, policy, guidance):
+    hops = 0
+    for ev in lower(plan, patches, policy, guidance, seq_shards):
         if isinstance(ev, Warmup):
             out.append(warmup_record(ev))
         elif isinstance(ev, GuidanceExchange):
             fresh = ev.fresh
+        elif isinstance(ev, SeqShard):
+            hops = ev.hops
         elif isinstance(ev, ComputeInterval):
             pending = ev
         elif isinstance(ev, Exchange):
-            out.append(record(pending, ev.kind, uncond_fresh=fresh))
+            out.append(record(pending, ev.kind, uncond_fresh=fresh,
+                              seq_hops=hops))
             fresh = True
     return out
 
 
 def make_trace(records: List[IntervalEvent], plan: TemporalPlan,
                patches: Sequence[int], cfg, batch: int,
-               guidance=None) -> ExecutionTrace:
+               guidance=None, seq=None) -> ExecutionTrace:
     """Byte-size provenance shared by every trace producer (K/V is priced
     at 2 bytes per element, the latent at 4, as in the reference)."""
     H = cfg.latent_size
@@ -242,4 +278,4 @@ def make_trace(records: List[IntervalEvent], plan: TemporalPlan,
     act_row = int(batch * cfg.tokens_per_side * cfg.d_model * 4)
     return ExecutionTrace(records, plan, list(patches), cfg.n_tokens,
                           lat_bytes, kv_bytes, act_row_bytes=act_row,
-                          guidance=guidance)
+                          guidance=guidance, seq=seq)

@@ -17,8 +17,13 @@ schedule evaluates both branches in one branch-batched forward
 (:func:`repro_torch.models.diffusion.dit.forward_patch_cfg`) against
 branch-stacked buffers [2, L, B, N, H, hd], and ends in kernel K3
 (:func:`repro_torch.kernels.ops.cfg_epilogue`), which writes the combined
-eps and the guidance delta in one pass. Sequence-sharded schedules come with
-a later slice of the port.
+eps and the guidance delta in one pass.
+
+Sequence-sharded schedules (DESIGN.md §13) interpret the IR's SeqShard
+events for trace provenance only: the sequence axis moves attention across
+heads and ring segments, never what it computes, so the emulated numerics
+are those of the unsharded schedule (the head-scattered realization is
+:func:`repro_torch.core.spmd.run_spmd_seq`).
 """
 from __future__ import annotations
 
@@ -111,7 +116,8 @@ def guided_substep(params, cfg, x_loc, t_from, cond, row_start, read_pub,
 def run_schedule(params, cfg: DiTConfig, sched: NoiseSchedule, x_T, cond,
                  plan: TemporalPlan, patches: Sequence[int],
                  interval_hook=None, exchange: str = "sync",
-                 exchange_refresh: int = 2, guidance=None) -> RunResult:
+                 exchange_refresh: int = 2, guidance=None,
+                 seq=None) -> RunResult:
     """Execute Algorithm 1 by interpreting the schedule IR event stream.
 
     patches: token-rows per worker (sum == cfg.tokens_per_side; 0 = excluded).
@@ -131,6 +137,10 @@ def run_schedule(params, cfg: DiTConfig, sched: NoiseSchedule, x_T, cond,
     branch-stacked buffers; "fused" and "split" are bitwise-identical,
     "interleaved" reuses the cached guidance delta on the reuse intervals
     the IR's :class:`~repro_torch.core.events.GuidanceExchange` names.
+
+    seq: optional :class:`repro_torch.core.seqpar.SeqPlan`. Its SeqShard
+    events record each interval's ring hops in the trace, which carries the
+    plan for the ring-contention cost model; the numerics are unchanged.
 
     ``x_T`` is not modified; the engine works on its own copy.
     """
@@ -168,8 +178,9 @@ def run_schedule(params, cfg: DiTConfig, sched: NoiseSchedule, x_T, cond,
     ucache = {}                          # interleaved: last delta per worker
     interval: Optional[ir.ComputeInterval] = None
     fresh = True                         # uncond recomputed this interval?
+    seq_hops = 0                         # ring hops of the coming interval
 
-    gen = ir.lower(plan, patches, policy, guidance)
+    gen = ir.lower(plan, patches, policy, guidance, seq)
     send = None
     while True:
         try:
@@ -189,6 +200,9 @@ def run_schedule(params, cfg: DiTConfig, sched: NoiseSchedule, x_T, cond,
 
         elif isinstance(ev, ir.GuidanceExchange):
             fresh = ev.fresh             # verdict for the coming interval
+
+        elif isinstance(ev, ir.SeqShard):
+            seq_hops = ev.hops           # provenance only: no numerics
 
         elif isinstance(ev, ir.ComputeInterval):
             if published is None:        # M_w == 0: bootstrap buffers once
@@ -242,7 +256,8 @@ def run_schedule(params, cfg: DiTConfig, sched: NoiseSchedule, x_T, cond,
             elif ev.kind == "predict":
                 read_pub = buf_lib.extrapolate(prev_published, published,
                                                ev.fine_step)
-            rec = ir.record(interval, ev.kind, uncond_fresh=fresh)
+            rec = ir.record(interval, ev.kind, uncond_fresh=fresh,
+                            seq_hops=seq_hops)
             fresh = True
             records.append(rec)
             if interval_hook is not None and ev.fine_step < M_base:
@@ -252,7 +267,7 @@ def run_schedule(params, cfg: DiTConfig, sched: NoiseSchedule, x_T, cond,
         # already carries the new patches/ratios
 
     trace = ir.make_trace(records, plan0, patches0, cfg, int(B),
-                          guidance=guidance)
+                          guidance=guidance, seq=seq)
     return RunResult(x, trace)
 
 

@@ -16,9 +16,11 @@ Backends registered in the port:
                 unguided or fused guidance
     "spmd_guidance"  split guidance on 2 * n_pairs ranks, the cond/uncond
                 branch groups (core/spmd.run_spmd_guidance)
+    "spmd_seq"  sequence-parallel attention on seq_shards * n_workers ranks
+                (core/spmd.run_spmd_seq)
     "simulate"  trace-only latency modeling (no numerics; needs a CostModel)
 
-The two multi-rank backends run inside the ranks of an initialized process
+The multi-rank backends run inside the ranks of an initialized process
 group (:mod:`repro_torch.launch.ranks` starts them): every rank calls
 ``generate`` with the same inputs, on its own device, and gets the full
 image back.
@@ -26,7 +28,10 @@ image back.
 ``cfg_scale > 0`` makes every generation guided (classifier-free guidance,
 DESIGN.md §12): plain planners get the fused placement, and the
 ``stadi_guidance`` planner searches fused vs split (or runs the placement
-``guidance`` pins: fused, split or interleaved).
+``guidance`` pins: fused, split or interleaved). ``seq_shards > 1`` (or the
+``stadi_seq`` planner) shards every attention over sequence shards
+(DESIGN.md §13): the emulated backend runs its numerics, ``spmd_seq`` its
+ranks.
 
 The pipeline runs on ``cuda`` unless the caller passes ``device="cpu"``; with
 no CUDA device and no explicit CPU request it raises. On the card every
@@ -69,9 +74,6 @@ _LATER = {
     "pipefuse": "the pipefuse slice (queue 1 item 10)",
     "spmd_pipefuse": "the pipefuse slice (queue 1 item 10)",
     "stadi_pipefuse": "the pipefuse slice (queue 1 item 10)",
-    "seq": "the sequence-parallel slice (queue 1 item 11)",
-    "spmd_seq": "the sequence-parallel slice (queue 1 item 11)",
-    "stadi_seq": "the sequence-parallel slice (queue 1 item 11)",
     "frames": "the frames slice (queue 1 item 12)",
     "spmd_frames": "the frames slice (queue 1 item 12)",
     "stadi_video": "the frames slice (queue 1 item 12)",
@@ -128,10 +130,15 @@ class StadiConfig:
     uncond_refresh: int = 2
     latent_bytes: int = 0
     kv_row_bytes: int = 0
+    # sequence-parallel attention (DESIGN.md §13): Ulysses/ring shards of
+    # every patch worker's attention (1 = unsharded; 0 = let the stadi_seq
+    # planner search). n_heads is the head count the seq planner scatters;
+    # StadiPipeline fills it in from the model config (leave None).
+    seq_shards: int = 1
+    n_heads: Optional[int] = None
     # axes of the reference that later slices bring; a value other than the
     # default raises NotImplementedError naming that slice
     num_stages: int = 1
-    seq_shards: int = 1
     num_frames: int = 1
     plan_cache_dir: Optional[str] = None
     # latency modeling ("simulate" backend; also latency reporting elsewhere)
@@ -204,7 +211,7 @@ EXECUTOR_KWARGS = ("params", "model_cfg", "sched", "x_T", "cond", "plan",
 
 #: every feature token a plan can demand from a backend
 PLAN_FEATURES = ("stages", "guidance.fused", "guidance.split",
-                 "guidance.interleaved", "seq", "frames")
+                 "guidance.interleaved", "seq", "seq.uneven", "frames")
 
 #: valid ``requires=`` tokens besides PLAN_FEATURES: a bare axis prefix
 #: ("guidance") satisfied by any mode of that axis
@@ -257,16 +264,27 @@ def get_executor(name: str) -> Executor:
     return get_executor_spec(name).fn
 
 
-def required_features(plan: ExecutionPlan) -> List[str]:
-    """Feature tokens a plan demands of a backend, in the check order
-    (stages, guidance, seq, frames)."""
+def backends_supporting(feature: str) -> Tuple[str, ...]:
+    """Registered backends that can execute ``feature`` (an exact token, or
+    a bare axis prefix such as "guidance" matching any of its modes)."""
+    return tuple(name for name, spec in EXECUTORS.items()
+                 if any(f == feature or f.startswith(feature + ".")
+                        for f in spec.supports))
+
+
+def required_features(plan: ExecutionPlan, config=None) -> List[str]:
+    """Feature tokens a plan (and the config's ``seq_shards``) demands of a
+    backend, in the check order (stages, guidance, seq, frames)."""
     feats: List[str] = []
     if plan.stages is not None and len(plan.stages) > 1:
         feats.append("stages")
     if plan.guidance is not None:
         feats.append("guidance." + plan.guidance.mode)
-    if plan.seq is not None and len(plan.seq.segments) > 1:
+    planned_seq = plan.seq is not None and len(plan.seq.segments) > 1
+    if planned_seq or (config is not None and config.seq_shards > 1):
         feats.append("seq")
+        if planned_seq and not plan.seq.even_heads():
+            feats.append("seq.uneven")
     if plan.frames is not None and plan.frames.num_frames > 1:
         feats.append("frames")
     return feats
@@ -287,6 +305,11 @@ _BACKEND_FEATURE_ERRORS: Dict[Tuple[str, str], str] = {
     ("spmd_guidance", "guidance.interleaved"):
         "interleaved uncond reuse is not implemented on SPMD; use the "
         "'emulated' or 'pipefuse' backend",
+    ("spmd_seq", "seq.uneven"):
+        "spmd_seq needs an even head scatter for the all-to-all (got "
+        "{heads}); speed-proportional uneven heads are the cost model's "
+        "planning view — run uneven plans on the 'emulated' backend, or "
+        "pin seq_shards to a divisor of n_heads",
 }
 
 #: messages for a backend whose ``requires`` declaration is unmet
@@ -294,7 +317,31 @@ _BACKEND_REQUIRES_ERRORS: Dict[Tuple[str, str], str] = {
     ("spmd_guidance", "guidance"):
         "backend 'spmd_guidance' needs a guided plan: set cfg_scale > 0 "
         "with planner='stadi_guidance' and guidance='split'",
+    ("spmd_seq", "seq"):
+        "backend 'spmd_seq' runs the sequence mesh and needs a "
+        "seq-sharded plan: set seq_shards > 1, or planner='stadi_seq' "
+        "with seq_shards=0 (auto); an attention-unsharded plan runs on "
+        "the plain 'spmd' backend",
 }
+
+
+def _reject_message(backend: str, feature: str, plan: ExecutionPlan) -> str:
+    """The reference's rejection text for a feature a backend lacks."""
+    override = _BACKEND_FEATURE_ERRORS.get((backend, feature))
+    if override is not None:
+        return override.format(
+            mode=getattr(plan.guidance, "mode", None),
+            heads=list(plan.seq.heads) if plan.seq is not None else None)
+    if feature.startswith("guidance."):
+        return (f"guided generation (cfg_scale={plan.guidance.scale}) needs a "
+                f"guided backend ({list(backends_supporting('guidance'))}), "
+                f"not {backend!r}")
+    if feature == "seq":
+        return (f"a sequence-sharded plan (seq_shards > 1) needs a seq "
+                f"backend ({list(backends_supporting('seq'))}), not "
+                f"{backend!r}; pin seq_shards=1 to force attention-"
+                "unsharded execution")
+    return f"{backend!r} does not support the planned {feature!r}"
 
 
 def check_backend_can_run(plan: ExecutionPlan, config: StadiConfig) -> None:
@@ -303,13 +350,10 @@ def check_backend_can_run(plan: ExecutionPlan, config: StadiConfig) -> None:
     ``requires`` token must be demanded by the plan (a feature family such
     as "guidance" is met by any of its members)."""
     spec = get_executor_spec(config.backend)
-    feats = required_features(plan)
+    feats = required_features(plan, config)
     for f in feats:
         if f not in spec.supports:
-            msg = _BACKEND_FEATURE_ERRORS.get((config.backend, f))
-            raise ValueError(
-                msg.format(mode=plan.guidance.mode) if msg else
-                f"{config.backend!r} does not support the planned {f!r}")
+            raise ValueError(_reject_message(config.backend, f, plan))
     for req in spec.requires:
         if not any(f == req or f.startswith(req + ".") for f in feats):
             raise ValueError(
@@ -322,7 +366,8 @@ _GUIDANCE_FEATURES = ("guidance.fused", "guidance.split",
                       "guidance.interleaved")
 
 
-@register_executor("emulated", supports=_GUIDANCE_FEATURES)
+@register_executor("emulated",
+                   supports=_GUIDANCE_FEATURES + ("seq", "seq.uneven"))
 def emulated_executor(params, model_cfg, sched, x_T, cond, plan, config,
                       interval_hook=None):
     res = pp.run_schedule(params, model_cfg, sched, x_T, cond,
@@ -330,7 +375,7 @@ def emulated_executor(params, model_cfg, sched, x_T, cond, plan, config,
                           interval_hook=interval_hook,
                           exchange=config.exchange,
                           exchange_refresh=config.exchange_refresh,
-                          guidance=plan.guidance)
+                          guidance=plan.guidance, seq=plan.seq)
     return res.image, res.trace
 
 
@@ -366,18 +411,66 @@ def _spmd_trace(model_cfg, x_T, plan, config) -> ExecutionTrace:
     return sim.build_trace(plan.temporal, plan.patches, model_cfg,
                            batch=int(x_T.shape[0]), exchange=config.exchange,
                            exchange_refresh=config.exchange_refresh,
-                           guidance=plan.guidance)
+                           guidance=plan.guidance, seq=plan.seq)
 
 
-@register_executor("simulate", supports=_GUIDANCE_FEATURES)
+@register_executor("simulate",
+                   supports=_GUIDANCE_FEATURES + ("seq", "seq.uneven"))
 def simulate_executor(params, model_cfg, sched, x_T, cond, plan, config,
                       interval_hook=None):
     batch = int(x_T.shape[0]) if x_T is not None else 1
     trace = sim.build_trace(plan.temporal, plan.patches, model_cfg,
                             batch=batch, exchange=config.exchange,
                             exchange_refresh=config.exchange_refresh,
-                            guidance=plan.guidance)
+                            guidance=plan.guidance, seq=plan.seq)
     return None, trace
+
+
+@register_executor("spmd_seq", supports=("seq",), requires=("seq",))
+def spmd_seq_executor(params, model_cfg, sched, x_T, cond, plan, config,
+                      interval_hook=None):
+    """Sequence-parallel attention on seq_shards * n_workers ranks: each
+    patch worker's seq group scatters heads and hops ring segments."""
+    from repro_torch.core import spmd
+    if plan.seq is None:
+        raise ValueError(_BACKEND_REQUIRES_ERRORS[("spmd_seq", "seq")])
+    if plan.guidance is not None:
+        raise ValueError("guided generation is not implemented on the "
+                         "'spmd_seq' backend; the 'emulated' backend runs "
+                         "seq x CFG numerics")
+    img = spmd.run_spmd_seq(params, model_cfg, sched, x_T, cond,
+                            plan.temporal, plan.patches, plan.seq,
+                            exchange=config.exchange,
+                            exchange_refresh=config.exchange_refresh)
+    return img, _spmd_trace(model_cfg, x_T, plan, config)
+
+
+#: backends that can execute a sequence-sharded plan (DESIGN.md §13)
+SEQ_BACKENDS = backends_supporting("seq")
+
+
+def _resolve_seq(plan: ExecutionPlan, model_cfg, config: StadiConfig):
+    """The SeqPlan an executor runs: the plan's own (from the stadi_seq
+    planner) or, for plain planners with ``seq_shards > 1``, the uniform
+    shards of the ``--seq-shards`` wiring. None = attention-unsharded."""
+    if plan.seq is not None and len(plan.seq.segments) > 1:
+        return plan.seq
+    S = config.seq_shards
+    if S in (0, 1):
+        return None
+    from repro_torch.core import seqpar
+    if S > config.n_devices:
+        raise ValueError(
+            f"seq_shards={S} is infeasible: every patch-worker group needs "
+            f"one device per sequence shard and the cluster has "
+            f"{config.n_devices} (the stadi_seq planner rejects this "
+            "identically)")
+    if model_cfg.n_heads < S:
+        raise ValueError(
+            f"seq_shards={S} cannot scatter {model_cfg.n_heads} attention "
+            "heads (Ulysses needs >= 1 head per shard)")
+    return seqpar.make_seq_plan(model_cfg.n_heads, model_cfg.tokens_per_side,
+                                S)
 
 
 def _resolve_guidance(plan: ExecutionPlan, config: StadiConfig):
@@ -415,7 +508,6 @@ class StadiPipeline:
     def __init__(self, model_cfg: DiTConfig, params, sched: NoiseSchedule,
                  config: StadiConfig, device=None):
         later = {"stages": config.num_stages != 1,
-                 "seq": config.seq_shards != 1,
                  "frames": config.num_frames != 1,
                  "plan_cache_dir": config.plan_cache_dir is not None,
                  "prompt": model_cfg.cross_attn}
@@ -437,6 +529,29 @@ class StadiPipeline:
         if guided and config.rebalance_every:
             raise ValueError("online rebalancing is not supported with "
                              "guidance (the branch pairing is static)")
+        if config.seq_shards < 0:
+            raise ValueError(f"seq_shards must be >= 0 (0 = auto), got "
+                             f"{config.seq_shards}")
+        if config.seq_shards > config.n_devices:
+            raise ValueError(
+                f"seq_shards={config.seq_shards} is infeasible: every "
+                "patch-worker group needs one device per sequence shard "
+                f"and the cluster has {config.n_devices}")
+        if config.seq_shards > 1:
+            if config.backend not in SEQ_BACKENDS:
+                raise ValueError(
+                    f"seq_shards={config.seq_shards} needs a seq backend "
+                    f"({sorted(SEQ_BACKENDS)}), not {config.backend!r} — "
+                    "sequence-parallel attention (DESIGN.md §13)")
+            if model_cfg.n_heads < config.seq_shards:
+                raise ValueError(
+                    f"seq_shards={config.seq_shards} cannot scatter "
+                    f"{model_cfg.n_heads} attention heads (Ulysses needs "
+                    ">= 1 head per shard)")
+            if config.rebalance_every:
+                raise ValueError("online rebalancing is not supported with "
+                                 "sequence sharding (the device grouping "
+                                 "is static)")
         self.device = resolve_device(device)
         self.model_cfg = model_cfg
         self.params = _to_device(params, self.device)
@@ -448,9 +563,12 @@ class StadiPipeline:
         return self.model_cfg.tokens_per_side
 
     def _plan_knobs(self) -> StadiConfig:
-        """The config with the model-derived byte sizes filled in, which the
-        guided planner's cost model prices — what planners actually see."""
+        """The config with the model-derived head count and byte sizes
+        filled in, which the guided and seq planners price — what planners
+        actually see."""
         knobs = self.config
+        if knobs.n_heads is None:        # seq planning needs the head count
+            knobs = dataclasses.replace(knobs, n_heads=self.model_cfg.n_heads)
         if knobs.latent_bytes == 0:
             cfg = self.model_cfg
             knobs = dataclasses.replace(
@@ -461,12 +579,16 @@ class StadiPipeline:
         return knobs
 
     def plan(self, speeds: Optional[Sequence[float]] = None) -> ExecutionPlan:
-        """Run the configured planner (no execution); the plan's guidance is
-        resolved from the planner output or the config in the same pass."""
+        """Run the configured planner (no execution); the plan's guidance and
+        seq axes are resolved from the planner output or the config in the
+        same pass."""
         speeds = list(speeds) if speeds is not None else self.config.speeds
         knobs = self._plan_knobs()
         raw = get_planner(self.config.planner)(speeds, knobs, self.p_total)
-        return dataclasses.replace(raw, guidance=_resolve_guidance(raw, knobs))
+        return dataclasses.replace(
+            raw, guidance=_resolve_guidance(raw, knobs),
+            seq=(raw.seq if raw.seq is not None
+                 else _resolve_seq(raw, self.model_cfg, knobs)))
 
     def generate(self, x_T=None, cond=None, *,
                  measured_speeds: Optional[Sequence[float]] = None

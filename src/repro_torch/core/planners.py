@@ -12,9 +12,10 @@ consumes. Registered planners:
     "stadi"     +TA+SA: Eq. 4 steps, Eq. 5 patches (the paper's Algorithm 1)
     "makespan"  beyond-paper exhaustive-over-tiers makespan-optimal allocator
     "stadi_guidance"  joint (steps, patches, CFG placement) search
+    "stadi_seq" joint (steps, patches, sequence shards) search
 
-The joint planners of the other axes (stadi_pipefuse, stadi_seq,
-stadi_video) come with the slices that port those axes.
+The joint planners of the other axes (stadi_pipefuse, stadi_video) come with
+the slices that port those axes.
 """
 from __future__ import annotations
 
@@ -40,8 +41,10 @@ class ExecutionPlan:
         (the makespan and stadi_guidance planners fill this in)
     guidance: the :class:`~repro_torch.core.guidance.GuidancePlan` of a
         guided run (None = unguided)
-    stages / seq / frames: the later axes of the reference's six-axis plan;
-        None on every plan the port's planners return.
+    seq: the :class:`~repro_torch.core.seqpar.SeqPlan` of a
+        sequence-sharded run (None = attention-unsharded)
+    stages / frames: the later axes of the reference's six-axis plan; None
+        on every plan the port's planners return.
     """
     temporal: TemporalPlan
     patches: List[int]
@@ -65,7 +68,8 @@ class Planner(Protocol):
     ``knobs`` is any object exposing ``m_base``, ``m_warmup``, ``a``, ``b``,
     ``tiers``, ``granularity`` and ``min_patch``; ``stadi_guidance`` also
     reads ``cfg_scale``, ``guidance``, ``uncond_refresh``, ``cost_model``,
-    ``latent_bytes`` and ``kv_row_bytes`` (in practice a
+    ``latent_bytes`` and ``kv_row_bytes``, and ``stadi_seq`` ``seq_shards``,
+    ``n_heads`` and ``exchange_refresh`` (in practice a
     :class:`~repro_torch.core.pipeline.StadiConfig`).
     """
 
@@ -263,4 +267,103 @@ def stadi_guidance_planner(speeds, knobs, p_total) -> ExecutionPlan:
                                  knobs.kv_row_bytes, knobs.latent_bytes)
         candidates.append(dataclasses.replace(cand,
                                               modeled_interval_cost=cost))
+    return min(candidates, key=lambda c: c.modeled_interval_cost)
+
+
+def _seq_plan_cost(plan: ExecutionPlan, groups, p_total: int, cm,
+                   kv_row: float, latent_bytes: float, refresh: int) -> float:
+    """Modeled seconds of one adaptive interval under the ring-contention
+    cost model of :func:`repro_torch.core.simulate._simulate_seq`, averaged
+    over the "ring" policy's refresh cadence (1 full boundary and E-1
+    degraded ones per E). ``groups`` is the member-speed grouping of a
+    multi-shard candidate (None for the pure patch-parallel candidate). With
+    no byte provenance (kv_row == 0) the wire terms vanish and the score is
+    the compute makespan, where the t_ctx attention term still rewards head
+    scattering on attention-bound profiles."""
+    t = plan.temporal
+    R = t.lcm
+    row_bytes = latent_bytes / max(p_total, 1)
+    seq = plan.seq
+    if seq is not None and len(seq.segments) > 1:
+        headf, segf = seq.head_fracs, seq.seg_fracs
+        hops, seg_pad = len(seq.segments) - 1, max(seq.seg_fracs)
+    else:
+        headf, segf, hops, seg_pad = [1.0], [1.0], 0, 1.0
+    compute = ring_t = async_b = 0.0
+    for i in plan.active:
+        sub = R // t.ratios[i]
+        rows = plan.patches[i]
+        members = groups[i] if groups is not None else [plan.speeds[i]]
+        wt = max((cm.t_fixed + cm.t_row * rows * segf[j]) / max(v, 1e-9)
+                 + cm.attn_time(p_total, headf[j], v)
+                 for j, v in enumerate(members))
+        compute = max(compute, sub * wt)
+        ring_t = max(ring_t, sub * hops * (kv_row * rows * seg_pad
+                                           / cm.link_bw + cm.link_latency))
+        async_b = max(async_b, kv_row * rows)
+    gather_rows = comm_lib.uneven_all_gather_rows(
+        [plan.patches[i] for i in plan.active])
+    gather_t = gather_rows * row_bytes / cm.link_bw
+    full = max(compute, async_b / cm.link_bw, ring_t) \
+        + gather_t + cm.link_latency
+    degraded = max(compute, ring_t)
+    E = max(refresh, 1)
+    return (full + (E - 1) * degraded) / E
+
+
+@register_planner("stadi_seq")
+def stadi_seq_planner(speeds, knobs, p_total) -> ExecutionPlan:
+    """Joint (steps, patches, seq shards) search (DESIGN.md §13).
+
+    Candidates: the pure patch-parallel STADI plan (seq_shards == 1) and, for
+    each shard count S, a sequence-sharded plan whose workers are device
+    groups of S members (column-dealt by :func:`repro_torch.core.seqpar.
+    seq_group_speeds`), with the STADI allocator run over the per-group
+    aggregate speeds and the head/segment partitions sized over the
+    per-shard-row aggregates. All are scored by :func:`_seq_plan_cost` and
+    the cheapest wins.
+
+    ``knobs.seq_shards > 0`` pins S (1 = force pure patch); 0 = auto.
+    ``knobs.n_heads`` (which StadiPipeline fills in from the model config)
+    is required for S > 1.
+    """
+    from repro_torch.core import seqpar as seqpar_lib
+    n = len(speeds)
+    forced = getattr(knobs, "seq_shards", 0) or 0
+    n_heads = getattr(knobs, "n_heads", None)
+    cm = getattr(knobs, "cost_model", None) or CostModel(t_fixed=1e-3,
+                                                         t_row=1e-3)
+    kv_row = getattr(knobs, "kv_row_bytes", 0)
+    latent_bytes = getattr(knobs, "latent_bytes", 0)
+    refresh = getattr(knobs, "exchange_refresh", 2)
+    candidates = []
+    if forced in (0, 1):
+        base = stadi_planner(speeds, knobs, p_total)
+        cand = dataclasses.replace(base, planner="stadi_seq")
+        candidates.append(dataclasses.replace(
+            cand, modeled_interval_cost=_seq_plan_cost(
+                cand, None, p_total, cm, kv_row, latent_bytes, refresh)))
+    if n_heads is None and forced > 1:
+        raise ValueError("stadi_seq needs knobs.n_heads (the attention "
+                         "head count) to scatter heads; StadiPipeline "
+                         "fills it in from the model config")
+    if forced == 1:                       # pinned pure patch: no seq search
+        return candidates[0]
+    s_options = ([forced] if forced > 1 else
+                 range(2, min(n, n_heads or 1) + 1))
+    for S in s_options:
+        if S < 2 or S > min(n, n_heads or 0) or n // S < 1 or S > p_total:
+            continue
+        groups, shard_speeds = seqpar_lib.seq_group_speeds(speeds, S)
+        base = stadi_planner([sum(g) for g in groups], knobs, p_total)
+        seq = seqpar_lib.make_seq_plan(n_heads, p_total, S, shard_speeds)
+        cand = dataclasses.replace(base, planner="stadi_seq",
+                                   speeds=list(speeds), seq=seq)
+        candidates.append(dataclasses.replace(
+            cand, modeled_interval_cost=_seq_plan_cost(
+                cand, groups, p_total, cm, kv_row, latent_bytes, refresh)))
+    if not candidates:
+        raise ValueError(
+            f"seq_shards={forced} is infeasible: need 1 <= S <= "
+            f"min(n_devices={n}, n_heads={n_heads}, p_total={p_total})")
     return min(candidates, key=lambda c: c.modeled_interval_cost)

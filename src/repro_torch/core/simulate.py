@@ -13,9 +13,10 @@ only the excess charged; "skip" and "predict" move no bytes (DESIGN.md §10).
 
 The trace is built by replaying the SAME event stream the emulated engine
 interprets (:func:`repro_torch.core.events.replay`). The port prices
-unstaged, attention-unsharded, single-frame traces, unguided or guided (the
-fabric-contention model of DESIGN.md §12); the staged, sequence and frame
-cost models come with the slices that port those axes.
+unstaged, single-frame traces: unguided, guided (the fabric-contention model
+of DESIGN.md §12) or sequence-sharded (the ring-contention model of DESIGN.md
+§13); the staged and frame cost models come with the slices that port those
+axes.
 """
 from __future__ import annotations
 
@@ -28,20 +29,20 @@ from repro_torch.core.events import ExecutionTrace
 
 #: the slice of the port that brings each trace axis's cost model
 _LATER_AXES = (("stages", "the pipefuse slice (ROADMAP queue 1 item 10)"),
-               ("seq", "the sequence-parallel slice (ROADMAP queue 1 item 11)"),
                ("frames", "the frames slice (ROADMAP queue 1 item 12)"))
 
 
 def build_trace(plan, patches: Sequence[int], cfg, batch: int = 1,
                 exchange: str = "sync", exchange_refresh: int = 2,
-                guidance=None) -> ExecutionTrace:
+                guidance=None, seq=None) -> ExecutionTrace:
     """Schedule trace without running numerics (latency-only replay of
     :func:`repro_torch.core.events.lower` for (plan, patches, policy[,
-    guidance])); a guided trace carries its uncond-refresh provenance."""
+    guidance][, seq])); a guided trace carries its uncond-refresh
+    provenance, a sequence-sharded one (``seq``, a SeqPlan) its ring hops."""
     policy = comm_lib.get_exchange(exchange, exchange_refresh)
-    records = ir.replay(plan, patches, policy, guidance)
+    records = ir.replay(plan, patches, policy, guidance, seq)
     return ir.make_trace(records, plan, list(patches), cfg, batch,
-                         guidance=guidance)
+                         guidance=guidance, seq=seq)
 
 
 @dataclasses.dataclass
@@ -163,6 +164,69 @@ def _simulate_guided(trace: ExecutionTrace, speeds: Sequence[float],
     return total
 
 
+# ----------------------------------------------------------------------
+# sequence-parallel ring-contention costing (DESIGN.md §13)
+# ----------------------------------------------------------------------
+#
+# In a seq-sharded trace the "workers" are device GROUPS of S members (the
+# column-dealt placement of seqpar.seq_group_speeds). Member j computes its
+# ring-segment share of the worker's query rows and reads the full context
+# with its head fraction only, so the t_ctx term divides by headf[j]. What
+# seq adds back is the ring: S-1 hops per attention, each forwarding one K/V
+# segment padded to the largest, overlapped with compute like DistriFusion's
+# async halos (only the per-hop link latency is unavoidable).
+
+def _simulate_seq(trace: ExecutionTrace, speeds: Sequence[float],
+                  cm: CostModel) -> float:
+    """Makespan of a sequence-sharded trace: member-level compute split
+    (segments x heads) plus per-substep ring hops."""
+    from repro_torch.core import seqpar as seqpar_lib
+
+    seq = trace.seq
+    S = len(seq.segments)
+    groups, _ = seqpar_lib.seq_group_speeds(speeds, S)
+    headf, segf = seq.head_fracs, seq.seg_fracs
+    seg_pad = max(segf)
+    kv_row = _kv_bytes_per_row(trace)
+    total = 0.0
+    for ev in trace.events:
+        parts: List[int] = []
+        total_rows = max(sum(ev.patches), 1)
+        row_bytes = trace.latent_bytes / total_rows
+        compute = 0.0
+        ring_t = 0.0
+        # synchronous warm-up steps ring too; adaptive intervals carry the
+        # IR's hop count
+        hops = (S - 1) if ev.synchronous else ev.seq_hops
+        for i, (sub, rows) in enumerate(zip(ev.substeps, ev.patches)):
+            if sub == 0 or rows == 0:
+                continue
+            parts.append(i)
+            g = groups[i] if i < len(groups) else groups[-1]
+            wt = max((cm.t_fixed
+                      + (cm.t_row + cm.t_xattn * trace.cond_tokens)
+                      * rows * segf[j])
+                     / max(v, 1e-9) + cm.attn_time(total_rows, headf[j], v)
+                     for j, v in enumerate(g))
+            compute = max(compute, sub * wt)
+            hop_bytes = kv_row * rows * seg_pad
+            ring_t = max(ring_t, sub * hops *
+                         (hop_bytes / cm.link_bw + cm.link_latency))
+        if not parts:
+            continue
+        gather_rows = comm_lib.uneven_all_gather_rows(
+            [ev.patches[i] for i in parts])
+        kind = "full" if ev.synchronous else ev.exchange
+        if kind != "full" or len(parts) <= 1:
+            # degraded boundary: the hops overlap compute, pay the excess
+            total += max(compute, ring_t)
+            continue
+        comm = gather_rows * row_bytes / cm.link_bw + cm.link_latency
+        async_bytes = max(kv_row * ev.patches[i] for i in parts)
+        total += max(compute, async_bytes / cm.link_bw, ring_t) + comm
+    return total
+
+
 def simulate_trace(trace: ExecutionTrace, speeds: Sequence[float],
                    cm: CostModel) -> float:
     """End-to-end makespan (s) of a schedule on devices with given speeds."""
@@ -172,6 +236,8 @@ def simulate_trace(trace: ExecutionTrace, speeds: Sequence[float],
             raise NotImplementedError(
                 f"pricing a trace with {field}={value!r} comes with "
                 f"{slice_name}")
+    if trace.seq is not None and len(trace.seq.segments) > 1:
+        return _simulate_seq(trace, speeds, cm)
     if trace.guidance is not None:
         return _simulate_guided(trace, speeds, cm)
     total = 0.0

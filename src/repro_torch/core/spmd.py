@@ -1,6 +1,6 @@
 """Multi-rank execution of a STADI schedule on ``torch.distributed`` — the
-port of ``repro.core.spmd`` (``run_spmd`` and ``run_spmd_guidance``; the
-pipefuse, sequence and frame executors come with their slices).
+port of ``repro.core.spmd`` (``run_spmd``, ``run_spmd_guidance`` and
+``run_spmd_seq``; the pipefuse and frame executors come with their slices).
 
 One process per rank, each owning one row-slab of the latent padded to the
 largest patch (``Pmax`` rows), as the reference's ``shard_map`` body does on
@@ -30,6 +30,15 @@ conditional branch, ``[n, 2n)`` the unconditional one, each branch with its
 own patch-worker group and K/V that never crosses branches; the only
 cross-branch traffic is the per-eval float32 ``all_reduce`` of
 ``coeff * eps`` over each cond/uncond partner pair, ``coeff = (w, 1 - w)``.
+
+Sequence parallelism (DESIGN.md §13, ``run_spmd_seq``) runs on ``S * N``
+ranks, rank ``s * N + d`` being seq member s of patch worker d (the
+reference's ``("seq", "dev")`` mesh order). Each seq row runs the body
+above over its N workers, gathering and merging over its dev subgroup (the
+published K/V stays replicated over seq); every buffered attention read
+goes through the seq subgroup of the rank's dev column instead of K2: the
+Ulysses head scatter, S ring hops of K/V segments, each attended by kernel
+K4 and merged with an fp32 online log-sum-exp, and the regather.
 
 Every rank must call these functions together inside an initialized
 default process group (:mod:`repro_torch.launch.ranks` starts one); each
@@ -92,7 +101,8 @@ def _reslice(x_full, start: int, lay: Layout):
 
 def _run_substeps(params, cfg: DiTConfig, sched: NoiseSchedule, ts, m_base,
                   R, my_slab, cond, read_k, read_v, my_start, my_tok,
-                  my_ratio, m0, guidance_scale=None, eps_combine=None):
+                  my_ratio, m0, guidance_scale=None, eps_combine=None,
+                  attend_fn=None):
     """R fine steps on this rank's padded slab: a rank with interval ratio r
     runs every r-th substep and skips the others (the reference computes
     and discards them). Returns the slab and the FIRST substep's fresh K/V
@@ -101,7 +111,8 @@ def _run_substeps(params, cfg: DiTConfig, sched: NoiseSchedule, ts, m_base,
     ``guidance_scale`` makes each eval a fused CFG eval against
     branch-stacked buffers, combined by kernel K3; ``eps_combine``
     post-processes the raw local eps (split guidance's cross-branch
-    all_reduce)."""
+    all_reduce); ``attend_fn`` replaces every buffered attention read (the
+    sequence-parallel ring read)."""
     fresh = None
     for s in range(0, R, my_ratio):
         t_from = ts[m0 + s]
@@ -117,7 +128,7 @@ def _run_substeps(params, cfg: DiTConfig, sched: NoiseSchedule, ts, m_base,
             eps, kvs = dit.forward_patch(
                 params, cfg, my_slab, t_from, cond, my_start,
                 buffers=(read_k, read_v), return_kv=(s == 0),
-                valid_tokens=my_tok)
+                valid_tokens=my_tok, attend_fn=attend_fn)
         if eps_combine is not None:
             eps = eps_combine(eps)
         my_slab = sampler_lib.ddim_step(sched, my_slab, eps, t_from, t_to)
@@ -148,10 +159,13 @@ def _gather_and_merge(cfg: DiTConfig, patches, lay: Layout, my_slab, fresh,
 
 def _execute(params, cfg: DiTConfig, sched: NoiseSchedule, x_full, cond,
              plan: TemporalPlan, patches: Sequence[int], evs, idx: int,
-             group=None, guidance_scale=None, eps_combine=None):
+             group=None, guidance_scale=None, eps_combine=None,
+             attend_fn=None):
     """The body every rank runs: interpret the IR events for patch worker
     ``idx`` of ``group``. ``guidance_scale`` = fused CFG (branch-stacked
-    buffers); ``eps_combine`` = split CFG's cross-branch combine."""
+    buffers); ``eps_combine`` = split CFG's cross-branch combine;
+    ``attend_fn`` = the sequence-parallel buffered read. SeqShard events
+    carry no numerics."""
     lay = _static_layout(cfg, patches)
     my_start = lay.row_starts[idx]
     my_tok = patches[idx] * lay.wp
@@ -196,7 +210,7 @@ def _execute(params, cfg: DiTConfig, sched: NoiseSchedule, x_full, cond,
                 params, cfg, sched, ts, plan.m_base, ev.length, my_slab,
                 cond, read[0], read[1], my_start, my_tok, my_ratio,
                 ev.fine_step, guidance_scale=guidance_scale,
-                eps_combine=eps_combine)
+                eps_combine=eps_combine, attend_fn=attend_fn)
         elif isinstance(ev, ir.Exchange):
             if ev.kind == "full":
                 prev = pub
@@ -247,25 +261,30 @@ def run_spmd(params, cfg: DiTConfig, sched: NoiseSchedule, x_T, cond,
                         guidance.scale if guidance is not None else None))
 
 
-#: split guidance's subgroups by worker-pair count, with the default group
-#: they belong to. NCCL builds a communicator for every group (seconds each
-#: time), so they are made once per process group and reused by every call;
-#: destroying the default group destroys them.
-_SPLIT_GROUPS: Dict[int, Tuple[object, List]] = {}
+#: subgroups by their member lists, with the default group they belong to.
+#: NCCL builds a communicator for every group (seconds each time), so they
+#: are made once per process group and reused by every call; destroying
+#: the default group destroys them.
+_GROUPS: Dict[Tuple, Tuple[object, List]] = {}
+
+
+def _subgroups(members: Sequence[Sequence[int]]) -> List:
+    """One process group per member list: every rank creates every group, in
+    this one order (torch.distributed requires it), the first time the
+    default process group asks for this layout."""
+    key = tuple(tuple(m) for m in members)
+    world = dist.group.WORLD
+    cached = _GROUPS.get(key)
+    if cached is None or cached[0] is not world:
+        _GROUPS[key] = (world, [dist.new_group(list(m)) for m in key])
+    return _GROUPS[key][1]
 
 
 def _split_groups(n_pairs: int) -> List:
-    """[cond workers, uncond workers, pair 0, ..., pair n-1]: every rank
-    creates every group, in this one order (torch.distributed requires it),
-    the first time a process group runs split guidance over n_pairs."""
-    world = dist.group.WORLD
-    cached = _SPLIT_GROUPS.get(n_pairs)
-    if cached is None or cached[0] is not world:
-        groups = ([dist.new_group(list(range(g * n_pairs, (g + 1) * n_pairs)))
-                   for g in range(2)]
-                  + [dist.new_group([i, n_pairs + i]) for i in range(n_pairs)])
-        _SPLIT_GROUPS[n_pairs] = (world, groups)
-    return _SPLIT_GROUPS[n_pairs][1]
+    """Split guidance's subgroups: [cond workers, uncond workers, pair 0,
+    ..., pair n-1]."""
+    return _subgroups([range(g * n_pairs, (g + 1) * n_pairs) for g in range(2)]
+                      + [(i, n_pairs + i) for i in range(n_pairs)])
 
 
 def run_spmd_guidance(params, cfg: DiTConfig, sched: NoiseSchedule, x_T,
@@ -308,3 +327,89 @@ def run_spmd_guidance(params, cfg: DiTConfig, sched: NoiseSchedule, x_T,
 
     return _execute(params, cfg, sched, x_T, my_cond, plan, patches, evs, idx,
                     group=groups[guide], eps_combine=eps_combine)
+
+
+def _seq_groups(S: int, N: int) -> Tuple[List, List]:
+    """spmd_seq's subgroups: (the dev row of each seq member s, ranks
+    ``s * N .. s * N + N - 1``; the seq column of each worker d, ranks
+    ``d, N + d, ..., (S - 1) * N + d``)."""
+    groups = _subgroups([range(s * N, (s + 1) * N) for s in range(S)]
+                        + [range(d, S * N, N) for d in range(N)])
+    return groups[:S], groups[S:]
+
+
+def _ring_attend(cfg: DiTConfig, S: int, seq_group):
+    """The buffered read of a seq member (reference: ``run_spmd_seq``'s
+    ``attend_fn``): scatter the query heads over the seq group, hold this
+    member's segment of the blended context (padded to ``cseg = ceil(N_buf
+    / S)`` rows), and over S hops attend the held segment with kernel K4,
+    merging the (out, lse) partials with an fp32 online log-sum-exp while
+    the segments rotate one member down the ring; then regather the heads.
+    The partial ``out`` is rounded to q's dtype before the merge, as the
+    reference does. A segment with no real key has lse -1e30 and weighs 0."""
+    me = dist.get_rank(seq_group)
+
+    def attend_fn(q, full_k, full_v, key_mask):
+        n_real = cfg.n_tokens if key_mask is not None else full_k.shape[1]
+        q_g = comm_lib.ulysses_scatter_heads(q, seq_group)
+        Hs = q_g.shape[2]
+        heads = slice(me * Hs, (me + 1) * Hs)
+        cseg = -(-full_k.shape[1] // S)
+        # this member's K and V segment, stacked so one hop carries both
+        hold = torch.stack([comm_lib.pad_to(t, cseg * S, axis=1)
+                            .narrow(1, me * cseg, cseg) for t in (full_k, full_v)])
+        num = den = run_m = None
+        for hop in range(S):
+            src = (me - hop) % S              # the segment this hop holds
+            valid = min(max(n_real - src * cseg, 0), cseg)
+            out_s, lse_s = kops.lse_attention(q_g, hold[0][:, :, heads],
+                                              hold[1][:, :, heads], valid)
+            out_s = out_s.float()
+            if num is None:
+                num, den, run_m = out_s, torch.ones_like(lse_s), lse_s
+            else:
+                m_new = torch.maximum(run_m, lse_s)
+                corr = torch.exp(run_m - m_new)
+                w = torch.exp(lse_s - m_new)
+                num = num * corr[..., None] + out_s * w[..., None]
+                den = den * corr + w
+                run_m = m_new
+            if hop < S - 1:
+                hold = comm_lib.ring_hop(hold, seq_group)
+        att_g = (num / den.clamp_min(1e-30)[..., None]).to(q.dtype)
+        return comm_lib.ulysses_gather_heads(att_g, seq_group)
+
+    return attend_fn
+
+
+def run_spmd_seq(params, cfg: DiTConfig, sched: NoiseSchedule, x_T, cond,
+                 plan: TemporalPlan, patches: Sequence[int], seq,
+                 exchange: str = "ring", exchange_refresh: int = 2):
+    """Sequence-parallel STADI on ``S * N`` ranks (reference
+    ``repro.core.spmd.run_spmd_seq``): rank ``s * N + d`` is seq member s of
+    patch worker d. Each seq row runs :func:`run_spmd`'s body over its dev
+    subgroup; every buffered attention read goes through the seq column's
+    head scatter and ring hops (:func:`_ring_attend`, kernel K4), so the
+    whole context is never attended on one member. Needs ``n_heads %
+    S == 0``. A plan with one shard runs :func:`run_spmd`. Returns the final
+    image on every rank."""
+    if seq is None or len(seq.segments) < 2:
+        return run_spmd(params, cfg, sched, x_T, cond, plan, patches,
+                        exchange=exchange, exchange_refresh=exchange_refresh)
+    S = len(seq.segments)
+    if cfg.n_heads % S:
+        raise ValueError(
+            f"spmd_seq needs n_heads divisible by seq_shards for the "
+            f"all-to-all head scatter: {cfg.n_heads} % {S} != 0")
+    _require_process_group("spmd_seq")
+    N, world = len(patches), dist.get_world_size()
+    if world != S * N:
+        raise ValueError(f"seq_shards={S} over {N} patch workers needs "
+                         f"{S * N} ranks, have {world}")
+    policy = comm_lib.get_exchange(exchange, exchange_refresh)
+    evs = list(ir.lower(plan, patches, policy, seq_shards=seq))
+    s_idx, d_idx = divmod(dist.get_rank(), N)
+    rows, cols = _seq_groups(S, N)
+    return _execute(params, cfg, sched, x_T, cond, plan, patches, evs, d_idx,
+                    group=rows[s_idx],
+                    attend_fn=_ring_attend(cfg, S, cols[d_idx]))

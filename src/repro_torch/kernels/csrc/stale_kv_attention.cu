@@ -1,5 +1,5 @@
-// Stale-KV patch attention on Hopper (sm_90a): kernels K1, K2 and K5 of the
-// port, one body with three entry points.
+// Stale-KV patch attention on Hopper (sm_90a): kernels K1, K2, K4 and K5 of
+// the port, one body with four entry points.
 //
 // Replaces the TPU kernels of src/repro/kernels/stale_kv_attention.py:
 //   K1 stale_kv_attention_bhsd (body _stale_kernel, update
@@ -19,15 +19,28 @@
 //   K5 stale_kv_attention_guided_bhsd (body _guided_kernel): K2 with a
 //      leading guidance-branch axis of 2, folded into the batch; branch 1
 //      (unconditional) is fresh over valid_tokens * uncond_fresh rows.
+//   K4 lse_attention_bhsd (body _lse_kernel): attention over ONE ring
+//      segment of the sequence-parallel executor, whose first valid_len keys
+//      are real. Every key row comes from one source (no fresh rows), the
+//      key loop ends at the run-time valid_len, and the epilogue also
+//      writes the fp32 log-sum-exp, lse = m + log(l), that the ring's
+//      cross-hop merge weighs the normalized partial output by. An empty
+//      segment (valid_len = 0) writes out = 0 and lse = -1e30 (the finite
+//      masked sentinel, so the merge's exp(lse - M) is exactly 0 and no
+//      -inf - -inf NaN can arise); the TPU kernel's out there is the mean of
+//      V, which the merge also weighs by 0.
 // The body takes the count N of keys it visits (K1: the context length;
 // K2, K5: n_tokens, so the scratch keys are never visited, which masks them
-// exactly) and a fresh-row count per batch row (valid_lo for batch rows
-// below b_split, valid_hi from there on).
+// exactly; K4: valid_len), a fresh-row count per batch row (valid_lo for
+// batch rows below b_split, valid_hi from there on; 0 for K4) and an
+// optional fp32 LSE output (K4 only).
 //
 // What bounds it on this card: at the main-path shapes of sdxl-dit (B=1,
 // H=16, hd=72, N=4096, Nl=2304) one launch does 4*H*Nl*N*hd = 43.5 GFLOP
 // against about 30 MB of bf16 inputs and output, so it is bound by
-// operations, not by bytes (about 1400 operations per byte).
+// operations, not by bytes (about 1400 operations per byte). K4 at the
+// spmd_seq path's hops (8 heads, 4608 query rows, valid_len 3200 or 896)
+// does 34 or 9.5 GFLOP against about 18 or 12 MB: operations again.
 //
 // What the design does about that, kept simple before it is made fast:
 //   * bf16 (the main path's dtype) runs both products on the tensor cores
@@ -64,6 +77,14 @@
 namespace {
 
 constexpr float kMaskedScore = -1e30f;
+constexpr float kLn2 = 0.6931471805599453f;
+
+// Natural-log LSE of a row from its running max m (log2 domain) and sum l
+// of exp2(score - m); an empty row (no key visited, l == 0) gets the
+// masked sentinel.
+__device__ __forceinline__ float row_lse(float m, float l) {
+  return l > 0.f ? m * kLn2 + logf(l) : kMaskedScore;
+}
 
 struct Strides {  // element strides of a [B, S, H, hd] view; hd is contiguous
   int64_t b, s, h;
@@ -153,10 +174,10 @@ stale_kv_attention_mma_kernel(const __nv_bfloat16* __restrict__ q,
                               const __nv_bfloat16* __restrict__ v_fresh,
                               const __nv_bfloat16* __restrict__ k_stale,
                               const __nv_bfloat16* __restrict__ v_stale,
-                              __nv_bfloat16* __restrict__ out, Strides sq, Strides skf,
-                              Strides svf, Strides sks, Strides svs, Strides so, int H,
-                              int Nl, int N, int tok_start, int valid_lo, int valid_hi,
-                              int b_split, float scale_log2) {
+                              __nv_bfloat16* __restrict__ out, float* __restrict__ lse,
+                              Strides sq, Strides skf, Strides svf, Strides sks, Strides svs,
+                              Strides so, Strides sl, int H, int Nl, int N, int tok_start,
+                              int valid_lo, int valid_hi, int b_split, float scale_log2) {
   static_assert(HD % 8 == 0, "head dim must be a multiple of 8 (16-byte rows)");
   constexpr int HDP = (HD + 15) / 16 * 16;  // padded to the mma depth
   constexpr int SROW = HDP + 8;             // +16 bytes: conflict-free ldmatrix
@@ -323,6 +344,10 @@ stale_kv_attention_mma_kernel(const __nv_bfloat16* __restrict__ q,
       *reinterpret_cast<uint32_t*>(out + b * so.b + (int64_t)row_hi * so.s + h * so.h + col) =
           pack_bf16(o[d][2] * inv_hi, o[d][3] * inv_hi);
   }
+  if (lse != nullptr && lane % 4 == 0) {  // one lane of the quad owns the row
+    if (row_lo < Nl) lse[b * sl.b + (int64_t)row_lo * sl.s + h * sl.h] = row_lse(m_lo, l_lo);
+    if (row_hi < Nl) lse[b * sl.b + (int64_t)row_hi * sl.s + h * sl.h] = row_lse(m_hi, l_hi);
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -338,9 +363,10 @@ stale_kv_attention_fma_kernel(const float* __restrict__ q, const float* __restri
                               const float* __restrict__ v_fresh,
                               const float* __restrict__ k_stale,
                               const float* __restrict__ v_stale, float* __restrict__ out,
-                              Strides sq, Strides skf, Strides svf, Strides sks, Strides svs,
-                              Strides so, int H, int Nl, int N, int tok_start,
-                              int valid_lo, int valid_hi, int b_split, float scale_log2) {
+                              float* __restrict__ lse, Strides sq, Strides skf, Strides svf,
+                              Strides sks, Strides svs, Strides so, Strides sl, int H, int Nl,
+                              int N, int tok_start, int valid_lo, int valid_hi, int b_split,
+                              float scale_log2) {
   static_assert(HD % 4 == 0, "head dim must be a multiple of 4 for 16-byte shared loads");
   __shared__ __align__(16) float k_tile[kFmaBK][HD];
   __shared__ __align__(16) float v_tile[kFmaBK][HD];
@@ -429,47 +455,61 @@ stale_kv_attention_fma_kernel(const float* __restrict__ q, const float* __restri
     const float inv = 1.f / fmaxf(l, 1e-30f);
 #pragma unroll
     for (int d = 0; d < HD; ++d) op[d] = acc[d] * inv;
+    if (lse != nullptr) lse[b * sl.b + (int64_t)row * sl.s + h * sl.h] = row_lse(m, l);
   }
 }
 
 template <int HD>
 cudaError_t launch(int dtype, const void* q, const void* kf, const void* vf, const void* ks,
-                   const void* vs, void* out, const Strides* st, int B, int H, int Nl, int N,
-                   int tok_start, int valid_lo, int valid_hi, int b_split, float scale_log2,
-                   cudaStream_t stream) {
+                   const void* vs, void* out, float* lse, const Strides* st, int B, int H,
+                   int Nl, int N, int tok_start, int valid_lo, int valid_hi, int b_split,
+                   float scale_log2, cudaStream_t stream) {
   if (dtype == 1) {
     using bf = __nv_bfloat16;
     const dim3 grid((Nl + kMmaBQ - 1) / kMmaBQ, B * H);
     stale_kv_attention_mma_kernel<HD><<<grid, kMmaThreads, 0, stream>>>(
         static_cast<const bf*>(q), static_cast<const bf*>(kf), static_cast<const bf*>(vf),
-        static_cast<const bf*>(ks), static_cast<const bf*>(vs), static_cast<bf*>(out), st[0],
-        st[1], st[2], st[3], st[4], st[5], H, Nl, N, tok_start, valid_lo, valid_hi, b_split,
-        scale_log2);
+        static_cast<const bf*>(ks), static_cast<const bf*>(vs), static_cast<bf*>(out), lse,
+        st[0], st[1], st[2], st[3], st[4], st[5], st[6], H, Nl, N, tok_start, valid_lo,
+        valid_hi, b_split, scale_log2);
   } else {
     const dim3 grid((Nl + kFmaBQ - 1) / kFmaBQ, B * H);
     stale_kv_attention_fma_kernel<HD><<<grid, kFmaBQ, 0, stream>>>(
         static_cast<const float*>(q), static_cast<const float*>(kf),
         static_cast<const float*>(vf), static_cast<const float*>(ks),
-        static_cast<const float*>(vs), static_cast<float*>(out), st[0], st[1], st[2], st[3],
-        st[4], st[5], H, Nl, N, tok_start, valid_lo, valid_hi, b_split, scale_log2);
+        static_cast<const float*>(vs), static_cast<float*>(out), lse, st[0], st[1], st[2],
+        st[3], st[4], st[5], st[6], H, Nl, N, tok_start, valid_lo, valid_hi, b_split,
+        scale_log2);
   }
   return cudaGetLastError();
 }
 
-// Unpack the strides and dispatch on the head dim.
+// Dispatch on the dtype and the head dim. st: the (b, s, h) strides of q,
+// k_fresh, v_fresh, k_stale, v_stale, out and lse (unused without lse).
 int dispatch(int dtype, int hd, const void* q, const void* kf, const void* vf, const void* ks,
-             const void* vs, void* out, const int64_t* strides, int B, int H, int Nl, int N,
-             int tok_start, int valid_lo, int valid_hi, int b_split, float scale, void* stream) {
+             const void* vs, void* out, float* lse, const Strides* st, int B, int H, int Nl,
+             int N, int tok_start, int valid_lo, int valid_hi, int b_split, float scale,
+             void* stream) {
   if (dtype != 0 && dtype != 1) return cudaErrorInvalidValue;
-  Strides st[6];
-  for (int i = 0; i < 6; ++i) st[i] = {strides[3 * i], strides[3 * i + 1], strides[3 * i + 2]};
   const float scale_log2 = scale * 1.4426950408889634f;  // log2(e)
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (hd) {
-    case 32: return launch<32>(dtype, q, kf, vf, ks, vs, out, st, B, H, Nl, N, tok_start, valid_lo, valid_hi, b_split, scale_log2, s);
-    case 72: return launch<72>(dtype, q, kf, vf, ks, vs, out, st, B, H, Nl, N, tok_start, valid_lo, valid_hi, b_split, scale_log2, s);
+    case 32: return launch<32>(dtype, q, kf, vf, ks, vs, out, lse, st, B, H, Nl, N, tok_start, valid_lo, valid_hi, b_split, scale_log2, s);
+    case 72: return launch<72>(dtype, q, kf, vf, ks, vs, out, lse, st, B, H, Nl, N, tok_start, valid_lo, valid_hi, b_split, scale_log2, s);
     default: return cudaErrorInvalidValue;
   }
+}
+
+// The strides of K1, K2 and K5's six tensors, 18 int64 in (b, s, h) order;
+// the seventh (lse) slot is unused.
+int dispatch6(int dtype, int hd, const void* q, const void* kf, const void* vf, const void* ks,
+              const void* vs, void* out, const int64_t* strides, int B, int H, int Nl, int N,
+              int tok_start, int valid_lo, int valid_hi, int b_split, float scale,
+              void* stream) {
+  Strides st[7] = {};
+  for (int i = 0; i < 6; ++i) st[i] = {strides[3 * i], strides[3 * i + 1], strides[3 * i + 2]};
+  return dispatch(dtype, hd, q, kf, vf, ks, vs, out, nullptr, st, B, H, Nl, N, tok_start,
+                  valid_lo, valid_hi, b_split, scale, stream);
 }
 
 }  // namespace
@@ -490,8 +530,8 @@ extern "C" int stale_kv_attention_launch(int dtype, int hd, const void* q, const
                                          const void* v_stale, void* out, const int64_t* strides,
                                          int B, int H, int Nl, int N, int tok_start, float scale,
                                          void* stream) {
-  return dispatch(dtype, hd, q, k_fresh, v_fresh, k_stale, v_stale, out, strides, B, H, Nl, N,
-                  tok_start, Nl, Nl, B, scale, stream);
+  return dispatch6(dtype, hd, q, k_fresh, v_fresh, k_stale, v_stale, out, strides, B, H, Nl, N,
+                   tok_start, Nl, Nl, B, scale, stream);
 }
 
 // K2: the slab's first valid_tokens rows are fresh at tok_start; the stale
@@ -502,8 +542,8 @@ extern "C" int stale_kv_attention_padded_launch(int dtype, int hd, const void* q
                                                 void* out, const int64_t* strides, int B, int H,
                                                 int Nl, int n_tokens, int tok_start,
                                                 int valid_tokens, float scale, void* stream) {
-  return dispatch(dtype, hd, q, k_fresh, v_fresh, k_stale, v_stale, out, strides, B, H, Nl,
-                  n_tokens, tok_start, valid_tokens, valid_tokens, B, scale, stream);
+  return dispatch6(dtype, hd, q, k_fresh, v_fresh, k_stale, v_stale, out, strides, B, H, Nl,
+                   n_tokens, tok_start, valid_tokens, valid_tokens, B, scale, stream);
 }
 
 // K5: 2 * B batch rows, the conditional branch (rows < B) then the
@@ -515,7 +555,23 @@ extern "C" int stale_kv_attention_guided_launch(int dtype, int hd, const void* q
                                                 int Nl, int n_tokens, int tok_start,
                                                 int valid_tokens, int uncond_fresh, float scale,
                                                 void* stream) {
-  return dispatch(dtype, hd, q, k_fresh, v_fresh, k_stale, v_stale, out, strides, 2 * B, H, Nl,
-                  n_tokens, tok_start, valid_tokens, uncond_fresh ? valid_tokens : 0, B, scale,
-                  stream);
+  return dispatch6(dtype, hd, q, k_fresh, v_fresh, k_stale, v_stale, out, strides, 2 * B, H, Nl,
+                   n_tokens, tok_start, valid_tokens, uncond_fresh ? valid_tokens : 0, B, scale,
+                   stream);
+}
+
+// K4: q and out [B, Sq, H, hd], k and v [B, T, H, hd] with their first
+// valid_len keys real (the key loop ends there), lse [B, Sq, H] fp32.
+// strides: 15 int64, (b, s, h) for q, k, v, out, lse in that order. Every
+// key comes from k/v (no fresh rows), so they fill both source slots.
+extern "C" int lse_attention_launch(int dtype, int hd, const void* q, const void* k,
+                                    const void* v, void* out, float* lse,
+                                    const int64_t* strides, int B, int H, int Sq, int valid_len,
+                                    float scale, void* stream) {
+  const int order[7] = {0, 1, 2, 1, 2, 3, 4};  // q, kf, vf, ks, vs, out, lse
+  Strides st[7];
+  for (int i = 0; i < 7; ++i)
+    st[i] = {strides[3 * order[i]], strides[3 * order[i] + 1], strides[3 * order[i] + 2]};
+  return dispatch(dtype, hd, q, k, v, k, v, out, lse, st, B, H, Sq, valid_len, 0, 0, 0, B,
+                  scale, stream);
 }

@@ -284,6 +284,46 @@ def stale_kv_attention_guided(q, k_fresh, v_fresh, k_stale, v_stale,
 
 
 # ----------------------------------------------------------------------
+# kernel K4: one ring segment of sequence-parallel attention, with its LSE
+# ----------------------------------------------------------------------
+
+def lse_attention(q, k, v, valid_len: int):
+    """Kernel K4, the per-hop partial of ring attention (reference
+    ``repro.kernels.ops.lse_attention``): q's attention over ONE K/V
+    segment whose first ``valid_len`` keys are real.
+
+    q: [B, S, H, hd]; k/v: [B, T, H, hd], 0 <= valid_len <= T. Returns
+    (out [B, S, H, hd] in q's dtype, normalized; lse [B, S, H] float32), the
+    pair the cross-hop online-softmax merge combines. ``valid_len == 0``
+    gives out 0 and lse -1e30: exactly zero merge weight. ``valid_len`` is
+    a launch argument; k and v are read in place with any strides whose
+    last dim is contiguous (a head slice of a wider segment, say)."""
+    valid_len = int(valid_len)
+    B, S, H, hd = q.shape
+    T = k.shape[1]
+    if k.shape != (B, T, H, hd) or v.shape != k.shape:
+        raise ValueError(f"k/v {tuple(k.shape)}/{tuple(v.shape)} must be "
+                         f"[B, T, H, hd] = [{B}, T, {H}, {hd}]")
+    if not 0 <= valid_len <= T:
+        raise ValueError(f"valid_len={valid_len} must lie in [0, {T}], the "
+                         "segment's keys")
+    if len({t.device for t in (q, k, v)}) != 1:
+        raise ValueError("all operands must lie on one device")
+    if q.device.type == "cpu":
+        return ref.lse_attention_ref(q, k, v, valid_len)
+    _check_cuda_operands("lse_attention", (q, k, v))
+    lib = load_library().lib
+    out = torch.empty((B, S, H, hd), dtype=q.dtype, device=q.device)
+    lse = torch.empty((B, S, H), dtype=torch.float32, device=q.device)
+    with torch.cuda.device(q.device):
+        err = skv.launch_lse(lib, q, k, v, out, lse, valid_len, hd ** -0.5)
+    if err != 0:
+        raise RuntimeError(f"lse_attention launch failed: CUDA error {err}")
+    _launches["lse_attention"] += 1
+    return out, lse
+
+
+# ----------------------------------------------------------------------
 # kernel K3: classifier-free-guidance epilogue
 # ----------------------------------------------------------------------
 

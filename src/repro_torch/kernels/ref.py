@@ -10,6 +10,11 @@ import torch
 
 from repro_torch.models import layers
 
+#: the finite masked-score sentinel of the reference's kernels
+#: (``repro.kernels.stale_kv_attention.NEG_INF``): exp(NEG_INF - m) is 0 and
+#: NEG_INF - NEG_INF is 0, where -inf would give NaN
+NEG_INF = -1e30
+
 
 def stale_kv_attention_ref(q, k_fresh, v_fresh, k_stale, v_stale,
                            tok_start: int, scale: Optional[float] = None):
@@ -69,6 +74,32 @@ def stale_kv_attention_guided_ref(q, k_fresh, v_fresh, k_stale, v_stale,
                                       k_stale[g], v_stale[g], tok_start,
                                       valid[g], n_tokens, scale)
         for g in range(2)])
+
+
+def lse_attention_ref(q, k, v, valid_len: int,
+                      scale: Optional[float] = None):
+    """Plain version of kernel K4, in the public [B, S, H, hd] layout: q's
+    attention over the first ``valid_len`` keys of one ring segment,
+    returning (the normalized output in q's dtype, its fp32 log-sum-exp
+    [B, S, H]), as the reference's ``_segment_partial`` (``spmd.py``)
+    computes them, in fp32. An empty segment (``valid_len == 0``) gives
+    out = 0 and lse = NEG_INF, exactly zero weight in the cross-hop merge
+    (the reference's out there is the mean of V, which the merge also
+    weighs by 0)."""
+    B, S, H, hd = q.shape
+    if valid_len == 0:
+        return (torch.zeros_like(q),
+                torch.full((B, S, H), NEG_INF, dtype=torch.float32,
+                           device=q.device))
+    scale = hd ** -0.5 if scale is None else scale
+    kf = k[:, :valid_len].float()
+    vf = v[:, :valid_len].float()
+    s = torch.einsum("bshd,bthd->bhst", q.float(), kf) * scale
+    m = s.amax(-1)
+    p = torch.exp(s - m[..., None])
+    l = p.sum(-1)
+    out = torch.einsum("bhst,bthd->bshd", p / l[..., None], vf)
+    return out.to(q.dtype), (m + torch.log(l)).transpose(1, 2)
 
 
 def cfg_epilogue_ref(eps_c, eps_u, scale):

@@ -1,9 +1,12 @@
-"""Stale-KV patch attention on Hopper (kernels K1, K2 and K5): the ctypes
+"""Stale-KV patch attention on Hopper (kernels K1, K2, K4 and K5): the ctypes
 binding of ``csrc/stale_kv_attention.cu``.
 
 Reference: ``repro.kernels.stale_kv_attention.stale_kv_attention_bhsd`` (K1),
-``stale_kv_attention_padded_bhsd`` (K2) and ``stale_kv_attention_guided_bhsd``
-(K5), the TPU kernels they replace. K2 is K1 for the multi-rank executors:
+``stale_kv_attention_padded_bhsd`` (K2), ``lse_attention_bhsd`` (K4) and
+``stale_kv_attention_guided_bhsd`` (K5), the TPU kernels they replace. K4 is
+the same body over one ring segment of the sequence-parallel executor: every
+key from one source, the key loop ending at the run-time ``valid_len``, and
+an fp32 log-sum-exp written beside the normalized output. K2 is K1 for the multi-rank executors:
 the slab is padded to the largest patch, only its first ``valid_tokens``
 rows are fresh, and the stale buffer's scratch tail (keys from ``n_tokens``
 on) is masked; ``tok_start`` and ``valid_tokens`` are launch arguments, so
@@ -19,8 +22,8 @@ terms so P·V keeps them to about 16 bits), float32 inputs a CUDA-core FMA
 body that keeps full fp32 precision.
 
 This module only marshals arguments; :func:`repro_torch.kernels.ops.
-stale_kv_attention`, ``stale_kv_attention_padded`` and
-``stale_kv_attention_guided`` are the public wrappers that validate inputs,
+stale_kv_attention`, ``stale_kv_attention_padded``,
+``stale_kv_attention_guided`` and ``lse_attention`` are the public wrappers that validate inputs,
 pick the plain version for CPU tensors and count launches.
 """
 from __future__ import annotations
@@ -41,7 +44,7 @@ _COMMON = [ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 6 + [
 
 
 def bind(lib: ctypes.CDLL) -> None:
-    """Declare the C signatures of the three entry points."""
+    """Declare the C signatures of the four entry points."""
     for name, n_ints in (("stale_kv_attention_launch", 5),
                          ("stale_kv_attention_padded_launch", 6),
                          ("stale_kv_attention_guided_launch", 7)):
@@ -49,6 +52,11 @@ def bind(lib: ctypes.CDLL) -> None:
         fn.argtypes = (_COMMON + [ctypes.c_int] * n_ints
                        + [ctypes.c_float, ctypes.c_void_p])
         fn.restype = ctypes.c_int
+    lib.lse_attention_launch.argtypes = (
+        [ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 5
+        + [ctypes.POINTER(ctypes.c_int64)] + [ctypes.c_int] * 4
+        + [ctypes.c_float, ctypes.c_void_p])
+    lib.lse_attention_launch.restype = ctypes.c_int
 
 
 def _pointers_and_strides(*tensors):
@@ -97,3 +105,15 @@ def launch_guided(lib: ctypes.CDLL, q, k_fresh, v_fresh, k_stale, v_stale,
     return lib.stale_kv_attention_guided_launch(
         _DTYPE_CODES[q.dtype], hd, *ptrs, strides, B2 // 2, H, Nl, n_tokens,
         tok_start, valid_tokens, uncond_fresh, scale, stream)
+
+
+def launch_lse(lib: ctypes.CDLL, q, k, v, out, lse, valid_len: int,
+               scale: float) -> int:
+    """Launch K4: q/out [B, Sq, H, hd], k/v [B, T, H, hd] (their first
+    ``valid_len`` keys real), lse [B, Sq, H] float32."""
+    B, Sq, H, hd = q.shape
+    ptrs, strides = _pointers_and_strides(q, k, v, out, lse)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    return lib.lse_attention_launch(
+        _DTYPE_CODES[q.dtype], hd, *ptrs, strides, B, H, Sq, valid_len, scale,
+        stream)

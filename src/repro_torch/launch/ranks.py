@@ -17,8 +17,11 @@ The backend rule: NCCL on CUDA, gloo on the CPU, unless the caller names one.
 NCCL takes one card per rank and refuses more ranks than cards; gloo on
 CUDA runs only when asked for by name, and then ranks beyond the card count
 share the cards in order (rank r on card r mod cards), with gloo staging each
-collective through host memory. Ranks that share a card take turns on its
-SMs: their wall times are not a multi-GPU makespan.
+collective through host memory. Under gloo, CUDA tensors go through
+all_gather, all_reduce, broadcast and all_to_all_single, but not through the
+point-to-point send/recv, so the executors use only the former. Ranks that
+share a card take turns on its SMs: their wall times are not a multi-GPU
+makespan.
 """
 from __future__ import annotations
 

@@ -2,12 +2,14 @@
 
 Thin CLI over :class:`repro_torch.core.pipeline.StadiPipeline`; strategy
 selection is ``--planner`` (uniform / spatial / temporal / stadi / makespan /
-stadi_guidance) and ``--backend`` (emulated / simulate / spmd /
-spmd_guidance; ``--spmd`` is short for ``--backend spmd``); ``--cfg-scale``
-turns on classifier-free guidance. It runs on the GPU unless ``--device
+stadi_guidance / stadi_seq) and ``--backend`` (emulated / simulate / spmd /
+spmd_guidance / spmd_seq; ``--spmd`` is short for ``--backend spmd``);
+``--cfg-scale`` turns on classifier-free guidance and ``--seq-shards``
+sequence-parallel attention. It runs on the GPU unless ``--device
 cpu`` is given. Weights are random (``--seed``), as in the reference driver.
 
-The multi-rank backends start one rank per device of the cluster
+The multi-rank backends start one rank per device of the cluster, and
+``spmd_seq`` ``seq_shards`` ranks per patch worker
 (:mod:`repro_torch.launch.ranks`): NCCL with one card per rank, or gloo with
 ``--dist-backend gloo``, which also lets the ranks share fewer cards (their
 times are then not a multi-GPU makespan); CPU ranks always run gloo.
@@ -19,6 +21,9 @@ Usage:
       --occupancies 0.0,0.5 --m-base 16 --m-warmup 4 [--cfg-scale 4.0]
   PYTHONPATH=src python -m repro_torch.launch.stadi_infer --device cpu \
       --reduced --spmd --check-vs-emulation
+  PYTHONPATH=src python -m repro_torch.launch.stadi_infer --device cpu \
+      --reduced --seq-shards 2 --exchange ring --backend spmd_seq \
+      --check-vs-emulation
 """
 from __future__ import annotations
 
@@ -32,7 +37,6 @@ import time
 _LATER_FLAGS = {
     "--num-stages": "the pipefuse slice (queue 1 item 10)",
     "--micro-patches": "the pipefuse slice (queue 1 item 10)",
-    "--seq-shards": "the sequence-parallel slice (queue 1 item 11)",
     "--num-frames": "the frames slice (queue 1 item 12)",
     "--frame-groups": "the frames slice (queue 1 item 12)",
     "--prompt": "the prompt-conditioning slice (queue 1 item 13)",
@@ -55,9 +59,10 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--batch", type=int, default=1)
     ap.add_argument("--planner", default="stadi",
                     choices=["uniform", "spatial", "temporal", "stadi",
-                             "makespan", "stadi_guidance"])
+                             "makespan", "stadi_guidance", "stadi_seq"])
     ap.add_argument("--backend", default="emulated",
-                    choices=["emulated", "simulate", "spmd", "spmd_guidance"])
+                    choices=["emulated", "simulate", "spmd", "spmd_guidance",
+                             "spmd_seq"])
     ap.add_argument("--spmd", action="store_true",
                     help="short for --backend spmd")
     ap.add_argument("--dist-backend", default=None, choices=["nccl", "gloo"],
@@ -86,8 +91,13 @@ def _parser() -> argparse.ArgumentParser:
                          "branch every E adaptive intervals")
     ap.add_argument("--rebalance-every", type=int, default=0)
     ap.add_argument("--exchange", default="sync",
-                    choices=["sync", "stale_async", "predictive"],
-                    help="boundary-exchange policy (DESIGN.md §10)")
+                    choices=["sync", "stale_async", "predictive", "ring"],
+                    help="boundary-exchange policy (DESIGN.md §10; ring: "
+                         "§13)")
+    ap.add_argument("--seq-shards", type=int, default=1,
+                    help="sequence-parallel attention (DESIGN.md §13): "
+                         "Ulysses/ring shards per patch worker (1 = off, 0 = "
+                         "let --planner stadi_seq search)")
     ap.add_argument("--exchange-refresh", type=int, default=2,
                     help="full refresh every E boundaries (stale/predictive)")
     ap.add_argument("--seed", type=int, default=0)
@@ -136,7 +146,7 @@ def _setup(args, device):
         rebalance_every=args.rebalance_every, exchange=args.exchange,
         exchange_refresh=args.exchange_refresh, guidance=args.guidance,
         cfg_scale=args.cfg_scale, uncond_refresh=args.uncond_refresh,
-        **knobs)
+        seq_shards=args.seq_shards, **knobs)
     return cfg, params, sched, x_T, cond, config
 
 
@@ -189,14 +199,16 @@ def main(argv=None):
     plan = pipe.plan()
     print(f"speeds={config.speeds} steps={plan.temporal.steps} "
           f"ratios={plan.temporal.ratios} patches={plan.patches} "
-          f"guidance={plan.guidance}")
+          f"guidance={plan.guidance} seq={plan.seq}")
     summary = {"patches": plan.patches, "steps": plan.temporal.steps,
                "planner": args.planner, "backend": args.backend,
                "device": str(device)}
 
-    if args.backend in ("spmd", "spmd_guidance"):
+    if args.backend in ("spmd", "spmd_guidance", "spmd_seq"):
         from repro_torch.launch import ranks
-        world = config.n_devices
+        world = (plan.seq.n_shards * len(plan.patches)
+                 if args.backend == "spmd_seq" and plan.seq is not None
+                 else config.n_devices)
         per_rank = ranks.spawn(_rank_generate, world, device_type=device.type,
                                dist_backend=args.dist_backend, args=(argv,))
         backend = ranks.resolve_backend(device.type, world, args.dist_backend)

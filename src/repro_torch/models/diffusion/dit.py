@@ -222,16 +222,24 @@ def block_stack(blocks, cfg: DiTConfig, h, c, tok_start: int,
              rows; every buffered read runs kernel K2, which reads only the
              real rows fresh and masks the scratch keys. Rows past
              ``valid_tokens`` are computed and left for the caller to drop.
+    attend_fn: optional replacement for the buffered read, called as
+             ``attend_fn(q, full_k, full_v, key_mask)`` with the
+             freshness-blended whole-image context: a COPY of the buffers
+             with this slab's K/V written at ``tok_start`` (under
+             ``valid_tokens`` its rows past that blended back to the
+             buffer's) and, under ``valid_tokens``, ``key_mask`` [1, 1, 1,
+             N_total] (True = attend; keys from ``cfg.n_tokens`` on are
+             scratch), else None. The sequence-parallel executor routes the
+             read through its head scatter and ring hops here.
     Returns (h', kvs) with kvs the fresh (k, v), each [n_blocks, B, Nl, H,
     hd], or None when ``return_kv`` is False.
 
-    The reference's ``enable`` stage mask, ``attend_fn`` hook, frame
-    ``ctx_tokens`` and ``prompt_ctx`` cross-attention serve the pipefuse,
-    sequence, frames and prompt slices of the port, which bring them.
+    The reference's ``enable`` stage mask, frame ``ctx_tokens`` and
+    ``prompt_ctx`` cross-attention serve the pipefuse, frames and prompt
+    slices of the port, which bring them.
     """
     for name, value, slice_name in (
             ("enable", enable, "the pipefuse slice (item 10)"),
-            ("attend_fn", attend_fn, "the sequence-parallel slice (item 11)"),
             ("ctx_tokens", ctx_tokens, "the frames slice (item 12)"),
             ("prompt_ctx", prompt_ctx, "the prompt-conditioning slice (item 13)")):
         if value is not None:
@@ -253,6 +261,10 @@ def block_stack(blocks, cfg: DiTConfig, h, c, tok_start: int,
         if buffers is None:
             # all-fresh layout: the context is the patch itself
             att = kops.stale_kv_attention(q, k, v, k, v, tok_start=0)
+        elif attend_fn is not None:
+            att = attend_fn(q, *_blended_context(
+                cfg, k, v, buffers[0][i], buffers[1][i], tok_start,
+                valid_tokens))
         elif valid_tokens is not None:
             # padded multi-rank layout: fresh over the real rows only,
             # scratch keys masked (kernel K2)
@@ -274,6 +286,28 @@ def block_stack(blocks, cfg: DiTConfig, h, c, tok_start: int,
     return x, ((torch.stack(ks), torch.stack(vs)) if return_kv else None)
 
 
+def _blended_context(cfg: DiTConfig, k, v, bk, bv, tok_start: int,
+                     valid_tokens: Optional[int]):
+    """The context an ``attend_fn`` reads: copies of the buffers (they are
+    published, shared state) with the slab's K/V written at ``tok_start``,
+    the slab's rows past ``valid_tokens`` blended back to the buffer's
+    rows, and the key mask of the scratch-padded layout (None without
+    ``valid_tokens``). Returns (full_k, full_v, key_mask)."""
+    Nl = k.shape[1]
+    rows = slice(tok_start, tok_start + Nl)
+    ku, vu, key_mask = k.to(bk.dtype), v.to(bv.dtype), None
+    if valid_tokens is not None:
+        fresh = (torch.arange(Nl, device=k.device) < valid_tokens)[None, :, None, None]
+        ku = torch.where(fresh, ku, bk[:, rows])
+        vu = torch.where(fresh, vu, bv[:, rows])
+        key_mask = (torch.arange(bk.shape[1], device=k.device)
+                    < cfg.n_tokens)[None, None, None, :]
+    full_k, full_v = bk.clone(), bv.clone()
+    full_k[:, rows] = ku
+    full_v[:, rows] = vu
+    return full_k, full_v, key_mask
+
+
 def final_head(params, cfg: DiTConfig, h, c, rows_tok: int):
     """adaLN-zero output head: hidden states -> eps rows."""
     mod = _linear(c.to(h.dtype), params["final_mod_w"], params["final_mod_b"])
@@ -285,7 +319,7 @@ def final_head(params, cfg: DiTConfig, h, c, rows_tok: int):
 
 def forward_patch(params, cfg: DiTConfig, x_rows, t, cond, row_start: int,
                   buffers: Optional[Tuple] = None, return_kv: bool = True,
-                  valid_tokens: Optional[int] = None):
+                  valid_tokens: Optional[int] = None, attend_fn=None):
     """Denoise a row-patch with stale remote K/V.
 
     x_rows: [B, rows_local, W, C] latent slab (full width).
@@ -297,6 +331,8 @@ def forward_patch(params, cfg: DiTConfig, x_rows, t, cond, row_start: int,
     valid_tokens: the multi-rank executors' padded layout — number of REAL
              local tokens (the rest pads the slab to the largest patch);
              the buffers are then scratch-padded (see :func:`block_stack`).
+    attend_fn: replaces every buffered attention read (see
+             :func:`block_stack`).
     Returns (eps_rows [B, rows_local, W, C], (fresh_k, fresh_v)
     [L,B,Nl,H,hd] or None).
     """
@@ -305,7 +341,7 @@ def forward_patch(params, cfg: DiTConfig, x_rows, t, cond, row_start: int,
     tok_start = row_start * cfg.tokens_per_side
     h, kvs = block_stack(params["blocks"], cfg, h, c, tok_start,
                          buffers=buffers, return_kv=return_kv,
-                         valid_tokens=valid_tokens)
+                         valid_tokens=valid_tokens, attend_fn=attend_fn)
     return final_head(params, cfg, h, c, rows_tok), kvs
 
 

@@ -1,7 +1,7 @@
 """Card-only tests of the port's CUDA kernels (marker ``cuda``): each kernel
 against its plain PyTorch version at the shapes ``chip_smoke.py`` checks,
 the guided path on the card against the CPU, and ``run_spmd`` on two gloo
-ranks that share the card against the CPU. They skip on a machine without a CUDA device. No JAX here: the machine
+ranks and ``run_spmd_seq`` on four that share the card against the CPU. They skip on a machine without a CUDA device. No JAX here: the machine
 with the card has none. Run them there with
 ``PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py``."""
 import dataclasses
@@ -398,3 +398,97 @@ def test_spmd_two_gloo_ranks_on_one_card_match_cpu(cuda, cfg_scale):
         assert ("cfg_epilogue" in launches) == (cfg_scale > 0)
     assert out[0][1]["stale_kv_attention_padded"] == \
         2 * out[1][1]["stale_kv_attention_padded"]      # ratios [1, 2]
+
+
+# ----------------------------------------------------------------------
+# K4: one ring segment with its LSE (spmd_seq's hops)
+# ----------------------------------------------------------------------
+
+# (valid_len) of sdxl-dit's spmd_seq hops at S = 2 (segments of 3200 rows of
+# a 6400-row buffer holding 4096 real keys), an empty segment (S = 4) and a
+# length aligned to no tile
+K4_VALIDS = [3200, 896, 0, 1001]
+K4_SQ, K4_HS, K4_T = 4608, 8, 3200
+
+
+def _k4_inputs(dtype, device, seed=5):
+    """q [1, 4608, 8, 72]; k and v the second head group of a [1, 3200, 16,
+    72] segment (strided views, as the ring reads them)."""
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    q = (QK_STD * torch.randn(1, K4_SQ, K4_HS, 72, generator=g)).to(dtype)
+    hold = torch.randn(2, 1, K4_T, 2 * K4_HS, 72, generator=g)
+    hold[0] *= QK_STD
+    hold = hold.to(dtype).to(device)
+    return q.to(device), hold[0][:, :, K4_HS:], hold[1][:, :, K4_HS:]
+
+
+def _k4_faults(q, k, v, valid):
+    """Planted faults from the plain version: valid_len ignored, the segment
+    shifted by one 64-key tile (zeros past its end), the LSE without its
+    log l term (the row max alone)."""
+    shift = lambda t: torch.cat([t[:, TILE:], torch.zeros_like(t[:, :TILE])], 1)
+    want_out, want_lse = ref.lse_attention_ref(q, k, v, valid)
+    faults = [ref.lse_attention_ref(q, k, v, k.shape[1]),
+              ref.lse_attention_ref(q, shift(k), shift(v), valid)]
+    if valid:
+        s = torch.einsum("bshd,bthd->bsht", q.float(), k[:, :valid].float())
+        faults.append((want_out, s.amax(-1) * q.shape[-1] ** -0.5))
+    return faults
+
+
+def _k4_within_bars(out, lse, want, dtype):
+    return _within_bars(out, want[0], dtype) and _within_bars(lse, want[1],
+                                                              torch.float32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("valid", K4_VALIDS)
+def test_k4_kernel_matches_plain_and_rejects_faults(cuda, valid, dtype):
+    q, k, v = _k4_inputs(dtype, cuda)
+    ops.reset_launch_counts()
+    out, lse = ops.lse_attention(q, k, v, valid)
+    assert ops.launch_counts() == {"lse_attention": 1}
+    want = ref.lse_attention_ref(q, k, v, valid)
+    torch.cuda.synchronize()
+    assert out.shape == q.shape and out.dtype == dtype
+    assert lse.shape == q.shape[:3] and lse.dtype == torch.float32
+    if valid == 0:                  # an empty segment: zero merge weight
+        assert torch.equal(out, torch.zeros_like(out))
+        assert torch.equal(lse, want[1]) and lse.max().item() <= -1e29
+        return
+    _assert_within_bars(out, want[0], dtype)
+    _assert_within_bars(lse, want[1], torch.float32)
+    for bad in _k4_faults(q, k, v, valid):
+        moved = max(((b.float() - w.float()).norm() / w.float().norm()).item()
+                    for b, w in zip(bad, want))
+        if moved >= 1e-6:
+            assert not _k4_within_bars(out, lse, bad, dtype)
+
+
+def _seq_rank(ctx, config):
+    res = _tiny_generate(config, ctx.device)
+    return res.image.cpu(), res.kernel_stats["launches"]
+
+
+@pytest.mark.cuda
+def test_spmd_seq_four_gloo_ranks_on_one_card_match_cpu(cuda):
+    """run_spmd_seq at S = 2 on 2 x 2 gloo ranks sharing the card (K1 for the
+    warm-ups, K4 for every buffered read, no K2) against the emulated image
+    on the CPU."""
+    from repro_torch.core.pipeline import StadiConfig
+    from repro_torch.launch import ranks
+
+    config = StadiConfig.from_occupancies([0.0, 0.5], m_base=8, m_warmup=2,
+                                          seq_shards=2, exchange="ring",
+                                          backend="spmd_seq")
+    out = ranks.spawn(_seq_rank, 4, device_type="cuda", dist_backend="gloo",
+                      args=(config,), timeout=600)
+    want = _tiny_generate(dataclasses.replace(config, backend="emulated"),
+                          "cpu").image
+    for img, launches in out:
+        assert ((img - want).norm() / want.norm()).item() < 1e-3
+        assert launches["lse_attention"] > 0
+        assert "stale_kv_attention_padded" not in launches
+    assert [o[1]["lse_attention"] for o in out] == \
+        [out[0][1]["lse_attention"], out[0][1]["lse_attention"] // 2] * 2

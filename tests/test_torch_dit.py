@@ -122,6 +122,19 @@ def test_block_stack_refuses_later_slices(model):
     h = torch.zeros(1, 8, tcfg.d_model)
     c = torch.zeros(1, tcfg.d_model)
     for kw in ({"ctx_tokens": 8}, {"enable": torch.ones(2, dtype=torch.bool)},
-               {"attend_fn": lambda *a: a[0]}, {"prompt_ctx": (h, None)}):
+               {"prompt_ctx": (h, None)}):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             tdit.block_stack(tparams["blocks"], tcfg, h, c, 0, **kw)
+    # attend_fn is ported (the sequence-parallel slice): it receives the
+    # blended context, a copy, and what it returns is the attention
+    L, H = tcfg.n_layers, tcfg.n_heads
+    hd = tcfg.d_model // H
+    bk = torch.randn(L, 1, tcfg.n_tokens, H, hd)
+    seen = []
+
+    def attend_fn(q, full_k, full_v, key_mask):
+        seen.append((full_k.shape, key_mask))
+        return torch.zeros_like(q)
+    tdit.block_stack(tparams["blocks"], tcfg, h, c, 0, buffers=(bk, bk.clone()),
+                     attend_fn=attend_fn)
+    assert seen == [((1, tcfg.n_tokens, H, hd), None)] * L

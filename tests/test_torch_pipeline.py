@@ -178,19 +178,23 @@ def test_entry_points_refuse_without_device_and_later_slices(setup):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             stadi_infer.main(["--reduced"])
     for knobs, match in (({"num_stages": 2}, "pipefuse"),
-                         ({"seq_shards": 2}, "sequence"),
                          ({"num_frames": 2}, "frames"),
                          ({"plan_cache_dir": "x"}, "serving"),
-                         ({"planner": "stadi_seq"}, "sequence")):
+                         ({"planner": "stadi_pipefuse"}, "pipefuse")):
         bad = dataclasses.replace(conf, **knobs)
         with pytest.raises(NotImplementedError, match=match):
             tpipe.StadiPipeline(tcfg, tparams, sched, bad, device="cpu")
+    # the sequence-parallel slice is ported: seq_shards and stadi_seq build
+    for knobs in ({"seq_shards": 2}, {"planner": "stadi_seq"}):
+        tpipe.StadiPipeline(tcfg, tparams, sched,
+                            dataclasses.replace(conf, **knobs), device="cpu")
     # the multi-rank backends are ported: outside the ranks of a process
     # group they refuse to run
     for knobs in ({"backend": "spmd"}, {"backend": "spmd_guidance",
                                         "cfg_scale": 3.0,
                                         "planner": "stadi_guidance",
-                                        "guidance": "split"}):
+                                        "guidance": "split"},
+                  {"backend": "spmd_seq", "seq_shards": 2}):
         pipe = tpipe.StadiPipeline(tcfg, tparams, sched,
                                    dataclasses.replace(conf, **knobs),
                                    device="cpu")

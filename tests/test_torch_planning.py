@@ -159,7 +159,7 @@ def test_planners_equal(speeds, name, p_total, tiers):
 
 def test_planner_registry():
     assert set(tplan.PLANNERS) == {"uniform", "spatial", "temporal", "stadi",
-                                   "makespan", "stadi_guidance"}
+                                   "makespan", "stadi_guidance", "stadi_seq"}
     assert set(tplan.PLANNERS) <= set(jplan.PLANNERS)
     with pytest.raises(KeyError):
         tplan.get_planner("nope")
@@ -170,7 +170,8 @@ def test_planner_registry():
 # ----------------------------------------------------------------------
 
 def test_exchange_registry_equal():
-    assert set(tcomm.EXCHANGES) == {"sync", "stale_async", "predictive"}
+    assert set(tcomm.EXCHANGES) == {"sync", "stale_async", "predictive",
+                                    "ring"}
     assert tcomm.EXCHANGE_KINDS == jcomm.EXCHANGE_KINDS
     for name in tcomm.EXCHANGES:
         for refresh in (1, 2, 3, 5):
@@ -282,4 +283,8 @@ def test_simulate_refuses_later_axes():
     trace = tsim.build_trace(tp, [4, 4], get_config("tiny-dit").reduced())
     trace.stages = [1, 1]
     with pytest.raises(NotImplementedError, match="pipefuse"):
+        tsim.simulate_trace(trace, [1.0, 1.0], tsim.CostModel(1e-3, 1e-3))
+    trace = tsim.build_trace(tp, [4, 4], get_config("tiny-dit").reduced())
+    trace.frames = object()
+    with pytest.raises(NotImplementedError, match="frames"):
         tsim.simulate_trace(trace, [1.0, 1.0], tsim.CostModel(1e-3, 1e-3))
