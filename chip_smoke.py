@@ -1,10 +1,12 @@
 """Smoke run of the PyTorch/CUDA port on one GPU: builds the hand-written
 kernels from this checkout, holds each against its plain PyTorch version at
-the shapes of the paths it drives, drives the main path (STADI on sdxl-dit at
-full width), the guided paths (classifier-free guidance, fused and
+the shapes of the paths it drives, drives the LLM serving path (Hymba-1.5B
+at full width through the ServingEngine), the main path (STADI on sdxl-dit
+at full width), the guided paths (classifier-free guidance, fused and
 interleaved) through ``StadiPipeline.generate`` and the multi-rank paths
 (spmd, unguided, fused and split guidance, and spmd_seq, sequence-parallel
-attention) on gloo ranks that share the card, and checks card-vs-CPU images.
+attention) on gloo ranks that share the card, and checks card-vs-CPU
+outputs.
 
     python3 chip_smoke.py
     python3 chip_smoke.py --nccl     # only phase 11, over NCCL on 4 cards
@@ -76,6 +78,31 @@ Phases (any failure raises, so the script exits non-zero):
  12. tiny-dit.reduced() in fp32, unguided, fused and interleaved: the card's
      image (through K1 and K3) against the CPU's (through the plain
      versions), relative error < 1e-3
+ 13. K6 (causal / sliding-window flash attention with GQA and a meta-token
+     prefix) against its plain version at Hymba-1.5B's prefill shapes (q
+     [1, 2048, 25, 64], k/v [1, 2048, 5, 64]) for causal only, causal +
+     window 1024, and window 1024 + prefix 128, fp32 and bf16, with K1's
+     bars; each bar must reject three planted faults (the prefix ignored,
+     the window one key wider, KV head h % K). Times of the kernel, the
+     plain version and scaled_dot_product_attention (enable_gqa; is_causal
+     or the boolean mask).
+ 14. K7 (the selective scan) against its plain version at Hymba's Mamba
+     shapes (x/dt [1, 2048, 1600] and [1, 1, 1600], N 16, fp32), from zero
+     and from a nonzero h0, 5e-5 on y and the final state; each bar must
+     reject three planted faults (h0 ignored, the state reset at a 64-step
+     tile, the D x skip dropped). Times of the kernel and the plain version
+     (no PyTorch call computes a scan); at S 1 device times by CUDA-graph
+     replay and the wrapper's eager time per call.
+ 15. the LLM serving path: Hymba-1.5B at full width in bf16 (random weights
+     from a seed), 4 requests of 1920 tokens on 4 slots, 16 new tokens each
+     (128 meta + 1920 positions, past the 1152-slot ring): tokens in range,
+     two runs with the same tokens, K6 32 and K7 32 x 16 launches per
+     request; time to first token, decode ms per token, tokens per second
+     (the ``hymba_serve`` line), and the first request served alone, timed
+     and then profiled (``hymba_serve_profile``).
+     Then hymba-1.5b.reduced() fp32 with GQA 4/2, card against CPU: logits
+     within 1e-4 relative, the same tokens.
+ Phases 13 to 15 run after phase 8, before the sdxl-dit paths.
 Every path is driven with the launch counters set to 0 just before it and
 read just after (on every rank for the multi-rank paths). The
 second-to-last line is the kernels' JSON record, the last line the device
@@ -1048,6 +1075,376 @@ def phase_spmd(dev, dist_backend="gloo"):
     return results
 
 
+# K6 at Hymba-1.5B's prefill: q [1, 2048, 25, 64], k/v [1, 2048, 5, 64]
+# (a 1920-token prompt behind 128 meta tokens); (causal, window, prefix_len):
+# causal only, causal + window, and the path's window + meta-token prefix
+K6_S, K6_H, K6_K, K6_HD = 2048, 25, 5, 64
+K6_MASKS = [(True, 0, 0), (True, 1024, 0), (True, 1024, 128)]
+
+
+def k6_inputs(dtype, dev, gen):
+    """q, k, v at the path's shapes; q and k of std QK_STD as for K1."""
+    q = QK_STD * torch.randn(1, K6_S, K6_H, K6_HD, generator=gen)
+    k = QK_STD * torch.randn(1, K6_S, K6_K, K6_HD, generator=gen)
+    v = torch.randn(1, K6_S, K6_K, K6_HD, generator=gen)
+    return [t.to(dtype).to(dev) for t in (q, k, v)]
+
+
+def k6_planted_faults(ref, q, k, v, causal, window, prefix):
+    """K6's output under planted faults, from its plain version: the prefix
+    ignored, the window one key wider, KV head h % K for query head h."""
+    wrong = [h % K6_K for h in range(K6_H)]
+    return {"prefix ignored": ref.flash_attention_ref(q, k, v, causal=causal,
+                                                       window=window),
+            "window + 1": ref.flash_attention_ref(
+                q, k, v, causal=causal, window=window + 1 if window else 0,
+                prefix_len=prefix),
+            "kv head h % K": ref.flash_attention_ref(
+                q, k[:, :, wrong], v[:, :, wrong], causal=causal,
+                window=window, prefix_len=prefix)}
+
+
+def k6_bound_ms(ref, causal, window, prefix, dtype, peaks):
+    """Least time for K6's work: 4 * hd operations per visible (q, k) pair
+    and head (the mask's pairs, counted) at the input type's peak, or the
+    bytes of q, k, v and the output once each at the memory rate."""
+    pairs = int(ref.flash_mask(K6_S, K6_S, causal=causal, window=window,
+                               prefix_len=prefix).sum())
+    flops = 4 * K6_HD * pairs * K6_H
+    elem = torch.tensor([], dtype=dtype).element_size()
+    nbytes = elem * K6_S * K6_HD * (2 * K6_H + 2 * K6_K)
+    ops_ms = flops / (peaks[0] if dtype == torch.bfloat16 else peaks[1]) * 1e3
+    bytes_ms = nbytes / peaks[2] * 1e3
+    return (max(ops_ms, bytes_ms), "operations" if ops_ms >= bytes_ms else "bytes",
+            pairs)
+
+
+def k6_library_call(ref, q, k, v, causal, window, prefix):
+    """The library yardstick: one scaled_dot_product_attention call with
+    GQA (enable_gqa), is_causal for the causal-only mask, else the boolean
+    window + prefix mask."""
+    F = torch.nn.functional
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    if window == 0:
+        return lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal,
+                                                      enable_gqa=True)
+    mask = ref.flash_mask(K6_S, K6_S, causal=causal, window=window,
+                          prefix_len=prefix, device=q.device)
+    return lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
+                                                  enable_gqa=True)
+
+
+def phase_k6(ops, ref, dev, peaks):
+    """K6 against its plain version at Hymba's prefill shapes, each mask,
+    fp32 and bf16, with planted faults (K1's bars); times at bf16. Returns
+    the timed readings, the path's mask (window + prefix) first."""
+    gen = torch.Generator(device="cpu").manual_seed(SEED + 7)
+    timed, rejected = [], set()
+    for dtype in (torch.float32, torch.bfloat16):
+        for causal, window, prefix in K6_MASKS:
+            q, k, v = k6_inputs(dtype, dev, gen)
+            kw = dict(causal=causal, window=window, prefix_len=prefix)
+            out = ops.flash_attention(q, k, v, **kw)
+            want = ref.flash_attention_ref(q, k, v, **kw)
+            line = {"kernel": "flash_attention", "dtype": str(dtype),
+                    "q": list(q.shape), "kv": list(k.shape), **kw,
+                    "bar": BARS[dtype], "norm_bar": NORM_BARS[dtype]}
+            if dtype == torch.bfloat16:
+                bound_ms, bound_by, pairs = k6_bound_ms(ref, causal, window,
+                                                        prefix, dtype, peaks)
+                line.update(
+                    ms=time_ms(lambda: ops.flash_attention(q, k, v, **kw)),
+                    plain_ms=time_ms(lambda: ref.flash_attention_ref(q, k, v, **kw),
+                                     reps=3),
+                    library_ms=time_ms(k6_library_call(ref, q, k, v, causal,
+                                                       window, prefix)),
+                    visible_pairs_per_head=pairs, bound_ms=bound_ms,
+                    bound_by=bound_by)
+            faults = check_with_faults(
+                "k6_check", out, want,
+                k6_planted_faults(ref, q, k, v, causal, window, prefix),
+                dtype, line)
+            rejected |= {n for n, f in faults.items() if f.get("rejected")}
+            if "ms" in line:
+                timed.append(line)
+    check(len(rejected) == 3, f"K6: not every planted fault was shown "
+          f"rejected at some mask: {sorted(rejected)}")
+    return sorted(timed, key=lambda line: -line["prefix_len"])
+
+
+# K7 at Hymba-1.5B's Mamba branch: d_inner 1600, N 16, fp32; S 2048 at
+# prefill, 1 at decode
+K7_DI, K7_N, K7_TILE = 1600, 16, 64
+
+
+def k7_inputs(S, dev, gen):
+    """x, dt (a softplus, as Mamba's delta), B_t and C_t as the two strided
+    halves of one [1, S, 2N] projection (as mamba._proj slices them), A
+    negative, D, and a nonzero h0."""
+    x = torch.randn(1, S, K7_DI, generator=gen)
+    dt = torch.nn.functional.softplus(torch.randn(1, S, K7_DI, generator=gen) - 2)
+    bc = torch.randn(1, S, 2 * K7_N, generator=gen)
+    a = -torch.exp(0.5 * torch.randn(K7_DI, K7_N, generator=gen))
+    d = torch.randn(K7_DI, generator=gen)
+    h0 = torch.randn(1, K7_DI, K7_N, generator=gen)
+    x, dt, bc, a, d, h0 = (t.to(dev) for t in (x, dt, bc, a, d, h0))
+    return x, dt, bc[..., :K7_N], bc[..., K7_N:], a, d, h0
+
+
+def k7_planted_faults(ref, x, dt, b, c, a, d, h0):
+    """K7's (y, h_final) under planted faults, from its plain version: h0
+    ignored, the state reset at the kernel's first 64-step tile boundary,
+    the D x skip dropped."""
+    faults = {"d x dropped": ref.ssm_scan_ref(x, dt, b, c, a,
+                                              torch.zeros_like(d), h0)}
+    if h0 is not None:
+        faults["h0 ignored"] = ref.ssm_scan_ref(x, dt, b, c, a, d)
+    if x.shape[1] > K7_TILE:
+        cut = lambda lo, hi: [t[:, lo:hi] for t in (x, dt, b, c)]
+        head = ref.ssm_scan_ref(*cut(0, K7_TILE), a, d, h0)
+        tail = ref.ssm_scan_ref(*cut(K7_TILE, None), a, d)
+        faults["state reset at a tile"] = (torch.cat([head[0], tail[0]], 1),
+                                           tail[1])
+    return faults
+
+
+def k7_bound_ms(S, peaks):
+    """Least time for K7's work: the bytes of x, dt, B_t, C_t, A, D and h0
+    read once and y and h_final written once (fp32) at the memory rate, or
+    its fp32 operations (per (t, d, n): the exp's argument, the decay, the
+    input term and its update, the C product and its sum, 7; per (t, d):
+    the D x term, 2; exp counted as one) at the CUDA-core peak."""
+    nbytes = 4 * (3 * S * K7_DI + 2 * S * K7_N + K7_DI * K7_N + K7_DI
+                  + 2 * K7_DI * K7_N)
+    flops = S * K7_DI * (7 * K7_N + 2)
+    ops_ms = flops / peaks[1] * 1e3
+    bytes_ms = nbytes / peaks[2] * 1e3
+    return max(ops_ms, bytes_ms), ("operations" if ops_ms >= bytes_ms else "bytes")
+
+
+def phase_k7(ops, ref, dev, peaks):
+    """K7 against its plain version at Hymba's prefill (S 2048) and decode
+    (S 1) shapes, from zero and from a nonzero state, fp32 5e-5 on y and the
+    final state, with planted faults; times with h0 and the final state, as
+    mamba_forward calls it. Returns the timed readings, prefill first."""
+    gen = torch.Generator(device="cpu").manual_seed(SEED + 8)
+    timed, rejected = [], set()
+    f32 = torch.float32
+    for S in (2048, 1):
+        for with_h0 in (False, True):
+            x, dt, b, c, a, d, h0 = k7_inputs(S, dev, gen)
+            h0 = h0 if with_h0 else None
+            y, h = ops.ssm_scan(x, dt, b, c, a, d, h0=h0, final_state=True)
+            want = ref.ssm_scan_ref(x, dt, b, c, a, d, h0)
+            yerr, yrel, yok = k1_reading(y, want[0], f32)
+            herr, hrel, hok = k1_reading(h, want[1], f32)
+            readings = {}
+            for name, bad in k7_planted_faults(ref, x, dt, b, c, a, d, h0).items():
+                _, ry, y_ok = k1_reading(y, bad[0], f32)
+                _, rh, h_ok = k1_reading(h, bad[1], f32)
+                readings[name] = {"y_norm_rel_err": ry, "h_norm_rel_err": rh,
+                                  "rejected": not (y_ok and h_ok)}
+                if not (y_ok and h_ok):
+                    rejected.add(name)
+            line = {"kernel": "ssm_scan", "S": S, "Di": K7_DI, "N": K7_N,
+                    "h0": with_h0, "max_abs_err": max(yerr, herr),
+                    "y_max_abs_err": yerr, "y_norm_rel_err": yrel,
+                    "h_max_abs_err": herr, "h_norm_rel_err": hrel,
+                    "bar": BARS[f32], "ok": yok and hok,
+                    "planted_faults": readings}
+            if with_h0:
+                bound_ms, bound_by = k7_bound_ms(S, peaks)
+                kernel = lambda: ops.ssm_scan(x, dt, b, c, a, d, h0=h0,
+                                              final_state=True)
+                plain = lambda: ref.ssm_scan_ref(x, dt, b, c, a, d, h0)
+                if S == 1:     # microseconds: device time by CUDA-graph replay
+                    line.update(ms=time_graph_ms(kernel),
+                                plain_ms=time_graph_ms(plain),
+                                eager_ms=time_ms(kernel, reps=100))
+                else:
+                    line.update(ms=time_ms(kernel), plain_ms=time_ms(plain, reps=3))
+                line.update(
+                    library_ms=None,
+                    library_call="none: no single PyTorch call computes a "
+                                 "selective scan",
+                    bound_ms=bound_ms, bound_by=bound_by)
+                timed.append(line)
+            print("k7_check", json.dumps(line), flush=True)
+            check(line["ok"], f"K7 disagrees with its plain version: {line}")
+            check(all(f["rejected"] for f in readings.values()),
+                  f"the K7 bar lets a planted fault through: {line}")
+    check(len(rejected) == 3, f"K7: not every planted fault was shown "
+          f"rejected: {sorted(rejected)}")
+    return timed
+
+
+# Hymba-1.5B serving at full width (32 layers, d_model 1600, 25/5 heads of
+# 64, vocab 32001), bf16, random weights from SEED: 4 requests on 4 slots,
+# prompts of 1920 tokens (128 meta + 1920 = 2048 positions, past the
+# 128 + 1024 ring), 16 new tokens each
+HYMBA_REQUESTS, HYMBA_PROMPT, HYMBA_NEW = 4, 1920, 16
+
+
+def hymba_engine(dev):
+    """The full-width bf16 engine and its requests' prompts, through the
+    entry points a user calls (get_config, build_model, Model.init,
+    ServingEngine)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.serving import ServingEngine
+
+    cfg = get_config("hymba-1.5b").replace(dtype="bfloat16",
+                                           param_dtype="bfloat16")
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device=dev).manual_seed(SEED))
+    engine_args = dict(slots=HYMBA_REQUESTS, max_len=HYMBA_PROMPT + HYMBA_NEW + 8,
+                       window=cfg.sliding_window)
+    rng = np.random.default_rng(SEED)
+    prompts = [rng.integers(0, cfg.vocab, HYMBA_PROMPT).astype(np.int32)
+               for _ in range(HYMBA_REQUESTS)]
+    return cfg, lambda: ServingEngine(model, params, **engine_args), prompts
+
+
+def hymba_serve_once(make_engine, prompts):
+    """Submit every request, run to completion; (requests by uid, start and
+    end on the host clock, after a card synchronisation)."""
+    from repro_torch.serving import Request
+
+    engine = make_engine()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for uid, prompt in enumerate(prompts):
+        engine.submit(Request(uid=uid, prompt=prompt, max_new_tokens=HYMBA_NEW))
+    done = engine.run_to_completion()
+    torch.cuda.synchronize()
+    return {r.uid: r for r in done}, t0, time.perf_counter()
+
+
+def phase_hymba(ops, dev):
+    """The LLM serving path at full width: a warm-up run, a run with the
+    launch counters set to 0 just before it and read just after (K6 once
+    per layer of each prefill, K7 once per layer of each prefill and decode
+    step), the two runs' tokens equal, then the first request alone,
+    timed and profiled. Returns the counted run's launches."""
+    cfg, make_engine, prompts = hymba_engine(dev)
+    print(f"hymba-1.5b: {cfg.n_layers} layers, d_model {cfg.d_model}, heads "
+          f"{cfg.n_heads}/{cfg.n_kv_heads} of {cfg.hd}, vocab {cfg.vocab}, "
+          f"{cfg.dtype}, window {cfg.sliding_window}, meta "
+          f"{cfg.n_meta_tokens}; {HYMBA_REQUESTS} requests of "
+          f"{HYMBA_PROMPT} tokens on {HYMBA_REQUESTS} slots, {HYMBA_NEW} new "
+          "tokens each", flush=True)
+    t0 = time.perf_counter()
+    first, _, _ = hymba_serve_once(make_engine, prompts)
+    first_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    done, t0, t1 = hymba_serve_once(make_engine, prompts)
+    launches = ops.launch_counts()
+    expected = {"flash_attention": HYMBA_REQUESTS * cfg.n_layers,
+                "ssm_scan": HYMBA_REQUESTS * cfg.n_layers * HYMBA_NEW}
+    tokens = {uid: r.out_tokens for uid, r in done.items()}
+    n_tok = sum(map(len, tokens.values()))
+    ttft = [done[uid].first_token_s - t0 for uid in sorted(done)]
+    decode_s = t1 - max(r.first_token_s for r in done.values())
+    line = {"path": "hymba_serve", "requests": HYMBA_REQUESTS,
+            "prompt_tokens": HYMBA_PROMPT, "new_tokens": HYMBA_NEW,
+            "wall_s": t1 - t0, "first_run_s": first_s,
+            "ttft_ms": [x * 1e3 for x in ttft],
+            "ttft_ms_note": "from submitting all requests; the engine "
+                            "prefills them one after another",
+            "decode_ms_per_token": decode_s / (n_tok - HYMBA_REQUESTS) * 1e3,
+            "tokens_per_s": n_tok / (t1 - t0),
+            "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+            "launches": launches, "expected_launches": expected,
+            "tokens": tokens}
+    print("hymba_serve", json.dumps(line), flush=True)
+    check(sorted(done) == list(range(HYMBA_REQUESTS)), "hymba: requests lost")
+    check(all(len(t) == HYMBA_NEW and all(0 <= x < cfg.vocab for x in t)
+              for t in tokens.values()), f"hymba: tokens {tokens}")
+    check(tokens == {uid: r.out_tokens for uid, r in first.items()},
+          "hymba: two runs gave different tokens")
+    check(launches == expected, f"hymba: launches {launches}, the config "
+          f"needs {expected}")
+    profile_hymba(make_engine, prompts[:1])
+    return launches
+
+
+def profile_hymba(make_engine, prompts, top=12):
+    """``prompts`` served once unprofiled and once under torch.profiler:
+    device time by kernel and the device idle share (1 - busy / the
+    unprofiled wall time). The engine runs each request's prefill and
+    decode steps at batch 1 whatever its slots, so one request is the
+    path's work per request; the whole 4-request run launches a few
+    hundred thousand kernels, more than the profiler reads back in the
+    script's time. Only the device is traced, for the same reason."""
+    from torch.profiler import ProfilerActivity, profile
+
+    _, t0, t1 = hymba_serve_once(make_engine, prompts)
+    wall_s = t1 - t0
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        hymba_serve_once(make_engine, prompts)
+    kernels = []
+    for ev in prof.key_averages():
+        dev_us = getattr(ev, "self_device_time_total",
+                         getattr(ev, "self_cuda_time_total", 0.0))
+        if dev_us > 0 and ev.device_type == torch.autograd.DeviceType.CUDA:
+            kernels.append((ev.key, dev_us, ev.count))
+    kernels.sort(key=lambda k: -k[1])
+    busy_s = sum(us for _, us, _ in kernels) * 1e-6
+    by = {name: sum(us for key, us, _ in kernels if name in key) * 1e-6
+          for name in ("flash_attention", "ssm_scan")}
+    print("hymba_serve_profile", json.dumps({
+        "requests": len(prompts), "wall_s": wall_s, "device_busy_s": busy_s,
+        "device_kernels": sum(c for _, _, c in kernels),
+        "device_idle_share": max(0.0, 1.0 - busy_s / wall_s),
+        "k6_device_s": by["flash_attention"], "k7_device_s": by["ssm_scan"],
+        "k6_share_of_busy": by["flash_attention"] / busy_s if busy_s else None,
+        "k7_share_of_busy": by["ssm_scan"] / busy_s if busy_s else None,
+        "top_kernels": [{"name": n[:120], "device_s": us * 1e-6, "calls": c}
+                        for n, us, c in kernels[:top]]}), flush=True)
+
+
+def phase_hymba_cross_device(dev):
+    """hymba-1.5b reduced in fp32 with GQA (4 query, 2 KV heads): a 96-token
+    prompt (past the 8 + 64 ring) prefilled and 8 tokens decoded on the card
+    (K6, K7) and on the CPU (their plain versions), each fed the CPU's
+    tokens: logits within 1e-4 relative, the same tokens."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+
+    cfg = get_config("hymba-1.5b").reduced().replace(n_kv_heads=2)
+    model = build_model(cfg)
+    params = model.init(torch.Generator().manual_seed(SEED))
+    tokens = torch.randint(0, cfg.vocab, (1, 96),
+                           generator=torch.Generator().manual_seed(SEED + 1))
+
+    def to(tree, d):
+        return {k: to(v, d) if isinstance(v, dict) else v.to(d)
+                for k, v in tree.items()}
+
+    def run(d, feed):
+        p = to(params, d)
+        cache = model.init_cache(1, 0, window=cfg.sliding_window, device=d)
+        out, cache = model.prefill(p, {"tokens": tokens.to(d)}, cache,
+                                   window=cfg.sliding_window)
+        seq = [out.cpu()]
+        for i in range(8):
+            tok = seq[-1].argmax(-1) if feed is None else feed[i:i + 1]
+            out, cache = model.decode_step(p, cache, tok.to(d),
+                                           window=cfg.sliding_window)
+            seq.append(out.cpu())
+        return torch.cat(seq)
+
+    want = run("cpu", None)
+    got = run(dev, want.argmax(-1))
+    rel = ((got - want).norm() / want.norm()).item()
+    same = torch.equal(got.argmax(-1), want.argmax(-1))
+    print(f"cross_device hymba-1.5b.reduced fp32 GQA 4/2: card vs CPU logits "
+          f"relative error {rel:.3e} (bar 1e-4), same tokens {same}", flush=True)
+    check(rel < 1e-4 and same, f"hymba: card differs from the CPU: {rel}, {same}")
+    return rel
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1083,17 +1480,30 @@ def main():
         return 0
     check(not sys.argv[1:], f"unknown arguments {sys.argv[1:]}; the one "
           "option is --nccl (the multi-rank paths on 4 cards)")
-    k1 = phase_kernels(ops, ref, layers, dev, peaks)
-    k1_b2 = phase_k1_batch2(ops, ref, layers, dev, peaks)
-    k3 = phase_k3(ops, ref, dev, peaks)
-    k2_timed = phase_k2(ops, ref, dev, peaks)
+    def phase(fn, *args):
+        """Run one phase and print its seconds (the script's time limit
+        covers them all)."""
+        t0 = time.perf_counter()
+        out = fn(*args)
+        print(f"phase {fn.__name__}: {time.perf_counter() - t0:.1f} s", flush=True)
+        return out
+
+    k1 = phase(phase_kernels, ops, ref, layers, dev, peaks)
+    k1_b2 = phase(phase_k1_batch2, ops, ref, layers, dev, peaks)
+    k3 = phase(phase_k3, ops, ref, dev, peaks)
+    k2_timed = phase(phase_k2, ops, ref, dev, peaks)
     k2 = k2_timed[0]
-    k5 = phase_k5(ops, ref, dev, peaks)
-    k4_timed = phase_k4(ops, ref, dev, peaks)
+    k5 = phase(phase_k5, ops, ref, dev, peaks)
+    k4_timed = phase(phase_k4, ops, ref, dev, peaks)
     k4 = k4_timed[0]
-    launches = phase_paths(ops, dev)
-    spmd = phase_spmd(dev)
-    phase_cross_device(dev)
+    k6_timed = phase(phase_k6, ops, ref, dev, peaks)
+    k7_timed = phase(phase_k7, ops, ref, dev, peaks)
+    hymba_launches = phase(phase_hymba, ops, dev)
+    phase(phase_hymba_cross_device, dev)
+    launches = phase(phase_paths, ops, dev)
+    launches["hymba_serve"] = hymba_launches
+    spmd = phase(phase_spmd, dev)
+    phase(phase_cross_device, dev)
     for label, outs in spmd.items():      # launches summed over the ranks
         launches[label] = {}
         for o in outs:
@@ -1136,6 +1546,18 @@ def main():
          "timed_hops": [{k: line[k] for k in (
              "valid_len", "ms", "plain_ms", "library_ms", "bound_ms")}
              for line in k4_timed]},
+        {**entry("flash_attention",
+                 "src/repro_torch/kernels/csrc/flash_attention.cu",
+                 "src/repro/kernels/flash_attention.py:68", k6_timed[0],
+                 "hymba_serve"),
+         "timed_masks": [{k: line[k] for k in (
+             "causal", "window", "prefix_len", "ms", "plain_ms", "library_ms",
+             "bound_ms", "visible_pairs_per_head")} for line in k6_timed]},
+        {**entry("ssm_scan", "src/repro_torch/kernels/csrc/ssm_scan.cu",
+                 "src/repro/kernels/ssm_scan.py:55", k7_timed[0], "hymba_serve"),
+         "library_call": k7_timed[0]["library_call"],
+         "timed_lengths": [{k: line[k] for k in (
+             "S", "ms", "plain_ms", "bound_ms")} for line in k7_timed]},
     ]}
     print(json.dumps(record), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -5,10 +5,11 @@ Every wrapper takes the plain PyTorch version (:mod:`repro_torch.kernels.
 ref`) for CPU tensors and launches its hand-written CUDA kernel for CUDA
 tensors, or raises; there is no fallback from one to the other.
 
-The CUDA sources under ``csrc/`` are compiled by ``nvcc`` at first use into
-one shared library with a plain C interface, loaded with ``ctypes``. The
-library's file name carries a hash of the sources and flags, so an edited
-source is rebuilt. ``nvcc`` is found the way PyTorch finds it
+The CUDA sources under ``csrc/`` are compiled by ``nvcc`` at first use, one
+``nvcc`` per source, all started together, and linked into one shared
+library with a plain C interface, loaded with ``ctypes``. The library's file
+name carries a hash of the sources, headers and flags, so an edited source
+is rebuilt. ``nvcc`` is found the way PyTorch finds it
 (``CUDA_HOME``, then ``PATH``, then ``/usr/local/cuda``).
 
 Launch counters differ from the JAX package's kernel counters: JAX counts
@@ -32,13 +33,15 @@ from typing import Dict
 import torch
 
 from repro_torch.kernels import cfg_epilogue as cfe
+from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import ref
+from repro_torch.kernels import ssm_scan as ss
 from repro_torch.kernels import stale_kv_attention as skv
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parent / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 
 # ----------------------------------------------------------------------
@@ -86,7 +89,7 @@ def load_library() -> Library:
                            "CPU tensors take the plain versions")
     sources = sorted(CSRC.glob("*.cu"))
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources:
+    for src in sources + sorted(CSRC.glob("*.cuh")):
         digest.update(src.name.encode())
         digest.update(src.read_bytes())
     path = BUILD_DIR / f"libstadi_kernels-{digest.hexdigest()[:16]}.so"
@@ -94,17 +97,32 @@ def load_library() -> Library:
     if not path.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = path.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)]
+        objects = [tmp.with_name(f"{tmp.name}.{src.stem}.o") for src in sources]
         t0 = time.perf_counter()
-        proc = subprocess.run(cmd, capture_output=True, text=True)
+        try:
+            procs = [subprocess.Popen([_nvcc(), *NVCC_FLAGS, "-c", "-o", str(obj),
+                                       str(src)], stdout=subprocess.PIPE,
+                                      stderr=subprocess.STDOUT, text=True)
+                     for src, obj in zip(sources, objects)]
+            logs = [proc.communicate()[0] for proc in procs]
+            log = "".join(logs)
+            failed = [src.name for src, proc in zip(sources, procs) if proc.returncode]
+            if failed:
+                raise RuntimeError(f"nvcc failed on {failed}:\n{log}")
+            link = subprocess.run([_nvcc(), "-shared", "-o", str(tmp),
+                                   *map(str, objects)], capture_output=True,
+                                  text=True)
+            log += link.stdout + link.stderr
+            if link.returncode != 0:
+                raise RuntimeError(f"nvcc link failed ({link.returncode}):\n{log}")
+        finally:
+            for obj in objects:
+                obj.unlink(missing_ok=True)
         seconds = time.perf_counter() - t0
-        log = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
         os.replace(tmp, path)     # atomic: concurrent builders never see half a file
     lib = ctypes.CDLL(str(path))
-    skv.bind(lib)
-    cfe.bind(lib)
+    for module in (skv, cfe, fa, ss):
+        module.bind(lib)
     return Library(lib, path, seconds, log)
 
 
@@ -112,10 +130,11 @@ def load_library() -> Library:
 # kernel K1: stale-KV patch attention (and the checks K2 and K5 share)
 # ----------------------------------------------------------------------
 
-def _check_cuda_operands(kernel: str, tensors) -> None:
-    """What the CUDA bodies take: one CUDA device, float32 or bfloat16 for
-    all, an instantiated head dim, a contiguous head dim, and for bf16
-    16-byte rows."""
+def _check_cuda_operands(kernel: str, tensors,
+                         head_dims=skv.SUPPORTED_HEAD_DIMS) -> None:
+    """What the CUDA attention bodies take: one CUDA device, float32 or
+    bfloat16 for all, a head dim in ``head_dims``, a contiguous head dim,
+    and for bf16 16-byte rows."""
     q = tensors[0]
     if q.device.type != "cuda":
         raise ValueError(f"no {kernel} kernel for {q.device}")
@@ -123,9 +142,9 @@ def _check_cuda_operands(kernel: str, tensors) -> None:
                                                                torch.bfloat16):
         raise ValueError("operands must all be float32 or all bfloat16, got "
                          f"{[t.dtype for t in tensors]}")
-    if q.shape[-1] not in skv.SUPPORTED_HEAD_DIMS:
-        raise ValueError(f"head dim {q.shape[-1]} not instantiated; the kernel "
-                         f"takes {skv.SUPPORTED_HEAD_DIMS}")
+    if q.shape[-1] not in head_dims:
+        raise ValueError(f"head dim {q.shape[-1]} not instantiated; the "
+                         f"{kernel} kernel takes {head_dims}")
     if any(t.stride(-1) != 1 for t in tensors):
         raise ValueError("the head dim (last axis) must be contiguous")
     if q.dtype == torch.bfloat16 and any(
@@ -372,3 +391,113 @@ def cfg_epilogue(eps_c, eps_u, scale, *, with_delta: bool = True):
             raise RuntimeError(f"cfg_epilogue launch failed: CUDA error {err}")
         _launches["cfg_epilogue"] += 1
     return (out, delta) if with_delta else out
+
+
+# ----------------------------------------------------------------------
+# kernel K6: causal / sliding-window flash attention (the LM prefill)
+# ----------------------------------------------------------------------
+
+def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
+                    prefix_len: int = 0):
+    """Kernel K6, the language models' full-sequence attention (reference
+    ``repro.kernels.ops.flash_attention``).
+
+    q: [B, S, H, hd]; k, v: [B, T, K, hd] with K | H (GQA: query head h
+    reads KV head h // (H/K), in place). Query i sits at position i, key j
+    at position j. ``causal`` hides keys after the query; ``window > 0``
+    keeps keys in ``(i - window, ...)``, and ``prefix_len`` leading keys
+    (Hymba's meta tokens) stay visible outside the window. Returns
+    [B, S, H, hd] in q's dtype; softmax scale hd ** -0.5. A mask that
+    leaves some query row no key is refused (the reference's kernel and its
+    oracle disagree there)."""
+    window, prefix_len = int(window), int(prefix_len)
+    B, S, H, hd = q.shape
+    T, K = k.shape[1], k.shape[2]
+    if k.shape != (B, T, K, hd) or v.shape != k.shape or K == 0 or H % K:
+        raise ValueError(f"k/v {tuple(k.shape)}/{tuple(v.shape)} must be "
+                         f"[B, T, K, hd] = [{B}, T, K, {hd}] with K | {H}")
+    if window < 0 or prefix_len < 0:
+        raise ValueError(f"window={window} and prefix_len={prefix_len} must "
+                         "be >= 0")
+    if T == 0:
+        raise ValueError("k/v hold no key (T = 0)")
+    if window > 0 and prefix_len == 0 and S >= T + window:
+        raise ValueError(f"the mask leaves query rows from {T + window - 1} "
+                         f"on no key (S={S}, T={T}, window={window})")
+    if len({t.device for t in (q, k, v)}) != 1:
+        raise ValueError("all operands must lie on one device")
+    if q.device.type == "cpu":
+        return ref.flash_attention_ref(q, k, v, causal=causal, window=window,
+                                       prefix_len=prefix_len)
+    _check_cuda_operands("flash_attention", (q, k, v), fa.SUPPORTED_HEAD_DIMS)
+    lib = load_library().lib
+    out = torch.empty((B, S, H, hd), dtype=q.dtype, device=q.device)
+    with torch.cuda.device(q.device):
+        err = fa.launch(lib, q, k, v, out, causal, window, prefix_len,
+                        hd ** -0.5)
+    if err != 0:
+        raise RuntimeError(f"flash_attention launch failed: CUDA error {err}")
+    _launches["flash_attention"] += 1
+    return out
+
+
+# ----------------------------------------------------------------------
+# kernel K7: the selective-SSM (Mamba) scan
+# ----------------------------------------------------------------------
+
+def ssm_scan(x, dt, b_t, c_t, a, d_skip, *, h0=None, final_state: bool = False):
+    """Kernel K7, the Mamba recurrence (reference
+    ``repro.kernels.ops.ssm_scan``; with ``h0`` and ``final_state``,
+    ``repro.models.mamba.ssm_scan_ref``).
+
+    x, dt: [B, S, Di]; b_t, c_t: [B, S, N]; a: [Di, N]; d_skip: [Di]; h0:
+    [B, Di, N] float32 or None (zeros). Runs
+    ``h_t = exp(dt_t a) h_{t-1} + (dt_t x_t) b_t^T``,
+    ``y_t = <h_t, c_t> + d_skip x_t`` in float32 and returns y [B, S, Di]
+    in x's dtype, or (y, the final state [B, Di, N] float32) when
+    ``final_state``. On the card x, dt, b_t and c_t share one dtype
+    (float32 or bfloat16) and may have any strides with a contiguous last
+    axis; a, d_skip and h0 are float32."""
+    B, S, Di = x.shape
+    N = b_t.shape[-1]
+    if (dt.shape != x.shape or b_t.shape != (B, S, N) or c_t.shape != b_t.shape
+            or a.shape != (Di, N) or d_skip.shape != (Di,)
+            or (h0 is not None and h0.shape != (B, Di, N))):
+        raise ValueError(
+            f"shapes x {tuple(x.shape)}, dt {tuple(dt.shape)}, b_t "
+            f"{tuple(b_t.shape)}, c_t {tuple(c_t.shape)}, a {tuple(a.shape)}, "
+            f"d_skip {tuple(d_skip.shape)}, h0 "
+            f"{None if h0 is None else tuple(h0.shape)} do not fit x [B, S, Di]"
+            ", b_t/c_t [B, S, N], a [Di, N], d_skip [Di], h0 [B, Di, N]")
+    tensors = [t for t in (x, dt, b_t, c_t, a, d_skip, h0) if t is not None]
+    if len({t.device for t in tensors}) != 1:
+        raise ValueError("all operands must lie on one device")
+    if x.device.type == "cpu":
+        y, h = ref.ssm_scan_ref(x, dt, b_t, c_t, a, d_skip, h0)
+        return (y, h) if final_state else y
+    if x.device.type != "cuda":
+        raise ValueError(f"no ssm_scan kernel for {x.device}")
+    if len({t.dtype for t in (x, dt, b_t, c_t)}) != 1 or x.dtype not in (
+            torch.float32, torch.bfloat16):
+        raise ValueError("x, dt, b_t and c_t must all be float32 or all "
+                         f"bfloat16, got {[t.dtype for t in (x, dt, b_t, c_t)]}")
+    if any(t.dtype != torch.float32 for t in tensors[4:]):
+        raise ValueError("a, d_skip and h0 must be float32")
+    if N not in ss.SUPPORTED_STATE_SIZES:
+        raise ValueError(f"state size {N} not instantiated; the ssm_scan "
+                         f"kernel takes {ss.SUPPORTED_STATE_SIZES}")
+    if S == 0 or any(t.stride(-1) != 1 for t in (x, dt, b_t, c_t)):
+        raise ValueError("S must be positive and the last axis of x, dt, "
+                         "b_t and c_t contiguous")
+    if not all(t.is_contiguous() for t in tensors[4:]):
+        raise ValueError("a, d_skip and h0 must be contiguous")
+    lib = load_library().lib
+    y = torch.empty(x.shape, dtype=x.dtype, device=x.device)
+    h = (torch.empty((B, Di, N), dtype=torch.float32, device=x.device)
+         if final_state else None)
+    with torch.cuda.device(x.device):
+        err = ss.launch(lib, x, dt, b_t, c_t, a, d_skip, h0, y, h)
+    if err != 0:
+        raise RuntimeError(f"ssm_scan launch failed: CUDA error {err}")
+    _launches["ssm_scan"] += 1
+    return (y, h) if final_state else y

@@ -111,3 +111,61 @@ def cfg_epilogue_ref(eps_c, eps_u, scale):
     eu = eps_u.float()
     d = ec - eu
     return (eu + scale * d).to(eps_c.dtype), d
+
+
+def flash_mask(S: int, T: int, *, causal: bool, window: int = 0,
+               prefix_len: int = 0, device=None):
+    """[S, T] bool: which keys query row i sees under kernel K6's mask.
+    Query i sits at position i and key j at position j: ``causal`` keeps
+    j <= i; ``window > 0`` keeps j in ``(i - window, ...)``, except the
+    ``prefix_len`` leading keys, which stay visible outside the window."""
+    qi = torch.arange(S, device=device)[:, None]
+    kj = torch.arange(T, device=device)[None, :]
+    mask = torch.ones(S, T, dtype=torch.bool, device=device)
+    if causal:
+        mask &= kj <= qi
+    if window > 0:
+        mask &= (kj > qi - window) | (kj < prefix_len)
+    return mask
+
+
+def flash_attention_ref(q, k, v, *, causal: bool, window: int = 0,
+                        prefix_len: int = 0, scale: Optional[float] = None):
+    """Plain version of kernel K6, in the public layout: q [B, S, H, hd],
+    k/v [B, T, K, hd] with K | H (query head h reads KV head h // (H/K)).
+    A materialized fp32 softmax over :func:`flash_mask`, masked scores at
+    NEG_INF, as ``repro.kernels.ref.attention_ref`` (which has no prefix);
+    the output has q's dtype."""
+    B, S, H, hd = q.shape
+    scale = hd ** -0.5 if scale is None else scale
+    kf = layers.repeat_kv(k, H // k.shape[2]).float()
+    vf = layers.repeat_kv(v, H // v.shape[2]).float()
+    s = torch.einsum("bshd,bthd->bhst", q.float(), kf) * scale
+    mask = flash_mask(S, k.shape[1], causal=causal, window=window,
+                      prefix_len=prefix_len, device=q.device)
+    p = torch.softmax(torch.where(mask, s, torch.full_like(s, NEG_INF)), dim=-1)
+    return torch.einsum("bhst,bthd->bshd", p, vf).to(q.dtype)
+
+
+def ssm_scan_ref(x, dt, b_t, c_t, a, d_skip, h0=None):
+    """Plain version of kernel K7: the selective-SSM recurrence, one step
+    at a time in fp32,
+
+        h_t = exp(dt_t A) h_{t-1} + (dt_t x_t) B_t^T,  y_t = <h_t, C_t> + D x_t
+
+    x, dt: [B, S, Di]; b_t, c_t: [B, S, N]; a: [Di, N]; d_skip: [Di]; h0:
+    [B, Di, N] (zeros when None). Returns (y [B, S, Di] in x's dtype, the
+    final state [B, Di, N] float32). With h0 None, y is
+    ``repro.kernels.ref.ssm_scan_ref``; with h0, the pair is
+    ``repro.models.mamba.ssm_scan_ref``."""
+    B, S, Di = x.shape
+    xf, dtf, bf, cf = (t.float() for t in (x, dt, b_t, c_t))
+    a, d_skip = a.float(), d_skip.float()
+    h = (torch.zeros(B, Di, b_t.shape[-1], dtype=torch.float32, device=x.device)
+         if h0 is None else h0.float())
+    ys = []
+    for t in range(S):
+        da = torch.exp(dtf[:, t, :, None] * a[None])
+        h = da * h + (dtf[:, t] * xf[:, t])[..., None] * bf[:, t, None, :]
+        ys.append(torch.einsum("bdn,bn->bd", h, cf[:, t]) + d_skip * xf[:, t])
+    return torch.stack(ys, dim=1).to(x.dtype), h

@@ -9,8 +9,10 @@ one process per rank, and something has to start them.
     results = ranks.spawn(fn, world=2, device_type="cuda", args=(spec,))
 
 ``fn(ctx, *args)`` runs in every rank with ``ctx`` a :class:`RankContext`;
-what it returns (something picklable: numbers, strings, numpy arrays) comes
-back in rank order. Processes start with the ``spawn`` method (CUDA does not
+what it returns (anything picklable, tensors included) comes back in rank
+order, pickled by value: torch's own queue reduction would hand a tensor's
+storage over through the rank process, which may have exited by the time
+the parent reads it. Processes start with the ``spawn`` method (CUDA does not
 survive ``fork``), so ``fn`` must be importable by name.
 
 The backend rule: NCCL on CUDA, gloo on the CPU, unless the caller names one.
@@ -28,6 +30,7 @@ from __future__ import annotations
 import dataclasses
 import multiprocessing as mp
 import os
+import pickle
 import queue
 import socket
 import time
@@ -103,7 +106,7 @@ def _rank_main(rank: int, world: int, port: int, backend: str,
                                 world_size=world, rank=rank, **kw)
         try:
             out = fn(RankContext(rank, world, device), *args)
-            results.put((rank, "ok", out))
+            results.put((rank, "ok", pickle.dumps(out)))
         finally:
             dist.destroy_process_group()
     except Exception:                      # reported to the parent, which raises
@@ -153,7 +156,7 @@ def spawn(fn: Callable, world: int, *, device_type: str = "cuda",
                 continue
             if status != "ok":
                 raise RuntimeError(f"rank {rank} of {world} failed:\n{value}")
-            out[rank] = value
+            out[rank] = pickle.loads(value)
             done += 1
         for p in procs:
             p.join(timeout=60)

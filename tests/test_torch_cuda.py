@@ -1,8 +1,10 @@
 """Card-only tests of the port's CUDA kernels (marker ``cuda``): each kernel
 against its plain PyTorch version at the shapes ``chip_smoke.py`` checks,
-the guided path on the card against the CPU, and ``run_spmd`` on two gloo
-ranks and ``run_spmd_seq`` on four that share the card against the CPU. They skip on a machine without a CUDA device. No JAX here: the machine
-with the card has none. Run them there with
+the guided path on the card against the CPU, ``run_spmd`` on two gloo
+ranks and ``run_spmd_seq`` on four that share the card against the CPU, and
+Hymba's prefill and decode (K6, K7) on the card against the CPU. They skip
+on a machine without a CUDA device. No JAX here: the machine with the card
+has none. Run them there with
 ``PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py``."""
 import dataclasses
 import math
@@ -492,3 +494,198 @@ def test_spmd_seq_four_gloo_ranks_on_one_card_match_cpu(cuda):
         assert "stale_kv_attention_padded" not in launches
     assert [o[1]["lse_attention"] for o in out] == \
         [out[0][1]["lse_attention"], out[0][1]["lse_attention"] // 2] * 2
+
+
+# ----------------------------------------------------------------------
+# kernels K6 (flash attention) and K7 (selective scan): Hymba-1.5B serving
+# ----------------------------------------------------------------------
+
+# (causal, window, prefix_len) at Hymba-1.5B's prefill shapes (q [1, 2048,
+# 25, 64], k/v [1, 2048, 5, 64]): causal only, causal + window, and the
+# path's window + meta-token prefix
+K6_MASKS = [(True, 0, 0), (True, 1024, 0), (True, 1024, 128)]
+
+
+def _k6_inputs(dtype, device, S=2048, H=25, K=5, seed=7):
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    q = QK_STD * torch.randn(1, S, H, 64, generator=g)
+    k = QK_STD * torch.randn(1, S, K, 64, generator=g)
+    v = torch.randn(1, S, K, 64, generator=g)
+    return [t.to(dtype).to(device) for t in (q, k, v)]
+
+
+def _k6_faults(q, k, v, causal, window, prefix):
+    """K6's output under planted faults, from its plain version: the prefix
+    ignored, the window one key wider, KV head h % K for query head h."""
+    H, K = q.shape[2], k.shape[2]
+    wrong = [h % K for h in range(H)]
+    faults = {"kv head h % K": ref.flash_attention_ref(
+        q, k[:, :, wrong], v[:, :, wrong], causal=causal, window=window,
+        prefix_len=prefix)}
+    if window:
+        faults["window + 1"] = ref.flash_attention_ref(
+            q, k, v, causal=causal, window=window + 1, prefix_len=prefix)
+    if prefix:
+        faults["prefix ignored"] = ref.flash_attention_ref(
+            q, k, v, causal=causal, window=window)
+    return faults
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal,window,prefix", K6_MASKS)
+def test_k6_kernel_matches_plain_and_rejects_faults(cuda, causal, window,
+                                                    prefix, dtype):
+    q, k, v = _k6_inputs(dtype, cuda)
+    ops.reset_launch_counts()
+    out = ops.flash_attention(q, k, v, causal=causal, window=window,
+                              prefix_len=prefix)
+    assert ops.launch_counts() == {"flash_attention": 1}
+    want = ref.flash_attention_ref(q, k, v, causal=causal, window=window,
+                                   prefix_len=prefix)
+    torch.cuda.synchronize()
+    assert out.shape == q.shape and out.dtype == dtype
+    _assert_within_bars(out, want, dtype)
+    for name, bad in _k6_faults(q, k, v, causal, window, prefix).items():
+        assert not _within_bars(out, bad, dtype), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("S,T,causal,window,prefix", [
+    (200, 200, True, 48, 8), (130, 130, True, 0, 0), (96, 160, False, 40, 0),
+    (160, 96, True, 0, 0), (75, 75, False, 0, 0)])
+def test_k6_kernel_ragged_and_unaligned_masks(cuda, S, T, causal, window,
+                                              prefix, dtype):
+    """Lengths aligned to no tile, S != T, non-causal windows."""
+    g = torch.Generator(device="cpu").manual_seed(8)
+    q = (QK_STD * torch.randn(2, S, 4, 64, generator=g)).to(dtype).to(cuda)
+    k = (QK_STD * torch.randn(2, T, 2, 64, generator=g)).to(dtype).to(cuda)
+    v = torch.randn(2, T, 2, 64, generator=g).to(dtype).to(cuda)
+    out = ops.flash_attention(q, k, v, causal=causal, window=window,
+                              prefix_len=prefix)
+    want = ref.flash_attention_ref(q, k, v, causal=causal, window=window,
+                                   prefix_len=prefix)
+    _assert_within_bars(out, want, dtype)
+
+
+def _k7_inputs(S, device, B=1, Di=1600, N=16, seed=9):
+    """x, dt (a softplus, as Mamba's delta), B_t and C_t as strided halves
+    of one [B, S, 2N] projection, A (negative), D, and a nonzero h0."""
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    x = torch.randn(B, S, Di, generator=g)
+    dt = torch.nn.functional.softplus(torch.randn(B, S, Di, generator=g) - 2)
+    bc = torch.randn(B, S, 2 * N, generator=g)
+    a = -torch.exp(0.5 * torch.randn(Di, N, generator=g))
+    d = torch.randn(Di, generator=g)
+    h0 = torch.randn(B, Di, N, generator=g)
+    x, dt, bc, a, d, h0 = (t.to(device) for t in (x, dt, bc, a, d, h0))
+    return x, dt, bc[..., :N], bc[..., N:], a, d, h0
+
+
+def _k7_faults(x, dt, b, c, a, d, h0, tile=64):
+    """K7's (y, h_final) under planted faults, from its plain version: h0
+    ignored, the state reset at the first tile boundary, the D x skip
+    dropped."""
+    faults = {"d x dropped": ref.ssm_scan_ref(x, dt, b, c, a,
+                                              torch.zeros_like(d), h0)}
+    if h0 is not None:
+        faults["h0 ignored"] = ref.ssm_scan_ref(x, dt, b, c, a, d)
+    if x.shape[1] > tile:
+        head = ref.ssm_scan_ref(*(t[:, :tile] for t in (x, dt, b, c)), a, d, h0)
+        tail = ref.ssm_scan_ref(*(t[:, tile:] for t in (x, dt, b, c)), a, d)
+        faults["state reset at a tile"] = (torch.cat([head[0], tail[0]], 1),
+                                           tail[1])
+    return faults
+
+
+def _k7_within_bars(y, h, want):
+    return (_within_bars(y, want[0], torch.float32)
+            and _within_bars(h, want[1], torch.float32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S", [2048, 1])
+@pytest.mark.parametrize("with_h0", [False, True])
+def test_k7_kernel_matches_plain_and_rejects_faults(cuda, S, with_h0):
+    """Hymba-1.5B's Mamba branch: prefill S 2048 and decode S 1, Di 1600,
+    N 16, fp32, from zero and from a nonzero state."""
+    x, dt, b, c, a, d, h0 = _k7_inputs(S, cuda)
+    h0 = h0 if with_h0 else None
+    ops.reset_launch_counts()
+    y, h = ops.ssm_scan(x, dt, b, c, a, d, h0=h0, final_state=True)
+    assert ops.launch_counts() == {"ssm_scan": 1}
+    want = ref.ssm_scan_ref(x, dt, b, c, a, d, h0)
+    torch.cuda.synchronize()
+    assert y.shape == x.shape and h.shape == (1, 1600, 16)
+    _assert_within_bars(y, want[0], torch.float32)
+    _assert_within_bars(h, want[1], torch.float32)
+    torch.testing.assert_close(ops.ssm_scan(x, dt, b, c, a, d, h0=h0), y,
+                               rtol=0, atol=0)
+    for name, bad in _k7_faults(x, dt, b, c, a, d, h0).items():
+        assert not _k7_within_bars(y, h, bad), name
+
+
+@pytest.mark.cuda
+def test_k7_kernel_bf16_inputs_and_ragged_channels(cuda):
+    """bf16 x, dt, B, C (the output in bf16) and a channel count that fills
+    no block."""
+    x, dt, b, c, a, d, h0 = _k7_inputs(100, cuda, B=2, Di=200)
+    args = [t.to(torch.bfloat16) for t in (x, dt, b, c)]
+    y, h = ops.ssm_scan(*args, a, d, h0=h0, final_state=True)
+    want = ref.ssm_scan_ref(*args, a, d, h0)
+    assert y.dtype == torch.bfloat16
+    _assert_within_bars(y, want[0], torch.bfloat16)
+    _assert_within_bars(h, want[1], torch.float32)
+
+
+@pytest.mark.cuda
+def test_k6_k7_wrappers_refuse(cuda):
+    """Unsupported head dims, state sizes and dtypes raise; nothing falls
+    back to the plain version."""
+    q, k, v = _k6_inputs(torch.bfloat16, cuda, S=64, H=4, K=2)
+    with pytest.raises(ValueError, match="head dim 32 not instantiated"):
+        ops.flash_attention(q[..., :32].contiguous(), k[..., :32].contiguous(),
+                            v[..., :32].contiguous())
+    with pytest.raises(ValueError, match="float32 or all bfloat16"):
+        ops.flash_attention(q.half(), k.half(), v.half())
+    x, dt, b, c, a, d, h0 = _k7_inputs(8, cuda, Di=32)
+    with pytest.raises(ValueError, match="state size 8 not instantiated"):
+        ops.ssm_scan(x, dt, b[..., :8], c[..., :8], a[:, :8].contiguous(), d)
+    with pytest.raises(ValueError, match="all be float32 or all"):
+        ops.ssm_scan(x.half(), dt.half(), b.half(), c.half(), a, d)
+    with pytest.raises(ValueError, match="a, d_skip and h0 must be float32"):
+        ops.ssm_scan(x, dt, b, c, a.bfloat16(), d)
+
+
+@pytest.mark.cuda
+def test_hymba_serving_on_card_matches_cpu(cuda):
+    """hymba-1.5b reduced (GQA 4/2) in fp32 through prefill and 6 decode
+    steps (a prompt past the ring): the card's logits (K6, K7) against the
+    CPU's (the plain versions), relative 1e-4, and the same tokens."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model, hymba
+
+    cfg = get_config("hymba-1.5b").reduced().replace(n_kv_heads=2)
+    params = hymba.init_params(torch.Generator().manual_seed(0), cfg)
+    tokens = torch.randint(0, cfg.vocab, (1, 96),
+                           generator=torch.Generator().manual_seed(1))
+    model = build_model(cfg)
+    def to(tree, dev):
+        return {k: to(v, dev) if isinstance(v, dict) else v.to(dev)
+                for k, v in tree.items()}
+    logits = {}
+    for dev in ("cpu", cuda):
+        p = to(params, dev)
+        cache = model.init_cache(1, 0, window=cfg.sliding_window, device=dev)
+        out, cache = model.prefill(p, {"tokens": tokens.to(dev)}, cache,
+                                   window=cfg.sliding_window)
+        seq = [out.cpu()]
+        for tok in (3, 14, 15, 92, 65, 35):
+            out, cache = model.decode_step(p, cache, torch.tensor([tok], device=dev),
+                                           window=cfg.sliding_window)
+            seq.append(out.cpu())
+        logits[str(dev)] = torch.stack(seq)
+    want, got = logits["cpu"], logits[str(cuda)]
+    assert ((got - want).norm() / want.norm()).item() < 1e-4
+    assert torch.equal(got.argmax(-1), want.argmax(-1))

@@ -474,6 +474,19 @@ def test_split_groups_are_made_once_per_process_group():
     assert out == [(True, 3), (True, 3)]
 
 
+def _tensor_rank(ctx):
+    return {"rank": ctx.rank, "t": torch.full((4096,), float(ctx.rank))}
+
+
+def test_ranks_return_tensors():
+    """A rank's tensor comes back by value, so it survives the rank's exit
+    (torch's shared-memory queue reduction needs the rank alive until the
+    parent reads it)."""
+    out = ranks.spawn(_tensor_rank, 2, device_type="cpu", timeout=RANK_TIMEOUT)
+    for r, o in enumerate(out):
+        assert o["rank"] == r and torch.equal(o["t"], torch.full((4096,), float(r)))
+
+
 def test_backend_rule(monkeypatch):
     """NCCL by default on CUDA, refused (before any process group) when
     there are more ranks than cards, naming --dist-backend gloo; gloo on
