@@ -21,7 +21,8 @@ Phases (any failure raises, so the script exits non-zero):
      under 2^-7 relative) and a norm-relative error under 2e-3. Each bar
      must also reject planted faults (a 64-key tile skipped, tok_start off
      by one tile). Times of the kernel, the plain version and a library
-     attention at the main path's bf16 layouts.
+     attention at the main path's bf16 layouts, and the wrapper's host time
+     per call (phases 4, 6, 7 and 8 too).
   4. K1 at batch 2, both guidance branches of one layer in one launch, its
      stale K/V a strided view of a branch-stacked [2, L, 1, N, H, hd]
      buffer: the bars and planted faults of phase 3.
@@ -130,7 +131,7 @@ QK_STD = 1.5                        # std of q and k: scores of std QK_STD**2
 BARS = {torch.float32: dict(atol=5e-5, rtol=0.0),
         torch.bfloat16: dict(atol=1e-3, rtol=1e-2)}
 NORM_BARS = {torch.float32: 5e-5, torch.bfloat16: 2e-3}
-TILE = 64                           # key rows per tile of the bf16 body
+TILE = 64                           # key rows the planted faults skip or shift
 # sdxl-dit's eps per guidance branch: the two patches and the full image
 # (the warm-up), and an odd length for the kernel's scalar tail
 K3_SHAPES = [(1, 72, 128, 4), (1, 56, 128, 4), (1, 128, 128, 4), (36865,)]
@@ -165,6 +166,22 @@ def time_ms(fn, reps=10, batches=3):
         end.synchronize()
         out.append(start.elapsed_time(end) / reps)
     return statistics.median(out)
+
+
+def host_us(fn, reps=50):
+    """Host time of one call in microseconds: perf_counter around ``reps``
+    back-to-back calls that only enqueue (the card runs behind them), after
+    a warm-up. For a kernel wrapper this is the Python checks, the argument
+    marshalling (K1, K2, K4, K5: the key runs and ten tensor maps) and the
+    launch."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    seconds = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return seconds / reps * 1e6
 
 
 def time_graph_ms(fn, reps=100):
@@ -271,7 +288,9 @@ def phase_kernels(ops, ref, layers, dev, peaks):
                     qt, kt, vt))
                 bound_ms, bound_by = k1_bound_ms(B, H, Nl, N, hd, dtype, peaks)
                 line.update(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-                            bound_ms=bound_ms, bound_by=bound_by)
+                            bound_ms=bound_ms, bound_by=bound_by,
+                            wrapper_host_us=host_us(lambda: ops.stale_kv_attention(
+                                q, kf, vf, ks, vs, tok_start=tok)))
                 if first is None:
                     first = line
             print("k1_check", json.dumps(line), flush=True)
@@ -327,7 +346,9 @@ def phase_k1_batch2(ops, ref, layers, dev, peaks):
                     q, kf, vf, ks, vs, tok), reps=3),
                 library_ms=time_ms(lambda: F.scaled_dot_product_attention(
                     qt, kt, vt)),
-                bound_ms=bound_ms, bound_by=bound_by)
+                bound_ms=bound_ms, bound_by=bound_by,
+                wrapper_host_us=host_us(lambda: ops.stale_kv_attention(
+                    q, kf, vf, ks, vs, tok_start=tok)))
             reading = line
         print("k1_batch2_check", json.dumps(line), flush=True)
         check(ok, f"K1 at batch 2 disagrees with its plain version: {line}")
@@ -500,7 +521,9 @@ def phase_k2(ops, ref, dev, peaks):
                         plain_ms=time_ms(lambda: ref.stale_kv_attention_padded_ref(
                             *args, tok, valid, K2_N), reps=3),
                         library_ms=time_ms(k2_library_call(args, tok, valid)),
-                        bound_ms=bound_ms, bound_by=bound_by)
+                        bound_ms=bound_ms, bound_by=bound_by,
+                        wrapper_host_us=host_us(lambda: ops.stale_kv_attention_padded(
+                            *args, tok, valid, n_tokens=K2_N)))
                 faults = check_with_faults(
                     "k2_check", out, want, k2_planted_faults(
                         ref.stale_kv_attention_padded_ref, args, tok, valid),
@@ -544,7 +567,9 @@ def phase_k5(ops, ref, dev, peaks):
                                          reps=3),
                         library_ms=time_ms(k2_library_call(
                             [t.flatten(0, 1) for t in args], tok, valid)),
-                        bound_ms=bound_ms, bound_by=bound_by)
+                        bound_ms=bound_ms, bound_by=bound_by,
+                        wrapper_host_us=host_us(lambda: ops.stale_kv_attention_guided(
+                            *args, tok, valid, 1, n_tokens=K2_N)))
                 faults = check_with_faults(
                     "k5_check", out, want,
                     k2_planted_faults(plain, args, tok, valid), dtype, line)
@@ -663,7 +688,9 @@ def phase_k4(ops, ref, dev, peaks):
                         qt, kt, vt)),
                     library_call="scaled_dot_product_attention over "
                                  "k[:, :valid_len], unmasked; no LSE returned",
-                    bound_ms=bound_ms, bound_by=bound_by)
+                    bound_ms=bound_ms, bound_by=bound_by,
+                    wrapper_host_us=host_us(lambda: ops.lse_attention(
+                        q, k, v, valid)))
                 timed.append(line)
             print("k4_check", json.dumps(line), flush=True)
             check(ok, f"K4 disagrees with its plain version: {line}")
@@ -1524,7 +1551,8 @@ def main():
     record = {"kernels": [
         {**entry("stale_kv_attention", skv_cu,
                  "src/repro/kernels/stale_kv_attention.py:69", k1, "main_path"),
-         "batch2_ms": k1_b2["ms"], "batch2_bound_ms": k1_b2["bound_ms"]},
+         "batch2_ms": k1_b2["ms"], "batch2_bound_ms": k1_b2["bound_ms"],
+         "wrapper_host_us": k1["wrapper_host_us"]},
         {**entry("cfg_epilogue", "src/repro_torch/kernels/csrc/cfg_epilogue.cu",
                  "src/repro/kernels/cfg_epilogue.py:34", k3, "guided_fused"),
          "eager_ms": k3["eager_ms"]},
@@ -1534,18 +1562,18 @@ def main():
                                for o in spmd["spmd"]],
          "timed_layouts": [{k: line[k] for k in (
              "batch", "tok_start", "valid_tokens", "ms", "plain_ms",
-             "library_ms", "bound_ms")} for line in k2_timed]},
+             "library_ms", "bound_ms", "wrapper_host_us")} for line in k2_timed]},
         {**entry("stale_kv_attention_guided", skv_cu,
                  "src/repro/kernels/stale_kv_attention.py:268", k5, "spmd_fused"),
-         "on_a_path": False},
+         "on_a_path": False, "wrapper_host_us": k5["wrapper_host_us"]},
         {**entry("lse_attention", skv_cu,
                  "src/repro/kernels/stale_kv_attention.py:371", k4, "spmd_seq"),
          "launches_per_rank": [o["launches"].get("lse_attention", 0)
                                for o in spmd["spmd_seq"]],
          "library_call": k4["library_call"],
          "timed_hops": [{k: line[k] for k in (
-             "valid_len", "ms", "plain_ms", "library_ms", "bound_ms")}
-             for line in k4_timed]},
+             "valid_len", "ms", "plain_ms", "library_ms", "bound_ms",
+             "wrapper_host_us")} for line in k4_timed]},
         {**entry("flash_attention",
                  "src/repro_torch/kernels/csrc/flash_attention.cu",
                  "src/repro/kernels/flash_attention.py:68", k6_timed[0],

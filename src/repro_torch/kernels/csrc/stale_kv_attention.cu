@@ -1,5 +1,5 @@
 // Stale-KV patch attention on Hopper (sm_90a): kernels K1, K2, K4 and K5 of
-// the port, one body with four entry points.
+// the port, one body per dtype with four entry points.
 //
 // Replaces the TPU kernels of src/repro/kernels/stale_kv_attention.py:
 //   K1 stale_kv_attention_bhsd (body _stale_kernel, update
@@ -29,11 +29,6 @@
 //      masked sentinel, so the merge's exp(lse - M) is exactly 0 and no
 //      -inf - -inf NaN can arise); the TPU kernel's out there is the mean of
 //      V, which the merge also weighs by 0.
-// The body takes the count N of keys it visits (K1: the context length;
-// K2, K5: n_tokens, so the scratch keys are never visited, which masks them
-// exactly; K4: valid_len), a fresh-row count per batch row (valid_lo for
-// batch rows below b_split, valid_hi from there on; 0 for K4) and an
-// optional fp32 LSE output (K4 only).
 //
 // What bounds it on this card: at the main-path shapes of sdxl-dit (B=1,
 // H=16, hd=72, N=4096, Nl=2304) one launch does 4*H*Nl*N*hd = 43.5 GFLOP
@@ -42,35 +37,74 @@
 // spmd_seq path's hops (8 heads, 4608 query rows, valid_len 3200 or 896)
 // does 34 or 9.5 GFLOP against about 18 or 12 MB: operations again.
 //
-// What the design does about that, kept simple before it is made fast:
-//   * bf16 (the main path's dtype) runs both products on the tensor cores
-//     with mma.sync m16n8k16 (bf16 in, fp32 accumulate), FlashAttention-2
-//     style: a block of 4 warps owns 64 query rows (16 per warp, its Q
-//     fragments in registers), walks the keys in tiles of 64 staged in
-//     shared memory, and keeps the softmax state and the output accumulator
-//     in registers. hd is zero-padded to a multiple of 16 (72 -> 80) in
-//     shared memory only; the padded lanes contribute exact zeros.
-//     Q K^T is exact products of bf16 inputs summed in fp32. The
-//     probabilities P are fp32; mma.sync takes bf16, so P V runs as two
-//     products, bf16(P) V + bf16(P - bf16(P)) V, which carries P to about 16
-//     mantissa bits (the reference keeps p @ v in fp32). That costs half as
-//     many tensor-core operations again as one bf16 P V; the one rounding
-//     to bf16 left is that of the output.
-//   * fp32 runs every product as fp32 FMA on the CUDA cores, so it holds the
-//     reference to 5e-5 (tensor-core TF32 would not): one thread owns one
-//     query row, its scaled q row and accumulator in registers.
-//   * The loop over key tiles inside the block replaces the TPU grid's
-//     sequential key axis and its VMEM scratch.
-//   * The fresh/stale choice is made per key row, on the source POINTER,
-//     while the tile is staged: the stale row that the fresh patch covers is
-//     never read, and any tok_start is correct (no tile alignment needed).
-//   * Scores are kept in the log2 domain so the exponentials are exp2f.
-//   * The bf16 body stages tiles with cp.async into two shared-memory
-//     stages, so the next key tile is in flight while this one is read.
-// Neither body uses wgmma or TMA yet.
+// The bf16 body (the main path's dtype) is built for Hopper's tensor path:
+//   * Key runs, not key rows. Attention without a causal mask does not
+//     depend on the order of its keys, so the keys a block visits are at
+//     most three runs, each read from ONE source: stale [0, tok_start),
+//     fresh [0, valid), stale [tok_start + valid, N) (K4: one stale run
+//     [0, valid_len)). The host computes the runs (key_runs in
+//     stale_kv_attention.py) and passes them per batch-row class (K5's two
+//     branches differ). Each run is walked in 128-key tiles; a run that
+//     starts at key 0 is tiled back from its end, every other run forward
+//     from its start, so the ragged part of a run's partial tile always
+//     lies outside its source's extent (a negative row, or a row >= the
+//     map's N): TMA fills it with zeros, the stale rows under the fresh
+//     patch are never read, and any tok_start is correct. Keys outside the
+//     run are masked by key index.
+//   * TMA and mbarriers. Warpgroup 0 is the producer: one thread keeps a
+//     ring of kStages K/V stages full with 4-D TMA loads (tensor maps over
+//     the callers' strided [B, S, H, hd] views, built on the host with
+//     cuTensorMapEncodeTiled, reached through cudaGetDriverEntryPoint so
+//     the library needs no -lcuda, passed as __grid_constant__). Each
+//     stage has a full barrier (the producer's expect_tx arrival plus the
+//     bytes) and an empty barrier (one arrival per consumer warp).
+//     setmaxnreg gives the producer 40 registers and each consumer 232.
+//   * wgmma. Warpgroups 1 and 2 each own 64 query rows of the block's 128
+//     (the Q tile stays in shared memory). S = Q K^T runs as
+//     wgmma.m64n128k16 over the 128-key tile with both operands K-major in
+//     shared memory; P V takes P from registers (the S accumulator's
+//     layout is the A fragment's, so no shuffle) and V from shared memory
+//     as an MN-major B operand. Each K/V tile is read once per warpgroup,
+//     not once per warp as mma.sync's ldmatrix did.
+//   * Turns. The two consumer warpgroups take turns on the tensor cores
+//     (named barriers): a turn is P V of tile t - 1 then Q K^T of tile t,
+//     and while one warpgroup's turn runs the other computes its softmax.
+//     Run in lockstep, the two computed their softmax at the same time and
+//     left the tensor cores idle for it (0.25 against 0.20 ms at K1's main
+//     shape, PERF.md section 6). P V completes before Q K^T is issued, so the
+//     P fragments and the scores are never live at once: issuing both
+//     together (FlashAttention-3's overlap inside a warpgroup) ran out of
+//     registers and ptxas serialized the wgmmas.
+//   * hd 72 on Hopper's tiles. wgmma's depth is 16 bf16, so Q K^T pads hd to
+//     80, and TMA's 128-byte swizzle takes at most 64 bf16 a row. A tile is
+//     therefore two boxes: columns 0-63 under the 128-byte swizzle and
+//     columns 64-79 under the 32-byte swizzle, whose map has an inner
+//     extent of 72, so TMA zero-fills columns 72-79: they add exact zeros
+//     to Q K^T, and P V's outputs there are never stored. The other choice,
+//     no swizzle with hd split into 9 chunks of 8 by a 5-D map, would
+//     give up the swizzles that keep TMA's writes and wgmma's reads of a
+//     tile free of bank conflicts. P V runs as an n64 and an n16 product.
+//     hd 32 is one box under the 64-byte swizzle.
+//   * A grid of 128-row blocks, one an SM (144 KB of shared memory with 3
+//     stages, 384 threads). PERF.md section 6 has the wave arithmetic at
+//     the path shapes; 64-row blocks would read every K/V tile from L2 twice
+//     as often, which at K1's rate nears L2's bandwidth.
+//   * Precision: Q K^T is exact products of bf16 inputs summed in fp32; the
+//     probabilities P are fp32 and P V runs as two products,
+//     bf16(P) V + bf16(P - bf16(P)) V, which carries P to about 16 mantissa
+//     bits, as the reference's fp32 p @ v keeps it; the one rounding to
+//     bf16 left is that of the output. One bf16 term would do 1.11x the
+//     useful tensor work instead of 1.67x, but fails the elementwise bar
+//     (PERF.md section 6). The running max is kept on raw scores, and
+//     p = 2^(s * scale * log2(e) - m') is one FFMA and one MUFU ex2.
+// The fp32 body runs every product as fp32 FMA on the CUDA cores, so it
+// holds the reference to 5e-5 (tensor-core TF32 would not): one thread owns
+// one query row, its scaled q row and accumulator in registers; it chooses
+// the fresh or stale source per key row on the pointer.
 // The kernels allocate nothing and run on the caller's stream.
 
 #include "attention_tiles.cuh"
+#include "hopper_tiles.cuh"
 
 namespace {
 
@@ -84,189 +118,344 @@ __device__ __forceinline__ float row_lse(float m, float l) {
 }
 
 // ---------------------------------------------------------------------------
-// bf16: tensor cores (mma.sync m16n8k16; the tiles of attention_tiles.cuh)
+// bf16: TMA + wgmma, one producer and two consumer warpgroups
 // ---------------------------------------------------------------------------
 
-template <int HD>
-__global__ void __launch_bounds__(kMmaThreads)
-stale_kv_attention_mma_kernel(const __nv_bfloat16* __restrict__ q,
-                              const __nv_bfloat16* __restrict__ k_fresh,
-                              const __nv_bfloat16* __restrict__ v_fresh,
-                              const __nv_bfloat16* __restrict__ k_stale,
-                              const __nv_bfloat16* __restrict__ v_stale,
-                              __nv_bfloat16* __restrict__ out, float* __restrict__ lse,
-                              Strides sq, Strides skf, Strides svf, Strides sks, Strides svs,
-                              Strides so, Strides sl, int H, int Nl, int N, int tok_start,
-                              int valid_lo, int valid_hi, int b_split, float scale_log2) {
-  static_assert(HD % 8 == 0, "head dim must be a multiple of 8 (16-byte rows)");
-  constexpr int HDP = (HD + 15) / 16 * 16;  // padded to the mma depth
-  constexpr int SROW = HDP + 8;             // +16 bytes: conflict-free ldmatrix
-  constexpr int KSTEPS = HDP / 16;          // mma k-steps over hd
-  constexpr int DTILES = HDP / 8;           // 8-wide output tiles over hd
-  constexpr int NTILES = kMmaBK / 8;        // 8-wide score tiles over a key tile
-  static_assert(kMmaBQ == kMmaBK, "Q is staged in a K/V tile buffer");
-  // two stages of K/V tiles: tile t+1 is in flight while tile t is read
-  __shared__ __align__(16) __nv_bfloat16 k_s[2][kMmaBK * SROW];
-  __shared__ __align__(16) __nv_bfloat16 v_s[2][kMmaBK * SROW];
+constexpr int kBQ = 128;          // query rows per block: 2 consumer warpgroups x 64
+constexpr int kBK = 128;          // keys per tile
+constexpr int kStages = 3;        // K/V tiles in flight
+constexpr int kThreads = 384;     // producer warpgroup + 2 consumer warpgroups
+constexpr int kConsumerWarps = 8;
+constexpr int kMaxRuns = 3;
 
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
+// One run of keys: `length` rows of one source starting at row `first`,
+// walked in kBK-key tiles from row `origin` (origin <= first; the tiles'
+// rows outside [first, first + length) are masked).
+struct KeyRun {
+  int source;  // 0 stale, 1 fresh
+  int first, length, origin;
+};
+struct KeyRuns {  // per batch-row class: rows b < b_split, then the rest
+  int count[2];
+  KeyRun run[2][kMaxRuns];
+};
+
+// Two boxes per tensor: [0] columns 0..W0-1, [1] columns W0..HDP-1.
+struct TmaMaps {
+  CUtensorMap q[2], kf[2], vf[2], ks[2], vs[2];
+};
+
+// Column split of a head dim onto swizzled boxes.
+template <int HD>
+struct HeadTiles {
+  static constexpr int HDP = (HD + 15) / 16 * 16;  // padded to the wgmma depth
+  static constexpr int W0 = HD >= 64 ? 64 : HDP;   // columns in box 0
+  static constexpr int W1 = HDP - W0;              // columns in box 1 (0 or 16)
+  static constexpr int RB0 = 2 * W0, RB1 = 2 * W1; // bytes a row: the swizzle width
+  static_assert(W0 == 64 || W0 == 32, "box 0 must fill a 128- or 64-byte swizzle row");
+  static_assert(W1 == 0 || W1 == 16, "box 1 must be empty or one 32-byte row");
+  static constexpr int kTile0 = kBK * RB0, kTile1 = kBK * RB1;  // bytes of one box
+  static constexpr int kQBytes = kBQ * (RB0 + RB1);
+  static constexpr int kStageBytes = 2 * (kTile0 + kTile1);     // K and V
+  static constexpr int kBarOffset = kQBytes + kStages * kStageBytes;
+  static constexpr int kSmemBytes = kBarOffset + 8 * (2 * kStages + 1) + 1024;  // + alignment
+};
+
+template <int HD>
+__global__ void __launch_bounds__(kThreads, 1)
+stale_kv_attention_wgmma_kernel(__grid_constant__ const TmaMaps maps,
+                                __grid_constant__ const KeyRuns runs,
+                                __nv_bfloat16* __restrict__ out, float* __restrict__ lse,
+                                Strides so, Strides sl, int H, int Nl, int b_split,
+                                float scale_log2) {
+  using T = HeadTiles<HD>;
+  constexpr int W0 = T::W0, W1 = T::W1, RB0 = T::RB0, RB1 = T::RB1;
+  extern __shared__ uint8_t smem_raw[];
+  // 128-byte swizzled boxes need 1024-byte aligned addresses
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t q0s = base, q1s = base + kBQ * RB0;
+  auto k0s = [&](int st) { return base + T::kQBytes + st * T::kStageBytes; };
+  auto k1s = [&](int st) { return k0s(st) + T::kTile0; };
+  auto v0s = [&](int st) { return k1s(st) + T::kTile1; };
+  auto v1s = [&](int st) { return v0s(st) + T::kTile0; };
+  const uint32_t bars = base + T::kBarOffset;
+  auto full_bar = [&](int st) { return bars + 8 * st; };
+  auto empty_bar = [&](int st) { return bars + 8 * (kStages + st); };
+  const uint32_t q_bar = bars + 8 * (2 * kStages);
+
   const int b = blockIdx.y / H;
   const int h = blockIdx.y - b * H;
-  const int q0 = blockIdx.x * kMmaBQ;
-  const int valid = b < b_split ? valid_lo : valid_hi;  // fresh rows of this batch row
+  const int q0 = blockIdx.x * kBQ;
+  const int cls = b < b_split ? 0 : 1;
+  const int n_runs = runs.count[cls];
 
-  // key row t of the context: fresh if the patch's valid rows cover it,
-  // else stale; keys t >= N are never staged
-  auto stage_kv = [&](int k0, int st) {
-    stage_rows<HD, SROW>(k_s[st], kMmaBK, q, [&](int r) -> const __nv_bfloat16* {
-      const int t = k0 + r;
-      if (t >= N) return nullptr;
-      const int tl = t - tok_start;
-      return (tl >= 0 && tl < valid) ? k_fresh + b * skf.b + (int64_t)tl * skf.s + h * skf.h
-                                     : k_stale + b * sks.b + (int64_t)t * sks.s + h * sks.h;
-    });
-    stage_rows<HD, SROW>(v_s[st], kMmaBK, q, [&](int r) -> const __nv_bfloat16* {
-      const int t = k0 + r;
-      if (t >= N) return nullptr;
-      const int tl = t - tok_start;
-      return (tl >= 0 && tl < valid) ? v_fresh + b * svf.b + (int64_t)tl * svf.s + h * svf.h
-                                     : v_stale + b * svs.b + (int64_t)t * svs.s + h * svs.h;
-    });
-  };
-
-  stage_kv(0, 0);
-  stage_rows<HD, SROW>(k_s[1], kMmaBQ, q, [&](int r) -> const __nv_bfloat16* {
-    const int row = q0 + r;
-    return row < Nl ? q + b * sq.b + (int64_t)row * sq.s + h * sq.h : nullptr;
-  });
-  cp_async_commit();
-  cp_async_wait_all();
+  if (threadIdx.x == 0) {
+    for (int st = 0; st < kStages; ++st) {
+      mbar_init(full_bar(st), 1);
+      mbar_init(empty_bar(st), kConsumerWarps);
+    }
+    mbar_init(q_bar, 1);
+    mbar_fence_init();
+  }
   __syncthreads();
-  uint32_t qa[KSTEPS][4];  // this warp's 16 query rows as A fragments
-#pragma unroll
-  for (int kk = 0; kk < KSTEPS; ++kk)
-    ldmatrix_x4(qa[kk], k_s[1] + (warp * 16 + lane % 16) * SROW + kk * 16 + (lane / 16) * 8);
 
-  float o[DTILES][4];
-#pragma unroll
-  for (int d = 0; d < DTILES; ++d) o[d][0] = o[d][1] = o[d][2] = o[d][3] = 0.f;
-  float m_lo = kMaskedScore, m_hi = kMaskedScore;  // rows lane/4 and lane/4 + 8
-  float l_lo = 0.f, l_hi = 0.f;                    // this thread's partial sums
-  const int mat = lane / 8, mrow = lane % 8;       // ldmatrix.x4 addressing
-
-  for (int k0 = 0, st = 0; k0 < N; k0 += kMmaBK, st ^= 1) {
-    if (k0 > 0) cp_async_wait_all();  // this tile has landed
-    // ... and is visible to all warps, which are done with the other stage
-    __syncthreads();
-    if (k0 + kMmaBK < N) {
-      stage_kv(k0 + kMmaBK, st ^ 1);
-      cp_async_commit();
-    }
-    const __nv_bfloat16* kt = k_s[st];
-    const __nv_bfloat16* vt = v_s[st];
-
-    // S = Q K^T for this warp's 16 rows x 64 keys
-    float s[NTILES][4];
-#pragma unroll
-    for (int j = 0; j < NTILES; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < KSTEPS; ++kk) {
-#pragma unroll
-      for (int j = 0; j < NTILES; j += 2) {
-        uint32_t kb[4];
-        ldmatrix_x4(kb, kt + (8 * (j + mat / 2) + mrow) * SROW + kk * 16 + 8 * (mat % 2));
-        mma_16816(s[j], qa[kk], kb[0], kb[1]);
-        mma_16816(s[j + 1], qa[kk], kb[2], kb[3]);
+  if (threadIdx.x < 128) {
+    // ---- producer warpgroup: one thread issues every TMA load ----
+    regs_release<40>();
+    if (threadIdx.x == 0) {
+      mbar_arrive_expect_tx(q_bar, T::kQBytes);
+      tma_load_4d(q0s, &maps.q[0], q_bar, 0, h, q0, b);
+      if constexpr (W1 > 0) tma_load_4d(q1s, &maps.q[1], q_bar, W0, h, q0, b);
+      int st = 0, phase = 0;
+      for (int r = 0; r < n_runs; ++r) {
+        const KeyRun run = runs.run[cls][r];
+        const CUtensorMap* km = run.source ? maps.kf : maps.ks;
+        const CUtensorMap* vm = run.source ? maps.vf : maps.vs;
+        const int end = run.first + run.length;
+        for (int c = run.origin; c < end; c += kBK) {
+          mbar_wait(empty_bar(st), phase ^ 1);
+          mbar_arrive_expect_tx(full_bar(st), T::kStageBytes);
+          tma_load_4d(k0s(st), km, full_bar(st), 0, h, c, b);
+          tma_load_4d(v0s(st), vm, full_bar(st), 0, h, c, b);
+          if constexpr (W1 > 0) {
+            tma_load_4d(k1s(st), km + 1, full_bar(st), W0, h, c, b);
+            tma_load_4d(v1s(st), vm + 1, full_bar(st), W0, h, c, b);
+          }
+          if (++st == kStages) st = 0, phase ^= 1;
+        }
       }
     }
+  } else {
+    // ---- consumer warpgroups: 64 query rows each ----
+    regs_acquire<232>();
+    const int ct = threadIdx.x - 128;
+    const int wg = ct / 128;  // which consumer warpgroup
+    const int warp = (ct % 128) / 32;
+    const int lane = ct % 32;
+    const uint32_t qa0 = q0s + wg * 64 * RB0, qa1 = q1s + wg * 64 * RB1;
 
-    // online softmax (log2 domain); a row's 64 scores live in one lane quad
-    float mx_lo = m_lo, mx_hi = m_hi;
+    float o0[W0 / 2];
+    float o1[W1 > 0 ? W1 / 2 : 1];
 #pragma unroll
-    for (int j = 0; j < NTILES; ++j) {
+    for (int i = 0; i < W0 / 2; ++i) o0[i] = 0.f;
 #pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const bool valid = k0 + 8 * j + 2 * (lane % 4) + e < N;
-        s[j][e] = valid ? s[j][e] * scale_log2 : kMaskedScore;
-        s[j][2 + e] = valid ? s[j][2 + e] * scale_log2 : kMaskedScore;
-        mx_lo = fmaxf(mx_lo, s[j][e]);
-        mx_hi = fmaxf(mx_hi, s[j][2 + e]);
+    for (int i = 0; i < (W1 > 0 ? W1 / 2 : 1); ++i) o1[i] = 0.f;
+    float m_lo = kMaskedScore, m_hi = kMaskedScore;  // raw max of rows lane/4, lane/4 + 8
+    float l_lo = 0.f, l_hi = 0.f;                    // this thread's partial sums
+
+    // Q K^T of the stage's key tile into s (64 rows x 128 keys; K-major
+    // operands in shared memory)
+    auto issue_qk = [&](float (&s)[kBK / 2], int st) {
+#pragma unroll
+      for (int kk = 0; kk < W0 / 16; ++kk)
+        wgmma_m64n128k16_ss(s, wgmma_desc(qa0 + 32 * kk, 16, 8 * RB0, RB0),
+                            wgmma_desc(k0s(st) + 32 * kk, 16, 8 * RB0, RB0), kk > 0);
+      if constexpr (W1 > 0)
+        wgmma_m64n128k16_ss(s, wgmma_desc(qa1, 16, 8 * RB1, RB1),
+                            wgmma_desc(k1s(st), 16, 8 * RB1, RB1), true);
+    };
+    // O += P V over the stage's value tile. The accumulators of keys
+    // 16kk .. 16kk+15 are exactly the A fragment of k-step kk. P goes in as
+    // two bf16 terms (its rounding and the remainder), so P V keeps P to
+    // about 16 bits. V is MN-major: the descriptor's stride steps between
+    // 8-key groups; its leading offset (between column groups) is unused at
+    // these widths.
+    auto issue_pv = [&](const uint32_t (&pa)[kBK / 16][4], const uint32_t (&pr)[kBK / 16][4],
+                        int st) {
+#pragma unroll
+      for (int t = 0; t < 2; ++t)
+#pragma unroll
+        for (int kk = 0; kk < kBK / 16; ++kk) {
+          const uint32_t(&a)[4] = t == 0 ? pa[kk] : pr[kk];
+          wgmma_rs<W0>(o0, a, wgmma_desc(v0s(st) + kk * 16 * RB0, 8 * RB0, 8 * RB0, RB0));
+          if constexpr (W1 > 0)
+            wgmma_rs<W1>(o1, a, wgmma_desc(v1s(st) + kk * 16 * RB1, 8 * RB1, 8 * RB1, RB1));
+        }
+    };
+    // Online softmax over one tile of raw scores, in place: s becomes the
+    // probabilities exp2(s * scale_log2 - m), m (raw) and l move on, and
+    // alpha is the factor O must still be scaled by. s[4j + e]: key
+    // 8j + 2(lane%4) + e%2 of row lane/4 (e < 2) or lane/4 + 8 (e >= 2); a
+    // row's scores live in one lane quad. Every tile holds at least one key
+    // of its run, so a row's max is a real score and masked keys weigh 0.
+    auto softmax = [&](float (&s)[kBK / 2], int c, int lo, int hi, float& alpha_lo,
+                       float& alpha_hi) {
+      if (c < lo || c + kBK > hi) {
+#pragma unroll
+        for (int i = 0; i < kBK / 2; ++i) {
+          const int key = c + 8 * (i / 4) + 2 * (lane % 4) + (i % 2);
+          if (key < lo || key >= hi) s[i] = kMaskedScore;
+        }
       }
+      float mx_lo = m_lo, mx_hi = m_hi;
+#pragma unroll
+      for (int i = 0; i < kBK / 2; i += 4) {
+        mx_lo = fmaxf(mx_lo, fmaxf(s[i], s[i + 1]));
+        mx_hi = fmaxf(mx_hi, fmaxf(s[i + 2], s[i + 3]));
+      }
+#pragma unroll
+      for (int off = 1; off < 4; off *= 2) {
+        mx_lo = fmaxf(mx_lo, __shfl_xor_sync(0xffffffffu, mx_lo, off));
+        mx_hi = fmaxf(mx_hi, __shfl_xor_sync(0xffffffffu, mx_hi, off));
+      }
+      alpha_lo = fast_exp2((m_lo - mx_lo) * scale_log2);
+      alpha_hi = fast_exp2((m_hi - mx_hi) * scale_log2);
+      const float off_lo = mx_lo * scale_log2, off_hi = mx_hi * scale_log2;
+      float sum_lo = 0.f, sum_hi = 0.f;
+#pragma unroll
+      for (int i = 0; i < kBK / 2; i += 4) {
+        s[i] = fast_exp2(fmaf(s[i], scale_log2, -off_lo));
+        s[i + 1] = fast_exp2(fmaf(s[i + 1], scale_log2, -off_lo));
+        s[i + 2] = fast_exp2(fmaf(s[i + 2], scale_log2, -off_hi));
+        s[i + 3] = fast_exp2(fmaf(s[i + 3], scale_log2, -off_hi));
+        sum_lo += s[i] + s[i + 1];
+        sum_hi += s[i + 2] + s[i + 3];
+      }
+      l_lo = l_lo * alpha_lo + sum_lo;
+      l_hi = l_hi * alpha_hi + sum_hi;
+      m_lo = mx_lo;
+      m_hi = mx_hi;
+    };
+    auto rescale = [&](float alpha_lo, float alpha_hi) {
+#pragma unroll
+      for (int i = 0; i < W0 / 2; ++i) o0[i] *= (i % 4) < 2 ? alpha_lo : alpha_hi;
+      if constexpr (W1 > 0) {
+#pragma unroll
+        for (int i = 0; i < W1 / 2; ++i) o1[i] *= (i % 4) < 2 ? alpha_lo : alpha_hi;
+      }
+    };
+    auto to_bf16 = [&](const float (&s)[kBK / 2], uint32_t (&pa)[kBK / 16][4],
+                       uint32_t (&pr)[kBK / 16][4]) {
+#pragma unroll
+      for (int kk = 0; kk < kBK / 16; ++kk)
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          split_bf16(s[8 * kk + 2 * j], s[8 * kk + 2 * j + 1], pa[kk][j], pr[kk][j]);
+    };
+    auto release = [&](int st) {  // this warp is done with the stage
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty_bar(st));
+    };
+
+    // The tiles of the runs in order. The tensor work comes in turns: Q K^T
+    // of tile 0; then P V of tile t - 1 and Q K^T of tile t; then P V of
+    // the last tile. The two consumer warpgroups take turns (named barriers
+    // 1 and 2, warpgroup 0 first), so one's turn runs on the tensor cores
+    // while the other computes its softmax. Within a turn P V completes
+    // before Q K^T is issued, so the P fragments and the scores are never
+    // live at once (168 registers are left for the accumulators).
+    int n_tiles = 0;
+    for (int r = 0; r < n_runs; ++r) {
+      const KeyRun& run = runs.run[cls][r];
+      n_tiles += (run.first + run.length - run.origin + kBK - 1) / kBK;
     }
+    mbar_wait(q_bar, 0);
+    if (n_tiles > 0) {
+      const int my_turn = 1 + wg, other_turn = 2 - wg;
+      if (wg == 1) named_bar_arrive(1, 256);  // warpgroup 0 issues first
+      float s[kBK / 2];
+      uint32_t pa[kBK / 16][4], pr[kBK / 16][4];
+      float alpha_lo, alpha_hi;
+      int r = 0, c = runs.run[cls][0].origin;  // this tile: run r, origin c
+      int st = 0, phase = 0, prev = 0;         // its stage, and that of tile t - 1
+      auto next_tile = [&]() {
+        c += kBK;
+        if (c >= runs.run[cls][r].first + runs.run[cls][r].length && ++r < n_runs)
+          c = runs.run[cls][r].origin;
+        prev = st;
+        if (++st == kStages) st = 0, phase ^= 1;
+      };
+      auto softmax_tile = [&]() {
+        const KeyRun& run = runs.run[cls][r];
+        softmax(s, c, run.first, run.first + run.length, alpha_lo, alpha_hi);
+      };
+
+      mbar_wait(full_bar(st), phase);
+      named_bar_sync(my_turn, 256);
+      wgmma_fence();
+      issue_qk(s, st);
+      wgmma_commit();
+      named_bar_arrive(other_turn, 256);
+      wgmma_wait_all();
+      fence_regs(s);
+      softmax_tile();  // O is still zero: no rescale
+      to_bf16(s, pa, pr);
+      next_tile();
+      for (int t = 1; t < n_tiles; ++t) {
+        mbar_wait(full_bar(st), phase);
+        named_bar_sync(my_turn, 256);
+        wgmma_fence();
+        issue_pv(pa, pr, prev);
+        wgmma_commit();
+        wgmma_wait_all();
+        fence_regs(o0);
+        fence_regs(o1);
+        fence_regs(pa);
+        fence_regs(pr);
+        release(prev);
+        wgmma_fence();
+        issue_qk(s, st);
+        wgmma_commit();
+        named_bar_arrive(other_turn, 256);
+        wgmma_wait_all();
+        fence_regs(s);
+        softmax_tile();
+        rescale(alpha_lo, alpha_hi);
+        to_bf16(s, pa, pr);
+        next_tile();
+      }
+      named_bar_sync(my_turn, 256);
+      wgmma_fence();
+      issue_pv(pa, pr, prev);
+      wgmma_commit();
+      if (wg == 0) named_bar_arrive(other_turn, 256);  // warpgroup 1 has the last turn
+      wgmma_wait_all();
+      fence_regs(o0);
+      fence_regs(o1);
+      fence_regs(pa);
+      fence_regs(pr);
+      release(prev);
+    }
+
 #pragma unroll
     for (int off = 1; off < 4; off *= 2) {
-      mx_lo = fmaxf(mx_lo, __shfl_xor_sync(0xffffffffu, mx_lo, off));
-      mx_hi = fmaxf(mx_hi, __shfl_xor_sync(0xffffffffu, mx_hi, off));
+      l_lo += __shfl_xor_sync(0xffffffffu, l_lo, off);
+      l_hi += __shfl_xor_sync(0xffffffffu, l_hi, off);
     }
-    const float alpha_lo = exp2f(m_lo - mx_lo), alpha_hi = exp2f(m_hi - mx_hi);
-    l_lo *= alpha_lo;
-    l_hi *= alpha_hi;
+    const float inv_lo = 1.f / fmaxf(l_lo, 1e-30f), inv_hi = 1.f / fmaxf(l_hi, 1e-30f);
+    const int row_lo = q0 + wg * 64 + warp * 16 + lane / 4;
+    const int row_hi = row_lo + 8;
+    __nv_bfloat16* out_lo = out + b * so.b + (int64_t)row_lo * so.s + h * so.h;
+    __nv_bfloat16* out_hi = out_lo + 8 * so.s;
 #pragma unroll
-    for (int d = 0; d < DTILES; ++d) {
-      o[d][0] *= alpha_lo;
-      o[d][1] *= alpha_lo;
-      o[d][2] *= alpha_hi;
-      o[d][3] *= alpha_hi;
+    for (int i = 0; i < W0 / 2; i += 4) {
+      const int col = 2 * i + 2 * (lane % 4);  // 8 * (i / 4) + 2 * (lane % 4)
+      if (col >= HD) continue;
+      if (row_lo < Nl)
+        *reinterpret_cast<uint32_t*>(out_lo + col) = pack_bf16(o0[i] * inv_lo, o0[i + 1] * inv_lo);
+      if (row_hi < Nl)
+        *reinterpret_cast<uint32_t*>(out_hi + col) =
+            pack_bf16(o0[i + 2] * inv_hi, o0[i + 3] * inv_hi);
     }
+    if constexpr (W1 > 0) {
 #pragma unroll
-    for (int j = 0; j < NTILES; ++j) {
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        s[j][e] = exp2f(s[j][e] - mx_lo);
-        s[j][2 + e] = exp2f(s[j][2 + e] - mx_hi);
-        l_lo += s[j][e];
-        l_hi += s[j][2 + e];
+      for (int i = 0; i < W1 / 2; i += 4) {
+        const int col = W0 + 2 * i + 2 * (lane % 4);
+        if (col >= HD) continue;
+        if (row_lo < Nl)
+          *reinterpret_cast<uint32_t*>(out_lo + col) =
+              pack_bf16(o1[i] * inv_lo, o1[i + 1] * inv_lo);
+        if (row_hi < Nl)
+          *reinterpret_cast<uint32_t*>(out_hi + col) =
+              pack_bf16(o1[i + 2] * inv_hi, o1[i + 3] * inv_hi);
       }
     }
-    m_lo = mx_lo;
-    m_hi = mx_hi;
-
-    // O += P V: the score accumulators of two adjacent key tiles are exactly
-    // the A fragment of one 16-key k-step. P is fed as two bf16 terms (its
-    // rounding and the remainder), so P V keeps P to about 16 bits, as the
-    // reference's fp32 p @ v does, instead of bf16's 8.
-#pragma unroll
-    for (int kk = 0; kk < kMmaBK / 16; ++kk) {
-      uint32_t pa[4], pr[4];
-      split_bf16(s[2 * kk][0], s[2 * kk][1], pa[0], pr[0]);
-      split_bf16(s[2 * kk][2], s[2 * kk][3], pa[1], pr[1]);
-      split_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1], pa[2], pr[2]);
-      split_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3], pa[3], pr[3]);
-#pragma unroll
-      for (int d = 0; d < DTILES; d += 2) {
-        uint32_t vb[4];
-        ldmatrix_x4_trans(vb, vt + (16 * kk + 8 * (mat % 2) + mrow) * SROW + 8 * (d + mat / 2));
-        mma_16816(o[d], pa, vb[0], vb[1]);
-        mma_16816(o[d + 1], pa, vb[2], vb[3]);
-        mma_16816(o[d], pr, vb[0], vb[1]);
-        mma_16816(o[d + 1], pr, vb[2], vb[3]);
-      }
+    if (lse != nullptr && lane % 4 == 0) {  // one lane of the quad owns the row
+      if (row_lo < Nl)
+        lse[b * sl.b + (int64_t)row_lo * sl.s + h * sl.h] = row_lse(m_lo * scale_log2, l_lo);
+      if (row_hi < Nl)
+        lse[b * sl.b + (int64_t)row_hi * sl.s + h * sl.h] = row_lse(m_hi * scale_log2, l_hi);
     }
-  }
-
-#pragma unroll
-  for (int off = 1; off < 4; off *= 2) {
-    l_lo += __shfl_xor_sync(0xffffffffu, l_lo, off);
-    l_hi += __shfl_xor_sync(0xffffffffu, l_hi, off);
-  }
-  const float inv_lo = 1.f / fmaxf(l_lo, 1e-30f), inv_hi = 1.f / fmaxf(l_hi, 1e-30f);
-  const int row_lo = q0 + warp * 16 + lane / 4;
-  const int row_hi = row_lo + 8;
-#pragma unroll
-  for (int d = 0; d < DTILES; ++d) {
-    const int col = 8 * d + 2 * (lane % 4);
-    if (col >= HD) continue;
-    if (row_lo < Nl)
-      *reinterpret_cast<uint32_t*>(out + b * so.b + (int64_t)row_lo * so.s + h * so.h + col) =
-          pack_bf16(o[d][0] * inv_lo, o[d][1] * inv_lo);
-    if (row_hi < Nl)
-      *reinterpret_cast<uint32_t*>(out + b * so.b + (int64_t)row_hi * so.s + h * so.h + col) =
-          pack_bf16(o[d][2] * inv_hi, o[d][3] * inv_hi);
-  }
-  if (lse != nullptr && lane % 4 == 0) {  // one lane of the quad owns the row
-    if (row_lo < Nl) lse[b * sl.b + (int64_t)row_lo * sl.s + h * sl.h] = row_lse(m_lo, l_lo);
-    if (row_hi < Nl) lse[b * sl.b + (int64_t)row_hi * sl.s + h * sl.h] = row_lse(m_hi, l_hi);
   }
 }
 
@@ -379,43 +568,139 @@ stale_kv_attention_fma_kernel(const float* __restrict__ q, const float* __restri
   }
 }
 
+// ---------------------------------------------------------------------------
+// host: tensor maps and launches
+// ---------------------------------------------------------------------------
+
+using EncodeTiledFn = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                   const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                   const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                   CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled (a libcuda function), looked up through the runtime
+// so the library needs no -lcuda.
+EncodeTiledFn encode_tiled() {
+  static const EncodeTiledFn fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                             cudaEnableDefault, &found);
+#else
+    const cudaError_t err =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiledFn>(p)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// Map of a bf16 [B, S, H, hd] view (hd contiguous, element strides `st`)
+// read in boxes of `width` columns x kBK rows of one head and batch row,
+// under the swizzle of a `width`-column row. A dimension of extent 1 gets
+// a dense stride (its coordinate is always 0, whatever the view's stride).
+bool encode_map(CUtensorMap* map, const void* ptr, Strides st, int B, int S, int H, int hd,
+                int width) {
+  const EncodeTiledFn encode = encode_tiled();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[4] = {(cuuint64_t)hd, (cuuint64_t)H, (cuuint64_t)S, (cuuint64_t)B};
+  const int64_t elem[3] = {st.h, st.s, st.b};
+  cuuint64_t strides[3];
+  cuuint64_t dense = 2 * (cuuint64_t)hd;
+  for (int i = 0; i < 3; ++i) {
+    strides[i] = dims[i + 1] == 1 ? dense : 2 * (cuuint64_t)elem[i];
+    dense = strides[i] * dims[i + 1];
+  }
+  const cuuint32_t box[4] = {(cuuint32_t)width, 1, (cuuint32_t)kBK, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  const CUtensorMapSwizzle swizzle = width == 64   ? CU_TENSOR_MAP_SWIZZLE_128B
+                                     : width == 32 ? CU_TENSOR_MAP_SWIZZLE_64B
+                                                   : CU_TENSOR_MAP_SWIZZLE_32B;
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims, strides,
+                box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// What a launch needs to know of its operands besides the pointers.
+struct Layout {
+  int B, H, Nl;
+  int n_fresh;  // rows of the fresh K/V maps (Nl; K4, which has none: n_keys)
+  int n_keys;   // rows of the stale K/V maps: keys visited (K1 N, K2/K5 n_tokens, K4 valid_len)
+  int tok_start, valid_lo, valid_hi, b_split;  // the fp32 body's key layout
+};
+
+template <int HD>
+cudaError_t launch_wgmma(const void* q, const void* kf, const void* vf, const void* ks,
+                         const void* vs, void* out, float* lse, const Strides* st,
+                         const Layout& L, const KeyRuns& runs, float scale_log2,
+                         cudaStream_t stream) {
+  using T = HeadTiles<HD>;
+  TmaMaps maps;
+  const void* src[5] = {q, kf, vf, ks, vs};
+  CUtensorMap* dst[5] = {maps.q, maps.kf, maps.vf, maps.ks, maps.vs};
+  const int rows[5] = {L.Nl, L.n_fresh, L.n_fresh, L.n_keys, L.n_keys};
+  for (int i = 0; i < 5; ++i) {
+    const int S = rows[i] > 0 ? rows[i] : 1;  // a map needs an extent; no tile reads it
+    if (!encode_map(&dst[i][0], src[i], st[i], L.B, S, L.H, HD, T::W0)) return cudaErrorInvalidValue;
+    if (T::W1 > 0 && !encode_map(&dst[i][1], src[i], st[i], L.B, S, L.H, HD, T::W1))
+      return cudaErrorInvalidValue;
+  }
+  int device = 0;
+  cudaGetDevice(&device);
+  static bool smem_set[64] = {};  // per device; one entry per instantiation
+  if (device < 64 && !smem_set[device]) {
+    const cudaError_t err =
+        cudaFuncSetAttribute(stale_kv_attention_wgmma_kernel<HD>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, T::kSmemBytes);
+    if (err != cudaSuccess) return err;
+    smem_set[device] = true;
+  }
+  const dim3 grid((L.Nl + kBQ - 1) / kBQ, L.B * L.H);
+  stale_kv_attention_wgmma_kernel<HD><<<grid, kThreads, T::kSmemBytes, stream>>>(
+      maps, runs, static_cast<__nv_bfloat16*>(out), lse, st[5], st[6], L.H, L.Nl, L.b_split,
+      scale_log2);
+  return cudaGetLastError();
+}
+
 template <int HD>
 cudaError_t launch(int dtype, const void* q, const void* kf, const void* vf, const void* ks,
-                   const void* vs, void* out, float* lse, const Strides* st, int B, int H,
-                   int Nl, int N, int tok_start, int valid_lo, int valid_hi, int b_split,
-                   float scale_log2, cudaStream_t stream) {
-  if (dtype == 1) {
-    using bf = __nv_bfloat16;
-    const dim3 grid((Nl + kMmaBQ - 1) / kMmaBQ, B * H);
-    stale_kv_attention_mma_kernel<HD><<<grid, kMmaThreads, 0, stream>>>(
-        static_cast<const bf*>(q), static_cast<const bf*>(kf), static_cast<const bf*>(vf),
-        static_cast<const bf*>(ks), static_cast<const bf*>(vs), static_cast<bf*>(out), lse,
-        st[0], st[1], st[2], st[3], st[4], st[5], st[6], H, Nl, N, tok_start, valid_lo,
-        valid_hi, b_split, scale_log2);
-  } else {
-    const dim3 grid((Nl + kFmaBQ - 1) / kFmaBQ, B * H);
-    stale_kv_attention_fma_kernel<HD><<<grid, kFmaBQ, 0, stream>>>(
-        static_cast<const float*>(q), static_cast<const float*>(kf),
-        static_cast<const float*>(vf), static_cast<const float*>(ks),
-        static_cast<const float*>(vs), static_cast<float*>(out), lse, st[0], st[1], st[2],
-        st[3], st[4], st[5], st[6], H, Nl, N, tok_start, valid_lo, valid_hi, b_split,
-        scale_log2);
-  }
+                   const void* vs, void* out, float* lse, const Strides* st, const Layout& L,
+                   const KeyRuns& runs, float scale_log2, cudaStream_t stream) {
+  if (dtype == 1)
+    return launch_wgmma<HD>(q, kf, vf, ks, vs, out, lse, st, L, runs, scale_log2, stream);
+  const dim3 grid((L.Nl + kFmaBQ - 1) / kFmaBQ, L.B * L.H);
+  stale_kv_attention_fma_kernel<HD><<<grid, kFmaBQ, 0, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(kf), static_cast<const float*>(vf),
+      static_cast<const float*>(ks), static_cast<const float*>(vs), static_cast<float*>(out), lse,
+      st[0], st[1], st[2], st[3], st[4], st[5], st[6], L.H, L.Nl, L.n_keys, L.tok_start,
+      L.valid_lo, L.valid_hi, L.b_split, scale_log2);
   return cudaGetLastError();
 }
 
 // Dispatch on the dtype and the head dim. st: the (b, s, h) strides of q,
 // k_fresh, v_fresh, k_stale, v_stale, out and lse (unused without lse).
+// runs: 2 classes x 13 int, each a run count then 3 runs of (source, first,
+// length, origin).
 int dispatch(int dtype, int hd, const void* q, const void* kf, const void* vf, const void* ks,
-             const void* vs, void* out, float* lse, const Strides* st, int B, int H, int Nl,
-             int N, int tok_start, int valid_lo, int valid_hi, int b_split, float scale,
-             void* stream) {
+             const void* vs, void* out, float* lse, const Strides* st, const Layout& L,
+             const int* runs, float scale, void* stream) {
   if (dtype != 0 && dtype != 1) return cudaErrorInvalidValue;
+  KeyRuns kr = {};
+  for (int c = 0; c < 2; ++c) {
+    const int* r = runs + 13 * c;
+    if (r[0] < 0 || r[0] > kMaxRuns) return cudaErrorInvalidValue;
+    kr.count[c] = r[0];
+    for (int i = 0; i < r[0]; ++i)
+      kr.run[c][i] = {r[1 + 4 * i], r[2 + 4 * i], r[3 + 4 * i], r[4 + 4 * i]};
+  }
   const float scale_log2 = scale * 1.4426950408889634f;  // log2(e)
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (hd) {
-    case 32: return launch<32>(dtype, q, kf, vf, ks, vs, out, lse, st, B, H, Nl, N, tok_start, valid_lo, valid_hi, b_split, scale_log2, s);
-    case 72: return launch<72>(dtype, q, kf, vf, ks, vs, out, lse, st, B, H, Nl, N, tok_start, valid_lo, valid_hi, b_split, scale_log2, s);
+    case 32: return launch<32>(dtype, q, kf, vf, ks, vs, out, lse, st, L, kr, scale_log2, s);
+    case 72: return launch<72>(dtype, q, kf, vf, ks, vs, out, lse, st, L, kr, scale_log2, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -423,35 +708,44 @@ int dispatch(int dtype, int hd, const void* q, const void* kf, const void* vf, c
 // The strides of K1, K2 and K5's six tensors, 18 int64 in (b, s, h) order;
 // the seventh (lse) slot is unused.
 int dispatch6(int dtype, int hd, const void* q, const void* kf, const void* vf, const void* ks,
-              const void* vs, void* out, const int64_t* strides, int B, int H, int Nl, int N,
-              int tok_start, int valid_lo, int valid_hi, int b_split, float scale,
-              void* stream) {
+              const void* vs, void* out, const int64_t* strides, const Layout& L,
+              const int* runs, float scale, void* stream) {
   Strides st[7] = {};
   for (int i = 0; i < 6; ++i) st[i] = {strides[3 * i], strides[3 * i + 1], strides[3 * i + 2]};
-  return dispatch(dtype, hd, q, kf, vf, ks, vs, out, nullptr, st, B, H, Nl, N, tok_start,
-                  valid_lo, valid_hi, b_split, scale, stream);
+  return dispatch(dtype, hd, q, kf, vf, ks, vs, out, nullptr, st, L, runs, scale, stream);
 }
 
 }  // namespace
 
 // Plain C entry points, bound with ctypes. Common arguments:
-//   dtype: 0 = float32 (CUDA-core body), 1 = bfloat16 (tensor-core body);
-//          all six tensors share it. The bf16 body reads 16-byte row chunks:
-//          pointers 16-byte aligned, strides multiples of 8 elements.
+//   dtype: 0 = float32 (CUDA-core body), 1 = bfloat16 (TMA + wgmma body);
+//          all six tensors share it. The bf16 body reads its operands
+//          through TMA: pointers 16-byte aligned, strides multiples of 8
+//          elements.
 //   strides: 18 int64 element strides, (b, s, h) for q, k_fresh, v_fresh,
 //            k_stale, v_stale, out in that order; hd must be contiguous
 //   Nl: query rows (and rows of the fresh K/V)
+//   runs: the key runs of the bf16 body, 26 int: for batch rows below
+//         b_split, then for the rest, a run count (at most 3) and per run
+//         (source 0 stale / 1 fresh, first row, length, tile origin), as
+//         repro_torch.kernels.stale_kv_attention.key_runs lays them out;
+//         the fp32 body reads the layout arguments instead
 //   scale: the softmax scale (hd ** -0.5 for the DiT)
-// Each returns cudaGetLastError() after the launch (0 = launched).
+// Each returns cudaGetLastError() after the launch (0 = launched), or
+// cudaErrorInvalidValue if a tensor map cannot be built.
+
+// The key-tile width the runs' tile origins must be computed for.
+extern "C" int stale_kv_attention_key_tile() { return kBK; }
 
 // K1: N context keys; the Nl fresh rows sit at tok_start.
 extern "C" int stale_kv_attention_launch(int dtype, int hd, const void* q, const void* k_fresh,
                                          const void* v_fresh, const void* k_stale,
                                          const void* v_stale, void* out, const int64_t* strides,
-                                         int B, int H, int Nl, int N, int tok_start, float scale,
-                                         void* stream) {
-  return dispatch6(dtype, hd, q, k_fresh, v_fresh, k_stale, v_stale, out, strides, B, H, Nl, N,
-                   tok_start, Nl, Nl, B, scale, stream);
+                                         const int* runs, int B, int H, int Nl, int N,
+                                         int tok_start, float scale, void* stream) {
+  const Layout L = {B, H, Nl, Nl, N, tok_start, Nl, Nl, B};
+  return dispatch6(dtype, hd, q, k_fresh, v_fresh, k_stale, v_stale, out, strides, L, runs,
+                   scale, stream);
 }
 
 // K2: the slab's first valid_tokens rows are fresh at tok_start; the stale
@@ -459,11 +753,13 @@ extern "C" int stale_kv_attention_launch(int dtype, int hd, const void* q, const
 extern "C" int stale_kv_attention_padded_launch(int dtype, int hd, const void* q,
                                                 const void* k_fresh, const void* v_fresh,
                                                 const void* k_stale, const void* v_stale,
-                                                void* out, const int64_t* strides, int B, int H,
-                                                int Nl, int n_tokens, int tok_start,
-                                                int valid_tokens, float scale, void* stream) {
-  return dispatch6(dtype, hd, q, k_fresh, v_fresh, k_stale, v_stale, out, strides, B, H, Nl,
-                   n_tokens, tok_start, valid_tokens, valid_tokens, B, scale, stream);
+                                                void* out, const int64_t* strides,
+                                                const int* runs, int B, int H, int Nl,
+                                                int n_tokens, int tok_start, int valid_tokens,
+                                                float scale, void* stream) {
+  const Layout L = {B, H, Nl, Nl, n_tokens, tok_start, valid_tokens, valid_tokens, B};
+  return dispatch6(dtype, hd, q, k_fresh, v_fresh, k_stale, v_stale, out, strides, L, runs,
+                   scale, stream);
 }
 
 // K5: 2 * B batch rows, the conditional branch (rows < B) then the
@@ -471,13 +767,14 @@ extern "C" int stale_kv_attention_padded_launch(int dtype, int hd, const void* q
 extern "C" int stale_kv_attention_guided_launch(int dtype, int hd, const void* q,
                                                 const void* k_fresh, const void* v_fresh,
                                                 const void* k_stale, const void* v_stale,
-                                                void* out, const int64_t* strides, int B, int H,
-                                                int Nl, int n_tokens, int tok_start,
-                                                int valid_tokens, int uncond_fresh, float scale,
-                                                void* stream) {
-  return dispatch6(dtype, hd, q, k_fresh, v_fresh, k_stale, v_stale, out, strides, 2 * B, H, Nl,
-                   n_tokens, tok_start, valid_tokens, uncond_fresh ? valid_tokens : 0, B, scale,
-                   stream);
+                                                void* out, const int64_t* strides,
+                                                const int* runs, int B, int H, int Nl,
+                                                int n_tokens, int tok_start, int valid_tokens,
+                                                int uncond_fresh, float scale, void* stream) {
+  const Layout L = {2 * B, H, Nl, Nl, n_tokens, tok_start, valid_tokens,
+                    uncond_fresh ? valid_tokens : 0, B};
+  return dispatch6(dtype, hd, q, k_fresh, v_fresh, k_stale, v_stale, out, strides, L, runs,
+                   scale, stream);
 }
 
 // K4: q and out [B, Sq, H, hd], k and v [B, T, H, hd] with their first
@@ -486,12 +783,12 @@ extern "C" int stale_kv_attention_guided_launch(int dtype, int hd, const void* q
 // key comes from k/v (no fresh rows), so they fill both source slots.
 extern "C" int lse_attention_launch(int dtype, int hd, const void* q, const void* k,
                                     const void* v, void* out, float* lse,
-                                    const int64_t* strides, int B, int H, int Sq, int valid_len,
-                                    float scale, void* stream) {
+                                    const int64_t* strides, const int* runs, int B, int H,
+                                    int Sq, int valid_len, float scale, void* stream) {
   const int order[7] = {0, 1, 2, 1, 2, 3, 4};  // q, kf, vf, ks, vs, out, lse
   Strides st[7];
   for (int i = 0; i < 7; ++i)
     st[i] = {strides[3 * order[i]], strides[3 * order[i] + 1], strides[3 * order[i] + 2]};
-  return dispatch(dtype, hd, q, k, v, k, v, out, lse, st, B, H, Sq, valid_len, 0, 0, 0, B,
-                  scale, stream);
+  const Layout L = {B, H, Sq, valid_len, valid_len, 0, 0, 0, B};
+  return dispatch(dtype, hd, q, k, v, k, v, out, lse, st, L, runs, scale, stream);
 }

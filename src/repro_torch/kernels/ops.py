@@ -150,8 +150,9 @@ def _check_cuda_operands(kernel: str, tensors,
     if q.dtype == torch.bfloat16 and any(
             t.data_ptr() % 16 or any(st % 8 for st in t.stride()[:-1])
             for t in tensors):
-        raise ValueError("the bf16 kernel reads 16-byte row chunks: pointers "
-                         "must be 16-byte aligned, strides multiples of 8")
+        raise ValueError("the bf16 kernel reads its operands through TMA in "
+                         "16-byte units: pointers must be 16-byte aligned, "
+                         "strides multiples of 8")
 
 
 def _check_padded_layout(q, k_fresh, v_fresh, k_stale, v_stale, tok_start,

@@ -163,6 +163,13 @@ def _decode_attn(p, x, cfg, ck, cv, pos: int, window: int):
     posv = torch.full((B, 1), pos, dtype=torch.int32, device=x.device)
     q = layers.apply_rope(q, posv, cfg.rope_theta)
     k = layers.apply_rope(k, posv, cfg.rope_theta)
+    if not window and pos >= T:
+        raise ValueError(
+            f"full-cache decode at position {pos} is past the cache's {T} "
+            "slots; the reference (repro.models.hymba._decode_attn's "
+            "dynamic_update_slice_in_dim) silently clamps the write to slot "
+            f"{T - 1}. Size init_cache's max_len for prompt + new tokens, or "
+            "decode with a window")
     slot = (M + (pos - M) % window) if window else pos
     ck[:, slot] = k[:, 0].to(ck.dtype)
     cv[:, slot] = v[:, 0].to(cv.dtype)

@@ -468,6 +468,85 @@ def test_k4_kernel_matches_plain_and_rejects_faults(cuda, valid, dtype):
             assert not _k4_within_bars(out, lse, bad, dtype)
 
 
+# ----------------------------------------------------------------------
+# edges of the key runs (K1, K2, K4, K5 share one body per dtype)
+# ----------------------------------------------------------------------
+
+# (kernel, layout): K1 (N, Nl, tok_start), K2 and K5 (n_tokens, Npad, Nl_max,
+# tok_start, valid_tokens), K4 (T, valid_len). With 128-key tiles each
+# layout puts a tile across a run boundary: K1 at 300 | 500 (and the patch
+# at the end of a context of no tile multiple), K2 with valid_tokens below
+# the slab, n_tokens cutting the slab and valid 0, K4 lengths one key on
+# either side of a tile.
+RUN_EDGES = [("k1", (1024, 200, 300)), ("k1", (1000, 130, 870)),
+             ("k1", (1024, 1024, 0)),
+             ("k2", (1000, 1280, 256, 300, 200)), ("k2", (1000, 1280, 256, 900, 256)),
+             ("k2", (1000, 1280, 256, 0, 0)),
+             ("k4", (640, 129)), ("k4", (640, 127)), ("k4", (640, 1)),
+             ("k5", (1000, 1280, 256, 300, 200))]
+
+
+def _run_edge(kind, layout, dtype, hd, device):
+    """(kernel output, plain output) on strided views: K1/K2/K5's q, k, v
+    slices of a fused projection and stale K/V one layer of a
+    branch-stacked buffer at batch 2; K4's k, v the second head group of a
+    wider segment."""
+    g = torch.Generator(device="cpu").manual_seed(RUN_EDGES.index((kind, layout)) + hd)
+    H = 4
+
+    def mk(*shape, std=1.0):
+        return (std * torch.randn(*shape, generator=g)).to(dtype).to(device)
+
+    if kind == "k4":
+        T, valid = layout
+        q = mk(1, 300, H, hd, std=QK_STD)
+        seg_k, seg_v = mk(1, T, 2 * H, hd, std=QK_STD), mk(1, T, 2 * H, hd)
+        k, v = seg_k[:, :, H:], seg_v[:, :, H:]
+        out, lse = ops.lse_attention(q, k, v, valid)
+        want, want_lse = ref.lse_attention_ref(q, k, v, valid)
+        _assert_within_bars(lse, want_lse, torch.float32)
+        return out, want
+    if kind == "k1":
+        N, Nl, tok = layout
+        rows = N
+    else:
+        n_tokens, rows, Nl, tok, valid = layout
+    lead = 2 if kind == "k5" else 1          # K5: the branch axis over batch 1
+    qkv = mk(lead, 2 // lead, Nl, 3, H, hd, std=QK_STD).flatten(0, 1)
+    q, kf, vf = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+    buf_k, buf_v = mk(2, 3, 1, rows, H, hd, std=QK_STD), mk(2, 3, 1, rows, H, hd)
+    ks = buf_k.transpose(0, 1).flatten(1, 2)[1]
+    vs = buf_v.transpose(0, 1).flatten(1, 2)[1]
+    assert not ks.is_contiguous() and not q.is_contiguous()
+    if kind == "k1":
+        return (ops.stale_kv_attention(q, kf, vf, ks, vs, tok_start=tok),
+                ref.stale_kv_attention_ref(q, kf, vf, ks, vs, tok))
+    if kind == "k2":
+        return (ops.stale_kv_attention_padded(q, kf, vf, ks, vs, tok, valid,
+                                              n_tokens=n_tokens),
+                ref.stale_kv_attention_padded_ref(q, kf, vf, ks, vs, tok, valid,
+                                                  n_tokens))
+    args = [t.unflatten(0, (2, 1)) for t in (q, kf, vf, ks, vs)]
+    outs = []
+    for uncond_fresh in (0, 1):
+        outs.append((ops.stale_kv_attention_guided(*args, tok, valid, uncond_fresh,
+                                                   n_tokens=n_tokens),
+                     ref.stale_kv_attention_guided_ref(*args, tok, valid,
+                                                       uncond_fresh, n_tokens)))
+    return torch.stack([o for o, _ in outs]), torch.stack([w for _, w in outs])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hd", [32, 72])
+@pytest.mark.parametrize("kind,layout", RUN_EDGES, ids=str)
+def test_key_run_edges_match_plain(cuda, kind, layout, hd, dtype):
+    out, want = _run_edge(kind, layout, dtype, hd, cuda)
+    torch.cuda.synchronize()
+    assert out.shape == want.shape and out.dtype == dtype
+    _assert_within_bars(out, want, dtype)
+
+
 def _seq_rank(ctx, config):
     res = _tiny_generate(config, ctx.device)
     return res.image.cpu(), res.kernel_stats["launches"]

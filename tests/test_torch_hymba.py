@@ -387,6 +387,47 @@ def test_prefill_and_decode_through_the_ring_wrap(model):
     assert tcache["pos"] == 116
 
 
+def test_prefill_and_decode_full_cache(model):
+    """Full-cache mode (window 0): batch 2, a 20-token prompt behind 8 meta
+    tokens in a cache of T = 48 slots, then 15 decode steps, teacher-forced
+    with the reference's tokens. Logits and K/V held at the per-forward bar
+    at every step."""
+    jcfg, tcfg, jp, tp = model
+    tokens = np.random.default_rng(11).integers(0, jcfg.vocab, (2, 20))
+    jcache = jhymba.init_cache(jcfg, 2, 40, window=0)
+    tcache = hymba.init_cache(tcfg, 2, 40, window=0)
+    assert tcache["k"].shape == jcache["k"].shape == (2, 2, 48, 2, 64)
+    wl, jcache = jhymba.prefill(jp, jcfg, jnp.asarray(tokens, jnp.int32), jcache)
+    tl, tcache = hymba.prefill(tp, tcfg, torch.from_numpy(tokens), tcache)
+    _close(tl, wl, FWD_BAR)
+    assert tcache["pos"] == int(jcache["pos"]) == 28
+    decode = jax.jit(lambda p, c, t: jhymba.decode_step(p, jcfg, c, t, window=0))
+    for step in range(15):
+        tok = np.array(jnp.argmax(wl, axis=-1), np.int32)
+        wl, jcache = decode(jp, jcache, jnp.asarray(tok))
+        tl, tcache = hymba.decode_step(tp, tcfg, tcache,
+                                       torch.from_numpy(tok).long(), window=0)
+        _close(tl, wl, FWD_BAR)
+        for name in ("k", "v"):
+            _close(tcache[name], jcache[name], FWD_BAR)
+    assert tcache["pos"] == 43
+
+
+def test_full_cache_decode_past_the_end_raises(model):
+    """A 20-token prompt in a full cache of 8 + 12 slots: prefill keeps the
+    meta tokens and the last 12 positions (pos 28), and the first decode
+    step refuses to write past the cache, where the reference clamps the
+    write to the last slot without a word."""
+    _, tcfg, _, tp = model
+    tokens = torch.from_numpy(np.random.default_rng(12).integers(
+        0, tcfg.vocab, (2, 20)))
+    cache = hymba.init_cache(tcfg, 2, 12, window=0)
+    _, cache = hymba.prefill(tp, tcfg, tokens, cache)
+    assert cache["pos"] == 28 and cache["k"].shape[2] == 20
+    with pytest.raises(ValueError, match="clamps the write to slot 19"):
+        hymba.decode_step(tp, tcfg, cache, torch.tensor([1, 2]), window=0)
+
+
 def _margins(tmodel, tp, prompt, out_tokens, window):
     """The port's top-2 logit margin at every token of a request,
     teacher-forced with the reference's tokens."""

@@ -1,0 +1,143 @@
+"""Time the stale-KV attention kernels (K1, K2, K4, K5) of two checkouts on
+one card, in turns: each checkout's own ``chip_smoke.py`` kernel phases
+(``phase_kernels``, ``phase_k1_batch2``, ``phase_k2``, ``phase_k5``,
+``phase_k4``: checks, planted faults and times) run in a process of their
+own, which builds that checkout's CUDA library from its sources; then the
+host time of one K1 and one K4 wrapper call at their path shapes.
+
+    python3 tools/compare_attention_trees.py OTHER_CHECKOUT [THIS_CHECKOUT]
+        [--order ABBA] [--log-dir build/compare]
+
+A is OTHER_CHECKOUT (say a ``git archive`` of the parent commit unpacked in
+a git-ignored directory), B this checkout (the default) or the one given.
+The default order A, B, B, A puts each version first once. Each turn's
+whole output goes to ``<log-dir>/compare_<turn>_<A|B>.log``; the summary
+prints, per turn, every timed line's kernel, layout and milliseconds, and
+one JSON line with all of them. A phase whose check fails is reported and
+the turn goes on to the next phase. Needs a CUDA card; exits non-zero if a
+turn fails.
+"""
+import argparse
+import json
+import os
+import subprocess
+import sys
+
+PHASES = ("phase_kernels", "phase_k1_batch2", "phase_k2", "phase_k5",
+          "phase_k4")
+LABELS = ("k1_check", "k1_batch2_check", "k2_check", "k5_check", "k4_check",
+          "host_check")
+LAYOUT_KEYS = ("batch", "N", "Nl", "tok_start", "valid_tokens",
+               "uncond_fresh", "valid_len")
+TIME_KEYS = ("ms", "plain_ms", "library_ms", "bound_ms", "wrapper_host_us",
+             "max_abs_err", "norm_rel_err")
+
+# Run in the child: load the checkout's chip_smoke.py as a module (its main
+# is not run) with the checkout's src/ first on the path, then its phases.
+CHILD = r"""
+import importlib.util, os, sys, torch
+root = sys.argv[1]
+sys.path.insert(0, os.path.join(root, "src"))
+spec = importlib.util.spec_from_file_location("tree_smoke", os.path.join(root, "chip_smoke.py"))
+smoke = importlib.util.module_from_spec(spec)
+spec.loader.exec_module(smoke)
+from repro_torch.kernels import ops, ref
+from repro_torch.models import layers
+assert os.path.dirname(os.path.abspath(ops.__file__)).startswith(os.path.abspath(root))
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+peaks = smoke.peaks_for(torch.cuda.get_device_name(0))
+lib = ops.load_library()
+print(f"build: {lib.path} in {lib.build_seconds:.1f} s", flush=True)
+failed = []
+for name in sys.argv[2:]:
+    fn = getattr(smoke, name)
+    args = (ops, ref, layers, "cuda", peaks) if name in ("phase_kernels", "phase_k1_batch2") \
+        else (ops, ref, "cuda", peaks)
+    try:
+        fn(*args)
+    except RuntimeError as err:  # a failed check: report it, go on to the next phase
+        print(f"{name} failed: {err}", flush=True)
+        failed.append(name)
+# host time of one wrapper call (enqueue only; the card runs behind), the
+# same public calls in either checkout
+import json, time
+def host_us(fn, reps=200):
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    us = (time.perf_counter() - t0) / reps * 1e6
+    torch.cuda.synchronize()
+    return us
+gen = torch.Generator(device="cpu").manual_seed(smoke.SEED)
+q, kf, vf, ks, vs = smoke.k1_inputs(4096, 2304, torch.bfloat16, "cuda", gen)
+print("host_check", json.dumps({"kernel": "stale_kv_attention", "Nl": 2304, "wrapper_host_us":
+      host_us(lambda: ops.stale_kv_attention(q, kf, vf, ks, vs, tok_start=0))}), flush=True)
+q4, k4, v4 = smoke.k4_inputs(torch.bfloat16, "cuda", gen)
+print("host_check", json.dumps({"kernel": "lse_attention", "valid_len": 3200, "wrapper_host_us":
+      host_us(lambda: ops.lse_attention(q4, k4, v4, 3200))}), flush=True)
+sys.exit(1 if failed else 0)
+"""
+
+
+def timed_lines(log):
+    """The JSON readings of the timed lines of one turn's output."""
+    out = []
+    for line in log.splitlines():
+        label, _, rest = line.partition(" ")
+        if label in LABELS and rest.startswith("{"):
+            reading = json.loads(rest)
+            if "ms" in reading or label == "host_check":
+                out.append({"label": label,
+                             **{k: reading[k] for k in LAYOUT_KEYS + TIME_KEYS
+                                if k in reading}})
+    return out
+
+
+def main():
+    ap = argparse.ArgumentParser()
+    ap.add_argument("other")
+    ap.add_argument("this", nargs="?",
+                    default=os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    ap.add_argument("--order", default="ABBA")
+    ap.add_argument("--log-dir", default="build/compare")
+    args = ap.parse_args()
+    trees = {"A": os.path.abspath(args.other), "B": os.path.abspath(args.this)}
+    os.makedirs(args.log_dir, exist_ok=True)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60).stdout.strip()
+    print(smi, flush=True)
+    summary, failed = [], []
+    for turn, key in enumerate(args.order):
+        proc = subprocess.run([sys.executable, "-c", CHILD, trees[key], *PHASES],
+                              capture_output=True, text=True, timeout=900)
+        log = proc.stdout + proc.stderr
+        path = os.path.join(args.log_dir, f"compare_{turn}_{key}.log")
+        with open(path, "w") as f:
+            f.write(log)
+        lines = timed_lines(proc.stdout)
+        summary.append({"turn": turn, "tree": key, "path": trees[key],
+                        "rc": proc.returncode, "timed": lines})
+        print(f"turn {turn} {key} ({trees[key]}): rc {proc.returncode}, log {path}",
+              flush=True)
+        for line in lines:
+            layout = " ".join(f"{k}={line[k]}" for k in LAYOUT_KEYS if k in line)
+            if "ms" in line:
+                print(f"  {line['label']:16s} {layout:48s} {line['ms']:.4f} ms"
+                      f" (library {line.get('library_ms', float('nan')):.4f},"
+                      f" bound {line.get('bound_ms', float('nan')):.4f})", flush=True)
+            else:
+                print(f"  {line['label']:16s} {layout:48s} wrapper "
+                      f"{line['wrapper_host_us']:.1f} us on the host", flush=True)
+        if proc.returncode:
+            failed.append(turn)
+            print(log[-3000:], flush=True)
+    print(json.dumps({"device": smi, "turns": summary}), flush=True)
+    return 1 if failed else 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
