@@ -90,10 +90,12 @@ Phases (any failure raises, so the script exits non-zero):
  14. K7 (the selective scan) against its plain version at Hymba's Mamba
      shapes (x/dt [1, 2048, 1600] and [1, 1, 1600], N 16, fp32), from zero
      and from a nonzero h0, 5e-5 on y and the final state; each bar must
-     reject three planted faults (h0 ignored, the state reset at a 64-step
-     tile, the D x skip dropped). Times of the kernel and the plain version
-     (no PyTorch call computes a scan); at S 1 device times by CUDA-graph
-     replay and the wrapper's eager time per call.
+     reject five planted faults (h0 ignored, the state reset at a 64-step
+     tile, the D x skip dropped, and at the scan body's first 128-step
+     chunk boundary the carry dropped or entering without its decay).
+     Times of the kernel and the plain version (no PyTorch call computes a
+     scan); at S 1 device times by CUDA-graph replay and the wrapper's
+     eager time per call.
  15. the LLM serving path: Hymba-1.5B at full width in bf16 (random weights
      from a seed), 4 requests of 1920 tokens on 4 slots, 16 new tokens each
      (128 meta + 1920 positions, past the 1152-slot ring): tokens in range,
@@ -1218,10 +1220,11 @@ def k7_inputs(S, dev, gen):
     return x, dt, bc[..., :K7_N], bc[..., K7_N:], a, d, h0
 
 
-def k7_planted_faults(ref, x, dt, b, c, a, d, h0):
-    """K7's (y, h_final) under planted faults, from its plain version: h0
-    ignored, the state reset at the kernel's first 64-step tile boundary,
-    the D x skip dropped."""
+def k7_planted_faults(ref, x, dt, b, c, a, d, h0, chunk):
+    """K7's (y, h_final) under planted faults, from its plain versions: h0
+    ignored, the state reset at the first 64-step tile boundary, the D x
+    skip dropped, and at the scan body's first chunk boundary (``chunk``
+    steps) the carry dropped or entering without its decay."""
     faults = {"d x dropped": ref.ssm_scan_ref(x, dt, b, c, a,
                                               torch.zeros_like(d), h0)}
     if h0 is not None:
@@ -1232,6 +1235,10 @@ def k7_planted_faults(ref, x, dt, b, c, a, d, h0):
         tail = ref.ssm_scan_ref(*cut(K7_TILE, None), a, d)
         faults["state reset at a tile"] = (torch.cat([head[0], tail[0]], 1),
                                            tail[1])
+    if x.shape[1] > chunk:
+        for fault in ref.SCAN_FAULTS:
+            faults[fault] = ref.ssm_scan_chunked_ref(x, dt, b, c, a, d, h0,
+                                                     chunk=chunk, fault=fault)
     return faults
 
 
@@ -1266,7 +1273,9 @@ def phase_k7(ops, ref, dev, peaks):
             yerr, yrel, yok = k1_reading(y, want[0], f32)
             herr, hrel, hok = k1_reading(h, want[1], f32)
             readings = {}
-            for name, bad in k7_planted_faults(ref, x, dt, b, c, a, d, h0).items():
+            faults = k7_planted_faults(ref, x, dt, b, c, a, d, h0,
+                                       ops.ss.SCAN_CHUNK)
+            for name, bad in faults.items():
                 _, ry, y_ok = k1_reading(y, bad[0], f32)
                 _, rh, h_ok = k1_reading(h, bad[1], f32)
                 readings[name] = {"y_norm_rel_err": ry, "h_norm_rel_err": rh,
@@ -1300,8 +1309,8 @@ def phase_k7(ops, ref, dev, peaks):
             check(line["ok"], f"K7 disagrees with its plain version: {line}")
             check(all(f["rejected"] for f in readings.values()),
                   f"the K7 bar lets a planted fault through: {line}")
-    check(len(rejected) == 3, f"K7: not every planted fault was shown "
-          f"rejected: {sorted(rejected)}")
+    check(len(rejected) == 3 + len(ref.SCAN_FAULTS), f"K7: not every planted "
+          f"fault was shown rejected: {sorted(rejected)}")
     return timed
 
 
@@ -1585,7 +1594,8 @@ def main():
                  "src/repro/kernels/ssm_scan.py:55", k7_timed[0], "hymba_serve"),
          "library_call": k7_timed[0]["library_call"],
          "timed_lengths": [{k: line[k] for k in (
-             "S", "ms", "plain_ms", "bound_ms")} for line in k7_timed]},
+             "S", "ms", "plain_ms", "bound_ms")} for line in k7_timed],
+         "decode_eager_ms": k7_timed[1]["eager_ms"]},
     ]}
     print(json.dumps(record), flush=True)
     print(json.dumps({"ok": True, "device": {

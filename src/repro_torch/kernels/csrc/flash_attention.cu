@@ -22,25 +22,34 @@
 // 4 * hd * 25 * (1.70 M visible (q, k) pairs per head) = 10.9 GFLOP against
 // about 15.7 MB of bf16 q, k, v and output: bound by operations.
 //
-// What the design does about that, kept simple before it is made fast:
-//   * bf16 runs K1's tensor-core body (attention_tiles.cuh): a block of 4
-//     warps owns 64 query rows, walks the key tiles of 64 rows staged with
-//     cp.async into two shared-memory stages, keeps the online-softmax
-//     state and the output in registers, and feeds P to P V as two bf16
-//     terms, so P keeps about 16 bits as the reference's fp32 p @ v.
-//   * fp32 runs K1's CUDA-core FMA body (one thread a query row), which
-//     holds the reference to 5e-5.
-//   * Key tiles the mask hides from every row of the block are not visited:
-//     tiles past the block's last row (causal), and tiles wholly before the
-//     first row's window that hold no prefix key. A block visits the prefix
-//     tiles, then the window's tiles up to its diagonal; inside a tile each
-//     score is masked per element. This computes the same function.
-//   * Causal blocks differ in work (a late block visits more tiles), so the
-//     grid hands out the last query blocks first.
-// Neither body uses wgmma or TMA yet. The kernels allocate nothing and run
-// on the caller's stream.
+// What the design does about that:
+//   * bf16 runs the TMA + wgmma pipeline of hopper_tiles.cuh
+//     (attention_block, K1's body): 128 query rows a block, a producer
+//     warpgroup keeping 128-key K and V tiles in flight through an mbarrier
+//     ring, two consumer warpgroups of 64 rows running Q K^T and P V (P as
+//     two bf16 terms) on wgmma and taking turns, setmaxnreg between them.
+//     At hd 64 a K/V row is exactly one 128-byte-swizzled box.
+//   * The walk (tile_walk, tile_full; mirrored by flash_attention.py's
+//     tile_classes and held to the mask on the CPU): the keys a query tile
+//     [q0, q1) sees are at most two runs, the prefix [0, prefix) and the
+//     window [max(prefix, q0 - window + 1), min(q1, T)), so the block visits
+//     the tiles holding prefix keys and then the window's tiles up to its
+//     diagonal, and skips the rest. A visited tile in which every (row, key)
+//     pair of the block is visible takes no mask; only the tiles that cross
+//     the diagonal, the window's lower edge, the prefix/window seam or the
+//     end of the keys apply the per-element visible() test (2 of a late
+//     block's 10 tiles at Hymba's mask).
+//   * GQA: the KV head is a TMA coordinate (h / group), so no repeated K/V
+//     is read. Ragged S and T: TMA zero-fills rows past the maps' extents,
+//     keys >= T are masked, no row >= S is stored.
+//   * Blocks differ in work (a late query tile visits up to 10 key tiles,
+//     the first one 1): the grid's slow axis is the query tile, last tile
+//     first, so every head's heaviest blocks are handed out first.
+//   * fp32 runs a CUDA-core FMA body (one thread a query row, 32-key tiles,
+//     every tile masked per element), which holds the reference to 5e-5.
+// The kernels allocate nothing and run on the caller's stream.
 
-#include "attention_tiles.cuh"
+#include "hopper_tiles.cuh"
 
 namespace {
 
@@ -48,7 +57,11 @@ struct MaskArgs {
   int T, causal, window, prefix;
 };
 
-__device__ __forceinline__ bool visible(const MaskArgs& m, int i, int j) {
+// min and max for the functions the host also runs (flash_attention_tile_class)
+__host__ __device__ __forceinline__ int imin(int a, int b) { return a < b ? a : b; }
+__host__ __device__ __forceinline__ int imax(int a, int b) { return a > b ? a : b; }
+
+__host__ __device__ __forceinline__ bool visible(const MaskArgs& m, int i, int j) {
   return j < m.T && (!m.causal || j <= i) &&
          (m.window <= 0 || j > i - m.window || j < m.prefix);
 }
@@ -58,184 +71,79 @@ __device__ __forceinline__ bool visible(const MaskArgs& m, int i, int j) {
 // of the walk is i for i < n_prefix, else first + (i - n_prefix).
 struct TileWalk {
   int n_prefix, first, n;
-  __device__ __forceinline__ int tile(int i) const { return i < n_prefix ? i : first + i - n_prefix; }
+  __host__ __device__ __forceinline__ int tile(int i) const {
+    return i < n_prefix ? i : first + i - n_prefix;
+  }
 };
 
-__device__ __forceinline__ TileWalk tile_walk(const MaskArgs& m, int q0, int q1, int bk) {
+__host__ __device__ __forceinline__ TileWalk tile_walk(const MaskArgs& m, int q0, int q1, int bk) {
   const int nt = (m.T + bk - 1) / bk;
-  const int end = m.causal ? min(nt, (q1 - 1) / bk + 1) : nt;
+  const int end = m.causal ? imin(nt, (q1 - 1) / bk + 1) : nt;
   if (m.window <= 0) return {0, 0, end};
-  const int n_prefix = min((m.prefix + bk - 1) / bk, end);
-  const int first = max(max(0, q0 - m.window + 1) / bk, n_prefix);
-  return {n_prefix, first, n_prefix + max(0, end - first)};
+  const int n_prefix = imin((m.prefix + bk - 1) / bk, end);
+  const int first = imax(imax(0, q0 - m.window + 1) / bk, n_prefix);
+  return {n_prefix, first, n_prefix + imax(0, end - first)};
+}
+
+// Whether every pair of a row in [q0, q1) and a key in [c0, c0 + bk) is
+// visible, so the tile takes no per-element mask: no key at or past T, no
+// key after the first row (causal), and every non-prefix key inside the
+// last row's window.
+__host__ __device__ __forceinline__ bool tile_full(const MaskArgs& m, int q0, int q1, int c0,
+                                                   int bk) {
+  if (c0 + bk > m.T) return false;
+  if (m.causal && c0 + bk - 1 > q0) return false;
+  const int lo = imax(c0, m.prefix);  // the tile's first non-prefix key
+  return m.window <= 0 || lo >= c0 + bk || lo > q1 - 1 - m.window;
 }
 
 // ---------------------------------------------------------------------------
-// bf16: tensor cores
+// bf16: the TMA + wgmma pipeline of hopper_tiles.cuh
 // ---------------------------------------------------------------------------
 
+// The walk of attention_block over a query tile's visible key tiles. Both
+// maps hold one head dim box at hd 64; the K/V head is the caller's.
+struct FlashWalk {
+  const CUtensorMap* k;
+  const CUtensorMap* v;
+  MaskArgs m;
+  int q0, q1;
+  TileWalk w;
+
+  __device__ __forceinline__ int count() const { return w.n; }
+  __device__ __forceinline__ int begin() const { return 0; }
+  __device__ __forceinline__ void next(int& i) const { ++i; }
+  __device__ __forceinline__ const CUtensorMap* k_map(int) const { return k; }
+  __device__ __forceinline__ const CUtensorMap* v_map(int) const { return v; }
+  __device__ __forceinline__ int row(int i) const { return w.tile(i) * kBK; }
+  __device__ __forceinline__ void mask(float (&s)[kBK / 2], int i, int row_lo, int row_hi,
+                                       int lane) const {
+    const int c0 = row(i);
+    if (tile_full(m, q0, q1, c0, kBK)) return;
+#pragma unroll
+    for (int e = 0; e < kBK / 2; ++e) {
+      const int key = c0 + 8 * (e / 4) + 2 * (lane % 4) + (e % 2);
+      if (!visible(m, (e % 4) < 2 ? row_lo : row_hi, key)) s[e] = kMaskedScore;
+    }
+  }
+};
+
+struct FlashMaps {
+  CUtensorMap q[2], k[2], v[2];
+};
+
 template <int HD>
-__global__ void __launch_bounds__(kMmaThreads)
-flash_attention_mma_kernel(const __nv_bfloat16* __restrict__ q,
-                           const __nv_bfloat16* __restrict__ k,
-                           const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ out,
-                           Strides sq, Strides sk, Strides sv, Strides so, int H, int group,
-                           int S, MaskArgs mask, float scale_log2) {
-  static_assert(HD % 16 == 0, "the tensor-core body takes head dims that are multiples of 16");
-  constexpr int SROW = HD + 8;        // +16 bytes: conflict-free ldmatrix
-  constexpr int KSTEPS = HD / 16;     // mma k-steps over hd
-  constexpr int DTILES = HD / 8;      // 8-wide output tiles over hd
-  constexpr int NTILES = kMmaBK / 8;  // 8-wide score tiles over a key tile
-  static_assert(kMmaBQ == kMmaBK, "Q is staged in a K/V tile buffer");
-  __shared__ __align__(16) __nv_bfloat16 k_s[2][kMmaBK * SROW];
-  __shared__ __align__(16) __nv_bfloat16 v_s[2][kMmaBK * SROW];
-
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int b = blockIdx.y / H;
-  const int h = blockIdx.y - b * H;
-  const int kvh = h / group;
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * kMmaBQ;  // the longest walks first
-  const TileWalk walk = tile_walk(mask, q0, min(q0 + kMmaBQ, S), kMmaBK);
-  const __nv_bfloat16* kb = k + b * sk.b + kvh * sk.h;
-  const __nv_bfloat16* vb = v + b * sv.b + kvh * sv.h;
-
-  auto stage_kv = [&](int k0, int st) {
-    stage_rows<HD, SROW>(k_s[st], kMmaBK, q, [&](int r) -> const __nv_bfloat16* {
-      return k0 + r < mask.T ? kb + (int64_t)(k0 + r) * sk.s : nullptr;
-    });
-    stage_rows<HD, SROW>(v_s[st], kMmaBK, q, [&](int r) -> const __nv_bfloat16* {
-      return k0 + r < mask.T ? vb + (int64_t)(k0 + r) * sv.s : nullptr;
-    });
-  };
-
-  stage_kv(walk.tile(0) * kMmaBK, 0);
-  stage_rows<HD, SROW>(k_s[1], kMmaBQ, q, [&](int r) -> const __nv_bfloat16* {
-    const int row = q0 + r;
-    return row < S ? q + b * sq.b + (int64_t)row * sq.s + h * sq.h : nullptr;
-  });
-  cp_async_commit();
-  cp_async_wait_all();
-  __syncthreads();
-  uint32_t qa[KSTEPS][4];  // this warp's 16 query rows as A fragments
-#pragma unroll
-  for (int kk = 0; kk < KSTEPS; ++kk)
-    ldmatrix_x4(qa[kk], k_s[1] + (warp * 16 + lane % 16) * SROW + kk * 16 + (lane / 16) * 8);
-
-  float o[DTILES][4];
-#pragma unroll
-  for (int d = 0; d < DTILES; ++d) o[d][0] = o[d][1] = o[d][2] = o[d][3] = 0.f;
-  float m_lo = kMaskedScore, m_hi = kMaskedScore;  // rows lane/4 and lane/4 + 8
-  float l_lo = 0.f, l_hi = 0.f;                    // this thread's partial sums
-  const int mat = lane / 8, mrow = lane % 8;       // ldmatrix.x4 addressing
-  const int row_lo = q0 + warp * 16 + lane / 4;
-  const int row_hi = row_lo + 8;
-
-  for (int i = 0, st = 0; i < walk.n; ++i, st ^= 1) {
-    const int k0 = walk.tile(i) * kMmaBK;
-    if (i > 0) cp_async_wait_all();  // this tile has landed
-    // ... and is visible to all warps, which are done with the other stage
-    __syncthreads();
-    if (i + 1 < walk.n) {
-      stage_kv(walk.tile(i + 1) * kMmaBK, st ^ 1);
-      cp_async_commit();
-    }
-    const __nv_bfloat16* kt = k_s[st];
-    const __nv_bfloat16* vt = v_s[st];
-
-    // S = Q K^T for this warp's 16 rows x 64 keys
-    float s[NTILES][4];
-#pragma unroll
-    for (int j = 0; j < NTILES; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < KSTEPS; ++kk) {
-#pragma unroll
-      for (int j = 0; j < NTILES; j += 2) {
-        uint32_t kf[4];
-        ldmatrix_x4(kf, kt + (8 * (j + mat / 2) + mrow) * SROW + kk * 16 + 8 * (mat % 2));
-        mma_16816(s[j], qa[kk], kf[0], kf[1]);
-        mma_16816(s[j + 1], qa[kk], kf[2], kf[3]);
-      }
-    }
-
-    // mask, then the online softmax (log2 domain); a row's 64 scores live
-    // in one lane quad
-    float mx_lo = m_lo, mx_hi = m_hi;
-#pragma unroll
-    for (int j = 0; j < NTILES; ++j) {
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int key = k0 + 8 * j + 2 * (lane % 4) + e;
-        s[j][e] = visible(mask, row_lo, key) ? s[j][e] * scale_log2 : kMaskedScore;
-        s[j][2 + e] = visible(mask, row_hi, key) ? s[j][2 + e] * scale_log2 : kMaskedScore;
-        mx_lo = fmaxf(mx_lo, s[j][e]);
-        mx_hi = fmaxf(mx_hi, s[j][2 + e]);
-      }
-    }
-#pragma unroll
-    for (int off = 1; off < 4; off *= 2) {
-      mx_lo = fmaxf(mx_lo, __shfl_xor_sync(0xffffffffu, mx_lo, off));
-      mx_hi = fmaxf(mx_hi, __shfl_xor_sync(0xffffffffu, mx_hi, off));
-    }
-    const float alpha_lo = exp2f(m_lo - mx_lo), alpha_hi = exp2f(m_hi - mx_hi);
-    l_lo *= alpha_lo;
-    l_hi *= alpha_hi;
-#pragma unroll
-    for (int d = 0; d < DTILES; ++d) {
-      o[d][0] *= alpha_lo;
-      o[d][1] *= alpha_lo;
-      o[d][2] *= alpha_hi;
-      o[d][3] *= alpha_hi;
-    }
-#pragma unroll
-    for (int j = 0; j < NTILES; ++j) {
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        s[j][e] = exp2f(s[j][e] - mx_lo);
-        s[j][2 + e] = exp2f(s[j][2 + e] - mx_hi);
-        l_lo += s[j][e];
-        l_hi += s[j][2 + e];
-      }
-    }
-    m_lo = mx_lo;
-    m_hi = mx_hi;
-
-    // O += P V, P as two bf16 terms (its rounding and the remainder)
-#pragma unroll
-    for (int kk = 0; kk < kMmaBK / 16; ++kk) {
-      uint32_t pa[4], pr[4];
-      split_bf16(s[2 * kk][0], s[2 * kk][1], pa[0], pr[0]);
-      split_bf16(s[2 * kk][2], s[2 * kk][3], pa[1], pr[1]);
-      split_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1], pa[2], pr[2]);
-      split_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3], pa[3], pr[3]);
-#pragma unroll
-      for (int d = 0; d < DTILES; d += 2) {
-        uint32_t vf[4];
-        ldmatrix_x4_trans(vf, vt + (16 * kk + 8 * (mat % 2) + mrow) * SROW + 8 * (d + mat / 2));
-        mma_16816(o[d], pa, vf[0], vf[1]);
-        mma_16816(o[d + 1], pa, vf[2], vf[3]);
-        mma_16816(o[d], pr, vf[0], vf[1]);
-        mma_16816(o[d + 1], pr, vf[2], vf[3]);
-      }
-    }
-  }
-
-#pragma unroll
-  for (int off = 1; off < 4; off *= 2) {
-    l_lo += __shfl_xor_sync(0xffffffffu, l_lo, off);
-    l_hi += __shfl_xor_sync(0xffffffffu, l_hi, off);
-  }
-  const float inv_lo = 1.f / fmaxf(l_lo, 1e-30f), inv_hi = 1.f / fmaxf(l_hi, 1e-30f);
-#pragma unroll
-  for (int d = 0; d < DTILES; ++d) {
-    const int col = 8 * d + 2 * (lane % 4);
-    if (row_lo < S)
-      *reinterpret_cast<uint32_t*>(out + b * so.b + (int64_t)row_lo * so.s + h * so.h + col) =
-          pack_bf16(o[d][0] * inv_lo, o[d][1] * inv_lo);
-    if (row_hi < S)
-      *reinterpret_cast<uint32_t*>(out + b * so.b + (int64_t)row_hi * so.s + h * so.h + col) =
-          pack_bf16(o[d][2] * inv_hi, o[d][3] * inv_hi);
-  }
+__global__ void __launch_bounds__(kThreads, 1)
+flash_attention_wgmma_kernel(__grid_constant__ const FlashMaps maps,
+                             __nv_bfloat16* __restrict__ out, Strides so, int H, int group,
+                             int S, MaskArgs mask, float scale_log2) {
+  const int b = blockIdx.x / H;
+  const int h = blockIdx.x - b * H;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kBQ;  // every head's longest walks first
+  const int q1 = min(q0 + kBQ, S);
+  const FlashWalk walk{maps.k, maps.v, mask, q0, q1, tile_walk(mask, q0, q1, kBK)};
+  attention_block<HD>(maps.q, walk, b, h, h / group, q0, S, out, so, nullptr, Strides{},
+                      scale_log2);
 }
 
 // ---------------------------------------------------------------------------
@@ -337,38 +245,54 @@ flash_attention_fma_kernel(const float* __restrict__ q, const float* __restrict_
 }
 
 template <int HD>
+cudaError_t launch_wgmma(const void* q, const void* k, const void* v, void* out,
+                         const Strides* st, int B, int H, int K, int S, MaskArgs mask,
+                         float scale_log2, cudaStream_t stream) {
+  FlashMaps maps;
+  if (!encode_maps<HD>(maps.q, q, st[0], B, S, H) ||
+      !encode_maps<HD>(maps.k, k, st[1], B, mask.T, K) ||
+      !encode_maps<HD>(maps.v, v, st[2], B, mask.T, K))
+    return cudaErrorInvalidValue;
+  static bool smem_set[64] = {};  // per device; one entry per instantiation
+  const int smem = HeadTiles<HD>::kSmemBytes;
+  const cudaError_t err = allow_smem(flash_attention_wgmma_kernel<HD>, smem, smem_set);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(B * H, (S + kBQ - 1) / kBQ);
+  flash_attention_wgmma_kernel<HD><<<grid, kThreads, smem, stream>>>(
+      maps, static_cast<__nv_bfloat16*>(out), st[3], H, H / K, S, mask, scale_log2);
+  return cudaGetLastError();
+}
+
+template <int HD>
 cudaError_t launch(int dtype, const void* q, const void* k, const void* v, void* out,
-                   const Strides* st, int B, int H, int group, int S, MaskArgs mask,
+                   const Strides* st, int B, int H, int K, int S, MaskArgs mask,
                    float scale_log2, cudaStream_t stream) {
-  if (dtype == 1) {
-    using bf = __nv_bfloat16;
-    const dim3 grid((S + kMmaBQ - 1) / kMmaBQ, B * H);
-    flash_attention_mma_kernel<HD><<<grid, kMmaThreads, 0, stream>>>(
-        static_cast<const bf*>(q), static_cast<const bf*>(k), static_cast<const bf*>(v),
-        static_cast<bf*>(out), st[0], st[1], st[2], st[3], H, group, S, mask, scale_log2);
-  } else {
-    const dim3 grid((S + kFmaBQ - 1) / kFmaBQ, B * H);
-    flash_attention_fma_kernel<HD><<<grid, kFmaBQ, 0, stream>>>(
-        static_cast<const float*>(q), static_cast<const float*>(k),
-        static_cast<const float*>(v), static_cast<float*>(out), st[0], st[1], st[2], st[3], H,
-        group, S, mask, scale_log2);
-  }
+  if (dtype == 1)
+    return launch_wgmma<HD>(q, k, v, out, st, B, H, K, S, mask, scale_log2, stream);
+  const dim3 grid((S + kFmaBQ - 1) / kFmaBQ, B * H);
+  flash_attention_fma_kernel<HD><<<grid, kFmaBQ, 0, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<float*>(out), st[0], st[1], st[2], st[3], H, H / K, S, mask, scale_log2);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// Plain C entry point, bound with ctypes.
-//   dtype: 0 = float32 (CUDA-core body), 1 = bfloat16 (tensor-core body);
-//          q, k, v and out share it. The bf16 body reads 16-byte row chunks:
-//          pointers 16-byte aligned, strides multiples of 8 elements.
+// Plain C entry points, bound with ctypes.
+//
+// flash_attention_launch:
+//   dtype: 0 = float32 (CUDA-core body), 1 = bfloat16 (TMA + wgmma body);
+//          q, k, v and out share it. The bf16 body reads its operands
+//          through TMA: pointers 16-byte aligned, strides multiples of 8
+//          elements.
 //   hd: the head dim; 64 is instantiated (Hymba-1.5B and its reduced form)
 //   strides: 12 int64 element strides, (b, s, h) for q, k, v, out in that
 //            order; hd must be contiguous
 //   q and out [B, S, H, hd]; k and v [B, T, K, hd] with K | H
 //   causal, window, prefix_len: the mask (window 0 = no window)
 //   scale: the softmax scale (hd ** -0.5)
-// Returns cudaGetLastError() after the launch (0 = launched).
+// Returns cudaGetLastError() after the launch (0 = launched), or
+// cudaErrorInvalidValue if a tensor map cannot be built.
 extern "C" int flash_attention_launch(int dtype, int hd, const void* q, const void* k,
                                       const void* v, void* out, const int64_t* strides, int B,
                                       int H, int K, int S, int T, int causal, int window,
@@ -381,7 +305,26 @@ extern "C" int flash_attention_launch(int dtype, int hd, const void* q, const vo
   const float scale_log2 = scale * 1.4426950408889634f;  // log2(e)
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (hd) {
-    case 64: return launch<64>(dtype, q, k, v, out, st, B, H, H / K, S, mask, scale_log2, s);
+    case 64: return launch<64>(dtype, q, k, v, out, st, B, H, K, S, mask, scale_log2, s);
     default: return cudaErrorInvalidValue;
   }
+}
+
+// The bf16 body's tiles: which = 0 gives the query rows of a block, 1 the
+// keys of a tile.
+extern "C" int flash_attention_tile(int which) { return which == 0 ? kBQ : kBK; }
+
+// How the bf16 body treats key tile kt (keys [kt * kBK, (kt + 1) * kBK)) in
+// the block of query tile qt (rows [qt * kBQ, min((qt + 1) * kBQ, S))): 0 not
+// visited, 1 visited without a mask, 2 visited with the per-element mask.
+// The same functions the kernel runs; flash_attention.py's tile_classes is
+// their Python mirror.
+extern "C" int flash_attention_tile_class(int S, int T, int causal, int window, int prefix_len,
+                                          int qt, int kt) {
+  const MaskArgs m{T, causal, window, prefix_len};
+  const int q0 = qt * kBQ, q1 = imin(q0 + kBQ, S);
+  const TileWalk w = tile_walk(m, q0, q1, kBK);
+  const bool visited = kt < w.n_prefix || (kt >= w.first && kt < w.first + w.n - w.n_prefix);
+  if (!visited) return 0;
+  return tile_full(m, q0, q1, kt * kBK, kBK) ? 1 : 2;
 }

@@ -1,11 +1,16 @@
 // Building blocks for attention bodies on Hopper (sm_90a) that stage tiles
 // with the Tensor Memory Accelerator (TMA) and multiply with warpgroup MMA
-// (wgmma): mbarrier waits and arrivals, 4-D TMA loads, wgmma shared-memory
-// descriptors for the 128-, 64- and 32-byte swizzled layouts, the wgmma
-// instructions the stale-KV body issues, and register reallocation
-// (setmaxnreg) between a producer and its consumer warpgroups. Used by
-// stale_kv_attention.cu (K1, K2, K4, K5). Everything sits in an anonymous
-// namespace: each source that includes this file gets its own copy.
+// (wgmma): mbarrier waits and arrivals, 4-D TMA loads and the host-side
+// tensor maps they read, wgmma shared-memory descriptors for the 128-, 64-
+// and 32-byte swizzled layouts, the wgmma instructions, register
+// reallocation (setmaxnreg) between a producer and its consumer warpgroups,
+// and the attention pipeline built from them (attention_block: a producer
+// warpgroup keeping a ring of K/V tiles in flight, two consumer warpgroups
+// taking turns on the tensor cores), which a source instantiates with its
+// own walk over the key tiles. Used by stale_kv_attention.cu (K1, K2, K4,
+// K5: key runs of one source each) and flash_attention.cu (K6: the causal /
+// window / prefix walk). Everything sits in an anonymous namespace: each
+// source that includes this file gets its own copy.
 #pragma once
 
 #include <cuda.h>
@@ -14,6 +19,27 @@
 #include <stdint.h>
 
 namespace {
+
+constexpr float kMaskedScore = -1e30f;  // finite: -1e30 - -1e30 is 0, not NaN
+
+struct Strides {  // element strides of a [B, S, H, hd] view; hd is contiguous
+  int64_t b, s, h;
+};
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // lo in the low half
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// Split each of two fp32 values x into two bf16 terms, x = big + small to
+// about 16 mantissa bits: `big` packs the rounded values (a in the low
+// half), `small` packs what that rounding lost.
+__device__ __forceinline__ void split_bf16(float a, float b, uint32_t& big, uint32_t& small) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(a, b);
+  const float2 r = __bfloat1622float2(v);
+  big = *reinterpret_cast<uint32_t*>(&v);
+  small = pack_bf16(a - r.x, b - r.y);
+}
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -220,6 +246,423 @@ __device__ __forceinline__ void regs_release() {
 template <int R>
 __device__ __forceinline__ void regs_acquire() {
   asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(R));
+}
+
+// --- host: tensor maps -----------------------------------------------------
+
+using EncodeTiledFn = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                   const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                   const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                   CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled (a libcuda function), looked up through the runtime
+// so the library needs no -lcuda.
+EncodeTiledFn encode_tiled() {
+  static const EncodeTiledFn fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                             cudaEnableDefault, &found);
+#else
+    const cudaError_t err =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiledFn>(p)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// --- the attention pipeline ------------------------------------------------
+//
+// One block owns kBQ query rows of one (batch row, head) and walks key tiles
+// of kBK rows. Warpgroup 0 is the producer: one thread keeps a ring of
+// kStages K/V stages full with 4-D TMA loads; each stage has a full barrier
+// (the producer's expect_tx arrival plus the bytes) and an empty barrier
+// (one arrival per consumer warp). setmaxnreg gives the producer 40
+// registers and each consumer 232. Warpgroups 1 and 2 each own 64 of the
+// query rows (the Q tile stays in shared memory): S = Q K^T runs as
+// wgmma.m64n128k16 with both operands K-major in shared memory; P V takes P
+// from registers (the S accumulator's layout is the A fragment's) and V
+// from shared memory as an MN-major B operand, P as two bf16 terms (its
+// rounding and the remainder), so P V keeps P to about 16 bits as an fp32
+// p @ v does. The two consumer warpgroups take turns on the tensor cores
+// (named barriers 1 and 2): a turn is P V of tile t - 1 then Q K^T of tile
+// t, and while one warpgroup's turn runs the other computes its softmax.
+// P V completes before Q K^T is issued, so the P fragments and the scores
+// are never live at once.
+//
+// The source supplies the walk, an object with
+//   int count() const;                 the key tiles the block visits
+//   Cursor begin() const; void next(Cursor&) const;  the tiles in order
+//   const CUtensorMap* k_map(const Cursor&) const;   K and V maps of the
+//   const CUtensorMap* v_map(const Cursor&) const;   tile (2 boxes each)
+//   int row(const Cursor&) const;      the tile's first key row in the map
+//   void mask(float (&s)[kBK / 2], const Cursor&, int row_lo, int row_hi,
+//             int lane) const;         raw score -> kMaskedScore where the
+//                                      key is hidden from the row
+// Scores keep their raw value, the running max is kept on raw scores, and
+// p = 2^(s * scale * log2(e) - m') is one FFMA and one MUFU ex2. A row whose
+// visited keys so far are all hidden keeps m at kMaskedScore and weighs its
+// hidden keys 0 (the offset is then 0, not m): its first real key rescales
+// nothing that counts.
+
+constexpr int kBQ = 128;          // query rows per block: 2 consumer warpgroups x 64
+constexpr int kBK = 128;          // keys per tile
+constexpr int kStages = 3;        // K/V tiles in flight
+constexpr int kThreads = 384;     // producer warpgroup + 2 consumer warpgroups
+constexpr int kConsumerWarps = 8;
+
+// Column split of a head dim onto swizzled boxes.
+template <int HD>
+struct HeadTiles {
+  static constexpr int HDP = (HD + 15) / 16 * 16;  // padded to the wgmma depth
+  static constexpr int W0 = HD >= 64 ? 64 : HDP;   // columns in box 0
+  static constexpr int W1 = HDP - W0;              // columns in box 1 (0 or 16)
+  static constexpr int RB0 = 2 * W0, RB1 = 2 * W1; // bytes a row: the swizzle width
+  static_assert(W0 == 64 || W0 == 32, "box 0 must fill a 128- or 64-byte swizzle row");
+  static_assert(W1 == 0 || W1 == 16, "box 1 must be empty or one 32-byte row");
+  static constexpr int kTile0 = kBK * RB0, kTile1 = kBK * RB1;  // bytes of one box
+  static constexpr int kQBytes = kBQ * (RB0 + RB1);
+  static constexpr int kStageBytes = 2 * (kTile0 + kTile1);     // K and V
+  static constexpr int kBarOffset = kQBytes + kStages * kStageBytes;
+  static constexpr int kSmemBytes = kBarOffset + 8 * (2 * kStages + 1) + 1024;  // + alignment
+};
+
+// Map of a bf16 [B, S, H, hd] view (hd contiguous, element strides `st`)
+// read in boxes of `width` columns x kBK rows of one head and batch row,
+// under the swizzle of a `width`-column row. A dimension of extent 1 gets
+// a dense stride (its coordinate is always 0, whatever the view's stride).
+// Rows outside [0, S) land in shared memory as zeros.
+bool encode_map(CUtensorMap* map, const void* ptr, Strides st, int B, int S, int H, int hd,
+                int width) {
+  const EncodeTiledFn encode = encode_tiled();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[4] = {(cuuint64_t)hd, (cuuint64_t)H, (cuuint64_t)S, (cuuint64_t)B};
+  const int64_t elem[3] = {st.h, st.s, st.b};
+  cuuint64_t strides[3];
+  cuuint64_t dense = 2 * (cuuint64_t)hd;
+  for (int i = 0; i < 3; ++i) {
+    strides[i] = dims[i + 1] == 1 ? dense : 2 * (cuuint64_t)elem[i];
+    dense = strides[i] * dims[i + 1];
+  }
+  const cuuint32_t box[4] = {(cuuint32_t)width, 1, (cuuint32_t)kBK, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  const CUtensorMapSwizzle swizzle = width == 64   ? CU_TENSOR_MAP_SWIZZLE_128B
+                                     : width == 32 ? CU_TENSOR_MAP_SWIZZLE_64B
+                                                   : CU_TENSOR_MAP_SWIZZLE_32B;
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims, strides,
+                box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// Both boxes of a head dim's map (the second only when HeadTiles<HD>::W1 > 0).
+template <int HD>
+bool encode_maps(CUtensorMap (&maps)[2], const void* ptr, Strides st, int B, int S, int H) {
+  using T = HeadTiles<HD>;
+  return encode_map(&maps[0], ptr, st, B, S, H, HD, T::W0) &&
+         (T::W1 == 0 || encode_map(&maps[1], ptr, st, B, S, H, HD, T::W1));
+}
+
+// Natural-log LSE of a row from its running max m (log2 domain) and sum l
+// of exp2(score - m); an empty row (no key visited, l == 0) gets the
+// masked sentinel.
+__device__ __forceinline__ float row_lse(float m, float l) {
+  return l > 0.f ? m * 0.6931471805599453f + logf(l) : kMaskedScore;
+}
+
+// The block's attention: query rows [q0, q0 + kBQ) of batch row b and head
+// h (Q read through q_maps at head h, K and V at kv_head), over the keys of
+// `walk`; rows below n_rows are stored to out (bf16) and, when lse is not
+// null, their fp32 log-sum-exp to lse. Runs on all kThreads threads of a
+// block launched with HeadTiles<HD>::kSmemBytes of dynamic shared memory.
+template <int HD, class Walk>
+__device__ __forceinline__ void attention_block(const CUtensorMap* q_maps, const Walk& walk,
+                                                int b, int h, int kv_head, int q0, int n_rows,
+                                                __nv_bfloat16* __restrict__ out, Strides so,
+                                                float* __restrict__ lse, Strides sl,
+                                                float scale_log2) {
+  using T = HeadTiles<HD>;
+  using Cursor = decltype(walk.begin());
+  constexpr int W0 = T::W0, W1 = T::W1, RB0 = T::RB0, RB1 = T::RB1;
+  extern __shared__ uint8_t smem_raw[];
+  // 128-byte swizzled boxes need 1024-byte aligned addresses
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t q0s = base, q1s = base + kBQ * RB0;
+  auto k0s = [&](int st) { return base + T::kQBytes + st * T::kStageBytes; };
+  auto k1s = [&](int st) { return k0s(st) + T::kTile0; };
+  auto v0s = [&](int st) { return k1s(st) + T::kTile1; };
+  auto v1s = [&](int st) { return v0s(st) + T::kTile0; };
+  const uint32_t bars = base + T::kBarOffset;
+  auto full_bar = [&](int st) { return bars + 8 * st; };
+  auto empty_bar = [&](int st) { return bars + 8 * (kStages + st); };
+  const uint32_t q_bar = bars + 8 * (2 * kStages);
+  const int n_tiles = walk.count();
+
+  if (threadIdx.x == 0) {
+    for (int st = 0; st < kStages; ++st) {
+      mbar_init(full_bar(st), 1);
+      mbar_init(empty_bar(st), kConsumerWarps);
+    }
+    mbar_init(q_bar, 1);
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x < 128) {
+    // ---- producer warpgroup: one thread issues every TMA load ----
+    regs_release<40>();
+    if (threadIdx.x == 0) {
+      mbar_arrive_expect_tx(q_bar, T::kQBytes);
+      tma_load_4d(q0s, &q_maps[0], q_bar, 0, h, q0, b);
+      if constexpr (W1 > 0) tma_load_4d(q1s, &q_maps[1], q_bar, W0, h, q0, b);
+      int st = 0, phase = 0;
+      Cursor cur = walk.begin();
+      for (int t = 0; t < n_tiles; ++t, walk.next(cur)) {
+        const CUtensorMap* km = walk.k_map(cur);
+        const CUtensorMap* vm = walk.v_map(cur);
+        const int c = walk.row(cur);
+        mbar_wait(empty_bar(st), phase ^ 1);
+        mbar_arrive_expect_tx(full_bar(st), T::kStageBytes);
+        tma_load_4d(k0s(st), km, full_bar(st), 0, kv_head, c, b);
+        tma_load_4d(v0s(st), vm, full_bar(st), 0, kv_head, c, b);
+        if constexpr (W1 > 0) {
+          tma_load_4d(k1s(st), km + 1, full_bar(st), W0, kv_head, c, b);
+          tma_load_4d(v1s(st), vm + 1, full_bar(st), W0, kv_head, c, b);
+        }
+        if (++st == kStages) st = 0, phase ^= 1;
+      }
+    }
+  } else {
+    // ---- consumer warpgroups: 64 query rows each ----
+    regs_acquire<232>();
+    const int ct = threadIdx.x - 128;
+    const int wg = ct / 128;  // which consumer warpgroup
+    const int warp = (ct % 128) / 32;
+    const int lane = ct % 32;
+    const uint32_t qa0 = q0s + wg * 64 * RB0, qa1 = q1s + wg * 64 * RB1;
+    const int row_lo = q0 + wg * 64 + warp * 16 + lane / 4;  // rows of s[i], i % 4 < 2
+    const int row_hi = row_lo + 8;                            // ... and i % 4 >= 2
+
+    float o0[W0 / 2];
+    float o1[W1 > 0 ? W1 / 2 : 1];
+#pragma unroll
+    for (int i = 0; i < W0 / 2; ++i) o0[i] = 0.f;
+#pragma unroll
+    for (int i = 0; i < (W1 > 0 ? W1 / 2 : 1); ++i) o1[i] = 0.f;
+    float m_lo = kMaskedScore, m_hi = kMaskedScore;  // raw max of rows row_lo, row_hi
+    float l_lo = 0.f, l_hi = 0.f;                    // this thread's partial sums
+
+    // Q K^T of the stage's key tile into s (64 rows x 128 keys; K-major
+    // operands in shared memory)
+    auto issue_qk = [&](float (&s)[kBK / 2], int st) {
+#pragma unroll
+      for (int kk = 0; kk < W0 / 16; ++kk)
+        wgmma_m64n128k16_ss(s, wgmma_desc(qa0 + 32 * kk, 16, 8 * RB0, RB0),
+                            wgmma_desc(k0s(st) + 32 * kk, 16, 8 * RB0, RB0), kk > 0);
+      if constexpr (W1 > 0)
+        wgmma_m64n128k16_ss(s, wgmma_desc(qa1, 16, 8 * RB1, RB1),
+                            wgmma_desc(k1s(st), 16, 8 * RB1, RB1), true);
+    };
+    // O += P V over the stage's value tile. The accumulators of keys
+    // 16kk .. 16kk+15 are exactly the A fragment of k-step kk. V is
+    // MN-major: the descriptor's stride steps between 8-key groups; its
+    // leading offset (between column groups) is unused at these widths.
+    auto issue_pv = [&](const uint32_t (&pa)[kBK / 16][4], const uint32_t (&pr)[kBK / 16][4],
+                        int st) {
+#pragma unroll
+      for (int t = 0; t < 2; ++t)
+#pragma unroll
+        for (int kk = 0; kk < kBK / 16; ++kk) {
+          const uint32_t(&a)[4] = t == 0 ? pa[kk] : pr[kk];
+          wgmma_rs<W0>(o0, a, wgmma_desc(v0s(st) + kk * 16 * RB0, 8 * RB0, 8 * RB0, RB0));
+          if constexpr (W1 > 0)
+            wgmma_rs<W1>(o1, a, wgmma_desc(v1s(st) + kk * 16 * RB1, 8 * RB1, 8 * RB1, RB1));
+        }
+    };
+    // Online softmax over one tile of raw scores, in place: the walk masks
+    // the hidden keys, s becomes the probabilities exp2(s * scale_log2 - m),
+    // m (raw) and l move on, and alpha is the factor O must still be scaled
+    // by. s[4j + e]: key 8j + 2(lane%4) + e%2 of row row_lo (e < 2) or
+    // row_hi (e >= 2); a row's scores live in one lane quad.
+    auto softmax = [&](float (&s)[kBK / 2], const Cursor& cur, float& alpha_lo,
+                       float& alpha_hi) {
+      walk.mask(s, cur, row_lo, row_hi, lane);
+      float mx_lo = m_lo, mx_hi = m_hi;
+#pragma unroll
+      for (int i = 0; i < kBK / 2; i += 4) {
+        mx_lo = fmaxf(mx_lo, fmaxf(s[i], s[i + 1]));
+        mx_hi = fmaxf(mx_hi, fmaxf(s[i + 2], s[i + 3]));
+      }
+#pragma unroll
+      for (int off = 1; off < 4; off *= 2) {
+        mx_lo = fmaxf(mx_lo, __shfl_xor_sync(0xffffffffu, mx_lo, off));
+        mx_hi = fmaxf(mx_hi, __shfl_xor_sync(0xffffffffu, mx_hi, off));
+      }
+      alpha_lo = fast_exp2((m_lo - mx_lo) * scale_log2);
+      alpha_hi = fast_exp2((m_hi - mx_hi) * scale_log2);
+      const float off_lo = mx_lo == kMaskedScore ? 0.f : mx_lo * scale_log2;
+      const float off_hi = mx_hi == kMaskedScore ? 0.f : mx_hi * scale_log2;
+      float sum_lo = 0.f, sum_hi = 0.f;
+#pragma unroll
+      for (int i = 0; i < kBK / 2; i += 4) {
+        s[i] = fast_exp2(fmaf(s[i], scale_log2, -off_lo));
+        s[i + 1] = fast_exp2(fmaf(s[i + 1], scale_log2, -off_lo));
+        s[i + 2] = fast_exp2(fmaf(s[i + 2], scale_log2, -off_hi));
+        s[i + 3] = fast_exp2(fmaf(s[i + 3], scale_log2, -off_hi));
+        sum_lo += s[i] + s[i + 1];
+        sum_hi += s[i + 2] + s[i + 3];
+      }
+      l_lo = l_lo * alpha_lo + sum_lo;
+      l_hi = l_hi * alpha_hi + sum_hi;
+      m_lo = mx_lo;
+      m_hi = mx_hi;
+    };
+    auto rescale = [&](float alpha_lo, float alpha_hi) {
+#pragma unroll
+      for (int i = 0; i < W0 / 2; ++i) o0[i] *= (i % 4) < 2 ? alpha_lo : alpha_hi;
+      if constexpr (W1 > 0) {
+#pragma unroll
+        for (int i = 0; i < W1 / 2; ++i) o1[i] *= (i % 4) < 2 ? alpha_lo : alpha_hi;
+      }
+    };
+    auto to_bf16 = [&](const float (&s)[kBK / 2], uint32_t (&pa)[kBK / 16][4],
+                       uint32_t (&pr)[kBK / 16][4]) {
+#pragma unroll
+      for (int kk = 0; kk < kBK / 16; ++kk)
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          split_bf16(s[8 * kk + 2 * j], s[8 * kk + 2 * j + 1], pa[kk][j], pr[kk][j]);
+    };
+    auto release = [&](int st) {  // this warp is done with the stage
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty_bar(st));
+    };
+
+    // The tiles of the walk in order. The tensor work comes in turns: Q K^T
+    // of tile 0; then P V of tile t - 1 and Q K^T of tile t; then P V of
+    // the last tile. The two consumer warpgroups take turns (named barriers
+    // 1 and 2, warpgroup 0 first), so one's turn runs on the tensor cores
+    // while the other computes its softmax. Within a turn P V completes
+    // before Q K^T is issued, so the P fragments and the scores are never
+    // live at once (168 registers are left for the accumulators).
+    mbar_wait(q_bar, 0);
+    if (n_tiles > 0) {
+      const int my_turn = 1 + wg, other_turn = 2 - wg;
+      if (wg == 1) named_bar_arrive(1, 256);  // warpgroup 0 issues first
+      float s[kBK / 2];
+      uint32_t pa[kBK / 16][4], pr[kBK / 16][4];
+      float alpha_lo, alpha_hi;
+      Cursor cur = walk.begin();
+      int st = 0, phase = 0, prev = 0;  // this tile's stage, and that of tile t - 1
+      auto next_tile = [&]() {
+        walk.next(cur);
+        prev = st;
+        if (++st == kStages) st = 0, phase ^= 1;
+      };
+
+      mbar_wait(full_bar(st), phase);
+      named_bar_sync(my_turn, 256);
+      wgmma_fence();
+      issue_qk(s, st);
+      wgmma_commit();
+      named_bar_arrive(other_turn, 256);
+      wgmma_wait_all();
+      fence_regs(s);
+      softmax(s, cur, alpha_lo, alpha_hi);  // O is still zero: no rescale
+      to_bf16(s, pa, pr);
+      next_tile();
+      for (int t = 1; t < n_tiles; ++t) {
+        mbar_wait(full_bar(st), phase);
+        named_bar_sync(my_turn, 256);
+        wgmma_fence();
+        issue_pv(pa, pr, prev);
+        wgmma_commit();
+        wgmma_wait_all();
+        fence_regs(o0);
+        fence_regs(o1);
+        fence_regs(pa);
+        fence_regs(pr);
+        release(prev);
+        wgmma_fence();
+        issue_qk(s, st);
+        wgmma_commit();
+        named_bar_arrive(other_turn, 256);
+        wgmma_wait_all();
+        fence_regs(s);
+        softmax(s, cur, alpha_lo, alpha_hi);
+        rescale(alpha_lo, alpha_hi);
+        to_bf16(s, pa, pr);
+        next_tile();
+      }
+      named_bar_sync(my_turn, 256);
+      wgmma_fence();
+      issue_pv(pa, pr, prev);
+      wgmma_commit();
+      if (wg == 0) named_bar_arrive(other_turn, 256);  // warpgroup 1 has the last turn
+      wgmma_wait_all();
+      fence_regs(o0);
+      fence_regs(o1);
+      fence_regs(pa);
+      fence_regs(pr);
+      release(prev);
+    }
+
+#pragma unroll
+    for (int off = 1; off < 4; off *= 2) {
+      l_lo += __shfl_xor_sync(0xffffffffu, l_lo, off);
+      l_hi += __shfl_xor_sync(0xffffffffu, l_hi, off);
+    }
+    const float inv_lo = 1.f / fmaxf(l_lo, 1e-30f), inv_hi = 1.f / fmaxf(l_hi, 1e-30f);
+    __nv_bfloat16* out_lo = out + b * so.b + (int64_t)row_lo * so.s + h * so.h;
+    __nv_bfloat16* out_hi = out_lo + 8 * so.s;
+#pragma unroll
+    for (int i = 0; i < W0 / 2; i += 4) {
+      const int col = 2 * i + 2 * (lane % 4);  // 8 * (i / 4) + 2 * (lane % 4)
+      if (col >= HD) continue;
+      if (row_lo < n_rows)
+        *reinterpret_cast<uint32_t*>(out_lo + col) = pack_bf16(o0[i] * inv_lo, o0[i + 1] * inv_lo);
+      if (row_hi < n_rows)
+        *reinterpret_cast<uint32_t*>(out_hi + col) =
+            pack_bf16(o0[i + 2] * inv_hi, o0[i + 3] * inv_hi);
+    }
+    if constexpr (W1 > 0) {
+#pragma unroll
+      for (int i = 0; i < W1 / 2; i += 4) {
+        const int col = W0 + 2 * i + 2 * (lane % 4);
+        if (col >= HD) continue;
+        if (row_lo < n_rows)
+          *reinterpret_cast<uint32_t*>(out_lo + col) =
+              pack_bf16(o1[i] * inv_lo, o1[i + 1] * inv_lo);
+        if (row_hi < n_rows)
+          *reinterpret_cast<uint32_t*>(out_hi + col) =
+              pack_bf16(o1[i + 2] * inv_hi, o1[i + 3] * inv_hi);
+      }
+    }
+    if (lse != nullptr && lane % 4 == 0) {  // one lane of the quad owns the row
+      if (row_lo < n_rows)
+        lse[b * sl.b + (int64_t)row_lo * sl.s + h * sl.h] = row_lse(m_lo * scale_log2, l_lo);
+      if (row_hi < n_rows)
+        lse[b * sl.b + (int64_t)row_hi * sl.s + h * sl.h] = row_lse(m_hi * scale_log2, l_hi);
+    }
+  }
+}
+
+// Set a kernel's dynamic shared memory limit once per device.
+template <class Kernel>
+cudaError_t allow_smem(Kernel kernel, int bytes, bool (&done)[64]) {
+  int device = 0;
+  cudaGetDevice(&device);
+  if (device < 64 && !done[device]) {
+    const cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (err != cudaSuccess) return err;
+    done[device] = true;
+  }
+  return cudaSuccess;
 }
 
 }  // namespace

@@ -50,8 +50,10 @@
 //     lies outside its source's extent (a negative row, or a row >= the
 //     map's N): TMA fills it with zeros, the stale rows under the fresh
 //     patch are never read, and any tok_start is correct. Keys outside the
-//     run are masked by key index.
-//   * TMA and mbarriers. Warpgroup 0 is the producer: one thread keeps a
+//     run are masked by key index (RunWalk, the walk this source gives the
+//     pipeline).
+//   * The pipeline is attention_block in hopper_tiles.cuh, which K6 runs
+//     with its own walk. TMA and mbarriers: warpgroup 0 is the producer: one thread keeps a
 //     ring of kStages K/V stages full with 4-D TMA loads (tensor maps over
 //     the callers' strided [B, S, H, hd] views, built on the host with
 //     cuTensorMapEncodeTiled, reached through cudaGetDriverEntryPoint so
@@ -103,29 +105,14 @@
 // the fresh or stale source per key row on the pointer.
 // The kernels allocate nothing and run on the caller's stream.
 
-#include "attention_tiles.cuh"
 #include "hopper_tiles.cuh"
 
 namespace {
 
-constexpr float kLn2 = 0.6931471805599453f;
-
-// Natural-log LSE of a row from its running max m (log2 domain) and sum l
-// of exp2(score - m); an empty row (no key visited, l == 0) gets the
-// masked sentinel.
-__device__ __forceinline__ float row_lse(float m, float l) {
-  return l > 0.f ? m * kLn2 + logf(l) : kMaskedScore;
-}
-
 // ---------------------------------------------------------------------------
-// bf16: TMA + wgmma, one producer and two consumer warpgroups
+// bf16: the TMA + wgmma pipeline of hopper_tiles.cuh over key runs
 // ---------------------------------------------------------------------------
 
-constexpr int kBQ = 128;          // query rows per block: 2 consumer warpgroups x 64
-constexpr int kBK = 128;          // keys per tile
-constexpr int kStages = 3;        // K/V tiles in flight
-constexpr int kThreads = 384;     // producer warpgroup + 2 consumer warpgroups
-constexpr int kConsumerWarps = 8;
 constexpr int kMaxRuns = 3;
 
 // One run of keys: `length` rows of one source starting at row `first`,
@@ -145,20 +132,46 @@ struct TmaMaps {
   CUtensorMap q[2], kf[2], vf[2], ks[2], vs[2];
 };
 
-// Column split of a head dim onto swizzled boxes.
-template <int HD>
-struct HeadTiles {
-  static constexpr int HDP = (HD + 15) / 16 * 16;  // padded to the wgmma depth
-  static constexpr int W0 = HD >= 64 ? 64 : HDP;   // columns in box 0
-  static constexpr int W1 = HDP - W0;              // columns in box 1 (0 or 16)
-  static constexpr int RB0 = 2 * W0, RB1 = 2 * W1; // bytes a row: the swizzle width
-  static_assert(W0 == 64 || W0 == 32, "box 0 must fill a 128- or 64-byte swizzle row");
-  static_assert(W1 == 0 || W1 == 16, "box 1 must be empty or one 32-byte row");
-  static constexpr int kTile0 = kBK * RB0, kTile1 = kBK * RB1;  // bytes of one box
-  static constexpr int kQBytes = kBQ * (RB0 + RB1);
-  static constexpr int kStageBytes = 2 * (kTile0 + kTile1);     // K and V
-  static constexpr int kBarOffset = kQBytes + kStages * kStageBytes;
-  static constexpr int kSmemBytes = kBarOffset + 8 * (2 * kStages + 1) + 1024;  // + alignment
+// The walk of attention_block over one batch-row class's runs: each run's
+// tiles in order, read from the run's source; keys outside the run are
+// masked by key index, whatever the query row.
+struct RunWalk {
+  const TmaMaps* maps;
+  const KeyRun* run;
+  int n_runs;
+
+  struct Cursor {
+    int r, c;  // run r, tile origin c
+  };
+  __device__ __forceinline__ int count() const {
+    int n = 0;
+    for (int r = 0; r < n_runs; ++r)
+      n += (run[r].first + run[r].length - run[r].origin + kBK - 1) / kBK;
+    return n;
+  }
+  __device__ __forceinline__ Cursor begin() const { return {0, run[0].origin}; }
+  __device__ __forceinline__ void next(Cursor& cur) const {
+    cur.c += kBK;
+    if (cur.c >= run[cur.r].first + run[cur.r].length && ++cur.r < n_runs)
+      cur.c = run[cur.r].origin;
+  }
+  __device__ __forceinline__ const CUtensorMap* k_map(const Cursor& cur) const {
+    return run[cur.r].source ? maps->kf : maps->ks;
+  }
+  __device__ __forceinline__ const CUtensorMap* v_map(const Cursor& cur) const {
+    return run[cur.r].source ? maps->vf : maps->vs;
+  }
+  __device__ __forceinline__ int row(const Cursor& cur) const { return cur.c; }
+  __device__ __forceinline__ void mask(float (&s)[kBK / 2], const Cursor& cur, int, int,
+                                       int lane) const {
+    const int lo = run[cur.r].first, hi = lo + run[cur.r].length;
+    if (cur.c >= lo && cur.c + kBK <= hi) return;
+#pragma unroll
+    for (int i = 0; i < kBK / 2; ++i) {
+      const int key = cur.c + 8 * (i / 4) + 2 * (lane % 4) + (i % 2);
+      if (key < lo || key >= hi) s[i] = kMaskedScore;
+    }
+  }
 };
 
 template <int HD>
@@ -168,295 +181,12 @@ stale_kv_attention_wgmma_kernel(__grid_constant__ const TmaMaps maps,
                                 __nv_bfloat16* __restrict__ out, float* __restrict__ lse,
                                 Strides so, Strides sl, int H, int Nl, int b_split,
                                 float scale_log2) {
-  using T = HeadTiles<HD>;
-  constexpr int W0 = T::W0, W1 = T::W1, RB0 = T::RB0, RB1 = T::RB1;
-  extern __shared__ uint8_t smem_raw[];
-  // 128-byte swizzled boxes need 1024-byte aligned addresses
-  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
-  const uint32_t q0s = base, q1s = base + kBQ * RB0;
-  auto k0s = [&](int st) { return base + T::kQBytes + st * T::kStageBytes; };
-  auto k1s = [&](int st) { return k0s(st) + T::kTile0; };
-  auto v0s = [&](int st) { return k1s(st) + T::kTile1; };
-  auto v1s = [&](int st) { return v0s(st) + T::kTile0; };
-  const uint32_t bars = base + T::kBarOffset;
-  auto full_bar = [&](int st) { return bars + 8 * st; };
-  auto empty_bar = [&](int st) { return bars + 8 * (kStages + st); };
-  const uint32_t q_bar = bars + 8 * (2 * kStages);
-
   const int b = blockIdx.y / H;
   const int h = blockIdx.y - b * H;
-  const int q0 = blockIdx.x * kBQ;
   const int cls = b < b_split ? 0 : 1;
-  const int n_runs = runs.count[cls];
-
-  if (threadIdx.x == 0) {
-    for (int st = 0; st < kStages; ++st) {
-      mbar_init(full_bar(st), 1);
-      mbar_init(empty_bar(st), kConsumerWarps);
-    }
-    mbar_init(q_bar, 1);
-    mbar_fence_init();
-  }
-  __syncthreads();
-
-  if (threadIdx.x < 128) {
-    // ---- producer warpgroup: one thread issues every TMA load ----
-    regs_release<40>();
-    if (threadIdx.x == 0) {
-      mbar_arrive_expect_tx(q_bar, T::kQBytes);
-      tma_load_4d(q0s, &maps.q[0], q_bar, 0, h, q0, b);
-      if constexpr (W1 > 0) tma_load_4d(q1s, &maps.q[1], q_bar, W0, h, q0, b);
-      int st = 0, phase = 0;
-      for (int r = 0; r < n_runs; ++r) {
-        const KeyRun run = runs.run[cls][r];
-        const CUtensorMap* km = run.source ? maps.kf : maps.ks;
-        const CUtensorMap* vm = run.source ? maps.vf : maps.vs;
-        const int end = run.first + run.length;
-        for (int c = run.origin; c < end; c += kBK) {
-          mbar_wait(empty_bar(st), phase ^ 1);
-          mbar_arrive_expect_tx(full_bar(st), T::kStageBytes);
-          tma_load_4d(k0s(st), km, full_bar(st), 0, h, c, b);
-          tma_load_4d(v0s(st), vm, full_bar(st), 0, h, c, b);
-          if constexpr (W1 > 0) {
-            tma_load_4d(k1s(st), km + 1, full_bar(st), W0, h, c, b);
-            tma_load_4d(v1s(st), vm + 1, full_bar(st), W0, h, c, b);
-          }
-          if (++st == kStages) st = 0, phase ^= 1;
-        }
-      }
-    }
-  } else {
-    // ---- consumer warpgroups: 64 query rows each ----
-    regs_acquire<232>();
-    const int ct = threadIdx.x - 128;
-    const int wg = ct / 128;  // which consumer warpgroup
-    const int warp = (ct % 128) / 32;
-    const int lane = ct % 32;
-    const uint32_t qa0 = q0s + wg * 64 * RB0, qa1 = q1s + wg * 64 * RB1;
-
-    float o0[W0 / 2];
-    float o1[W1 > 0 ? W1 / 2 : 1];
-#pragma unroll
-    for (int i = 0; i < W0 / 2; ++i) o0[i] = 0.f;
-#pragma unroll
-    for (int i = 0; i < (W1 > 0 ? W1 / 2 : 1); ++i) o1[i] = 0.f;
-    float m_lo = kMaskedScore, m_hi = kMaskedScore;  // raw max of rows lane/4, lane/4 + 8
-    float l_lo = 0.f, l_hi = 0.f;                    // this thread's partial sums
-
-    // Q K^T of the stage's key tile into s (64 rows x 128 keys; K-major
-    // operands in shared memory)
-    auto issue_qk = [&](float (&s)[kBK / 2], int st) {
-#pragma unroll
-      for (int kk = 0; kk < W0 / 16; ++kk)
-        wgmma_m64n128k16_ss(s, wgmma_desc(qa0 + 32 * kk, 16, 8 * RB0, RB0),
-                            wgmma_desc(k0s(st) + 32 * kk, 16, 8 * RB0, RB0), kk > 0);
-      if constexpr (W1 > 0)
-        wgmma_m64n128k16_ss(s, wgmma_desc(qa1, 16, 8 * RB1, RB1),
-                            wgmma_desc(k1s(st), 16, 8 * RB1, RB1), true);
-    };
-    // O += P V over the stage's value tile. The accumulators of keys
-    // 16kk .. 16kk+15 are exactly the A fragment of k-step kk. P goes in as
-    // two bf16 terms (its rounding and the remainder), so P V keeps P to
-    // about 16 bits. V is MN-major: the descriptor's stride steps between
-    // 8-key groups; its leading offset (between column groups) is unused at
-    // these widths.
-    auto issue_pv = [&](const uint32_t (&pa)[kBK / 16][4], const uint32_t (&pr)[kBK / 16][4],
-                        int st) {
-#pragma unroll
-      for (int t = 0; t < 2; ++t)
-#pragma unroll
-        for (int kk = 0; kk < kBK / 16; ++kk) {
-          const uint32_t(&a)[4] = t == 0 ? pa[kk] : pr[kk];
-          wgmma_rs<W0>(o0, a, wgmma_desc(v0s(st) + kk * 16 * RB0, 8 * RB0, 8 * RB0, RB0));
-          if constexpr (W1 > 0)
-            wgmma_rs<W1>(o1, a, wgmma_desc(v1s(st) + kk * 16 * RB1, 8 * RB1, 8 * RB1, RB1));
-        }
-    };
-    // Online softmax over one tile of raw scores, in place: s becomes the
-    // probabilities exp2(s * scale_log2 - m), m (raw) and l move on, and
-    // alpha is the factor O must still be scaled by. s[4j + e]: key
-    // 8j + 2(lane%4) + e%2 of row lane/4 (e < 2) or lane/4 + 8 (e >= 2); a
-    // row's scores live in one lane quad. Every tile holds at least one key
-    // of its run, so a row's max is a real score and masked keys weigh 0.
-    auto softmax = [&](float (&s)[kBK / 2], int c, int lo, int hi, float& alpha_lo,
-                       float& alpha_hi) {
-      if (c < lo || c + kBK > hi) {
-#pragma unroll
-        for (int i = 0; i < kBK / 2; ++i) {
-          const int key = c + 8 * (i / 4) + 2 * (lane % 4) + (i % 2);
-          if (key < lo || key >= hi) s[i] = kMaskedScore;
-        }
-      }
-      float mx_lo = m_lo, mx_hi = m_hi;
-#pragma unroll
-      for (int i = 0; i < kBK / 2; i += 4) {
-        mx_lo = fmaxf(mx_lo, fmaxf(s[i], s[i + 1]));
-        mx_hi = fmaxf(mx_hi, fmaxf(s[i + 2], s[i + 3]));
-      }
-#pragma unroll
-      for (int off = 1; off < 4; off *= 2) {
-        mx_lo = fmaxf(mx_lo, __shfl_xor_sync(0xffffffffu, mx_lo, off));
-        mx_hi = fmaxf(mx_hi, __shfl_xor_sync(0xffffffffu, mx_hi, off));
-      }
-      alpha_lo = fast_exp2((m_lo - mx_lo) * scale_log2);
-      alpha_hi = fast_exp2((m_hi - mx_hi) * scale_log2);
-      const float off_lo = mx_lo * scale_log2, off_hi = mx_hi * scale_log2;
-      float sum_lo = 0.f, sum_hi = 0.f;
-#pragma unroll
-      for (int i = 0; i < kBK / 2; i += 4) {
-        s[i] = fast_exp2(fmaf(s[i], scale_log2, -off_lo));
-        s[i + 1] = fast_exp2(fmaf(s[i + 1], scale_log2, -off_lo));
-        s[i + 2] = fast_exp2(fmaf(s[i + 2], scale_log2, -off_hi));
-        s[i + 3] = fast_exp2(fmaf(s[i + 3], scale_log2, -off_hi));
-        sum_lo += s[i] + s[i + 1];
-        sum_hi += s[i + 2] + s[i + 3];
-      }
-      l_lo = l_lo * alpha_lo + sum_lo;
-      l_hi = l_hi * alpha_hi + sum_hi;
-      m_lo = mx_lo;
-      m_hi = mx_hi;
-    };
-    auto rescale = [&](float alpha_lo, float alpha_hi) {
-#pragma unroll
-      for (int i = 0; i < W0 / 2; ++i) o0[i] *= (i % 4) < 2 ? alpha_lo : alpha_hi;
-      if constexpr (W1 > 0) {
-#pragma unroll
-        for (int i = 0; i < W1 / 2; ++i) o1[i] *= (i % 4) < 2 ? alpha_lo : alpha_hi;
-      }
-    };
-    auto to_bf16 = [&](const float (&s)[kBK / 2], uint32_t (&pa)[kBK / 16][4],
-                       uint32_t (&pr)[kBK / 16][4]) {
-#pragma unroll
-      for (int kk = 0; kk < kBK / 16; ++kk)
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-          split_bf16(s[8 * kk + 2 * j], s[8 * kk + 2 * j + 1], pa[kk][j], pr[kk][j]);
-    };
-    auto release = [&](int st) {  // this warp is done with the stage
-      __syncwarp();
-      if (lane == 0) mbar_arrive(empty_bar(st));
-    };
-
-    // The tiles of the runs in order. The tensor work comes in turns: Q K^T
-    // of tile 0; then P V of tile t - 1 and Q K^T of tile t; then P V of
-    // the last tile. The two consumer warpgroups take turns (named barriers
-    // 1 and 2, warpgroup 0 first), so one's turn runs on the tensor cores
-    // while the other computes its softmax. Within a turn P V completes
-    // before Q K^T is issued, so the P fragments and the scores are never
-    // live at once (168 registers are left for the accumulators).
-    int n_tiles = 0;
-    for (int r = 0; r < n_runs; ++r) {
-      const KeyRun& run = runs.run[cls][r];
-      n_tiles += (run.first + run.length - run.origin + kBK - 1) / kBK;
-    }
-    mbar_wait(q_bar, 0);
-    if (n_tiles > 0) {
-      const int my_turn = 1 + wg, other_turn = 2 - wg;
-      if (wg == 1) named_bar_arrive(1, 256);  // warpgroup 0 issues first
-      float s[kBK / 2];
-      uint32_t pa[kBK / 16][4], pr[kBK / 16][4];
-      float alpha_lo, alpha_hi;
-      int r = 0, c = runs.run[cls][0].origin;  // this tile: run r, origin c
-      int st = 0, phase = 0, prev = 0;         // its stage, and that of tile t - 1
-      auto next_tile = [&]() {
-        c += kBK;
-        if (c >= runs.run[cls][r].first + runs.run[cls][r].length && ++r < n_runs)
-          c = runs.run[cls][r].origin;
-        prev = st;
-        if (++st == kStages) st = 0, phase ^= 1;
-      };
-      auto softmax_tile = [&]() {
-        const KeyRun& run = runs.run[cls][r];
-        softmax(s, c, run.first, run.first + run.length, alpha_lo, alpha_hi);
-      };
-
-      mbar_wait(full_bar(st), phase);
-      named_bar_sync(my_turn, 256);
-      wgmma_fence();
-      issue_qk(s, st);
-      wgmma_commit();
-      named_bar_arrive(other_turn, 256);
-      wgmma_wait_all();
-      fence_regs(s);
-      softmax_tile();  // O is still zero: no rescale
-      to_bf16(s, pa, pr);
-      next_tile();
-      for (int t = 1; t < n_tiles; ++t) {
-        mbar_wait(full_bar(st), phase);
-        named_bar_sync(my_turn, 256);
-        wgmma_fence();
-        issue_pv(pa, pr, prev);
-        wgmma_commit();
-        wgmma_wait_all();
-        fence_regs(o0);
-        fence_regs(o1);
-        fence_regs(pa);
-        fence_regs(pr);
-        release(prev);
-        wgmma_fence();
-        issue_qk(s, st);
-        wgmma_commit();
-        named_bar_arrive(other_turn, 256);
-        wgmma_wait_all();
-        fence_regs(s);
-        softmax_tile();
-        rescale(alpha_lo, alpha_hi);
-        to_bf16(s, pa, pr);
-        next_tile();
-      }
-      named_bar_sync(my_turn, 256);
-      wgmma_fence();
-      issue_pv(pa, pr, prev);
-      wgmma_commit();
-      if (wg == 0) named_bar_arrive(other_turn, 256);  // warpgroup 1 has the last turn
-      wgmma_wait_all();
-      fence_regs(o0);
-      fence_regs(o1);
-      fence_regs(pa);
-      fence_regs(pr);
-      release(prev);
-    }
-
-#pragma unroll
-    for (int off = 1; off < 4; off *= 2) {
-      l_lo += __shfl_xor_sync(0xffffffffu, l_lo, off);
-      l_hi += __shfl_xor_sync(0xffffffffu, l_hi, off);
-    }
-    const float inv_lo = 1.f / fmaxf(l_lo, 1e-30f), inv_hi = 1.f / fmaxf(l_hi, 1e-30f);
-    const int row_lo = q0 + wg * 64 + warp * 16 + lane / 4;
-    const int row_hi = row_lo + 8;
-    __nv_bfloat16* out_lo = out + b * so.b + (int64_t)row_lo * so.s + h * so.h;
-    __nv_bfloat16* out_hi = out_lo + 8 * so.s;
-#pragma unroll
-    for (int i = 0; i < W0 / 2; i += 4) {
-      const int col = 2 * i + 2 * (lane % 4);  // 8 * (i / 4) + 2 * (lane % 4)
-      if (col >= HD) continue;
-      if (row_lo < Nl)
-        *reinterpret_cast<uint32_t*>(out_lo + col) = pack_bf16(o0[i] * inv_lo, o0[i + 1] * inv_lo);
-      if (row_hi < Nl)
-        *reinterpret_cast<uint32_t*>(out_hi + col) =
-            pack_bf16(o0[i + 2] * inv_hi, o0[i + 3] * inv_hi);
-    }
-    if constexpr (W1 > 0) {
-#pragma unroll
-      for (int i = 0; i < W1 / 2; i += 4) {
-        const int col = W0 + 2 * i + 2 * (lane % 4);
-        if (col >= HD) continue;
-        if (row_lo < Nl)
-          *reinterpret_cast<uint32_t*>(out_lo + col) =
-              pack_bf16(o1[i] * inv_lo, o1[i + 1] * inv_lo);
-        if (row_hi < Nl)
-          *reinterpret_cast<uint32_t*>(out_hi + col) =
-              pack_bf16(o1[i + 2] * inv_hi, o1[i + 3] * inv_hi);
-      }
-    }
-    if (lse != nullptr && lane % 4 == 0) {  // one lane of the quad owns the row
-      if (row_lo < Nl)
-        lse[b * sl.b + (int64_t)row_lo * sl.s + h * sl.h] = row_lse(m_lo * scale_log2, l_lo);
-      if (row_hi < Nl)
-        lse[b * sl.b + (int64_t)row_hi * sl.s + h * sl.h] = row_lse(m_hi * scale_log2, l_hi);
-    }
-  }
+  const RunWalk walk{&maps, runs.run[cls], runs.count[cls]};
+  attention_block<HD>(maps.q, walk, b, h, h, blockIdx.x * kBQ, Nl, out, so, lse, sl,
+                      scale_log2);
 }
 
 // ---------------------------------------------------------------------------
@@ -569,60 +299,8 @@ stale_kv_attention_fma_kernel(const float* __restrict__ q, const float* __restri
 }
 
 // ---------------------------------------------------------------------------
-// host: tensor maps and launches
+// host: launches
 // ---------------------------------------------------------------------------
-
-using EncodeTiledFn = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                   const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                   const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                   CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled (a libcuda function), looked up through the runtime
-// so the library needs no -lcuda.
-EncodeTiledFn encode_tiled() {
-  static const EncodeTiledFn fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                                             cudaEnableDefault, &found);
-#else
-    const cudaError_t err =
-        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
-               ? reinterpret_cast<EncodeTiledFn>(p)
-               : nullptr;
-  }();
-  return fn;
-}
-
-// Map of a bf16 [B, S, H, hd] view (hd contiguous, element strides `st`)
-// read in boxes of `width` columns x kBK rows of one head and batch row,
-// under the swizzle of a `width`-column row. A dimension of extent 1 gets
-// a dense stride (its coordinate is always 0, whatever the view's stride).
-bool encode_map(CUtensorMap* map, const void* ptr, Strides st, int B, int S, int H, int hd,
-                int width) {
-  const EncodeTiledFn encode = encode_tiled();
-  if (encode == nullptr) return false;
-  const cuuint64_t dims[4] = {(cuuint64_t)hd, (cuuint64_t)H, (cuuint64_t)S, (cuuint64_t)B};
-  const int64_t elem[3] = {st.h, st.s, st.b};
-  cuuint64_t strides[3];
-  cuuint64_t dense = 2 * (cuuint64_t)hd;
-  for (int i = 0; i < 3; ++i) {
-    strides[i] = dims[i + 1] == 1 ? dense : 2 * (cuuint64_t)elem[i];
-    dense = strides[i] * dims[i + 1];
-  }
-  const cuuint32_t box[4] = {(cuuint32_t)width, 1, (cuuint32_t)kBK, 1};
-  const cuuint32_t unit[4] = {1, 1, 1, 1};
-  const CUtensorMapSwizzle swizzle = width == 64   ? CU_TENSOR_MAP_SWIZZLE_128B
-                                     : width == 32 ? CU_TENSOR_MAP_SWIZZLE_64B
-                                                   : CU_TENSOR_MAP_SWIZZLE_32B;
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims, strides,
-                box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
 
 // What a launch needs to know of its operands besides the pointers.
 struct Layout {
@@ -637,29 +315,20 @@ cudaError_t launch_wgmma(const void* q, const void* kf, const void* vf, const vo
                          const void* vs, void* out, float* lse, const Strides* st,
                          const Layout& L, const KeyRuns& runs, float scale_log2,
                          cudaStream_t stream) {
-  using T = HeadTiles<HD>;
   TmaMaps maps;
   const void* src[5] = {q, kf, vf, ks, vs};
-  CUtensorMap* dst[5] = {maps.q, maps.kf, maps.vf, maps.ks, maps.vs};
+  CUtensorMap(*dst[5])[2] = {&maps.q, &maps.kf, &maps.vf, &maps.ks, &maps.vs};
   const int rows[5] = {L.Nl, L.n_fresh, L.n_fresh, L.n_keys, L.n_keys};
   for (int i = 0; i < 5; ++i) {
     const int S = rows[i] > 0 ? rows[i] : 1;  // a map needs an extent; no tile reads it
-    if (!encode_map(&dst[i][0], src[i], st[i], L.B, S, L.H, HD, T::W0)) return cudaErrorInvalidValue;
-    if (T::W1 > 0 && !encode_map(&dst[i][1], src[i], st[i], L.B, S, L.H, HD, T::W1))
-      return cudaErrorInvalidValue;
+    if (!encode_maps<HD>(*dst[i], src[i], st[i], L.B, S, L.H)) return cudaErrorInvalidValue;
   }
-  int device = 0;
-  cudaGetDevice(&device);
   static bool smem_set[64] = {};  // per device; one entry per instantiation
-  if (device < 64 && !smem_set[device]) {
-    const cudaError_t err =
-        cudaFuncSetAttribute(stale_kv_attention_wgmma_kernel<HD>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, T::kSmemBytes);
-    if (err != cudaSuccess) return err;
-    smem_set[device] = true;
-  }
+  const int smem = HeadTiles<HD>::kSmemBytes;
+  const cudaError_t err = allow_smem(stale_kv_attention_wgmma_kernel<HD>, smem, smem_set);
+  if (err != cudaSuccess) return err;
   const dim3 grid((L.Nl + kBQ - 1) / kBQ, L.B * L.H);
-  stale_kv_attention_wgmma_kernel<HD><<<grid, kThreads, T::kSmemBytes, stream>>>(
+  stale_kv_attention_wgmma_kernel<HD><<<grid, kThreads, smem, stream>>>(
       maps, runs, static_cast<__nv_bfloat16*>(out), lse, st[5], st[6], L.H, L.Nl, L.b_split,
       scale_log2);
   return cudaGetLastError();

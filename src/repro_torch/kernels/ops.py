@@ -446,6 +446,9 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
 # kernel K7: the selective-SSM (Mamba) scan
 # ----------------------------------------------------------------------
 
+_SCAN_DTYPES = (torch.float32, torch.bfloat16)
+
+
 def ssm_scan(x, dt, b_t, c_t, a, d_skip, *, h0=None, final_state: bool = False):
     """Kernel K7, the Mamba recurrence (reference
     ``repro.kernels.ops.ssm_scan``; with ``h0`` and ``final_state``,
@@ -478,26 +481,35 @@ def ssm_scan(x, dt, b_t, c_t, a, d_skip, *, h0=None, final_state: bool = False):
         return (y, h) if final_state else y
     if x.device.type != "cuda":
         raise ValueError(f"no ssm_scan kernel for {x.device}")
-    if len({t.dtype for t in (x, dt, b_t, c_t)}) != 1 or x.dtype not in (
-            torch.float32, torch.bfloat16):
+    # decode calls this 32 times a token at S = 1, where the host's time per
+    # call is the cost: the checks read each attribute once
+    dtype = x.dtype
+    if (dtype not in _SCAN_DTYPES or dt.dtype != dtype or b_t.dtype != dtype
+            or c_t.dtype != dtype):
         raise ValueError("x, dt, b_t and c_t must all be float32 or all "
                          f"bfloat16, got {[t.dtype for t in (x, dt, b_t, c_t)]}")
-    if any(t.dtype != torch.float32 for t in tensors[4:]):
+    if (a.dtype != torch.float32 or d_skip.dtype != torch.float32
+            or (h0 is not None and h0.dtype != torch.float32)):
         raise ValueError("a, d_skip and h0 must be float32")
     if N not in ss.SUPPORTED_STATE_SIZES:
         raise ValueError(f"state size {N} not instantiated; the ssm_scan "
                          f"kernel takes {ss.SUPPORTED_STATE_SIZES}")
-    if S == 0 or any(t.stride(-1) != 1 for t in (x, dt, b_t, c_t)):
+    if S == 0 or (x.stride(-1), dt.stride(-1), b_t.stride(-1),
+                  c_t.stride(-1)) != (1, 1, 1, 1):
         raise ValueError("S must be positive and the last axis of x, dt, "
                          "b_t and c_t contiguous")
-    if not all(t.is_contiguous() for t in tensors[4:]):
+    if not (a.is_contiguous() and d_skip.is_contiguous()
+            and (h0 is None or h0.is_contiguous())):
         raise ValueError("a, d_skip and h0 must be contiguous")
     lib = load_library().lib
-    y = torch.empty(x.shape, dtype=x.dtype, device=x.device)
+    y = torch.empty(x.shape, dtype=dtype, device=x.device)
     h = (torch.empty((B, Di, N), dtype=torch.float32, device=x.device)
          if final_state else None)
-    with torch.cuda.device(x.device):
+    if x.device.index == torch.cuda.current_device():
         err = ss.launch(lib, x, dt, b_t, c_t, a, d_skip, h0, y, h)
+    else:
+        with torch.cuda.device(x.device):
+            err = ss.launch(lib, x, dt, b_t, c_t, a, d_skip, h0, y, h)
     if err != 0:
         raise RuntimeError(f"ssm_scan launch failed: CUDA error {err}")
     _launches["ssm_scan"] += 1

@@ -169,3 +169,71 @@ def ssm_scan_ref(x, dt, b_t, c_t, a, d_skip, h0=None):
         h = da * h + (dtf[:, t] * xf[:, t])[..., None] * bf[:, t, None, :]
         ys.append(torch.einsum("bdn,bn->bd", h, cf[:, t]) + d_skip * xf[:, t])
     return torch.stack(ys, dim=1).to(x.dtype), h
+
+
+#: planted faults of :func:`ssm_scan_chunked_ref` at its first chunk
+#: boundary, for showing that a bar rejects them: the carry into the second
+#: chunk dropped (zero), or entering without its first step's decay
+SCAN_FAULTS = ("carry dropped", "carry undecayed")
+
+
+def ssm_scan_chunked_ref(x, dt, b_t, c_t, a, d_skip, h0=None, *,
+                         chunk: int = 128, fault: Optional[str] = None):
+    """Kernel K7's scan body in PyTorch: :func:`ssm_scan_ref`'s function,
+    computed in the kernel's order. The step ``h -> a h + b`` (``a =
+    exp(dt A)``, per step; ``b = dt x B``) is an affine map, and maps
+    compose associatively. The sequence is cut into chunks of ``chunk``
+    steps (the last one padded with identity steps, dt = 0), each chunk
+    into 32 runs (a warp's lanes) of ``chunk // 32`` consecutive steps. Per
+    chunk:
+    each run's prefix composites in order; an inclusive Hillis-Steele scan
+    of the runs' composites (offsets 1, 2, 4, ..., the warp's shuffle
+    scan); the composite of the runs before a run applied to the chunk's
+    carry-in state gives the state before its first step, and each step's
+    state is its prefix applied to that; the chunk's last state is the
+    carry into the next. ``fault`` (one of :data:`SCAN_FAULTS`) plants that
+    fault at step ``chunk``. Returns (y in x's dtype, the final state
+    fp32)."""
+    if fault not in (None,) + SCAN_FAULTS:
+        raise ValueError(f"fault {fault!r} is not one of {SCAN_FAULTS}")
+    lanes = 32
+    if chunk % lanes:
+        raise ValueError(f"chunk {chunk} must be a multiple of {lanes}")
+    items = chunk // lanes
+    B, S, Di = x.shape
+    N = b_t.shape[-1]
+    pad = -S % chunk
+    xf, dtf, bf, cf = (torch.nn.functional.pad(t.float(), (0, 0, 0, pad))
+                       for t in (x, dt, b_t, c_t))
+    a, d_skip = a.float(), d_skip.float()
+    h = (torch.zeros(B, Di, N, dtype=torch.float32, device=x.device)
+         if h0 is None else h0.float())
+    ys = []
+    for t0 in range(0, S + pad, chunk):
+        cut = lambda t, w: t[:, t0:t0 + chunk].reshape(B, lanes, items, w)
+        xk, dtk, bk, ck = cut(xf, Di), cut(dtf, Di), cut(bf, N), cut(cf, N)
+        dec = torch.exp(dtk[..., None] * a)                   # [B, L, I, Di, N]
+        if t0 == chunk and fault == "carry dropped":
+            h = torch.zeros_like(h)
+        if t0 == chunk and fault == "carry undecayed":
+            dec[:, 0, 0] = 1.0
+        inp = (dtk * xk)[..., None] * bk[:, :, :, None, :]
+        pa, pb = [dec[:, :, 0]], [inp[:, :, 0]]
+        for i in range(1, items):
+            pa.append(dec[:, :, i] * pa[-1])
+            pb.append(dec[:, :, i] * pb[-1] + inp[:, :, i])
+        pa, pb = torch.stack(pa, 2), torch.stack(pb, 2)
+        sa, sb = pa[:, :, -1], pb[:, :, -1]                   # [B, L, Di, N]
+        off = 1
+        while off < lanes:                                    # earlier runs first
+            sa, sb = (torch.cat([sa[:, :off], sa[:, off:] * sa[:, :-off]], 1),
+                      torch.cat([sb[:, :off], sa[:, off:] * sb[:, :-off] + sb[:, off:]], 1))
+            off *= 2
+        ea = torch.cat([torch.ones_like(sa[:, :1]), sa[:, :-1]], 1)
+        eb = torch.cat([torch.zeros_like(sb[:, :1]), sb[:, :-1]], 1)
+        h_before = ea * h[:, None] + eb
+        hs = pa * h_before[:, :, None] + pb                   # [B, L, I, Di, N]
+        yk = torch.einsum("blidn,blin->blid", hs, ck) + d_skip * xk
+        ys.append(yk.reshape(B, chunk, Di))
+        h = hs[:, -1, -1]
+    return torch.cat(ys, 1)[:, :S].to(x.dtype), h

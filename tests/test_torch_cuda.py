@@ -633,10 +633,14 @@ def test_k6_kernel_matches_plain_and_rejects_faults(cuda, causal, window,
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("S,T,causal,window,prefix", [
     (200, 200, True, 48, 8), (130, 130, True, 0, 0), (96, 160, False, 40, 0),
-    (160, 96, True, 0, 0), (75, 75, False, 0, 0)])
+    (160, 96, True, 0, 0), (75, 75, False, 0, 0), (300, 300, True, 100, 200),
+    (400, 400, True, 64, 130), (384, 384, True, 200, 0),
+    (520, 520, True, 300, 16)])
 def test_k6_kernel_ragged_and_unaligned_masks(cuda, S, T, causal, window,
                                               prefix, dtype):
-    """Lengths aligned to no tile, S != T, non-causal windows."""
+    """Lengths aligned to no tile, S != T, non-causal windows, a prefix
+    overlapping the window (longer than it, or reaching past a tile), and
+    window edges in the middle of a 128-key tile."""
     g = torch.Generator(device="cpu").manual_seed(8)
     q = (QK_STD * torch.randn(2, S, 4, 64, generator=g)).to(dtype).to(cuda)
     k = (QK_STD * torch.randn(2, T, 2, 64, generator=g)).to(dtype).to(cuda)
@@ -646,6 +650,24 @@ def test_k6_kernel_ragged_and_unaligned_masks(cuda, S, T, causal, window,
     want = ref.flash_attention_ref(q, k, v, causal=causal, window=window,
                                    prefix_len=prefix)
     _assert_within_bars(out, want, dtype)
+
+
+@pytest.mark.cuda
+def test_k6_tile_classes_match_library(cuda):
+    """The bf16 body's own classification of each key tile (the C entry
+    point runs the kernel's functions) is the Python mirror's, which the CPU
+    tests hold to the mask."""
+    from repro_torch.kernels import flash_attention as fa
+    lib = ops.load_library().lib
+    for S, T in [(2048, 2048), (200, 200), (96, 160), (160, 96), (129, 257)]:
+        for causal, window, prefix in [(True, 1024, 128), (True, 0, 0),
+                                       (True, 100, 200), (False, 40, 0),
+                                       (True, 64, 130)]:
+            want = fa.tile_classes(S, T, causal, window, prefix)
+            got = [[lib.flash_attention_tile_class(S, T, int(causal), window,
+                                                   prefix, qt, kt)
+                    for kt in range(len(row))] for qt, row in enumerate(want)]
+            assert got == want, (S, T, causal, window, prefix)
 
 
 def _k7_inputs(S, device, B=1, Di=1600, N=16, seed=9):
@@ -663,9 +685,10 @@ def _k7_inputs(S, device, B=1, Di=1600, N=16, seed=9):
 
 
 def _k7_faults(x, dt, b, c, a, d, h0, tile=64):
-    """K7's (y, h_final) under planted faults, from its plain version: h0
-    ignored, the state reset at the first tile boundary, the D x skip
-    dropped."""
+    """K7's (y, h_final) under planted faults, from its plain versions: h0
+    ignored, the state reset at the first 64-step tile boundary, the D x
+    skip dropped, and at the scan body's first chunk boundary the carry
+    dropped or entering without its decay."""
     faults = {"d x dropped": ref.ssm_scan_ref(x, dt, b, c, a,
                                               torch.zeros_like(d), h0)}
     if h0 is not None:
@@ -675,6 +698,11 @@ def _k7_faults(x, dt, b, c, a, d, h0, tile=64):
         tail = ref.ssm_scan_ref(*(t[:, tile:] for t in (x, dt, b, c)), a, d)
         faults["state reset at a tile"] = (torch.cat([head[0], tail[0]], 1),
                                            tail[1])
+    chunk = ops.ss.SCAN_CHUNK
+    if x.shape[1] > chunk:
+        for fault in ref.SCAN_FAULTS:
+            faults[fault] = ref.ssm_scan_chunked_ref(x, dt, b, c, a, d, h0,
+                                                     chunk=chunk, fault=fault)
     return faults
 
 
@@ -701,6 +729,23 @@ def test_k7_kernel_matches_plain_and_rejects_faults(cuda, S, with_h0):
     _assert_within_bars(h, want[1], torch.float32)
     torch.testing.assert_close(ops.ssm_scan(x, dt, b, c, a, d, h0=h0), y,
                                rtol=0, atol=0)
+    for name, bad in _k7_faults(x, dt, b, c, a, d, h0).items():
+        assert not _k7_within_bars(y, h, bad), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S", [16, 17, 127, 128, 129, 600])
+def test_k7_kernel_chunk_edges(cuda, S):
+    """Both bodies around their switch (the sequential one up to S 16) and
+    the scan body around its 128-step chunk, at 2 batch rows and a channel
+    count that fills no block, from a nonzero state; the chunk-boundary
+    faults are rejected."""
+    x, dt, b, c, a, d, h0 = _k7_inputs(S, cuda, B=2, Di=200)
+    y, h = ops.ssm_scan(x, dt, b, c, a, d, h0=h0, final_state=True)
+    want = ref.ssm_scan_ref(x, dt, b, c, a, d, h0)
+    torch.cuda.synchronize()
+    _assert_within_bars(y, want[0], torch.float32)
+    _assert_within_bars(h, want[1], torch.float32)
     for name, bad in _k7_faults(x, dt, b, c, a, d, h0).items():
         assert not _k7_within_bars(y, h, bad), name
 
