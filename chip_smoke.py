@@ -1,8 +1,9 @@
 """Smoke run of the PyTorch/CUDA port on one GPU: builds the hand-written
 kernels from this checkout, holds each against its plain PyTorch version at
 the shapes of the paths it drives, drives the LLM serving path (Hymba-1.5B
-at full width through the ServingEngine), the main path (STADI on sdxl-dit
-at full width), the guided paths (classifier-free guidance, fused and
+at full width through the ServingEngine), the diffusion serving path
+(sdxl-dit through the DiffusionServingEngine's emulated lanes), the main
+path (STADI on sdxl-dit at full width), the guided paths (classifier-free guidance, fused and
 interleaved) through ``StadiPipeline.generate`` and the multi-rank paths
 (spmd, unguided, fused and split guidance, and spmd_seq, sequence-parallel
 attention) on gloo ranks that share the card, and checks card-vs-CPU
@@ -26,11 +27,17 @@ Phases (any failure raises, so the script exits non-zero):
   4. K1 at batch 2, both guidance branches of one layer in one launch, its
      stale K/V a strided view of a branch-stacked [2, L, 1, N, H, hd]
      buffer: the bars and planted faults of phase 3.
-  5. K3 (the CFG epilogue) against its plain version at the guided path's
-     eps shapes, an odd length and an input one element off alignment, in
-     fp32 and bf16: delta and combine bitwise equal. Device times (CUDA
-     graph replay) of the kernel, the plain version and the nearest library
-     calls (torch.lerp and a torch.sub into fp32), and the wrapper's eager
+  5. K3 (the CFG epilogue) against its plain version: one scalar scale at
+     the guided path's eps shapes and an odd length, and a vector of
+     per-lane scales over lane groups of G = 1, 2 and 4 (the serving
+     engine's guided dispatches: patch [G, 72, 128, 4], warm-up
+     [G, 128, 128, 4], a lane of 105 elements), each also one element off
+     alignment, in fp32 and bf16: delta and combine bitwise equal, and the
+     planted fault of lane 0's scale used for every lane rejected. Device
+     times (CUDA graph replay) at the bf16 serving shapes, with and without
+     delta, of the kernel, an empty kernel (the card's launch floor), the
+     plain version and the nearest library calls (torch.lerp with a
+     [G, 1, 1, 1] weight and a torch.sub into fp32), and the wrapper's eager
      time per call, which the host's launch overhead sets.
   6. K2 (the padded multi-rank form of K1) against its plain version at the
      spmd main path's rank layouts (slab 2304 rows, tok_start 0 / valid
@@ -105,7 +112,19 @@ Phases (any failure raises, so the script exits non-zero):
      and then profiled (``hymba_serve_profile``).
      Then hymba-1.5b.reduced() fp32 with GQA 4/2, card against CPU: logits
      within 1e-4 relative, the same tokens.
- Phases 13 to 15 run after phase 8, before the sdxl-dit paths.
+ 16. the diffusion serving path: sdxl-dit at full width in bf16 on the main
+     path's emulated plan, 6 requests on 4 slots through
+     DiffusionServingEngine (SERVE_TRAFFIC: two guided requests at round
+     0, four more after round 2, two of them unguided, scales 3.0 and 5.0),
+     exchange sync, after a warm-up drain: K1 once a layer of every
+     denoiser dispatch and K3 once per guided dispatch (never once a lane),
+     both from the engine's own dispatch count; every image within 1e-2
+     relative of a lone generate of its request; per-request wall and
+     modeled latency, images per second (the ``diffusion_serve`` line), one
+     mixed round profiled (``diffusion_serve_profile``). Then
+     tiny-dit.reduced() fp32 served on the card against the CPU, < 1e-3.
+ Phases 13 to 15 run after phase 8, before the sdxl-dit paths; phase 16
+ after phase 10.
 Every path is driven with the launch counters set to 0 just before it and
 read just after (on every rank for the multi-rank paths). The
 second-to-last line is the kernels' JSON record, the last line the device
@@ -138,6 +157,11 @@ TILE = 64                           # key rows the planted faults skip or shift
 # (the warm-up), and an odd length for the kernel's scalar tail
 K3_SHAPES = [(1, 72, 128, 4), (1, 56, 128, 4), (1, 128, 128, 4), (36865,)]
 CFG_SCALE = 4.0
+# the serving engine's guided lane groups: G lanes of the first patch and of
+# the warm-up, and a lane of 105 elements (no whole 16-byte vectors a lane)
+K3_GROUPS = (1, 2, 4)
+K3_LANES = [(72, 128, 4), (128, 128, 4), (5, 7, 3)]
+K3_LANE_SCALES = (3.0, 5.0, 3.0, 5.0)
 
 
 def check(ok, msg):
@@ -359,57 +383,106 @@ def phase_k1_batch2(ops, ref, layers, dev, peaks):
     return reading
 
 
-def k3_bound_ms(n, dtype, peaks):
+def k3_bound_ms(n, dtype, peaks, with_delta=True):
     """Least time for K3's work: eps_c and eps_u read once, the combine (eps
-    dtype) and the fp32 delta written once, at the memory rate; or three
-    fp32 operations an element at the CUDA-core peak."""
+    dtype) and, with delta, the fp32 delta written once, at the memory rate;
+    or three fp32 operations an element at the CUDA-core peak."""
     elem = torch.tensor([], dtype=dtype).element_size()
-    bytes_ms = n * (3 * elem + 4) / peaks[2] * 1e3
+    bytes_ms = n * (3 * elem + (4 if with_delta else 0)) / peaks[2] * 1e3
     ops_ms = 3 * n / peaks[1] * 1e3
     return max(ops_ms, bytes_ms), ("operations" if ops_ms >= bytes_ms else "bytes")
 
 
+def k3_pair(n, dtype, dev, gen, offset=0):
+    """eps_c, eps_u of n elements, ``offset`` elements into a larger buffer
+    (offset 1: contiguous but not 16-byte aligned)."""
+    return [torch.randn(n + offset, generator=gen).to(dtype).to(dev)[offset:]
+            for _ in range(2)]
+
+
 def phase_k3(ops, ref, dev, peaks):
-    """K3 bitwise against its plain version; times at the main path's bf16
-    shapes. Returns the reading at the first patch's shape."""
+    """K3 bitwise against its plain version: one scalar scale at the guided
+    generate's eps shapes, and per-lane scales over lane groups of G = 1, 2
+    and 4 (the serving engine's guided dispatches; a lane of 105 elements
+    takes the scalar path), each with the planted fault of lane 0's scale
+    used for every lane rejected. Times at the serving shapes against the
+    byte bound and the launch floor (an empty kernel, graph-replayed the
+    same way). Returns the reading at the first patch's shape, G = 1, with
+    delta (generate's form), with the timed lines under ``lane_groups``."""
+    from repro_torch.kernels import cfg_epilogue as cfe
+
     gen = torch.Generator(device="cpu").manual_seed(SEED + 2)
-    first = None
+    lib = ops.load_library().lib
+    floor_ms = time_graph_ms(lambda: cfe.launch_empty(lib, dev))
+    first, timed = None, []
+    cases = [(shape, None) for shape in K3_SHAPES]
+    cases += [((G,) + lane, K3_LANE_SCALES[:G]) for G in K3_GROUPS
+              for lane in K3_LANES]
     for dtype in (torch.float32, torch.bfloat16):
-        for shape in K3_SHAPES:
+        for shape, lane_scales in cases:
             n = math.prod(shape)
+            scale = (CFG_SCALE if lane_scales is None
+                     else torch.tensor(lane_scales, device=dev))
             for offset in (0, 1):
-                ec, eu = (torch.randn(n + offset, generator=gen).to(dtype).to(dev)
-                          [offset:].view(shape) for _ in range(2))
-                comb, delta = ops.cfg_epilogue(ec, eu, CFG_SCALE)
-                want_comb, want_delta = ref.cfg_epilogue_ref(ec, eu, CFG_SCALE)
-                err = (comb.float() - want_comb.float()).abs().max().item()
+                ec, eu = (t.view(shape) for t in k3_pair(n, dtype, dev, gen, offset))
+                comb, delta = ops.cfg_epilogue(ec, eu, scale)
+                only = ops.cfg_epilogue(ec, eu, scale, with_delta=False)
+                want_comb, want_delta = ref.cfg_epilogue_ref(ec, eu, scale)
                 line = {"kernel": "cfg_epilogue", "dtype": str(dtype),
                         "shape": list(shape), "offset": offset,
-                        "max_abs_err": err,
+                        "G": shape[0] if lane_scales else None,
+                        "max_abs_err": (comb.float() - want_comb.float()).abs().max().item(),
                         "delta_max_abs_err": (delta - want_delta).abs().max().item(),
                         "bitwise": bool(torch.equal(comb, want_comb)
-                                        and torch.equal(delta, want_delta))}
-                if dtype == torch.bfloat16 and offset == 0 and len(shape) == 4:
-                    d32 = torch.empty(shape, dtype=torch.float32, device=dev)
-
-                    def library():
-                        torch.lerp(eu, ec, CFG_SCALE)
-                        torch.sub(ec, eu, out=d32)
-                    bound_ms, bound_by = k3_bound_ms(n, dtype, peaks)
-                    kernel = lambda: ops.cfg_epilogue(ec, eu, CFG_SCALE)
-                    line.update(
-                        ms=time_graph_ms(kernel),
-                        plain_ms=time_graph_ms(lambda: ref.cfg_epilogue_ref(
-                            ec, eu, CFG_SCALE)),
-                        library_ms=time_graph_ms(library),
-                        eager_ms=time_ms(kernel, reps=100),
-                        bound_ms=bound_ms, bound_by=bound_by)
-                    if first is None:
-                        first = line
+                                        and torch.equal(delta, want_delta)
+                                        and torch.equal(only, want_comb))}
+                if lane_scales is not None and shape[0] > 1:
+                    fault = ops.cfg_epilogue(ec, eu, scale[0], with_delta=False)
+                    line["planted_fault_rejected"] = not torch.equal(fault, want_comb)
+                    check(line["planted_fault_rejected"],
+                          f"K3's check lets lane 0's scale for every lane through: {line}")
                 print("k3_check", json.dumps(line), flush=True)
                 check(line["bitwise"],
                       f"K3 is not bitwise equal to its plain version: {line}")
+                if (dtype != torch.bfloat16 or offset or len(shape) != 4
+                        or shape[1:] == K3_LANES[-1]):
+                    continue
+                for with_delta in (True, False):
+                    if lane_scales is None and not with_delta:
+                        continue
+                    timed.append(k3_timed(ops, ref, ec, eu, scale, with_delta,
+                                          line, floor_ms, peaks))
+                    if first is None:
+                        first = timed[-1]
+    first["lane_groups"] = timed
     return first
+
+
+def k3_timed(ops, ref, ec, eu, scale, with_delta, line, floor_ms, peaks):
+    """One timed K3 line: the kernel, the launch floor, the plain version and
+    the nearest library calls (``torch.lerp`` with a [G, 1, 1, 1] weight, and
+    ``torch.sub`` into fp32 for the delta), all graph-replayed; and the
+    wrapper's eager time per call."""
+    n, G = ec.numel(), ec.shape[0]
+    per_lane = isinstance(scale, torch.Tensor)
+    weight = scale.view(G, 1, 1, 1).to(ec.dtype) if per_lane else scale
+    d32 = torch.empty(ec.shape, dtype=torch.float32, device=ec.device)
+
+    def library():
+        torch.lerp(eu, ec, weight)
+        if with_delta:
+            torch.sub(ec, eu, out=d32)
+    kernel = lambda: ops.cfg_epilogue(ec, eu, scale, with_delta=with_delta)
+    bound_ms, bound_by = k3_bound_ms(n, ec.dtype, peaks, with_delta)
+    out = {k: line[k] for k in ("kernel", "dtype", "shape", "G", "max_abs_err")}
+    out.update(with_delta=with_delta, per_lane=per_lane,
+               ms=time_graph_ms(kernel), floor_ms=floor_ms,
+               plain_ms=time_graph_ms(lambda: ref.cfg_epilogue_ref(ec, eu, scale)),
+               library_ms=time_graph_ms(library),
+               eager_ms=time_ms(kernel, reps=100),
+               bound_ms=bound_ms, bound_by=bound_by)
+    print("k3_check", json.dumps(out), flush=True)
+    return out
 
 
 # K2's layouts: (tok_start, valid_tokens) of rank 0 and rank 1 of the spmd
@@ -846,6 +919,195 @@ def phase_paths(ops, dev):
     }
     return {label: drive_path(ops, label, cfg, params, x_T, cond, config, dev)
             for label, config in paths.items()}
+
+
+# diffusion_serve traffic on 4 slots: (cfg_scale, round it is submitted
+# before). Two guided requests at round 0, then four after round 2: two
+# take the free slots next to lanes three fine steps ahead (one guided
+# dispatch then carries lanes at two timesteps and two scales), two queue
+# until the first wave retires
+SERVE_SLOTS = 4
+SERVE_TRAFFIC = [(3.0, 0), (5.0, 0), (None, 3), (3.0, 3), (5.0, 3), (None, 3)]
+SERVE_PROFILED_ROUND = 10           # warm-up and adaptive lanes, both kinds
+
+
+def serve_drain(engine, xs, conds, traffic, sync=False, stop=None):
+    """Submit ``traffic`` to ``engine`` round by round and drain it (or stop
+    before round ``stop``). Returns (requests, seconds of each round; each
+    synchronised with the card when ``sync``)."""
+    reqs, walls, r = [None] * len(traffic), [], 0
+    while engine.queue or engine.active or None in reqs:
+        if r == stop:
+            break
+        for i, (scale, at) in enumerate(traffic):
+            if at == r:
+                reqs[i] = engine.submit(xs[i], conds[i], cfg_scale=scale)
+        t0 = time.perf_counter()
+        engine.step()
+        if sync:
+            torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        r += 1
+    return reqs, walls
+
+
+def serve_expected_launches(stats, n_layers):
+    """Launches a drain must make, from the engine's own dispatch count: K1
+    once a layer of every denoiser dispatch, K3 once per guided dispatch
+    (whatever its lane count)."""
+    d = stats["dispatches"]
+    return {"stale_kv_attention": n_layers * (d.get("plain", 0) + d.get(
+                "guided", 0) + d.get("bootstrap", 0)),
+            "cfg_epilogue": d.get("guided", 0)}
+
+
+def phase_diffusion_serve(ops, dev):
+    """The diffusion serving path: sdxl-dit at full width on the main path's
+    emulated plan, 6 requests on 4 slots through DiffusionServingEngine
+    (SERVE_TRAFFIC): a warm-up drain, the measured drain with the launch
+    counters set to 0 just before it, one round of a third drain under the
+    profiler; each served image against a lone generate of its request;
+    then tiny-dit.reduced() fp32 served on the card against the CPU.
+    Returns the measured drain's launches."""
+    from repro_torch.core import sampler
+    from repro_torch.core.pipeline import StadiConfig, StadiPipeline
+    from repro_torch.serving import DiffusionServingEngine
+
+    cfg, params, _, _ = sdxl_setup(dev)
+    sched = sampler.linear_schedule(1000)
+    config = StadiConfig.from_occupancies([0.0, 0.5], m_base=16, m_warmup=4,
+                                          planner="stadi", backend="emulated",
+                                          exchange="sync")
+    pipe = StadiPipeline(cfg, params, sched, config, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 5)
+    xs = [torch.randn(1, cfg.latent_size, cfg.latent_size, cfg.channels,
+                      generator=gen, device=dev).to(torch.bfloat16)
+          for _ in SERVE_TRAFFIC]
+    conds = [(SEED + 7 * i) % cfg.n_classes for i in range(len(xs))]
+    t0 = time.perf_counter()
+    serve_drain(DiffusionServingEngine(pipe, slots=SERVE_SLOTS), xs, conds,
+                SERVE_TRAFFIC)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    engine = DiffusionServingEngine(pipe, slots=SERVE_SLOTS)
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    reqs, walls = serve_drain(engine, xs, conds, SERVE_TRAFFIC, sync=True)
+    seconds = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    stats = engine.stats()
+    expected = serve_expected_launches(stats, cfg.n_layers)
+    d = stats["dispatches"]
+    # a guided warm-up dispatch of round 3 carries lanes at two timesteps
+    # (fine steps 3 and 0) and both scales
+    r3 = engine.rounds[3]
+    mixed = sorted(s for s in r3.warmup_lanes if s != 2)   # slot 2: unguided
+    rels = []
+    for i, req in enumerate(reqs):
+        scale = SERVE_TRAFFIC[i][0]
+        lone = StadiPipeline(cfg, params, sched, dataclasses.replace(
+            config, cfg_scale=scale or 0.0), device=dev).generate(
+                xs[i], torch.tensor([conds[i]], device=dev)).image
+        rels.append(((req.image.float() - lone.float()).norm()
+                     / lone.float().norm()).item())
+    line = {
+        "slots": SERVE_SLOTS, "traffic": SERVE_TRAFFIC, "plan_patches":
+        engine.plan.patches, "plan_steps": engine.plan.temporal.steps,
+        "drain_s": seconds, "first_drain_s": first_s,
+        "images_per_s": len(reqs) / seconds, "rounds": len(engine.rounds),
+        "round_walls_s": walls, "dispatches": d, "launches": launches,
+        "expected_launches": expected,
+        "round3_guided_warmup_slots": mixed,
+        "peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30,
+        "requests": [{**r, "cfg_scale": SERVE_TRAFFIC[i][0],
+                      "rel_err_vs_generate": rels[i]}
+                     for i, r in enumerate(stats["requests"])]}
+    print("diffusion_serve", json.dumps(line), flush=True)
+    check(all(r.done and bool(torch.isfinite(r.image.float()).all())
+              for r in reqs), "diffusion_serve: a request did not finish finite")
+    check(launches == expected and all(expected.values()),
+          f"diffusion_serve: launches {launches}, the dispatches need {expected}")
+    check(d["guided_lanes"] > d["guided"],
+          "diffusion_serve: no guided dispatch carried more than one lane")
+    check(mixed == [0, 1, 3], f"diffusion_serve: round 3's guided warm-up "
+          f"group is {mixed}, not lanes at fine steps 3 and 0 together")
+    check(max(rels) < 1e-2, f"diffusion_serve: served images off their lone "
+          f"generate by {rels}")
+    profile_serve_round(pipe, xs, conds, walls[SERVE_PROFILED_ROUND])
+    serve_cross_device(dev)
+    return launches
+
+
+def profile_serve_round(pipe, xs, conds, wall_s, top=12):
+    """Round SERVE_PROFILED_ROUND of a third drain under torch.profiler:
+    device time by kernel and the idle share against the measured drain's
+    synchronised wall time of the same round."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.serving import DiffusionServingEngine
+
+    engine = DiffusionServingEngine(pipe, slots=SERVE_SLOTS)
+    serve_drain(engine, xs, conds, SERVE_TRAFFIC, stop=SERVE_PROFILED_ROUND)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        engine.step()
+        torch.cuda.synchronize()
+    kernels = []
+    for ev in prof.key_averages():
+        dev_us = getattr(ev, "self_device_time_total",
+                         getattr(ev, "self_cuda_time_total", 0.0))
+        if dev_us > 0 and ev.device_type == torch.autograd.DeviceType.CUDA:
+            kernels.append((ev.key, dev_us, ev.count))
+    kernels.sort(key=lambda k: -k[1])
+    busy_s = sum(us for _, us, _ in kernels) * 1e-6
+    by = lambda tag: sum(us for n, us, _ in kernels if tag in n) * 1e-6
+    report = engine.rounds[-1]
+    print("diffusion_serve_profile", json.dumps({
+        "round": SERVE_PROFILED_ROUND, "warmup_lanes": report.warmup_lanes,
+        "adaptive_lanes": report.adaptive_lanes, "wall_s": wall_s,
+        "device_busy_s": busy_s,
+        "device_idle_share": max(0.0, 1.0 - busy_s / wall_s),
+        "k1_device_s": by("stale_kv_attention"),
+        "k3_device_s": by("cfg_epilogue"),
+        "top_kernels": [{"name": n[:120], "device_s": us * 1e-6, "calls": c}
+                        for n, us, c in kernels[:top]]}), flush=True)
+
+
+def serve_cross_device(dev):
+    """tiny-dit.reduced() fp32 served on the card and on the CPU with the
+    same traffic: images within 1e-3 relative, and the card's launches
+    equal to its dispatch count."""
+    from repro_torch.core import sampler
+    from repro_torch.core.pipeline import StadiConfig, StadiPipeline
+    from repro_torch.kernels import ops
+    from repro_torch.serving import DiffusionServingEngine
+
+    cfg, params, _, _ = tiny_setup()
+    gen = torch.Generator(device="cpu").manual_seed(SEED + 6)
+    xs = [torch.randn(1, cfg.latent_size, cfg.latent_size, cfg.channels,
+                      generator=gen) for _ in SERVE_TRAFFIC]
+    conds = [i % cfg.n_classes for i in range(len(xs))]
+    config = StadiConfig.from_occupancies([0.0, 0.5], m_base=8, m_warmup=2)
+    images = {}
+    for d in ("cpu", dev):
+        engine = DiffusionServingEngine(StadiPipeline(
+            cfg, params, sampler.linear_schedule(1000), config, device=d),
+            slots=SERVE_SLOTS)
+        before = ops.launch_counts()
+        reqs, _ = serve_drain(engine, xs, conds, SERVE_TRAFFIC)
+        images[d] = [r.image.cpu() for r in reqs]
+        launches = {k: n - before.get(k, 0)
+                    for k, n in ops.launch_counts().items()
+                    if n != before.get(k, 0)}
+        expected = serve_expected_launches(engine.stats(), cfg.n_layers)
+    rels = [((a - b).norm() / b.norm()).item()
+            for a, b in zip(images[dev], images["cpu"])]
+    print("diffusion_serve_cross_device", json.dumps({
+        "rel_err": rels, "launches": launches, "expected": expected}),
+        flush=True)
+    check(launches == expected, f"tiny diffusion_serve: launches {launches}, "
+          f"the dispatches need {expected}")
+    check(max(rels) < 1e-3, f"tiny diffusion_serve card vs CPU: {rels}")
 
 
 def phase_cross_device(dev):
@@ -1538,6 +1800,7 @@ def main():
     phase(phase_hymba_cross_device, dev)
     launches = phase(phase_paths, ops, dev)
     launches["hymba_serve"] = hymba_launches
+    launches["diffusion_serve"] = phase(phase_diffusion_serve, ops, dev)
     spmd = phase(phase_spmd, dev)
     phase(phase_cross_device, dev)
     for label, outs in spmd.items():      # launches summed over the ranks
@@ -1563,8 +1826,12 @@ def main():
          "batch2_ms": k1_b2["ms"], "batch2_bound_ms": k1_b2["bound_ms"],
          "wrapper_host_us": k1["wrapper_host_us"]},
         {**entry("cfg_epilogue", "src/repro_torch/kernels/csrc/cfg_epilogue.cu",
-                 "src/repro/kernels/cfg_epilogue.py:34", k3, "guided_fused"),
-         "eager_ms": k3["eager_ms"]},
+                 "src/repro/kernels/cfg_epilogue.py:34", k3, "diffusion_serve"),
+         "eager_ms": k3["eager_ms"], "floor_ms": k3["floor_ms"],
+         "timed_lane_groups": [{k: line[k] for k in (
+             "shape", "G", "with_delta", "per_lane", "ms", "floor_ms",
+             "plain_ms", "library_ms", "bound_ms", "eager_ms")}
+            for line in k3["lane_groups"]]},
         {**entry("stale_kv_attention_padded", skv_cu,
                  "src/repro/kernels/stale_kv_attention.py:161", k2, "spmd"),
          "launches_per_rank": [o["launches"].get("stale_kv_attention_padded", 0)

@@ -44,10 +44,19 @@ adaptive intervals the per-device interval latencies — synthesized from the
 cost model at ``measured_speeds`` — feed a
 :class:`repro_torch.core.hetero.OnlineProfiler`; when its speed estimate
 drifts past ``rebalance_threshold`` the remaining fine steps are re-planned.
+
+With ``plan_cache_dir`` set, ``plan()`` consults a persistent
+:class:`~repro_torch.serving.plan_cache.PlanCache` before any planner
+search, under the reference's key recipe (an entry either package wrote is
+a hit in the other). ``generate_many`` serves many requests through the
+continuous-batching :class:`~repro_torch.serving.diffusion_engine.
+DiffusionServingEngine`, whose lanes come from the stepper factories
+registered here (:func:`register_stepper_factory`).
 """
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 import inspect
 from typing import Callable, Dict, List, Optional, Protocol, Sequence, Tuple
 
@@ -69,7 +78,6 @@ from repro_torch.kernels import ops as kops
 #: where the reference's later axes, planners and backends arrive in the
 #: port (ROADMAP.md queue 1)
 _LATER = {
-    "plan_cache_dir": "the serving slice (queue 1 item 9)",
     "stages": "the pipefuse slice (queue 1 item 10)",
     "pipefuse": "the pipefuse slice (queue 1 item 10)",
     "spmd_pipefuse": "the pipefuse slice (queue 1 item 10)",
@@ -78,6 +86,7 @@ _LATER = {
     "spmd_frames": "the frames slice (queue 1 item 12)",
     "stadi_video": "the frames slice (queue 1 item 12)",
     "prompt": "the prompt-conditioning slice (queue 1 item 13)",
+    "spmd_stepper": "the multi-rank serving slice (queue 1 item 9b)",
 }
 
 
@@ -140,6 +149,10 @@ class StadiConfig:
     # default raises NotImplementedError naming that slice
     num_stages: int = 1
     num_frames: int = 1
+    # persistent plan cache (DESIGN.md §14): directory for serialized
+    # planner outputs keyed by (cluster signature, model hash, workload
+    # shape). None = no cache; StadiPipeline.plan() consults it before any
+    # planner search and OnlineProfiler drift invalidates stale entries.
     plan_cache_dir: Optional[str] = None
     # latency modeling ("simulate" backend; also latency reporting elsewhere)
     cost_model: Optional[CostModel] = None
@@ -344,6 +357,50 @@ def _reject_message(backend: str, feature: str, plan: ExecutionPlan) -> str:
     return f"{backend!r} does not support the planned {feature!r}"
 
 
+# ----------------------------------------------------------------------
+# serving hooks: round-granular steppers for continuous batching
+# ----------------------------------------------------------------------
+#
+# An Executor runs one whole generation; the diffusion serving engine
+# (repro_torch.serving.diffusion_engine) instead drives MANY in-flight
+# requests one scheduling round at a time, so each backend that supports
+# serving also registers a *stepper factory*: ``factory(pipeline, plan,
+# slots) -> Stepper`` where a Stepper exposes
+#
+#     warmup_step(xs, t_from, t_to, conds) -> (xs', k, v)
+#     interval(xs, fine0, conds, pub_k, pub_v, merge) -> (xs', pub_k', pub_v')
+#     supports_guidance: bool   # + the *_guided forms of both
+#
+# over lane-stacked state (the lanes folded into the batch axis). The
+# "emulated" stepper batches the denoiser over lanes so lanes at different
+# noise-schedule positions share one dispatch.
+
+STEPPER_FACTORIES: Dict[str, Callable] = {}
+
+#: backends whose serving stepper a later slice brings (the reference
+#: registers them)
+_LATER_STEPPERS = {"spmd": "spmd_stepper", "pipefuse": "pipefuse"}
+
+
+def register_stepper_factory(name: str) -> Callable:
+    def deco(fn):
+        STEPPER_FACTORIES[name] = fn
+        return fn
+    return deco
+
+
+def get_stepper_factory(name: str):
+    if name in _LATER_STEPPERS and name not in STEPPER_FACTORIES:
+        raise later_slice(_LATER_STEPPERS[name])
+    try:
+        return STEPPER_FACTORIES[name]
+    except KeyError:
+        raise KeyError(
+            f"backend {name!r} has no serving stepper; registered: "
+            f"{sorted(STEPPER_FACTORIES)} (the 'simulate' backend has no "
+            "numerics to serve)") from None
+
+
 def check_backend_can_run(plan: ExecutionPlan, config: StadiConfig) -> None:
     """Reject plan/backend mismatches from the capability declarations:
     every demanded feature must be in the backend's ``supports``; every
@@ -509,7 +566,6 @@ class StadiPipeline:
                  config: StadiConfig, device=None):
         later = {"stages": config.num_stages != 1,
                  "frames": config.num_frames != 1,
-                 "plan_cache_dir": config.plan_cache_dir is not None,
                  "prompt": model_cfg.cross_attn}
         for name, asked in later.items():
             if asked:
@@ -557,6 +613,14 @@ class StadiPipeline:
         self.params = _to_device(params, self.device)
         self.sched = sched
         self.config = config
+        # persistent plan cache (DESIGN.md §14)
+        self.plan_cache = None
+        self.last_plan_key: Optional[str] = None
+        #: live planner searches actually executed (cache hits skip these)
+        self.planner_calls = 0
+        if config.plan_cache_dir:
+            from repro_torch.serving.plan_cache import PlanCache
+            self.plan_cache = PlanCache(config.plan_cache_dir)
 
     @property
     def p_total(self) -> int:
@@ -578,17 +642,68 @@ class StadiPipeline:
                                  * cfg.d_model * 2))
         return knobs
 
-    def plan(self, speeds: Optional[Sequence[float]] = None) -> ExecutionPlan:
+    def _model_key(self) -> str:
+        """Content hash of the model config (DiTConfig is a frozen
+        dataclass whose repr is the reference's, so both packages hash one
+        config alike)."""
+        return hashlib.sha256(repr(self.model_cfg).encode()).hexdigest()[:16]
+
+    def _workload_key(self, knobs: StadiConfig) -> Dict:
+        """The workload-shape component of the plan-cache key: every knob
+        that changes what the planner returns, as the reference names them.
+        The later axes' knobs enter at the values this port runs (one stage,
+        the model's depth, one frame, no prompt bucket), so a key never
+        depends on which slices are ported."""
+        cm = knobs.cost_model
+        return {
+            "planner": knobs.planner,
+            "p_total": self.p_total,
+            "m_base": knobs.m_base, "m_warmup": knobs.m_warmup,
+            "a": knobs.a, "b": knobs.b, "tiers": list(knobs.tiers),
+            "granularity": knobs.granularity, "min_patch": knobs.min_patch,
+            "exchange": knobs.exchange,
+            "exchange_refresh": knobs.exchange_refresh,
+            "num_stages": knobs.num_stages,
+            "micro_patches": 0, "depth": self.model_cfg.n_layers,
+            "guidance": knobs.guidance, "cfg_scale": knobs.cfg_scale,
+            "uncond_refresh": knobs.uncond_refresh,
+            "latent_bytes": knobs.latent_bytes,
+            "kv_row_bytes": knobs.kv_row_bytes,
+            "seq_shards": knobs.seq_shards, "n_heads": knobs.n_heads,
+            "num_frames": knobs.num_frames,
+            "frame_groups": 0,
+            "cond_bucket": 0,
+            "cross_attn": bool(self.model_cfg.cross_attn),
+            "cost_model": (None if cm is None else dataclasses.asdict(cm)),
+        }
+
+    def plan(self, speeds: Optional[Sequence[float]] = None, *,
+             use_cache: bool = True) -> ExecutionPlan:
         """Run the configured planner (no execution); the plan's guidance and
         seq axes are resolved from the planner output or the config in the
-        same pass."""
+        same pass. With a plan cache configured, the persistent cache is
+        consulted before any planner search (``use_cache=False`` forces a
+        live search without touching the cache)."""
         speeds = list(speeds) if speeds is not None else self.config.speeds
         knobs = self._plan_knobs()
+        key = None
+        if self.plan_cache is not None and use_cache:
+            key = self.plan_cache.signature(speeds, self._model_key(),
+                                            self._workload_key(knobs))
+            hit = self.plan_cache.get(key)
+            if hit is not None:
+                self.last_plan_key = key
+                return hit
         raw = get_planner(self.config.planner)(speeds, knobs, self.p_total)
-        return dataclasses.replace(
+        self.planner_calls += 1
+        plan = dataclasses.replace(
             raw, guidance=_resolve_guidance(raw, knobs),
             seq=(raw.seq if raw.seq is not None
                  else _resolve_seq(raw, self.model_cfg, knobs)))
+        if key is not None:
+            self.plan_cache.put(key, plan)
+            self.last_plan_key = key
+        return plan
 
     def generate(self, x_T=None, cond=None, *,
                  measured_speeds: Optional[Sequence[float]] = None
@@ -632,6 +747,40 @@ class StadiPipeline:
         return PipelineResult(image, trace, plan, latency, replans,
                               {"launches": launches})
 
+    def generate_many(self, x_Ts: Sequence, conds: Sequence, *,
+                      slots: int = 4) -> List[PipelineResult]:
+        """Continuous-batched generation of many requests (serving engine).
+
+        Admits all requests into a :class:`repro_torch.serving.
+        diffusion_engine.DiffusionServingEngine` with ``slots`` concurrent
+        lanes and drains them; per-request images match :meth:`generate`
+        on the emulated backend (within float tolerance: a lane group runs
+        its lanes as one batch). Each result's ``latency_s`` is the
+        per-request modeled serving latency (queueing + batched service, via
+        the cost model) rather than the single-request makespan — None when
+        no cost model is configured. Results come back in submission order;
+        ``kernel_stats`` holds the launches of the whole drain. For SLO
+        verdicts and round-level stats, drive a DiffusionServingEngine
+        directly.
+        """
+        from repro_torch.serving.diffusion_engine import DiffusionServingEngine
+        if len(x_Ts) != len(conds):
+            raise ValueError(f"{len(x_Ts)} inputs vs {len(conds)} conds")
+        engine = DiffusionServingEngine(self, slots=slots)
+        reqs = [engine.submit(x, c) for x, c in zip(x_Ts, conds)]
+        engine.run_to_completion()
+        trace = sim.build_trace(engine.plan.temporal, engine.plan.patches,
+                                self.model_cfg, batch=1,
+                                exchange=self.config.exchange,
+                                exchange_refresh=self.config.exchange_refresh,
+                                guidance=engine.plan.guidance)
+        report_latency = self.config.cost_model is not None
+        kernel_stats = {"launches": engine.stats()["kernels"]}
+        return [PipelineResult(r.image, trace, engine.plan,
+                               r.modeled_latency_s if report_latency else None,
+                               kernel_stats=kernel_stats)
+                for r in reqs]
+
     # ------------------------------------------------------------------
     # online rebalancing (beyond-paper §7.1): OnlineProfiler in the hot path
     # ------------------------------------------------------------------
@@ -667,6 +816,10 @@ class StadiPipeline:
                                               self.p_total)
             if f_rem % new.temporal.lcm:
                 return None              # cannot fit an interval; keep going
+            if self.plan_cache is not None and self.last_plan_key:
+                # the persisted plan was computed from speeds that no
+                # longer hold — drop it so the next plan() re-searches
+                self.plan_cache.invalidate(self.last_plan_key)
             replans.append(ReplanEvent(next_fine_step, drift,
                                        list(state["baseline"]),
                                        list(profiler.speeds), new))

@@ -99,13 +99,23 @@ def cfg_apply_delta(eps_c, delta, scale):
 
 def ddim_step(sched: NoiseSchedule, x, eps, t_from, t_to):
     """One Lemma-1 update from t_{m-1}=t_from to t_m=t_to (t_to < t_from),
-    computed in float32 and cast back to x's dtype."""
+    computed in float32 and cast back to x's dtype.
+
+    t_from / t_to: numbers (or one-element tensors), or per-lane tensors
+    broadcastable against x (``[G, 1, 1, 1]`` for a lane group x
+    ``[G, H, W, C]``, the serving engine's lanes at their own steps): each
+    lane then takes its own fp32 coefficients, the same per element as the
+    scalar form."""
     a_from, a_to = sched.alpha(t_from), sched.alpha(t_to)
     s_from, s_to = sched.sigma(t_from), sched.sigma(t_to)
     # sigma_to * (e^{h} - 1) == a_to*s_from/a_from - s_to exactly (VP param);
     # this form is finite at the t_to = 0 endpoint where lambda -> +inf.
-    coef = float(a_to * s_from / a_from - s_to)
-    ratio = float(a_to / a_from)
+    coef = a_to * s_from / a_from - s_to
+    ratio = a_to / a_from
+    if coef.numel() == 1:
+        coef, ratio = float(coef), float(ratio)
+    else:
+        coef, ratio = coef.to(x.device), ratio.to(x.device)
     out = ratio * x.float() - coef * eps.float()
     return out.to(x.dtype)
 

@@ -7,26 +7,43 @@
 //   delta = f32(eps_c) - f32(eps_u)                 (written as fp32)
 //   out   = eps_dtype(f32(eps_u) + w * delta)       (written in eps's dtype)
 //
-// with w a runtime scalar, so one build serves every guidance scale. The TPU
-// kernel works on [M, 128] tiles of the padded, flattened eps; this one works
-// on the flat element count n with no padding.
+// The TPU kernel takes w as a runtime array so that the serving engine's
+// per-run scales reuse one compiled kernel; the engine calls it once per lane
+// inside a lane vmap. Here one launch covers a whole guided lane group: eps
+// is [G, ...] with lane_n elements a lane, and element i combines with
+// scales[i / lane_n], read from a device vector of G fp32 entries. A scalar
+// scale is the one-lane case (lane_n = n), passed by value, so generate's
+// paths keep their one launch an eval and read no scale from memory. The TPU
+// kernel works on [M, 128] tiles of the padded, flattened eps; this one on
+// the flat element count n with no padding.
 //
-// What bounds it on this card: memory. Each element reads eps_c and eps_u
-// once and writes out and delta once (10 bytes in bf16, 16 in fp32) for
-// three floating-point operations. At the main path's sizes (sdxl-dit eps of
-// 28,672 to 65,536 elements per branch) that is at most 0.66 MB, under a
-// microsecond at the card's memory rate, so a launch is bound by its own
-// overhead.
+// What bounds it on this card: the launch, not memory. Each element reads
+// eps_c and eps_u once and writes out (and delta, when asked) once: 10 bytes
+// in bf16 with delta, 6 without, for three floating-point operations. At the
+// serving sizes (sdxl-dit eps of 36,864 elements a lane for the 36-row patch,
+// 65,536 for the warm-up, G = 1 to 4 lanes) that is 0.2 to 2.6 MB, 0.07 to
+// 0.8 us at the card's 3.35 TB/s, against a launch and one memory round trip
+// of about a microsecond. No launch of that size reaches its byte bound; what
+// the design can change is how much work one launch carries (a lane group,
+// not a lane) and how many SMs share its round trip.
 //
-// What the design does about that, kept simple: a grid-stride loop of
-// 16-byte vector loads and stores (8 bf16 or 4 fp32 elements a thread)
-// where every pointer is 16-byte aligned, and a scalar loop for the tail and
-// for unaligned pointers. The arithmetic is written with the _rn intrinsics,
-// so nvcc cannot contract w * delta + eps_u into an FMA: the result is
-// bitwise equal to PyTorch's eager eu + w * d (two kernels, each rounded to
-// nearest), and the bf16 output is rounded to nearest even once, as
-// PyTorch's cast rounds it. A null delta pointer skips the delta output.
-// The kernel allocates nothing and runs on the caller's stream.
+// The grid: one 16-byte vector (8 bf16 or 4 fp32 elements) a thread, blocks
+// of 32 to 256 threads, the largest block that still gives every one of the
+// 132 SMs a block (4,608 vectors at G = 1: 144 blocks of 32; 18,432 at
+// G = 4: 144 of 128). Below one wave (132 SMs x 2,048 threads) each thread
+// runs its loop body once; larger inputs fall back to a grid-stride loop over
+// 16 blocks of 256 an SM. No wgmma, TMA or shared memory: an elementwise
+// pass has no operand reuse for them to serve. A 16-byte vector lies in one
+// lane when lane_n is a multiple of its element count, so its scale is picked
+// once; otherwise, and for unaligned pointers, the kernel goes element by
+// element (the scalar path, which also handles the tail).
+//
+// The arithmetic is written with the _rn intrinsics, so nvcc cannot contract
+// w * delta + eps_u into an FMA: the result is bitwise equal to PyTorch's
+// eager eu + w * d (two kernels, each rounded to nearest), and the bf16
+// output is rounded to nearest even once, as PyTorch's cast rounds it. A null
+// delta pointer skips the delta output. The kernel allocates nothing and runs
+// on the caller's stream.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -54,10 +71,12 @@ __device__ __forceinline__ T cfg_one(T ec, T eu, float w, float& d) {
   return from_f32<T>(__fadd_rn(u, __fmul_rn(w, d)));
 }
 
-template <typename T>
+// kPerLane: element i takes scales[i / lane_n]; otherwise every element w.
+template <typename T, bool kPerLane>
 __global__ void cfg_epilogue_kernel(const T* __restrict__ ec, const T* __restrict__ eu,
                                     T* __restrict__ out, float* __restrict__ delta, int64_t n,
-                                    float w, int vectorized) {
+                                    const float* __restrict__ scales, int64_t lane_n, float w,
+                                    int vectorized) {
   constexpr int kVec = 16 / sizeof(T);  // elements in one 16-byte load
   const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
   const int64_t tid = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
@@ -65,6 +84,7 @@ __global__ void cfg_epilogue_kernel(const T* __restrict__ ec, const T* __restric
   if (vectorized) {
     const int64_t n_vec = n / kVec;
     for (int64_t i = tid; i < n_vec; i += stride) {
+      const float wi = kPerLane ? scales[i * kVec / lane_n] : w;  // one lane a vector
       alignas(16) T a[kVec];
       alignas(16) T b[kVec];
       alignas(16) T o[kVec];
@@ -72,7 +92,7 @@ __global__ void cfg_epilogue_kernel(const T* __restrict__ ec, const T* __restric
       *reinterpret_cast<uint4*>(a) = reinterpret_cast<const uint4*>(ec)[i];
       *reinterpret_cast<uint4*>(b) = reinterpret_cast<const uint4*>(eu)[i];
 #pragma unroll
-      for (int j = 0; j < kVec; ++j) o[j] = cfg_one(a[j], b[j], w, d[j]);
+      for (int j = 0; j < kVec; ++j) o[j] = cfg_one(a[j], b[j], wi, d[j]);
       reinterpret_cast<uint4*>(out)[i] = *reinterpret_cast<const uint4*>(o);
       if (delta != nullptr) {
         float4* dst = reinterpret_cast<float4*>(delta + i * kVec);
@@ -84,41 +104,77 @@ __global__ void cfg_epilogue_kernel(const T* __restrict__ ec, const T* __restric
   }
   for (int64_t i = tail + tid; i < n; i += stride) {
     float d;
-    out[i] = cfg_one(ec[i], eu[i], w, d);
+    out[i] = cfg_one(ec[i], eu[i], kPerLane ? scales[i / lane_n] : w, d);
     if (delta != nullptr) delta[i] = d;
   }
 }
 
-constexpr int kThreads = 256;
-constexpr int64_t kMaxBlocks = 132 * 16;  // 16 blocks of 256 threads per SM
+__global__ void empty_kernel() {}
+
+constexpr int kSMs = 132;
+constexpr int64_t kWaveThreads = static_cast<int64_t>(kSMs) * 2048;  // resident at once
+constexpr int64_t kStrideBlocks = kSMs * 16;  // 16 blocks of 256 an SM past one wave
 
 bool aligned16(const void* p) { return p == nullptr || reinterpret_cast<uintptr_t>(p) % 16 == 0; }
 
+// Threads and blocks for `items` work items (vectors, or elements on the
+// scalar path): one item a thread, the largest block of 32 to 256 threads
+// that leaves no SM without a block; past one wave, a grid-stride loop.
+void grid_for(int64_t items, int* threads, int64_t* blocks) {
+  if (items > kWaveThreads) {
+    *threads = 256;
+    *blocks = kStrideBlocks;
+    return;
+  }
+  int t = 256;
+  while (t > 32 && (items + t - 1) / t < kSMs) t /= 2;
+  *threads = t;
+  *blocks = items < 1 ? 1 : (items + t - 1) / t;
+}
+
 template <typename T>
-int launch(const void* ec, const void* eu, void* out, void* delta, int64_t n, float w,
-           cudaStream_t stream) {
-  const int vectorized = aligned16(ec) && aligned16(eu) && aligned16(out) && aligned16(delta);
-  const int64_t items = vectorized ? n / (16 / sizeof(T)) + n % (16 / sizeof(T)) : n;
-  int64_t blocks = (items + kThreads - 1) / kThreads;
-  if (blocks > kMaxBlocks) blocks = kMaxBlocks;
-  if (blocks < 1) blocks = 1;
-  cfg_epilogue_kernel<T><<<static_cast<unsigned>(blocks), kThreads, 0, stream>>>(
-      static_cast<const T*>(ec), static_cast<const T*>(eu), static_cast<T*>(out),
-      static_cast<float*>(delta), n, w, vectorized);
+int launch(const void* ec, const void* eu, void* out, void* delta, int64_t n,
+           const float* scales, int64_t lane_n, float w, cudaStream_t stream) {
+  constexpr int kVec = 16 / sizeof(T);
+  const int vectorized = aligned16(ec) && aligned16(eu) && aligned16(out) && aligned16(delta) &&
+                         (scales == nullptr || lane_n % kVec == 0);
+  int threads;
+  int64_t blocks;
+  grid_for(vectorized ? n / kVec + n % kVec : n, &threads, &blocks);
+  if (scales != nullptr) {
+    cfg_epilogue_kernel<T, true><<<static_cast<unsigned>(blocks), threads, 0, stream>>>(
+        static_cast<const T*>(ec), static_cast<const T*>(eu), static_cast<T*>(out),
+        static_cast<float*>(delta), n, scales, lane_n, w, vectorized);
+  } else {
+    cfg_epilogue_kernel<T, false><<<static_cast<unsigned>(blocks), threads, 0, stream>>>(
+        static_cast<const T*>(ec), static_cast<const T*>(eu), static_cast<T*>(out),
+        static_cast<float*>(delta), n, nullptr, n, w, vectorized);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16 (eps_c, eps_u and out); delta is float32
-// or null. All arrays are contiguous with n elements. Returns the CUDA error
-// of the launch (0 = launched).
+// or null. All arrays are contiguous with n elements. scales: null (every
+// element takes w) or a device vector of n / lane_n fp32 scales, element i
+// taking scales[i / lane_n]. Returns the CUDA error of the launch (0 =
+// launched).
 extern "C" int cfg_epilogue_launch(int dtype, const void* eps_c, const void* eps_u, void* out,
-                                   void* delta, int64_t n, float w, void* stream) {
+                                   void* delta, int64_t n, const float* scales, int64_t lane_n,
+                                   float w, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (scales != nullptr && (lane_n < 1 || n % lane_n != 0)) return cudaErrorInvalidValue;
   switch (dtype) {
-    case 0: return launch<float>(eps_c, eps_u, out, delta, n, w, s);
-    case 1: return launch<__nv_bfloat16>(eps_c, eps_u, out, delta, n, w, s);
+    case 0: return launch<float>(eps_c, eps_u, out, delta, n, scales, lane_n, w, s);
+    case 1: return launch<__nv_bfloat16>(eps_c, eps_u, out, delta, n, scales, lane_n, w, s);
     default: return cudaErrorInvalidValue;
   }
+}
+
+// One empty kernel of one thread on the stream: the card's launch floor, the
+// yardstick K3's time is read against (not a kernel of any path).
+extern "C" int cfg_epilogue_empty_launch(void* stream) {
+  empty_kernel<<<1, 1, 0, static_cast<cudaStream_t>(stream)>>>();
+  return static_cast<int>(cudaGetLastError());
 }

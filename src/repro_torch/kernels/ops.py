@@ -355,39 +355,64 @@ def cfg_epilogue(eps_c, eps_u, scale, *, with_delta: bool = True):
     ``with_delta`` is False.
 
     eps_c/eps_u: contiguous tensors of one shape and dtype (the two halves
-    of a branch-batched eps are). scale: a Python number or a 0-d tensor;
-    per-lane scale tensors belong to the serving lanes."""
-    if isinstance(scale, torch.Tensor):
-        if scale.dim():
-            raise NotImplementedError(
-                "per-lane CFG scales come with the serving slice (ROADMAP "
-                "queue 1 item 9); cfg_epilogue takes one scalar scale")
-    elif not isinstance(scale, numbers.Real):
-        raise TypeError(f"scale must be a number or a 0-d tensor, got "
-                        f"{type(scale).__name__}")
-    if eps_c.shape != eps_u.shape or eps_c.dtype != eps_u.dtype:
-        raise ValueError(f"eps_c {tuple(eps_c.shape)} {eps_c.dtype} and eps_u "
+    of a branch-batched eps are). scale: a Python number, a 0-d tensor, or
+    a 1-d tensor of one scale a lane when eps is a lane group [G, ...]:
+    lane g combines with ``scale[g]``, and the whole group is one launch.
+    On the card a tensor scale is read where it lies: a 1-d one must be
+    float32 on eps's card (no copy a launch); a 0-d one on the CPU is read
+    as a number."""
+    shape, dtype, dev = eps_c.shape, eps_c.dtype, eps_c.device
+    if eps_u.shape != shape or eps_u.dtype != dtype:
+        raise ValueError(f"eps_c {tuple(shape)} {dtype} and eps_u "
                          f"{tuple(eps_u.shape)} {eps_u.dtype} must match in "
                          "shape and dtype")
-    if eps_c.device != eps_u.device:
+    if eps_u.device != dev:
         raise ValueError("eps_c and eps_u must lie on one device")
-    if eps_c.device.type == "cpu":
+    per_lane = isinstance(scale, torch.Tensor)
+    if per_lane:
+        if scale.dim() > 1 or (scale.dim() == 1 and (
+                not shape or scale.shape[0] != shape[0])):
+            raise ValueError(
+                f"scale {tuple(scale.shape)}: a tensor scale is 0-d, or 1-d "
+                f"with one entry a lane of eps {tuple(shape)} (its leading "
+                "dim)")
+    elif not isinstance(scale, numbers.Real):
+        raise TypeError(f"scale must be a number or a tensor, got "
+                        f"{type(scale).__name__}")
+    if dev.type == "cpu":
         comb, d = ref.cfg_epilogue_ref(eps_c, eps_u, scale)
         return (comb, d) if with_delta else comb
-    if eps_c.device.type != "cuda":
-        raise ValueError(f"no cfg_epilogue kernel for {eps_c.device}")
-    if eps_c.dtype not in (torch.float32, torch.bfloat16):
-        raise ValueError(f"eps must be float32 or bfloat16, got {eps_c.dtype}")
+    if dev.type != "cuda":
+        raise ValueError(f"no cfg_epilogue kernel for {dev}")
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"eps must be float32 or bfloat16, got {dtype}")
     if not (eps_c.is_contiguous() and eps_u.is_contiguous()):
         raise ValueError("cfg_epilogue reads eps_c and eps_u as flat "
                          "contiguous arrays")
-    out = torch.empty_like(eps_c, memory_format=torch.contiguous_format)
-    delta = (torch.empty(eps_c.shape, dtype=torch.float32, device=eps_c.device)
-             if with_delta else None)
-    if eps_c.numel():
+    n = eps_c.numel()
+    w, scales, lane_n = 0.0, None, n
+    if not per_lane:
+        w = float(scale)
+    elif scale.device.type == "cpu" and not scale.dim():
+        w = float(scale)                 # a host number: no device read
+    elif scale.device != dev or scale.dtype != torch.float32:
+        raise ValueError(f"a tensor scale on the card must be float32 on "
+                         f"{dev} (got {scale.dtype} on {scale.device}): the "
+                         "kernel reads it in place")
+    else:                                # a lane vector, or a 0-d one-lane one
+        scales = scale
+        lane_n = n // shape[0] if scale.dim() and shape[0] else n
+    out = torch.empty_like(eps_c)
+    delta = torch.empty(shape, dtype=torch.float32, device=dev) \
+        if with_delta else None
+    if n:
         lib = load_library().lib
-        with torch.cuda.device(eps_c.device):
-            err = cfe.launch(lib, eps_c, eps_u, out, delta, float(scale))
+        if dev.index == torch.cuda.current_device():
+            err = cfe.launch(lib, eps_c, eps_u, out, delta, scales, lane_n, w)
+        else:
+            with torch.cuda.device(dev):
+                err = cfe.launch(lib, eps_c, eps_u, out, delta, scales,
+                                 lane_n, w)
         if err != 0:
             raise RuntimeError(f"cfg_epilogue launch failed: CUDA error {err}")
         _launches["cfg_epilogue"] += 1

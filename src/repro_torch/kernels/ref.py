@@ -106,10 +106,15 @@ def cfg_epilogue_ref(eps_c, eps_u, scale):
     """Plain version of kernel K3: ``(combine, delta)`` with ``delta =
     f32(eps_c) - f32(eps_u)`` and ``combine = eps_dtype(f32(eps_u) + scale *
     delta)``, the same fp32 op order as ``repro_torch.core.sampler.
-    cfg_combine``/``cfg_delta`` (``repro.kernels.ops._cfg_epilogue_ref``)."""
+    cfg_combine``/``cfg_delta`` (``repro.kernels.ops._cfg_epilogue_ref``).
+    ``scale``: a number, a 0-d tensor, or a 1-d tensor of one scale a lane
+    of eps [G, ...] (lane g takes ``scale[g]``, rounded to fp32)."""
     ec = eps_c.float()
     eu = eps_u.float()
     d = ec - eu
+    if isinstance(scale, torch.Tensor) and scale.dim():
+        scale = scale.to(device=d.device, dtype=torch.float32).reshape(
+            (-1,) + (1,) * (d.dim() - 1))
     return (eu + scale * d).to(eps_c.dtype), d
 
 

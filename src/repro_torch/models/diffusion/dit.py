@@ -163,10 +163,15 @@ def _ln(x, eps=1e-6):
 
 def _cond_vector(params, cfg, t, cond, B):
     """Timestep + class conditioning vector [B, D]. ``t`` is a number (or a
-    0-d tensor); ``cond`` None, or class ids broadcastable to [B] where the
-    reserved :data:`NULL_COND` selects the zero (unconditional) embedding."""
+    0-d tensor), or one timestep a batch row ([B]: the serving engine's
+    lanes, each at its own step); ``cond`` None, or class ids broadcastable
+    to [B] where the reserved :data:`NULL_COND` selects the zero
+    (unconditional) embedding."""
     dev = params["t_w1"].device
-    tt = torch.full((B,), float(t), dtype=torch.float32, device=dev)
+    if isinstance(t, torch.Tensor) and t.dim():
+        tt = t.to(device=dev, dtype=torch.float32).expand(B)
+    else:
+        tt = torch.full((B,), float(t), dtype=torch.float32, device=dev)
     temb = layers.sinusoidal_embedding(tt, 256)
     temb = _linear(F.silu(_linear(temb.to(params["t_w1"].dtype),
                                   params["t_w1"])), params["t_w2"])
@@ -376,30 +381,38 @@ def guidance_conds(cond) -> torch.Tensor:
 
 def forward_patch_cfg(params, cfg: DiTConfig, x_rows, t, cond, row_start: int,
                       buffers: Optional[Tuple] = None, return_kv: bool = True,
-                      valid_tokens: Optional[int] = None):
+                      valid_tokens: Optional[int] = None, branch_axis: int = 0):
     """Both guidance branches of :func:`forward_patch` in ONE forward — the
     port's form of the reference's ``jax.vmap`` over the branch axis. The
-    branches are folded into the batch: x repeated to 2B rows, the conds of
-    :func:`guidance_conds` flattened to 2B, so every attention runs K1 once
-    for both branches.
+    branches are folded into the batch: x (and a per-row ``t``) repeated to
+    2B rows, the conds of :func:`guidance_conds` flattened to 2B, so every
+    attention runs K1 once for both branches.
 
-    buffers: None or branch-stacked (buf_k, buf_v), each [2, L, B, N, H, hd]
-    (branch 0 conditional). Each layer reads them as [2B, N, H, hd]: a
-    strided view at B = 1, a copy of the buffer at B > 1.
+    buffers: None or branch-stacked (buf_k, buf_v) (branch 0 conditional):
+    [2, L, B, N, H, hd] with ``branch_axis`` 0, the generate engines'
+    layout, whose [2B, N, H, hd] layer read is a strided view at B = 1 and a
+    copy at B > 1; or [L, 2, B, N, H, hd] with ``branch_axis`` 1, the
+    serving engine's lane groups, whose read is a view at every B when the
+    buffers are contiguous.
     valid_tokens: as in :func:`forward_patch`; both branches are fresh over
     the same rows, so the padded read runs K2 at batch 2B.
-    Returns (eps2 [2, B, rows, W, C], branch-stacked fresh (k, v) [2, L, B,
-    Nl, H, hd] or None)."""
+    Returns (eps2 [2, B, rows, W, C], branch-stacked fresh (k, v) in the
+    buffers' layout — [2, L, B, Nl, H, hd] or [L, 2, B, Nl, H, hd] — or
+    None)."""
     B = x_rows.shape[0]
     conds = guidance_conds(cond).to(x_rows.device).reshape(2, -1)
     conds = conds.expand(2, B).reshape(2 * B)
+    if isinstance(t, torch.Tensor) and t.dim():
+        t = torch.cat([t.reshape(-1).expand(B)] * 2)
     if buffers is not None:
-        buffers = tuple(b.transpose(0, 1).flatten(1, 2) for b in buffers)
+        buffers = tuple(b.movedim(branch_axis, 1).flatten(1, 2)
+                        for b in buffers)
     eps, kvs = forward_patch(params, cfg, torch.cat([x_rows, x_rows]), t,
                              conds, row_start, buffers=buffers,
                              return_kv=return_kv, valid_tokens=valid_tokens)
     if kvs is not None:
-        kvs = tuple(k.unflatten(1, (2, B)).transpose(0, 1) for k in kvs)
+        kvs = tuple(k.unflatten(1, (2, B)).movedim(1, branch_axis)
+                    for k in kvs)
     return eps.unflatten(0, (2, B)), kvs
 
 

@@ -203,10 +203,94 @@ def test_cfg_epilogue_wrapper_refuses(cuda):
         ops.cfg_epilogue(ec, eu.to(torch.bfloat16), 4.0)
     with pytest.raises(ValueError, match="contiguous"):
         ops.cfg_epilogue(ec.transpose(1, 2), eu.transpose(1, 2), 4.0)
-    with pytest.raises(NotImplementedError, match="serving"):
+    with pytest.raises(ValueError, match="one entry a lane"):
         ops.cfg_epilogue(ec, eu, torch.full((4, 1, 1, 1), 4.0, device=cuda))
     with pytest.raises(ValueError, match="float32 or bfloat16"):
         ops.cfg_epilogue(ec.half(), eu.half(), 4.0)
+
+
+# per-lane scales: lanes of the guided patch and warm-up eps, and a lane of
+# 105 elements (not a multiple of the 8 bf16 or 4 fp32 of a 16-byte vector)
+K3_LANES = [(72, 128, 4), (128, 128, 4), (5, 7, 3)]
+K3_SCALES = (3.0, 5.0, 7.5, 1.0, 2.5, 4.0, 0.5, 6.0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("lane", K3_LANES)
+@pytest.mark.parametrize("G", [1, 3, 4, 8])
+def test_cfg_epilogue_per_lane_bitwise(cuda, G, lane, dtype, offset):
+    """One launch over a lane group [G, ...] with a device vector of one
+    scale a lane: delta and combine bitwise the plain version's; the check
+    rejects lane 0's scale used for every lane (the planted fault)."""
+    ec, eu = _k3_inputs((G,) + lane, dtype, cuda, offset, seed=G)
+    scales = torch.tensor(K3_SCALES[:G], device=cuda)
+    ops.reset_launch_counts()
+    comb, delta = ops.cfg_epilogue(ec, eu, scales)
+    only = ops.cfg_epilogue(ec, eu, scales, with_delta=False)
+    assert ops.launch_counts() == {"cfg_epilogue": 2}
+    want_comb, want_delta = ref.cfg_epilogue_ref(ec, eu, scales)
+    assert torch.equal(delta, want_delta)
+    assert torch.equal(comb, want_comb) and torch.equal(only, comb)
+    fault = ops.cfg_epilogue(ec, eu, scales[0], with_delta=False)
+    assert torch.equal(fault, ref.cfg_epilogue_ref(ec, eu, scales[:1].expand(G))[0])
+    assert G == 1 or not torch.equal(fault, want_comb)
+
+
+@pytest.mark.cuda
+def test_cfg_epilogue_refuses_wrong_scale_vectors(cuda):
+    ec, eu = _k3_inputs((4, 8, 8, 4), torch.bfloat16, cuda)
+    with pytest.raises(ValueError, match="one entry a lane"):
+        ops.cfg_epilogue(ec, eu, torch.ones(3, device=cuda))
+    with pytest.raises(ValueError, match="in place"):
+        ops.cfg_epilogue(ec, eu, torch.ones(4))          # on the host
+    with pytest.raises(ValueError, match="in place"):
+        ops.cfg_epilogue(ec, eu, torch.ones(4, device=cuda, dtype=torch.float64))
+    ops.reset_launch_counts()
+    ops.cfg_epilogue(ec, eu, torch.tensor(2.0))          # a host number
+    ops.cfg_epilogue(ec, eu, torch.tensor(2.0, device=cuda))
+    assert ops.launch_counts() == {"cfg_epilogue": 2}
+
+
+@pytest.mark.cuda
+def test_serving_round_launches_k3_once_per_guided_dispatch(cuda):
+    """tiny-dit.reduced() in fp32 served on the card (two guided scales and
+    an unguided lane, staggered): K3 once per guided dispatch, whatever its
+    lane count, K1 once a layer of every dispatch, and the images within
+    1e-3 of the CPU engine's."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import sampler
+    from repro_torch.core.pipeline import StadiConfig, StadiPipeline
+    from repro_torch.models.diffusion import dit
+    from repro_torch.serving import DiffusionServingEngine
+
+    cfg = get_config("tiny-dit").reduced()
+    gen = torch.Generator(device="cpu").manual_seed(0)
+    params = dit.nondegenerate_params(dit.init_params(gen, cfg), gen)
+    xs = torch.randn(4, 1, cfg.latent_size, cfg.latent_size, cfg.channels,
+                     generator=gen)
+    config = StadiConfig.from_occupancies([0.0, 0.5], m_base=8, m_warmup=2)
+    images = {}
+    for dev in ("cpu", cuda):
+        engine = DiffusionServingEngine(
+            StadiPipeline(cfg, params, sampler.linear_schedule(1000), config,
+                          device=dev), slots=3)
+        reqs = []
+        for i, scale in enumerate((3.0, 5.0, None, 3.0)):
+            if i == 3:
+                engine.step()
+            reqs.append(engine.submit(xs[i], i, cfg_scale=scale))
+        engine.run_to_completion()
+        images[str(dev)] = [r.image.cpu() for r in reqs]
+        stats = engine.stats()
+    d = stats["dispatches"]
+    assert d["guided"] > 0 and d["plain"] > 0
+    assert stats["kernels"] == {"cfg_epilogue": d["guided"],
+                                "stale_kv_attention": cfg.n_layers
+                                * (d["guided"] + d["plain"])}
+    for got, want in zip(images["cuda"], images["cpu"]):
+        assert ((got - want).norm() / want.norm()).item() < 1e-3
 
 
 @pytest.mark.cuda

@@ -245,8 +245,12 @@ def test_k3_plain_version_matches_reference_kernel(shape, scale):
 
 def test_k3_wrapper_checks_and_no_fallback():
     ec = torch.zeros(2, 4, 4, 3)
-    with pytest.raises(NotImplementedError, match="serving"):
-        ops.cfg_epilogue(ec, ec, torch.tensor([1.0, 2.0]))
+    # a per-lane scale has one entry a lane (eps's leading dim), and is 1-d
+    with pytest.raises(ValueError, match="one entry a lane"):
+        ops.cfg_epilogue(ec, ec, torch.tensor([1.0, 2.0, 3.0]))
+    with pytest.raises(ValueError, match="one entry a lane"):
+        ops.cfg_epilogue(ec, ec, torch.full((2, 1, 1, 1), 4.0))
+    ops.cfg_epilogue(ec, ec, torch.tensor([1.0, 2.0]))
     with pytest.raises(TypeError, match="scale"):
         ops.cfg_epilogue(ec, ec, "4")
     with pytest.raises(ValueError, match="shape and dtype"):

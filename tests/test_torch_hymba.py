@@ -496,10 +496,13 @@ def test_model_api_and_serve_entry_point():
                         max_new=4, device="cpu")
     assert sorted(len(r.out_tokens) for r in done) == [4, 4, 4]
     assert all(0 <= t < tcfg.vocab for r in done for t in r.out_tokens)
-    with pytest.raises(NotImplementedError, match="queue 1 item 9"):
-        tserve.main(["--diffusion"])
-    with pytest.raises(NotImplementedError, match="queue 1 item 9"):
-        tserve.main(["--occupancies", "0.0,0.5", "--device", "cpu"])
+    # diffusion serving is ported; its later slices' flags name their items
+    with pytest.raises(NotImplementedError, match="queue 1 item 12"):
+        tserve.main(["--diffusion", "--num-frames", "2"])
+    with pytest.raises(NotImplementedError, match="queue 1 item 9b"):
+        tserve.main(["--diffusion", "--backend", "spmd", "--occupancies",
+                     "0.0,0.5", "--m-base", "4", "--m-warmup", "2",
+                     "--device", "cpu"])
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             tserve.main(["--requests", "1"])

@@ -48,3 +48,13 @@ def test_sources_name_no_jax_and_no_repro():
                  for p in SOURCES for m in [pat.search(p.read_text())] if m}
     assert not offenders, offenders
     assert len(SOURCES) > 20
+
+
+@pytest.mark.parametrize("module", ["repro_torch.serving.diffusion_engine",
+                                    "repro_torch.serving.plan_cache"])
+def test_serving_modules_are_guarded(module):
+    """The serving slice's modules are among those the guards above import
+    and scan, and name the reference module they port."""
+    assert module in _modules()
+    path = REPO / "src" / (module.replace(".", "/") + ".py")
+    assert "repro.serving." + module.rsplit(".", 1)[1] in path.read_text()

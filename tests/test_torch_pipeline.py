@@ -179,11 +179,17 @@ def test_entry_points_refuse_without_device_and_later_slices(setup):
             stadi_infer.main(["--reduced"])
     for knobs, match in (({"num_stages": 2}, "pipefuse"),
                          ({"num_frames": 2}, "frames"),
-                         ({"plan_cache_dir": "x"}, "serving"),
                          ({"planner": "stadi_pipefuse"}, "pipefuse")):
         bad = dataclasses.replace(conf, **knobs)
         with pytest.raises(NotImplementedError, match=match):
             tpipe.StadiPipeline(tcfg, tparams, sched, bad, device="cpu")
+    # the serving slice is ported: a plan cache directory builds (nothing is
+    # written before the first plan())
+    cached = tpipe.StadiPipeline(tcfg, tparams, sched, dataclasses.replace(
+        conf, plan_cache_dir="x"), device="cpu")
+    assert cached.plan_cache is not None and cached.planner_calls == 0
+    with pytest.raises(NotImplementedError, match="item 9b"):
+        tpipe.get_stepper_factory("spmd")
     # the sequence-parallel slice is ported: seq_shards and stadi_seq build
     for knobs in ({"seq_shards": 2}, {"planner": "stadi_seq"}):
         tpipe.StadiPipeline(tcfg, tparams, sched,

@@ -1,10 +1,12 @@
-"""Time the attention and scan kernels (K1, K2, K4, K5, K6, K7) and the
-Hymba serving path of two checkouts on one card, in turns: each checkout's
-own ``chip_smoke.py`` phases (``phase_kernels``, ``phase_k1_batch2``,
-``phase_k2``, ``phase_k5``, ``phase_k4``, ``phase_k6``, ``phase_k7``:
-checks, planted faults and times; ``phase_hymba``: Hymba-1.5B served at full
-width, its time to first token and decode time per token) run in a process
-of their own, which builds that checkout's CUDA library from its sources;
+"""Time the kernels (K1 to K7) and the Hymba serving path of two checkouts
+on one card, in turns: each checkout's own ``chip_smoke.py`` phases
+(``phase_kernels``, ``phase_k1_batch2``, ``phase_k3``, ``phase_k2``,
+``phase_k5``, ``phase_k4``, ``phase_k6``, ``phase_k7``: checks, planted
+faults and times; ``phase_hymba``: Hymba-1.5B served at full width, its time
+to first token and decode time per token; ``phase_paths``, on request: the
+sdxl-dit main and guided generates, their wall and device-busy seconds) run
+in a process of their own,
+which builds that checkout's CUDA library from its sources;
 then the host time of one K1, K4 and K7 (S 1) wrapper call at their path
 shapes, with the parts of K7's, and the registers and spills ptxas reports
 for each kernel of the build.
@@ -27,14 +29,19 @@ import os
 import subprocess
 import sys
 
-PHASES = ("phase_kernels", "phase_k1_batch2", "phase_k2", "phase_k5",
-          "phase_k4", "phase_k6", "phase_k7", "phase_hymba")
-LABELS = ("k1_check", "k1_batch2_check", "k2_check", "k5_check", "k4_check",
-          "k6_check", "k7_check", "hymba_serve", "host_check", "ptxas_check")
+PHASES = ("phase_kernels", "phase_k1_batch2", "phase_k3", "phase_k2",
+          "phase_k5", "phase_k4", "phase_k6", "phase_k7", "phase_hymba")
+PATH_PROFILES = ("main_path_profile", "guided_fused_profile",
+                 "guided_interleaved_profile")
+LABELS = ("k1_check", "k1_batch2_check", "k3_check", "k2_check", "k5_check",
+          "k4_check", "k6_check", "k7_check", "hymba_serve", "host_check",
+          "ptxas_check") + PATH_PROFILES
 LAYOUT_KEYS = ("batch", "N", "Nl", "tok_start", "valid_tokens",
-               "uncond_fresh", "valid_len", "dtype", "causal", "window",
-               "prefix_len", "S", "h0", "function")
-TIME_KEYS = ("ms", "plain_ms", "library_ms", "bound_ms", "eager_ms",
+               "uncond_fresh", "valid_len", "dtype", "shape", "G",
+               "with_delta", "causal", "window", "prefix_len", "S", "h0",
+               "function")
+TIME_KEYS = ("ms", "floor_ms", "plain_ms", "library_ms", "bound_ms", "eager_ms",
+             "wall_s", "device_busy_s", "device_idle_share",
              "wrapper_host_us", "parts_us", "max_abs_err", "norm_rel_err",
              "ttft_ms", "decode_ms_per_token", "tokens_per_s", "registers",
              "spill_stores", "spill_loads")
@@ -76,7 +83,7 @@ for name in sys.argv[2:]:
     fn = getattr(smoke, name)
     if name in ("phase_kernels", "phase_k1_batch2"):
         args = (ops, ref, layers, "cuda", peaks)
-    elif name == "phase_hymba":
+    elif name in ("phase_hymba", "phase_paths"):
         args = (ops, "cuda")
     else:
         args = (ops, ref, "cuda", peaks)
@@ -134,7 +141,8 @@ def timed_lines(log):
         label, _, rest = line.partition(" ")
         if label in LABELS and rest.startswith("{"):
             reading = json.loads(rest)
-            if "ms" in reading or label in ("host_check", "hymba_serve", "ptxas_check"):
+            if "ms" in reading or label in ("host_check", "hymba_serve",
+                                            "ptxas_check") + PATH_PROFILES:
                 out.append({"label": label,
                              **{k: reading[k] for k in LAYOUT_KEYS + TIME_KEYS
                                 if k in reading}})
@@ -182,6 +190,9 @@ def main():
                 print(f"  {line['label']:16s} TTFT {line['ttft_ms']} ms, decode "
                       f"{line['decode_ms_per_token']:.2f} ms/token, "
                       f"{line['tokens_per_s']:.2f} tokens/s", flush=True)
+            elif line["label"] in PATH_PROFILES:
+                print(f"  {line['label']:16s} generate {line['wall_s']:.3f} s, device "
+                      f"busy {line['device_busy_s']:.3f} s", flush=True)
             elif line["label"] == "ptxas_check":
                 print(f"  {line['label']:16s} {layout:48s} {line['registers']} registers,"
                       f" spills {line['spill_stores']}/{line['spill_loads']} B", flush=True)
