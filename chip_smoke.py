@@ -6,11 +6,12 @@ at full width through the ServingEngine), the diffusion serving path
 path (STADI on sdxl-dit at full width), the guided paths (classifier-free guidance, fused and
 interleaved) through ``StadiPipeline.generate`` and the multi-rank paths
 (spmd, unguided, fused and split guidance, and spmd_seq, sequence-parallel
-attention) on gloo ranks that share the card, and checks card-vs-CPU
-outputs.
+attention) on gloo ranks that share the card, the displaced stage chain
+(pipefuse, its serving lanes and spmd_pipefuse) and the multi-rank serving
+lanes (the spmd stepper), and checks card-vs-CPU outputs.
 
     python3 chip_smoke.py
-    python3 chip_smoke.py --nccl     # only phase 11, over NCCL on 4 cards
+    python3 chip_smoke.py --nccl     # only phases 11 and 19, over NCCL
 
 Phases (any failure raises, so the script exits non-zero):
   1. the card: name and power limit (nvidia-smi), TF32 off for fp32 products
@@ -123,8 +124,35 @@ Phases (any failure raises, so the script exits non-zero):
      modeled latency, images per second (the ``diffusion_serve`` line), one
      mixed round profiled (``diffusion_serve_profile``). Then
      tiny-dit.reduced() fp32 served on the card against the CPU, < 1e-3.
+ 17. the lane batches of this slice's serving steppers: K1 over G lanes
+     (G 2 from slot 1, G 4), its stale K/V the slot-range view of one
+     layer of the [L, 4, N, H, hd] displaced contexts, and K2 over a cohort
+     of 4 lanes at the spmd path's rank layouts, fp32 and bf16, with the
+     bars and planted faults of phases 3 and 6, timed at bf16.
+ 18. the displaced stage chain, backend pipefuse, on the main path's model
+     and plan: at one stage the image bitwise the emulated one; at two
+     stages unguided and guided fused (cfg_scale 4.0, K3 with its delta
+     once a guided eval, at phase 5's eps shapes), each driven as in
+     phase 9 (launches from the trace), its relative difference from the
+     emulated image (above 0, below 1e-2) and its seconds beside the
+     emulated generate's printed (``pipefuse_check``), the unguided one
+     profiled; the guided chain within a tenth of that difference of the
+     same chain on K3's plain version. Then the pipefuse serving lanes at
+     two stages: SERVE_TRAFFIC's six requests, all unguided, on 4 slots
+     (``diffusion_serve_pipefuse``: K1 = 28 x dispatches, each image
+     bitwise its lone pipefuse generate, drain seconds and images per
+     second).
+ 19. two ranks (gloo sharing the card; NCCL a card each under --nccl):
+     spmd_pipefuse at two stages (ranks = stages; per rank K1 28 per
+     warm-up step plus its stage's blocks per micro-task, image bitwise
+     the emulated pipefuse image, peak memory per rank, and the handoff
+     and broadcast seconds per rank from one more generate under the
+     collectives wrapper, ``spmd_pipefuse_check``), then the spmd serving
+     lanes on the six unguided requests (``diffusion_serve_spmd``: per
+     rank K1 28 x warm-up dispatches, K2 28 x its padded forwards, each
+     image bitwise its lone emulated generate, drain seconds).
  Phases 13 to 15 run after phase 8, before the sdxl-dit paths; phase 16
- after phase 10.
+ after phase 10, 17 after 7, 18 after 16 and 19 after 11.
 Every path is driven with the launch counters set to 0 just before it and
 read just after (on every rank for the multi-rank paths). The
 second-to-last line is the kernels' JSON record, the last line the device
@@ -380,6 +408,101 @@ def phase_k1_batch2(ops, ref, layers, dev, peaks):
         check(ok, f"K1 at batch 2 disagrees with its plain version: {line}")
         check(all(not passed for _, _, passed in faults.values()),
               f"the K1 bar lets a planted fault through at batch 2: {line}")
+    return reading
+
+
+#: the serving lanes' batches: K1 over G lanes of the pipefuse stepper (the
+#: stale context a slot range of the [L, slots, N, H, hd] displaced
+#: contexts: (G, first slot)) and K2 over a cohort of G lanes of the spmd
+#: stepper
+K1_LANES = [(2, 1), (4, 0)]
+K2_COHORTS = (4,)
+
+
+def phase_k1_lanes(ops, ref, layers, dev, peaks):
+    """K1 at the pipefuse serving lanes' batches: q/k/v of G lanes, the
+    stale K/V the [G, N, H, hd] slot-range view of one layer of the
+    [L, 4 slots, N, H, hd] displaced contexts (read in place), at the main
+    path's patch layouts, fp32 and bf16, with K1's bars and planted faults;
+    times at G 4, bf16. Returns the bf16 G 4 reading of the first patch."""
+    F = torch.nn.functional
+    gen = torch.Generator(device="cpu").manual_seed(SEED + 8)
+    H, hd, L, slots = 16, 72, 2, 4
+    reading = None
+    for dtype in (torch.float32, torch.bfloat16):
+        for G, first in K1_LANES:
+            for N, Nl, tok in SDXL_CASES[:2]:
+                def mk(*shape, std=1.0):
+                    return (std * torch.randn(*shape, generator=gen)
+                            ).to(dtype).to(dev)
+                ctx_k = mk(L, slots, N, H, hd, std=QK_STD)
+                ctx_v = mk(L, slots, N, H, hd)
+                ks = ctx_k[:, first:first + G][1]
+                vs = ctx_v[:, first:first + G][1]
+                check(ks.data_ptr() == ctx_k[1, first].data_ptr(),
+                      "the lanes' context is not read in place")
+                q, kf, vf = (mk(G, Nl, H, hd, std=s)
+                             for s in (QK_STD, QK_STD, 1.0))
+                out = ops.stale_kv_attention(q, kf, vf, ks, vs, tok_start=tok)
+                want = ref.stale_kv_attention_ref(q, kf, vf, ks, vs, tok)
+                line = {"kernel": "stale_kv_attention", "lanes": G,
+                        "first_slot": first, "dtype": str(dtype), "N": N,
+                        "Nl": Nl, "tok_start": tok}
+                if dtype == torch.bfloat16 and G == 4:
+                    full_k, full_v = ks.clone(), vs.clone()
+                    full_k[:, tok:tok + Nl] = kf
+                    full_v[:, tok:tok + Nl] = vf
+                    qt, kt, vt = (t.transpose(1, 2) for t in (q, full_k, full_v))
+                    bound_ms, bound_by = k1_bound_ms(G, H, Nl, N, hd, dtype,
+                                                     peaks)
+                    line.update(
+                        ms=time_ms(lambda: ops.stale_kv_attention(
+                            q, kf, vf, ks, vs, tok_start=tok)),
+                        plain_ms=time_ms(lambda: ref.stale_kv_attention_ref(
+                            q, kf, vf, ks, vs, tok), reps=3),
+                        library_ms=time_ms(lambda: F.scaled_dot_product_attention(
+                            qt, kt, vt)),
+                        bound_ms=bound_ms, bound_by=bound_by)
+                check_with_faults("k1_lanes_check", out, want, k1_planted_faults(
+                    layers, ref, q, kf, vf, ks, vs, tok), dtype, line)
+                if reading is None and "ms" in line:
+                    reading = line
+    return reading
+
+
+def phase_k2_cohorts(ops, ref, dev, peaks):
+    """K2 at the spmd serving stepper's cohort batches (G lanes of one fine
+    step stacked on the batch axis) at the spmd path's rank layouts, fp32
+    and bf16, with K2's bars and planted faults; times at bf16. Returns the
+    bf16 rank-0 reading."""
+    gen = torch.Generator(device="cpu").manual_seed(SEED + 9)
+    reading = None
+    for dtype in (torch.float32, torch.bfloat16):
+        for G in K2_COHORTS:
+            for tok, valid in K2_LAYOUTS[:2]:
+                args = k2_inputs(dtype, dev, gen, G)
+                out = ops.stale_kv_attention_padded(*args, tok, valid,
+                                                    n_tokens=K2_N)
+                want = ref.stale_kv_attention_padded_ref(*args, tok, valid, K2_N)
+                line = {"kernel": "stale_kv_attention_padded", "lanes": G,
+                        "dtype": str(dtype), "tok_start": tok,
+                        "valid_tokens": valid, "n_tokens": K2_N,
+                        "Nl_max": K2_NL, "Npad": K2_NPAD}
+                if dtype == torch.bfloat16:
+                    bound_ms, bound_by = k2_bound_ms(G, tok, valid, dtype, peaks)
+                    line.update(
+                        ms=time_ms(lambda: ops.stale_kv_attention_padded(
+                            *args, tok, valid, n_tokens=K2_N)),
+                        plain_ms=time_ms(lambda: ref.stale_kv_attention_padded_ref(
+                            *args, tok, valid, K2_N), reps=3),
+                        library_ms=time_ms(k2_library_call(args, tok, valid)),
+                        bound_ms=bound_ms, bound_by=bound_by)
+                check_with_faults("k2_cohort_check", out, want,
+                                  k2_planted_faults(
+                                      ref.stale_kv_attention_padded_ref, args,
+                                      tok, valid), dtype, line)
+                if reading is None and "ms" in line:
+                    reading = line
     return reading
 
 
@@ -856,11 +979,12 @@ def tiny_setup():
     return cfg, params, x_T, torch.tensor([1, 2])
 
 
-def drive_path(ops, label, cfg, params, x_T, cond, config, dev):
+def drive_path(ops, label, cfg, params, x_T, cond, config, dev, profile=True):
     """Drive one path through ``StadiPipeline.generate`` on sdxl-dit: a
     warm-up call, then a generate with the launch counters set to 0 just
-    before it and read just after, checked against the trace, then one
-    more under the profiler. Returns the launches."""
+    before it and read just after, checked against the trace, then (with
+    ``profile``) one more under the profiler. Returns (the launches, the
+    image, the seconds of the counted generate)."""
     from repro_torch.core import sampler
     from repro_torch.core.pipeline import StadiPipeline
 
@@ -897,8 +1021,9 @@ def drive_path(ops, label, cfg, params, x_T, cond, config, dev):
           f"{label}: launches {launches}, the trace needs {expected}")
     check(res.kernel_stats == {"launches": launches},
           f"{label}: kernel_stats mismatch")
-    profile_generate(pipe, x_T, cond, seconds, label)
-    return launches
+    if profile:
+        profile_generate(pipe, x_T, cond, seconds, label)
+    return launches, img, seconds
 
 
 def phase_paths(ops, dev):
@@ -917,7 +1042,8 @@ def phase_paths(ops, dev):
             [0.0, 0.0, 0.5, 0.5], m_base=16, m_warmup=4, cfg_scale=CFG_SCALE,
             planner="stadi_guidance", guidance="interleaved"),
     }
-    return {label: drive_path(ops, label, cfg, params, x_T, cond, config, dev)
+    return {label: drive_path(ops, label, cfg, params, x_T, cond, config,
+                              dev)[0]
             for label, config in paths.items()}
 
 
@@ -929,6 +1055,16 @@ def phase_paths(ops, dev):
 SERVE_SLOTS = 4
 SERVE_TRAFFIC = [(3.0, 0), (5.0, 0), (None, 3), (3.0, 3), (5.0, 3), (None, 3)]
 SERVE_PROFILED_ROUND = 10           # warm-up and adaptive lanes, both kinds
+
+
+def serve_inputs(cfg, dev):
+    """The x_T and class of each SERVE_TRAFFIC request, from SEED on
+    ``dev`` (every rank and the script build the same)."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 5)
+    xs = [torch.randn(1, cfg.latent_size, cfg.latent_size, cfg.channels,
+                      generator=gen, device=dev).to(torch.bfloat16)
+          for _ in SERVE_TRAFFIC]
+    return xs, [(SEED + 7 * i) % cfg.n_classes for i in range(len(xs))]
 
 
 def serve_drain(engine, xs, conds, traffic, sync=False, stop=None):
@@ -979,11 +1115,7 @@ def phase_diffusion_serve(ops, dev):
                                           planner="stadi", backend="emulated",
                                           exchange="sync")
     pipe = StadiPipeline(cfg, params, sched, config, device=dev)
-    gen = torch.Generator(device=dev).manual_seed(SEED + 5)
-    xs = [torch.randn(1, cfg.latent_size, cfg.latent_size, cfg.channels,
-                      generator=gen, device=dev).to(torch.bfloat16)
-          for _ in SERVE_TRAFFIC]
-    conds = [(SEED + 7 * i) % cfg.n_classes for i in range(len(xs))]
+    xs, conds = serve_inputs(cfg, dev)
     t0 = time.perf_counter()
     serve_drain(DiffusionServingEngine(pipe, slots=SERVE_SLOTS), xs, conds,
                 SERVE_TRAFFIC)
@@ -1139,6 +1271,331 @@ def phase_cross_device(dev):
     return rels
 
 
+# ----------------------------------------------------------------------
+# the displaced stage chain and the multi-rank serving lanes
+# ----------------------------------------------------------------------
+
+CHAIN_STAGES = 2
+#: SERVE_TRAFFIC with every request unguided: the pipefuse stepper at two
+#: stages and the spmd stepper serve no guided lane
+SERVE_TRAFFIC_UNGUIDED = [(None, at) for _, at in SERVE_TRAFFIC]
+
+
+def chain_config(**kw):
+    """The main path's cluster and schedule with ``kw`` on top."""
+    from repro_torch.core.pipeline import StadiConfig
+    return StadiConfig.from_occupancies([0.0, 0.5], m_base=16, m_warmup=4,
+                                        planner="stadi", exchange="sync", **kw)
+
+
+def rel_err(a, b):
+    a, b = a.float(), b.float()
+    return ((a - b).norm() / b.norm()).item()
+
+
+def timed_pipe_generate(pipe, x_T, cond):
+    """A warm-up generate, then one timed: (the result, its seconds)."""
+    pipe.generate(x_T, cond)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = pipe.generate(x_T, cond)
+    torch.cuda.synchronize()
+    return res, time.perf_counter() - t0
+
+
+def phase_pipefuse(ops, dev):
+    """The displaced stage chain (backend pipefuse) on sdxl-dit at full
+    width: at one stage the image is bitwise the emulated one; at two
+    stages, unguided and guided fused, each path is driven like the main
+    path (launches against its trace: K1 once a layer of every eval, K3
+    once a guided eval, with its delta), and its relative difference from
+    the emulated image (the displaced contract's drift) and its seconds
+    beside the emulated generate's are printed; the unguided path is
+    profiled. The guided chain is held against its drift: the same chain
+    with K3's plain version in place of the kernel must come within a tenth
+    of that drift. Returns {label: launches}."""
+    from repro_torch.core import sampler
+    from repro_torch.core.pipeline import StadiPipeline
+    from repro_torch.kernels import ref
+
+    cfg, params, x_T, cond = sdxl_setup(dev)
+    sched = sampler.linear_schedule(1000)
+    emulated = {scale: timed_pipe_generate(StadiPipeline(
+        cfg, params, sched, chain_config(backend="emulated", cfg_scale=scale),
+        device=dev), x_T, cond) for scale in (0.0, CFG_SCALE)}
+    one = StadiPipeline(cfg, params, sched, chain_config(backend="pipefuse"),
+                        device=dev).generate(x_T, cond)
+    bitwise = torch.equal(one.image, emulated[0.0][0].image)
+    print("pipefuse_one_stage", json.dumps({
+        "stages": one.trace.stages, "bitwise_emulated": bitwise}), flush=True)
+    check(bitwise, "pipefuse at one stage is not bitwise the emulated image")
+    launches = {}
+    for label, scale in (("pipefuse", 0.0), ("pipefuse_guided", CFG_SCALE)):
+        config = chain_config(backend="pipefuse", num_stages=CHAIN_STAGES,
+                              cfg_scale=scale)
+        launches[label], img, seconds = drive_path(
+            ops, label, cfg, params, x_T, cond, config, dev,
+            profile=scale == 0.0)
+        emu, emu_s = emulated[scale]
+        drift = rel_err(img, emu.image)
+        line = {"path": label, "stages": StadiPipeline(
+                    cfg, params, sched, config, device=dev).plan().stages,
+                "seconds": seconds, "emulated_seconds": emu_s,
+                "rel_diff_vs_emulated": drift,
+                "note": "the displaced contract: contexts one substep "
+                        "fresher than the emulated engine's published "
+                        "buffers"}
+        if scale:
+            kernel = ops.cfg_epilogue
+            ops.cfg_epilogue = lambda c, u, w, *, with_delta=True: (
+                ref.cfg_epilogue_ref(c, u, w) if with_delta
+                else ref.cfg_epilogue_ref(c, u, w)[0])
+            try:
+                plain = StadiPipeline(cfg, params, sched, config,
+                                      device=dev).generate(x_T, cond).image
+            finally:
+                ops.cfg_epilogue = kernel
+            line["rel_diff_vs_plain_k3_chain"] = rel_err(img, plain)
+            line["bar"] = "a tenth of rel_diff_vs_emulated"
+        print("pipefuse_check", json.dumps(line), flush=True)
+        check(0.0 < drift < 1e-2, f"{label}: the chain is {drift} off the "
+              "emulated image (a displaced chain moves it, by less than 1e-2)")
+        if scale:
+            check(line["rel_diff_vs_plain_k3_chain"] < 0.1 * drift,
+                  f"{label}: {line['rel_diff_vs_plain_k3_chain']} off the "
+                  f"chain with K3's plain version, drift {drift}")
+    return launches
+
+
+def phase_diffusion_serve_pipefuse(ops, dev):
+    """The pipefuse serving lanes: sdxl-dit at full width, two stages, 4
+    slots, SERVE_TRAFFIC's six requests at their rounds, every one
+    unguided: a warm-up drain, then the measured drain with the launch
+    counters set to 0 just before it (K1 once a layer of every denoiser
+    dispatch); each image bitwise its lone pipefuse generate (the relative
+    errors printed too); the drain's seconds and images per second.
+    Returns the measured drain's launches."""
+    from repro_torch.core import sampler
+    from repro_torch.core.pipeline import StadiPipeline
+    from repro_torch.serving import DiffusionServingEngine
+
+    cfg, params, _, _ = sdxl_setup(dev)
+    pipe = StadiPipeline(cfg, params, sampler.linear_schedule(1000),
+                         chain_config(backend="pipefuse",
+                                      num_stages=CHAIN_STAGES), device=dev)
+    xs, conds = serve_inputs(cfg, dev)
+    t0 = time.perf_counter()
+    serve_drain(DiffusionServingEngine(pipe, slots=SERVE_SLOTS), xs, conds,
+                SERVE_TRAFFIC_UNGUIDED)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    engine = DiffusionServingEngine(pipe, slots=SERVE_SLOTS)
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    reqs, walls = serve_drain(engine, xs, conds, SERVE_TRAFFIC_UNGUIDED,
+                              sync=True)
+    seconds = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    stats = engine.stats()
+    expected = {k: n for k, n in serve_expected_launches(
+        stats, cfg.n_layers).items() if n}
+    lone = [pipe.generate(xs[i], torch.tensor([conds[i]], device=dev)).image
+            for i in range(len(reqs))]
+    rels = [rel_err(r.image, w) for r, w in zip(reqs, lone)]
+    print("diffusion_serve_pipefuse", json.dumps({
+        "slots": SERVE_SLOTS, "traffic": SERVE_TRAFFIC_UNGUIDED,
+        "stages": engine.stages, "drain_s": seconds, "first_drain_s": first_s,
+        "images_per_s": len(reqs) / seconds, "rounds": len(engine.rounds),
+        "round_walls_s": walls, "placements": sorted({
+            str(r.placement) for r in engine.rounds if r.placement}),
+        "dispatches": stats["dispatches"], "launches": launches,
+        "expected_launches": expected,
+        "peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30,
+        "rel_err_vs_generate": rels,
+        "bitwise_vs_generate": [torch.equal(r.image, w)
+                                for r, w in zip(reqs, lone)]}), flush=True)
+    check(all(r.done and bool(torch.isfinite(r.image.float()).all())
+              for r in reqs), "diffusion_serve_pipefuse: a request did not "
+          "finish finite")
+    check(launches == expected and expected,
+          f"diffusion_serve_pipefuse: launches {launches}, the dispatches "
+          f"need {expected}")
+    check(all(torch.equal(r.image, w) for r, w in zip(reqs, lone)),
+          f"diffusion_serve_pipefuse: served images not bitwise their lone "
+          f"generate (relative errors {rels})")
+    return launches
+
+
+def chain_rank(ctx, jobs):
+    """One rank of the multi-rank chain phase. ``spmd_pipefuse``: a warm-up
+    generate, then one with the launch counters set to 0 just before it;
+    launches against its trace (K1 once a layer of each full-depth warm-up
+    forward, once per block of this rank's stage of each micro-task); then
+    one more with the handoffs and broadcasts timed (``timed_generate``). ``diffusion_serve_spmd``: a warm-up
+    drain of the unguided traffic, then the measured drain (K1 once a
+    layer of each warm-up dispatch, K2 once a layer of each of this rank's
+    padded forwards). Returns per job its numbers and images."""
+    from repro_torch.core import sampler
+    from repro_torch.core.pipeline import StadiPipeline
+    from repro_torch.kernels import ops
+    from repro_torch.serving import DiffusionServingEngine
+
+    dev = ctx.device
+    cfg, params, x_T, cond = sdxl_setup(dev)
+    sched = sampler.linear_schedule(1000)
+    out = {}
+    if "spmd_pipefuse" in jobs:
+        pipe = StadiPipeline(cfg, params, sched, chain_config(
+            backend="spmd_pipefuse", num_stages=CHAIN_STAGES), device=dev)
+        pipe.generate(x_T, cond)                 # warm-up (cuBLAS, NCCL p2p)
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        res = pipe.generate(x_T, cond)
+        torch.cuda.synchronize(dev)
+        seconds = time.perf_counter() - t0
+        launches = ops.launch_counts()
+        _, timed_s, spent = timed_generate(pipe, x_T, cond, dev)
+        trace = res.trace
+        warm = sum(1 for e in trace.events if e.synchronous)
+        micro = sum(sum(e.substeps) for e in trace.events if not e.synchronous)
+        out["spmd_pipefuse"] = {
+            "seconds": seconds, "launches": launches,
+            "expected": {"stale_kv_attention": cfg.n_layers * max(warm, 1)
+                         + trace.stages[ctx.rank] * micro},
+            "stages": trace.stages, "micro_tasks": micro,
+            "chain_timed_run": {"wall_s": timed_s, "handoff_s": spent[
+                "stage_handoff"], "broadcast_s": spent["chain_broadcast"]},
+            "peak_gib": torch.cuda.max_memory_allocated(dev) / 2**30,
+            "image": res.image.float().cpu().numpy()}
+        del pipe, res
+    if "diffusion_serve_spmd" in jobs:
+        pipe = StadiPipeline(cfg, params, sched, chain_config(backend="spmd"),
+                             device=dev)
+        xs, conds = serve_inputs(cfg, dev)
+        serve_drain(DiffusionServingEngine(pipe, slots=SERVE_SLOTS), xs,
+                    conds, SERVE_TRAFFIC_UNGUIDED)
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        engine = DiffusionServingEngine(pipe, slots=SERVE_SLOTS)
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        reqs, walls = serve_drain(engine, xs, conds, SERVE_TRAFFIC_UNGUIDED,
+                                  sync=True)
+        seconds = time.perf_counter() - t0
+        launches = ops.launch_counts()
+        d = engine.stats()["dispatches"]
+        out["diffusion_serve_spmd"] = {
+            "seconds": seconds, "launches": launches, "dispatches": d,
+            "expected": {"stale_kv_attention": cfg.n_layers * (
+                d.get("plain", 0) + d.get("bootstrap", 0)),
+                "stale_kv_attention_padded": cfg.n_layers * d["padded"]},
+            "rounds": len(engine.rounds), "round_walls_s": walls,
+            "cohorts": [r.exchange_kinds for r in engine.rounds],
+            "peak_gib": torch.cuda.max_memory_allocated(dev) / 2**30,
+            "images": [r.image.float().cpu().numpy() for r in reqs]}
+    return out
+
+
+def phase_chain_ranks(dev, dist_backend="gloo"):
+    """The multi-rank paths of this slice on 2 ranks (gloo ranks sharing the
+    card, or with NCCL a card each): ``spmd_pipefuse`` (ranks = stages)
+    bitwise the emulated pipefuse image on the card, and the spmd serving
+    lanes (``diffusion_serve_spmd``, the unguided SERVE_TRAFFIC on 4 slots)
+    with each image bitwise its lone emulated generate;
+    each rank's launches equal to what its trace or dispatches need; per
+    rank its peak memory, and for the chain its handoff and broadcast
+    seconds. Returns ({label: launches summed over the ranks}, {label:
+    seconds per rank})."""
+    from repro_torch.core import sampler
+    from repro_torch.core.pipeline import StadiPipeline
+    from repro_torch.launch import ranks
+
+    cfg, params, x_T, cond = sdxl_setup(dev)
+    sched = sampler.linear_schedule(1000)
+    chain_ref = StadiPipeline(cfg, params, sched, chain_config(
+        backend="pipefuse", num_stages=CHAIN_STAGES), device=dev).generate(
+            x_T, cond).image.float().cpu().numpy()
+    emu = StadiPipeline(cfg, params, sched, chain_config(backend="emulated"),
+                        device=dev)
+    xs, conds = serve_inputs(cfg, dev)
+    lone = [emu.generate(x, torch.tensor([c], device=dev)).image.float().cpu()
+            .numpy() for x, c in zip(xs, conds)]
+    del params, emu
+    torch.cuda.empty_cache()
+    shared = dist_backend == "gloo"
+    t0 = time.perf_counter()
+    per_rank = ranks.spawn(chain_rank, 2, device_type="cuda",
+                           dist_backend=dist_backend,
+                           args=(("spmd_pipefuse", "diffusion_serve_spmd"),),
+                           timeout=900 if shared else 300)
+    note = ("ranks share one card, gloo transport, not a makespan" if shared
+            else "one card per rank, NCCL")
+    print(f"chain ranks: 2 {dist_backend} ranks ran spmd_pipefuse and "
+          f"diffusion_serve_spmd in {time.perf_counter() - t0:.1f} s (process "
+          "start included)", flush=True)
+    rel = lambda a, b: float(np.linalg.norm(a - b) / np.linalg.norm(b))
+    launches, seconds = {}, {}
+    outs = [r["spmd_pipefuse"] for r in per_rank]
+    rels = [rel(o["image"], chain_ref) for o in outs]
+    print("spmd_pipefuse_check", json.dumps({
+        "ranks": 2, "stages": outs[0]["stages"],
+        "micro_tasks": outs[0]["micro_tasks"],
+        "seconds_per_rank": [o["seconds"] for o in outs], "seconds_note": note,
+        "peak_gib_per_rank": [o["peak_gib"] for o in outs],
+        "chain_comm_per_rank": [o["chain_timed_run"] for o in outs],
+        "launches_per_rank": [o["launches"] for o in outs],
+        "expected_per_rank": [o["expected"] for o in outs],
+        "rel_err_vs_emulated_pipefuse": rels, "bar": "bitwise"}), flush=True)
+    for r, o in enumerate(outs):
+        check(bool(np.isfinite(o["image"]).all()),
+              f"spmd_pipefuse: rank {r} image not finite")
+        check(o["launches"] == o["expected"], f"spmd_pipefuse: rank {r} "
+              f"launches {o['launches']}, the trace needs {o['expected']}")
+        check(np.array_equal(o["image"], outs[0]["image"]),
+              f"spmd_pipefuse: rank {r} returned another image than rank 0")
+    check(all(np.array_equal(o["image"], chain_ref) for o in outs),
+          f"spmd_pipefuse not bitwise the emulated pipefuse image: {rels}")
+    launches["spmd_pipefuse"] = outs
+    seconds["spmd_pipefuse"] = [o["seconds"] for o in outs]
+    outs = [r["diffusion_serve_spmd"] for r in per_rank]
+    rels = [[rel(img, want) for img, want in zip(o["images"], lone)]
+            for o in outs]
+    print("diffusion_serve_spmd", json.dumps({
+        "ranks": 2, "slots": SERVE_SLOTS, "traffic": SERVE_TRAFFIC_UNGUIDED,
+        "drain_s_per_rank": [o["seconds"] for o in outs],
+        "images_per_s": [len(lone) / o["seconds"] for o in outs],
+        "seconds_note": note, "rounds": outs[0]["rounds"],
+        "round_walls_s_rank0": outs[0]["round_walls_s"],
+        "exchange_kinds_per_round": outs[0]["cohorts"],
+        "peak_gib_per_rank": [o["peak_gib"] for o in outs],
+        "dispatches_per_rank": [o["dispatches"] for o in outs],
+        "launches_per_rank": [o["launches"] for o in outs],
+        "expected_per_rank": [o["expected"] for o in outs],
+        "rel_err_vs_generate_per_rank": rels, "bar": "bitwise"}), flush=True)
+    for r, o in enumerate(outs):
+        check(all(np.isfinite(img).all() for img in o["images"]),
+              f"diffusion_serve_spmd: rank {r} image not finite")
+        check(o["launches"] == o["expected"], f"diffusion_serve_spmd: rank "
+              f"{r} launches {o['launches']}, its dispatches need "
+              f"{o['expected']}")
+        check(all(np.array_equal(img, want)
+                  for img, want in zip(o["images"], lone)),
+              f"diffusion_serve_spmd: rank {r} images not bitwise their lone "
+              f"generate (relative errors {rels[r]})")
+    launches["diffusion_serve_spmd"] = outs
+    seconds["diffusion_serve_spmd"] = [o["seconds"] for o in outs]
+    summed = {}
+    for label, outs in launches.items():
+        summed[label] = {}
+        for o in outs:
+            for kernel, n in o["launches"].items():
+                summed[label][kernel] = summed[label].get(kernel, 0) + n
+    return summed, seconds
+
+
 def spmd_paths():
     """The multi-rank paths: label -> (model, ranks, config). sdxl-dit at
     full width on the main path's cluster (unguided and fused guidance, 2
@@ -1198,7 +1655,8 @@ def expected_rank_launches(result, n_layers, rank):
 
 #: the collectives of core/comm.py that the multi-rank paths call
 COLLECTIVES = ("uneven_all_gather_padded", "ulysses_scatter_heads",
-               "ulysses_gather_heads", "ring_hop")
+               "ulysses_gather_heads", "ring_hop", "stage_handoff",
+               "chain_broadcast")
 
 
 def timed_generate(pipe, x_T, cond, device):
@@ -1770,9 +2228,12 @@ def main():
         # the multi-rank paths alone, over NCCL with one card per rank
         check(torch.cuda.device_count() >= 4, "--nccl needs 4 cards")
         spmd = phase_spmd(dev, dist_backend="nccl")
+        _, chain_s = phase_chain_ranks(dev, dist_backend="nccl")
         print(json.dumps({"nccl_makespan_s": {
-            label: max(o["seconds"] for o in outs)
-            for label, outs in spmd.items()}}), flush=True)
+            **{label: max(o["seconds"] for o in outs)
+               for label, outs in spmd.items()},
+            **{label: max(per_rank) for label, per_rank in chain_s.items()}}}),
+            flush=True)
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
         return 0
@@ -1792,6 +2253,8 @@ def main():
     k2_timed = phase(phase_k2, ops, ref, dev, peaks)
     k2 = k2_timed[0]
     k5 = phase(phase_k5, ops, ref, dev, peaks)
+    k1_lanes = phase(phase_k1_lanes, ops, ref, layers, dev, peaks)
+    k2_cohort = phase(phase_k2_cohorts, ops, ref, dev, peaks)
     k4_timed = phase(phase_k4, ops, ref, dev, peaks)
     k4 = k4_timed[0]
     k6_timed = phase(phase_k6, ops, ref, dev, peaks)
@@ -1801,7 +2264,11 @@ def main():
     launches = phase(phase_paths, ops, dev)
     launches["hymba_serve"] = hymba_launches
     launches["diffusion_serve"] = phase(phase_diffusion_serve, ops, dev)
+    launches.update(phase(phase_pipefuse, ops, dev))
+    launches["diffusion_serve_pipefuse"] = phase(
+        phase_diffusion_serve_pipefuse, ops, dev)
     spmd = phase(phase_spmd, dev)
+    launches.update(phase(phase_chain_ranks, dev)[0])
     phase(phase_cross_device, dev)
     for label, outs in spmd.items():      # launches summed over the ranks
         launches[label] = {}
@@ -1824,6 +2291,8 @@ def main():
         {**entry("stale_kv_attention", skv_cu,
                  "src/repro/kernels/stale_kv_attention.py:69", k1, "main_path"),
          "batch2_ms": k1_b2["ms"], "batch2_bound_ms": k1_b2["bound_ms"],
+         "lanes4": {k: k1_lanes[k] for k in (
+             "Nl", "ms", "plain_ms", "library_ms", "bound_ms")},
          "wrapper_host_us": k1["wrapper_host_us"]},
         {**entry("cfg_epilogue", "src/repro_torch/kernels/csrc/cfg_epilogue.cu",
                  "src/repro/kernels/cfg_epilogue.py:34", k3, "diffusion_serve"),
@@ -1836,6 +2305,9 @@ def main():
                  "src/repro/kernels/stale_kv_attention.py:161", k2, "spmd"),
          "launches_per_rank": [o["launches"].get("stale_kv_attention_padded", 0)
                                for o in spmd["spmd"]],
+         "cohort4": {k: k2_cohort[k] for k in (
+             "tok_start", "valid_tokens", "ms", "plain_ms", "library_ms",
+             "bound_ms")},
          "timed_layouts": [{k: line[k] for k in (
              "batch", "tok_start", "valid_tokens", "ms", "plain_ms",
              "library_ms", "bound_ms", "wrapper_host_us")} for line in k2_timed]},

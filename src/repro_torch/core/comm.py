@@ -26,8 +26,12 @@ collectives over the ranks of one seq group: the Ulysses head scatter and
 its regather (:func:`ulysses_scatter_heads`, :func:`ulysses_gather_heads`,
 the reference's tiled ``jax.lax.all_to_all``) and the ring hop
 (:func:`ring_hop`, its ``ppermute`` to the next member). Both are built on
-``all_to_all_single``, which gloo and NCCL both take; the stage handoff comes
-with the pipefuse slice of the port.
+``all_to_all_single``, which gloo and NCCL both take.
+
+The displaced stage chain (DESIGN.md §11) adds :func:`stage_handoff`, the
+point-to-point move of a micro-task's hidden state from one stage rank to
+the next (the reference's ``ppermute``), and :func:`chain_broadcast`, which
+hands the last stage's output to every rank.
 """
 from __future__ import annotations
 
@@ -149,6 +153,39 @@ def ring_hop(x, group=None):
     got = torch.empty_like(flat)
     dist.all_to_all_single(got, flat, recv_sizes, send_sizes, group=group)
     return got.view(x.shape)
+
+
+def stage_handoff(h, src: int, dst: int, pair_group=None):
+    """Point-to-point pipeline handoff (reference: ``comm.stage_handoff``, a
+    ``ppermute`` from stage s to s + 1): rank ``src``'s ``h`` moves to rank
+    ``dst``. Both ranks call it, ``src`` with its tensor and ``dst`` with a
+    buffer of the same shape and dtype, which comes back filled; no other
+    rank takes part. NCCL runs a send/recv pair. Gloo refuses send/recv on
+    CUDA tensors, so there it is a broadcast inside ``pair_group``, the
+    two-rank group of src and dst (made once per run by the caller)."""
+    me = dist.get_rank()
+    if me not in (src, dst):
+        raise ValueError(f"rank {me} is neither end of the {src} -> {dst} "
+                         "handoff")
+    if dist.get_backend() == "nccl":
+        if me == src:
+            dist.send(h, dst)
+        else:
+            dist.recv(h, src)
+    else:
+        if pair_group is None:
+            raise ValueError("a gloo handoff runs in the two-rank group of "
+                             "its ends: pass pair_group")
+        dist.broadcast(h, src=src, group=pair_group)
+    return h
+
+
+def chain_broadcast(x, src: int):
+    """The last stage's output to every rank of the default group (the
+    reference's ``psum`` of the masked output): ``src`` passes its tensor,
+    every other rank a buffer of its shape and dtype."""
+    dist.broadcast(x, src=src)
+    return x
 
 
 def ring_hop_rows(segments: Sequence[int]) -> int:

@@ -3,12 +3,18 @@ exchange policy) into a typed stream of interval events, and every executor
 interprets that stream (reference: ``repro.core.events``, DESIGN.md §10).
 
 This port lowers the image axes — steps x patches under a boundary-exchange
-policy — and the guidance and sequence axes:
+policy — and the depth, guidance and sequence axes:
 
     stream   := Warmup*  adaptive*
-    adaptive := GuidanceExchange?  SeqShard?  ComputeInterval  Exchange  Replan?
+    adaptive := StageShift?  GuidanceExchange?  SeqShard?  ComputeInterval
+                Exchange  Replan?
 
     Warmup(m)             one synchronous full-image fine step
+    StageShift(m, stages) the displaced stage chain (DESIGN.md §11) refills:
+                          stage contexts reset to the published buffers.
+                          Emitted entering the adaptive phase and after
+                          every draining ("full") boundary, only when
+                          lowering with a ``stages`` partition of depth > 1
     ComputeInterval(m0,R) R fine steps of stale-KV patch compute
                           (per-worker substeps = R / ratio)
     Exchange(m, kind)     the interval boundary; ``kind`` comes from the
@@ -22,11 +28,11 @@ policy — and the guidance and sequence axes:
                           interval scatters its heads over the shards and
                           runs ``hops`` ring hops of K/V segments
 
-The stage and frame events of the reference come with the slices that port
-those axes. Replying to an :class:`Exchange` with
-``gen.send((plan, patches))`` re-allocates the remaining fine steps, exactly
-as in the reference. The trace records keep every field of the reference so
-that records from the two packages compare equal.
+The frame events of the reference come with the slice that ports that
+axis. Replying to an :class:`Exchange` with ``gen.send((plan, patches))``
+re-allocates the remaining fine steps, exactly as in the reference. The
+trace records keep every field of the reference so that records from the
+two packages compare equal.
 """
 from __future__ import annotations
 
@@ -44,10 +50,11 @@ from repro_torch.core.schedule import TemporalPlan
 @dataclasses.dataclass
 class IntervalEvent:
     """One executed interval: per-worker (sub-steps, patch rows) plus the
-    boundary-exchange kind that followed it. ``uncond_fresh`` records the
-    guidance verdict and ``seq_hops`` the ring hops of every attention; the
-    provenance fields of the later axes (fill, frames) keep their image-path
-    values in this port."""
+    boundary-exchange kind that followed it. ``fill`` marks an interval that
+    begins with a stage-chain (re)fill (the staged cost model charges the
+    pipeline bubble there), ``uncond_fresh`` records the guidance verdict
+    and ``seq_hops`` the ring hops of every attention; ``frames`` keeps its
+    image-path value in this port."""
     fine_step: int                       # first fine step of the interval
     substeps: List[int]                  # steps executed by each worker
     patches: List[int]                   # token-rows per worker
@@ -114,6 +121,17 @@ class Exchange:
 
 
 @dataclasses.dataclass(frozen=True)
+class StageShift:
+    """The displaced stage chain (re)fills (DESIGN.md §11): every stage's
+    context resets to the last published buffers. Emitted once when the
+    adaptive phase begins and again after every draining ("full")
+    exchange; "skip"/"predict" boundaries keep the pipe full, which is how
+    the stale-async policies compose with depth pipelining."""
+    fine_step: int                       # first fine step of the refilled pipe
+    stages: Tuple[int, ...]              # DiT blocks per stage (chain order)
+
+
+@dataclasses.dataclass(frozen=True)
 class GuidanceExchange:
     """Cross-branch epsilon reconciliation (DESIGN.md §12), emitted before
     each adaptive interval of a split/interleaved guidance plan. ``fresh`` is
@@ -164,12 +182,18 @@ def active_workers(plan: TemporalPlan, patches: Sequence[int]) -> List[int]:
 
 def lower(plan: TemporalPlan, patches: Sequence[int],
           policy: Optional[comm_lib.BoundaryExchange] = None,
+          stages: Optional[Sequence[int]] = None,
           guidance=None, seq_shards=None) -> Iterator:
-    """Lower (plan, patches, exchange policy[, guidance]) into events (see
-    the module docstring). A coroutine-style generator: reply to an
-    :class:`Exchange` with ``gen.send((new_plan, new_patches))`` to
-    re-allocate the remaining fine steps (the new plan's interval LCM must
-    divide them); the generator then emits a :class:`Replan` and continues.
+    """Lower (plan, patches, exchange policy[, stages][, guidance][, seq
+    shards]) into events (see the module docstring). A coroutine-style
+    generator: reply to an :class:`Exchange` with ``gen.send((new_plan,
+    new_patches))`` to re-allocate the remaining fine steps (the new plan's
+    interval LCM must divide them); the generator then emits a
+    :class:`Replan` and continues.
+
+    ``stages`` (blocks per stage): with more than one stage a
+    :class:`StageShift` is emitted before the first adaptive interval and
+    after every draining ("full") boundary but the last.
 
     ``guidance`` (a :class:`~repro_torch.core.guidance.GuidancePlan`): split
     and interleaved plans emit a :class:`GuidanceExchange` before every
@@ -183,6 +207,8 @@ def lower(plan: TemporalPlan, patches: Sequence[int],
     policy = policy or comm_lib.get_exchange("sync")
     patches = list(patches)
     n = len(patches)
+    stages = tuple(stages) if stages else ()
+    pipelined = len(stages) > 1
     guided_exchange = guidance is not None and guidance.mode != "fused"
     seq_sharded = seq_shards is not None and len(seq_shards.segments) > 1
     # fine steps count in ABSOLUTE coordinates of the original plan; a
@@ -195,7 +221,11 @@ def lower(plan: TemporalPlan, patches: Sequence[int],
                      tuple(patches))
     m0 = plan.m_warmup
     boundary = 0
+    refill = pipelined                   # the pipe fills entering adaptive
     while m0 + plan.lcm <= m_base:
+        if refill:
+            yield StageShift(m0, stages)
+            refill = False
         if guided_exchange:
             yield GuidanceExchange(m0, guidance.mode,
                                    guidance.uncond_fresh(boundary), boundary)
@@ -211,6 +241,8 @@ def lower(plan: TemporalPlan, patches: Sequence[int],
         last = m0 + plan.lcm > m_base
         kind = "full" if last else policy.kind(boundary)
         upd = yield Exchange(m0, kind, boundary, subs, tuple(patches), last)
+        if pipelined and kind == "full" and not last:
+            refill = True                # a sync boundary drains the pipe
         boundary += 1
         if upd is not None:
             plan, patches = upd
@@ -226,11 +258,11 @@ def lower(plan: TemporalPlan, patches: Sequence[int],
 # replay: event stream -> trace records / full ExecutionTrace
 # ----------------------------------------------------------------------
 
-def record(interval: ComputeInterval, kind: str,
+def record(interval: ComputeInterval, kind: str, fill: bool = False,
            uncond_fresh: bool = True, seq_hops: int = 0) -> IntervalEvent:
     """The trace record for one adaptive interval + its boundary kind."""
     return IntervalEvent(interval.fine_step, list(interval.substeps),
-                         list(interval.patches), exchange=kind,
+                         list(interval.patches), exchange=kind, fill=fill,
                          uncond_fresh=uncond_fresh, seq_hops=seq_hops)
 
 
@@ -241,18 +273,24 @@ def warmup_record(ev: Warmup) -> IntervalEvent:
 
 def replay(plan: TemporalPlan, patches: Sequence[int],
            policy: Optional[comm_lib.BoundaryExchange] = None,
+           stages: Optional[Sequence[int]] = None,
            guidance=None, seq_shards=None) -> List[IntervalEvent]:
     """Trace records of the whole schedule without executing any numerics —
-    the latency-only path (`simulate.build_trace`) and the numerics path
-    (`patch_parallel.run_schedule`) both derive their records from
-    :func:`lower`, so they are structurally identical by construction."""
+    the latency-only path (`simulate.build_trace`) and the numerics paths
+    (`patch_parallel.run_schedule`, `pipefuse.run_pipefuse`) all derive
+    their records from :func:`lower`, so they are structurally identical by
+    construction."""
     out: List[IntervalEvent] = []
     pending: Optional[ComputeInterval] = None
+    fill = False
     fresh = True
     hops = 0
-    for ev in lower(plan, patches, policy, guidance, seq_shards):
+    for ev in lower(plan, patches, policy, stages, guidance=guidance,
+                    seq_shards=seq_shards):
         if isinstance(ev, Warmup):
             out.append(warmup_record(ev))
+        elif isinstance(ev, StageShift):
+            fill = True
         elif isinstance(ev, GuidanceExchange):
             fresh = ev.fresh
         elif isinstance(ev, SeqShard):
@@ -260,14 +298,16 @@ def replay(plan: TemporalPlan, patches: Sequence[int],
         elif isinstance(ev, ComputeInterval):
             pending = ev
         elif isinstance(ev, Exchange):
-            out.append(record(pending, ev.kind, uncond_fresh=fresh,
-                              seq_hops=hops))
+            out.append(record(pending, ev.kind, fill=fill,
+                              uncond_fresh=fresh, seq_hops=hops))
+            fill = False
             fresh = True
     return out
 
 
 def make_trace(records: List[IntervalEvent], plan: TemporalPlan,
                patches: Sequence[int], cfg, batch: int,
+               stages: Optional[Sequence[int]] = None,
                guidance=None, seq=None) -> ExecutionTrace:
     """Byte-size provenance shared by every trace producer (K/V is priced
     at 2 bytes per element, the latent at 4, as in the reference)."""
@@ -277,5 +317,6 @@ def make_trace(records: List[IntervalEvent], plan: TemporalPlan,
                     * cfg.d_model * 2) for pr in patches]
     act_row = int(batch * cfg.tokens_per_side * cfg.d_model * 4)
     return ExecutionTrace(records, plan, list(patches), cfg.n_tokens,
-                          lat_bytes, kv_bytes, act_row_bytes=act_row,
-                          guidance=guidance, seq=seq)
+                          lat_bytes, kv_bytes,
+                          stages=list(stages) if stages else None,
+                          act_row_bytes=act_row, guidance=guidance, seq=seq)

@@ -180,7 +180,7 @@ def run_schedule(params, cfg: DiTConfig, sched: NoiseSchedule, x_T, cond,
     fresh = True                         # uncond recomputed this interval?
     seq_hops = 0                         # ring hops of the coming interval
 
-    gen = ir.lower(plan, patches, policy, guidance, seq)
+    gen = ir.lower(plan, patches, policy, guidance=guidance, seq_shards=seq)
     send = None
     while True:
         try:

@@ -18,6 +18,10 @@ Backends registered in the port:
                 branch groups (core/spmd.run_spmd_guidance)
     "spmd_seq"  sequence-parallel attention on seq_shards * n_workers ranks
                 (core/spmd.run_spmd_seq)
+    "pipefuse"  the displaced stage chain, emulated (core/pipefuse.
+                run_pipefuse; bitwise "emulated" at one stage)
+    "spmd_pipefuse"  the stage chain on one rank per stage
+                (core/spmd.run_spmd_pipefuse)
     "simulate"  trace-only latency modeling (no numerics; needs a CostModel)
 
 The multi-rank backends run inside the ranks of an initialized process
@@ -31,7 +35,9 @@ DESIGN.md §12): plain planners get the fused placement, and the
 ``guidance`` pins: fused, split or interleaved). ``seq_shards > 1`` (or the
 ``stadi_seq`` planner) shards every attention over sequence shards
 (DESIGN.md §13): the emulated backend runs its numerics, ``spmd_seq`` its
-ranks.
+ranks. ``num_stages > 1`` (or the ``stadi_pipefuse`` planner) splits the
+DiT depth into a stage chain (DESIGN.md §11) that the ``pipefuse`` and
+``spmd_pipefuse`` backends run.
 
 The pipeline runs on ``cuda`` unless the caller passes ``device="cpu"``; with
 no CUDA device and no explicit CPU request it raises. On the card every
@@ -78,15 +84,10 @@ from repro_torch.kernels import ops as kops
 #: where the reference's later axes, planners and backends arrive in the
 #: port (ROADMAP.md queue 1)
 _LATER = {
-    "stages": "the pipefuse slice (queue 1 item 10)",
-    "pipefuse": "the pipefuse slice (queue 1 item 10)",
-    "spmd_pipefuse": "the pipefuse slice (queue 1 item 10)",
-    "stadi_pipefuse": "the pipefuse slice (queue 1 item 10)",
     "frames": "the frames slice (queue 1 item 12)",
     "spmd_frames": "the frames slice (queue 1 item 12)",
     "stadi_video": "the frames slice (queue 1 item 12)",
     "prompt": "the prompt-conditioning slice (queue 1 item 13)",
-    "spmd_stepper": "the multi-rank serving slice (queue 1 item 9b)",
 }
 
 
@@ -145,9 +146,15 @@ class StadiConfig:
     # StadiPipeline fills it in from the model config (leave None).
     seq_shards: int = 1
     n_heads: Optional[int] = None
-    # axes of the reference that later slices bring; a value other than the
-    # default raises NotImplementedError naming that slice
+    # displaced stage chain (DESIGN.md §11): depth stages the DiT block
+    # stack is split into (1 = none; 0 = let the stadi_pipefuse planner
+    # search); micro_patches pins the micro-batch count (0 = auto); depth is
+    # the DiT block count, which StadiPipeline fills in (leave None)
     num_stages: int = 1
+    micro_patches: int = 0
+    depth: Optional[int] = None
+    # the frame axis of the reference comes with a later slice; a value
+    # other than 1 raises NotImplementedError naming it
     num_frames: int = 1
     # persistent plan cache (DESIGN.md §14): directory for serialized
     # planner outputs keyed by (cluster signature, model hash, workload
@@ -373,13 +380,11 @@ def _reject_message(backend: str, feature: str, plan: ExecutionPlan) -> str:
 #
 # over lane-stacked state (the lanes folded into the batch axis). The
 # "emulated" stepper batches the denoiser over lanes so lanes at different
-# noise-schedule positions share one dispatch.
+# noise-schedule positions share one dispatch; the "pipefuse" stepper adds
+# the lanes' displaced stage contexts (``interval_ctx``), and the "spmd"
+# stepper runs a cohort of lanes at one fine step across the ranks.
 
 STEPPER_FACTORIES: Dict[str, Callable] = {}
-
-#: backends whose serving stepper a later slice brings (the reference
-#: registers them)
-_LATER_STEPPERS = {"spmd": "spmd_stepper", "pipefuse": "pipefuse"}
 
 
 def register_stepper_factory(name: str) -> Callable:
@@ -390,8 +395,6 @@ def register_stepper_factory(name: str) -> Callable:
 
 
 def get_stepper_factory(name: str):
-    if name in _LATER_STEPPERS and name not in STEPPER_FACTORIES:
-        raise later_slice(_LATER_STEPPERS[name])
     try:
         return STEPPER_FACTORIES[name]
     except KeyError:
@@ -462,24 +465,26 @@ def spmd_guidance_executor(params, model_cfg, sched, x_T, cond, plan, config,
     return img, _spmd_trace(model_cfg, x_T, plan, config)
 
 
-def _spmd_trace(model_cfg, x_T, plan, config) -> ExecutionTrace:
+def _spmd_trace(model_cfg, x_T, plan, config, stages=None) -> ExecutionTrace:
     """The multi-rank executors' trace: replayed from the plan, as the
     reference builds it (their numerics follow the same event stream)."""
     return sim.build_trace(plan.temporal, plan.patches, model_cfg,
                            batch=int(x_T.shape[0]), exchange=config.exchange,
                            exchange_refresh=config.exchange_refresh,
-                           guidance=plan.guidance, seq=plan.seq)
+                           stages=stages, guidance=plan.guidance,
+                           seq=plan.seq)
 
 
-@register_executor("simulate",
-                   supports=_GUIDANCE_FEATURES + ("seq", "seq.uneven"))
+@register_executor("simulate", supports=("stages",) + _GUIDANCE_FEATURES
+                   + ("seq", "seq.uneven"))
 def simulate_executor(params, model_cfg, sched, x_T, cond, plan, config,
                       interval_hook=None):
     batch = int(x_T.shape[0]) if x_T is not None else 1
     trace = sim.build_trace(plan.temporal, plan.patches, model_cfg,
                             batch=batch, exchange=config.exchange,
                             exchange_refresh=config.exchange_refresh,
-                            guidance=plan.guidance, seq=plan.seq)
+                            stages=plan.stages, guidance=plan.guidance,
+                            seq=plan.seq)
     return None, trace
 
 
@@ -502,8 +507,58 @@ def spmd_seq_executor(params, model_cfg, sched, x_T, cond, plan, config,
     return img, _spmd_trace(model_cfg, x_T, plan, config)
 
 
+@register_executor("pipefuse", supports=("stages",) + _GUIDANCE_FEATURES)
+def pipefuse_executor(params, model_cfg, sched, x_T, cond, plan, config,
+                      interval_hook=None):
+    """The displaced stage chain, emulated: bitwise "emulated" at one
+    stage."""
+    from repro_torch.core import pipefuse
+    res = pipefuse.run_pipefuse(params, model_cfg, sched, x_T, cond,
+                                plan.temporal, plan.patches,
+                                plan.stages or [model_cfg.n_layers],
+                                exchange=config.exchange,
+                                exchange_refresh=config.exchange_refresh,
+                                interval_hook=interval_hook,
+                                guidance=plan.guidance)
+    return res.image, res.trace
+
+
+@register_executor("spmd_pipefuse", supports=("stages",))
+def spmd_pipefuse_executor(params, model_cfg, sched, x_T, cond, plan, config,
+                           interval_hook=None):
+    """The stage chain on one rank per stage (ranks = stages)."""
+    from repro_torch.core import spmd
+    stages = plan.stages or [model_cfg.n_layers]
+    img = spmd.run_spmd_pipefuse(params, model_cfg, sched, x_T, cond,
+                                 plan.temporal, plan.patches, stages,
+                                 exchange=config.exchange,
+                                 exchange_refresh=config.exchange_refresh)
+    return img, _spmd_trace(model_cfg, x_T, plan, config, stages=stages)
+
+
+#: backends that can execute a depth-partitioned (staged) plan
+STAGED_BACKENDS = backends_supporting("stages")
+
 #: backends that can execute a sequence-sharded plan (DESIGN.md §13)
 SEQ_BACKENDS = backends_supporting("seq")
+
+
+def _resolve_stages(plan: ExecutionPlan, model_cfg, config: StadiConfig
+                    ) -> Optional[List[int]]:
+    """The stage split a staged executor runs: the plan's own (from the
+    stadi_pipefuse planner) or, for plain planners, a speed-proportional
+    split of ``config.num_stages`` (the --num-stages wiring)."""
+    if plan.stages is not None:
+        return list(plan.stages)
+    if config.num_stages <= 1:
+        return None
+    if config.num_stages > config.n_devices:
+        raise ValueError(
+            f"num_stages={config.num_stages} is infeasible: the chain needs "
+            f"one device per stage and the cluster has {config.n_devices} "
+            "(the stadi_pipefuse planner rejects this identically)")
+    chain = sim.chain_speeds(config.speeds, config.num_stages)
+    return hetero.stage_partition(model_cfg.n_layers, chain)
 
 
 def _resolve_seq(plan: ExecutionPlan, model_cfg, config: StadiConfig):
@@ -564,8 +619,7 @@ class StadiPipeline:
 
     def __init__(self, model_cfg: DiTConfig, params, sched: NoiseSchedule,
                  config: StadiConfig, device=None):
-        later = {"stages": config.num_stages != 1,
-                 "frames": config.num_frames != 1,
+        later = {"frames": config.num_frames != 1,
                  "prompt": model_cfg.cross_attn}
         for name, asked in later.items():
             if asked:
@@ -575,6 +629,14 @@ class StadiPipeline:
         get_planner(config.planner)      # fail fast on typos
         get_executor(config.backend)
         get_exchange(config.exchange, config.exchange_refresh)
+        if config.num_stages < 0:
+            raise ValueError(f"num_stages must be >= 0 (0 = auto), got "
+                             f"{config.num_stages}")
+        if config.num_stages > 1 and config.backend not in STAGED_BACKENDS:
+            raise ValueError(
+                f"num_stages={config.num_stages} needs a staged backend "
+                f"({sorted(STAGED_BACKENDS)}), not {config.backend!r} — "
+                "the displaced patch pipeline (DESIGN.md §11)")
         if config.guidance != "none" and config.guidance not in GUIDANCE_MODES:
             raise ValueError(f"unknown guidance mode {config.guidance!r}; "
                              f"one of {('none',) + GUIDANCE_MODES}")
@@ -627,10 +689,12 @@ class StadiPipeline:
         return self.model_cfg.tokens_per_side
 
     def _plan_knobs(self) -> StadiConfig:
-        """The config with the model-derived head count and byte sizes
-        filled in, which the guided and seq planners price — what planners
-        actually see."""
+        """The config with the model-derived depth, head count and byte
+        sizes filled in, which the staged, guided and seq planners price —
+        what planners actually see."""
         knobs = self.config
+        if knobs.depth is None:          # stage planning needs the DiT depth
+            knobs = dataclasses.replace(knobs, depth=self.model_cfg.n_layers)
         if knobs.n_heads is None:        # seq planning needs the head count
             knobs = dataclasses.replace(knobs, n_heads=self.model_cfg.n_heads)
         if knobs.latent_bytes == 0:
@@ -651,9 +715,9 @@ class StadiPipeline:
     def _workload_key(self, knobs: StadiConfig) -> Dict:
         """The workload-shape component of the plan-cache key: every knob
         that changes what the planner returns, as the reference names them.
-        The later axes' knobs enter at the values this port runs (one stage,
-        the model's depth, one frame, no prompt bucket), so a key never
-        depends on which slices are ported."""
+        The later axes' knobs enter at the values this port runs (one frame,
+        no prompt bucket), so a key never depends on which slices are
+        ported."""
         cm = knobs.cost_model
         return {
             "planner": knobs.planner,
@@ -664,7 +728,7 @@ class StadiPipeline:
             "exchange": knobs.exchange,
             "exchange_refresh": knobs.exchange_refresh,
             "num_stages": knobs.num_stages,
-            "micro_patches": 0, "depth": self.model_cfg.n_layers,
+            "micro_patches": knobs.micro_patches, "depth": knobs.depth,
             "guidance": knobs.guidance, "cfg_scale": knobs.cfg_scale,
             "uncond_refresh": knobs.uncond_refresh,
             "latent_bytes": knobs.latent_bytes,
@@ -679,9 +743,9 @@ class StadiPipeline:
 
     def plan(self, speeds: Optional[Sequence[float]] = None, *,
              use_cache: bool = True) -> ExecutionPlan:
-        """Run the configured planner (no execution); the plan's guidance and
-        seq axes are resolved from the planner output or the config in the
-        same pass. With a plan cache configured, the persistent cache is
+        """Run the configured planner (no execution); the plan's stage,
+        guidance and seq axes are resolved from the planner output or the
+        config in the same pass. With a plan cache configured, the persistent cache is
         consulted before any planner search (``use_cache=False`` forces a
         live search without touching the cache)."""
         speeds = list(speeds) if speeds is not None else self.config.speeds
@@ -697,7 +761,8 @@ class StadiPipeline:
         raw = get_planner(self.config.planner)(speeds, knobs, self.p_total)
         self.planner_calls += 1
         plan = dataclasses.replace(
-            raw, guidance=_resolve_guidance(raw, knobs),
+            raw, stages=_resolve_stages(raw, self.model_cfg, knobs),
+            guidance=_resolve_guidance(raw, knobs),
             seq=(raw.seq if raw.seq is not None
                  else _resolve_seq(raw, self.model_cfg, knobs)))
         if key is not None:
@@ -773,6 +838,7 @@ class StadiPipeline:
                                 self.model_cfg, batch=1,
                                 exchange=self.config.exchange,
                                 exchange_refresh=self.config.exchange_refresh,
+                                stages=engine.stages,
                                 guidance=engine.plan.guidance)
         report_latency = self.config.cost_model is not None
         kernel_stats = {"launches": engine.stats()["kernels"]}

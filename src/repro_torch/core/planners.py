@@ -11,11 +11,12 @@ consumes. Registered planners:
     "temporal"  +TA: Eq. 4 steps, equal patches
     "stadi"     +TA+SA: Eq. 4 steps, Eq. 5 patches (the paper's Algorithm 1)
     "makespan"  beyond-paper exhaustive-over-tiers makespan-optimal allocator
+    "stadi_pipefuse"  joint (steps, patches, stage split) search
     "stadi_guidance"  joint (steps, patches, CFG placement) search
     "stadi_seq" joint (steps, patches, sequence shards) search
 
-The joint planners of the other axes (stadi_pipefuse, stadi_video) come with
-the slices that port those axes.
+The frame axis's joint planner (stadi_video) comes with the slice that
+ports that axis.
 """
 from __future__ import annotations
 
@@ -38,13 +39,18 @@ class ExecutionPlan:
     planner:  provenance — registry name of the planner that produced it
     speeds:   the effective speeds the plan was computed from
     modeled_interval_cost: planner-modeled cost per fine-step interval
-        (the makespan and stadi_guidance planners fill this in)
+        (the makespan, stadi_pipefuse, stadi_guidance and stadi_seq
+        planners fill this in)
+    stages: the displaced stage chain (DESIGN.md §11): DiT blocks per
+        stage, the chain on the ``len(stages)`` fastest devices in speed
+        order (None = depth-unpartitioned); ``temporal``/``patches`` then
+        describe patch micro-batches streaming through the chain
     guidance: the :class:`~repro_torch.core.guidance.GuidancePlan` of a
         guided run (None = unguided)
     seq: the :class:`~repro_torch.core.seqpar.SeqPlan` of a
         sequence-sharded run (None = attention-unsharded)
-    stages / frames: the later axes of the reference's six-axis plan; None
-        on every plan the port's planners return.
+    frames: the frame axis of the reference's six-axis plan; None on every
+        plan the port's planners return.
     """
     temporal: TemporalPlan
     patches: List[int]
@@ -66,8 +72,9 @@ class Planner(Protocol):
     """Anything callable as ``planner(speeds, knobs, p_total)``.
 
     ``knobs`` is any object exposing ``m_base``, ``m_warmup``, ``a``, ``b``,
-    ``tiers``, ``granularity`` and ``min_patch``; ``stadi_guidance`` also
-    reads ``cfg_scale``, ``guidance``, ``uncond_refresh``, ``cost_model``,
+    ``tiers``, ``granularity`` and ``min_patch``; ``stadi_pipefuse`` also
+    reads ``num_stages``, ``micro_patches``, ``depth`` and ``cost_model``,
+    ``stadi_guidance`` ``cfg_scale``, ``guidance``, ``uncond_refresh``, ``cost_model``,
     ``latent_bytes`` and ``kv_row_bytes``, and ``stadi_seq`` ``seq_shards``,
     ``n_heads`` and ``exchange_refresh`` (in practice a
     :class:`~repro_torch.core.pipeline.StadiConfig`).
@@ -171,6 +178,94 @@ def makespan_planner(speeds, knobs, p_total) -> ExecutionPlan:
         granularity=knobs.granularity, tiers=knobs.tiers, b=knobs.b)
     return ExecutionPlan(plan, patches, "makespan", list(speeds),
                          modeled_interval_cost=cost)
+
+
+def _patch_plan_cost(plan: ExecutionPlan, p_total: int,
+                     fixed: float = 0.05) -> float:
+    """Normalized per-fine-step makespan of a pure patch-parallel plan: a
+    full-depth full-image step at v=1 costs ``fixed + 1`` work units, and a
+    device with interval ratio r amortizes its step over r fine steps (the
+    model :func:`repro_torch.core.schedule.makespan_optimal_allocation`
+    minimizes)."""
+    cost = 0.0
+    for i in plan.active:
+        v, r = plan.speeds[i], plan.temporal.ratios[i]
+        cost = max(cost, (fixed + plan.patches[i] / p_total) / v / r)
+    return cost
+
+
+def _pipefuse_plan_cost(stages: Sequence[int], chain_speeds: Sequence[float],
+                        n_micro: int, fixed: float = 0.05) -> float:
+    """Normalized per-fine-step steady-state cost of a displaced pipeline:
+    stage d runs its block share of each of the ``n_micro`` micro-tasks per
+    fine step, so the bottleneck stage sets the rate. The per-step fixed
+    overhead splits with the blocks, where patch parallelism pays it whole
+    on every device (DESIGN.md §11)."""
+    L = sum(stages)
+    return max(b / L * (n_micro * fixed + 1.0) / v
+               for b, v in zip(stages, chain_speeds))
+
+
+@register_planner("stadi_pipefuse")
+def stadi_pipefuse_planner(speeds, knobs, p_total) -> ExecutionPlan:
+    """Joint (steps, patches, stage split) search (DESIGN.md §11).
+
+    Candidates: the pure patch-parallel STADI plan (one stage) and, for
+    each stage count S, a displaced pipeline on the S fastest devices with
+    blocks sized by :func:`repro_torch.core.hetero.stage_partition` and
+    patch micro-batches split uniformly. All are scored with the same
+    normalized interval-makespan model and the cheapest wins.
+    ``knobs.num_stages > 0`` pins S (1 = force pure patch); 0 = auto.
+    ``knobs.depth`` (the DiT block count, which StadiPipeline fills in) is
+    required for S > 1. ``knobs.micro_patches > 0`` pins the micro-batch
+    count; 0 = auto (S or 2S, whichever models cheaper).
+    """
+    from repro_torch.core import hetero
+    n = len(speeds)
+    forced_s = getattr(knobs, "num_stages", 0)
+    depth = getattr(knobs, "depth", None)
+    # normalized per-step fixed overhead: from the configured cost model
+    # (t_fixed in units of the full-image row work), else the makespan
+    # planner's default
+    cm = getattr(knobs, "cost_model", None)
+    fixed = (cm.t_fixed / max(cm.t_row * p_total, 1e-12)
+             if cm is not None else 0.05)
+    stadi = stadi_planner(speeds, knobs, p_total)
+    candidates = [dataclasses.replace(
+        stadi, planner="stadi_pipefuse",
+        modeled_interval_cost=_patch_plan_cost(stadi, p_total, fixed))]
+    if depth is None and forced_s > 1:
+        raise ValueError("stadi_pipefuse needs knobs.depth (the DiT block "
+                         "count) to partition stages; StadiPipeline fills "
+                         "it in from the model config")
+    s_options = ([forced_s] if forced_s > 0 else
+                 range(2, min(n, depth or 1) + 1))
+    by_speed = sorted(range(n), key=lambda d: (-speeds[d], d))
+    forced_m = getattr(knobs, "micro_patches", 0)
+    for S in s_options:
+        if S < 2 or S > min(n, depth):
+            continue
+        chain = [speeds[d] for d in by_speed[:S]]
+        stages = hetero.stage_partition(depth, chain)
+        for M in ([forced_m] if forced_m > 0 else
+                  sorted({S, min(2 * S, p_total)})):
+            if M > p_total:
+                continue
+            temporal = _uniform_temporal(M, knobs.m_base, knobs.m_warmup)
+            patches = _equal_patches(temporal, p_total)
+            candidates.append(ExecutionPlan(
+                temporal, patches, "stadi_pipefuse", list(speeds),
+                modeled_interval_cost=_pipefuse_plan_cost(stages, chain, M,
+                                                          fixed),
+                stages=stages))
+    if forced_s > 1 and len(candidates) == 1:
+        raise ValueError(
+            f"num_stages={forced_s} is infeasible: need 2 <= S <= "
+            f"min(n_devices={n}, depth={depth})")
+    best = min(candidates, key=lambda c: c.modeled_interval_cost)
+    if forced_s > 1:                     # pinned: drop the patch fallback
+        best = min(candidates[1:], key=lambda c: c.modeled_interval_cost)
+    return best
 
 
 def _guided_plan_cost(plan: ExecutionPlan, speeds, p_total: int, cm,

@@ -13,36 +13,38 @@ only the excess charged; "skip" and "predict" move no bytes (DESIGN.md §10).
 
 The trace is built by replaying the SAME event stream the emulated engine
 interprets (:func:`repro_torch.core.events.replay`). The port prices
-unstaged, single-frame traces: unguided, guided (the fabric-contention model
-of DESIGN.md §12) or sequence-sharded (the ring-contention model of DESIGN.md
-§13); the staged and frame cost models come with the slices that port those
-axes.
+single-frame traces: unguided, staged (the displaced stage chain of
+DESIGN.md §11), guided (the fabric-contention model of DESIGN.md §12) or
+sequence-sharded (the ring-contention model of DESIGN.md §13); the frame
+cost model comes with the slice that ports that axis.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Sequence
+from typing import List, Optional, Sequence, Tuple
 
 from repro_torch.core import comm as comm_lib
 from repro_torch.core import events as ir
 from repro_torch.core.events import ExecutionTrace
 
 #: the slice of the port that brings each trace axis's cost model
-_LATER_AXES = (("stages", "the pipefuse slice (ROADMAP queue 1 item 10)"),
-               ("frames", "the frames slice (ROADMAP queue 1 item 12)"))
+_LATER_AXES = (("frames", "the frames slice (ROADMAP queue 1 item 12)"),)
 
 
 def build_trace(plan, patches: Sequence[int], cfg, batch: int = 1,
                 exchange: str = "sync", exchange_refresh: int = 2,
+                stages: Optional[Sequence[int]] = None,
                 guidance=None, seq=None) -> ExecutionTrace:
     """Schedule trace without running numerics (latency-only replay of
     :func:`repro_torch.core.events.lower` for (plan, patches, policy[,
-    guidance][, seq])); a guided trace carries its uncond-refresh
-    provenance, a sequence-sharded one (``seq``, a SeqPlan) its ring hops."""
+    stages][, guidance][, seq])); a staged trace carries its pipeline-fill
+    provenance, a guided one its uncond-refresh provenance, a
+    sequence-sharded one (``seq``, a SeqPlan) its ring hops."""
     policy = comm_lib.get_exchange(exchange, exchange_refresh)
-    records = ir.replay(plan, patches, policy, guidance, seq)
+    records = ir.replay(plan, patches, policy, stages=stages,
+                        guidance=guidance, seq_shards=seq)
     return ir.make_trace(records, plan, list(patches), cfg, batch,
-                         guidance=guidance, seq=seq)
+                         stages=stages, guidance=guidance, seq=seq)
 
 
 @dataclasses.dataclass
@@ -89,6 +91,109 @@ def _kv_bytes_per_row(trace: ExecutionTrace) -> float:
         if p > 0:
             return b / p
     return 0.0
+
+
+# ----------------------------------------------------------------------
+# displaced stage-chain costing (DESIGN.md §11)
+# ----------------------------------------------------------------------
+#
+# In a staged trace the "workers" are patch micro-batches that ALL stream
+# through every stage device. Stage d (chain order, on the d-th fastest
+# device) runs its block share of every micro-task; steady state is bound by
+# the slowest stage and the pipeline bubble is charged only on fill
+# intervals (the IR's StageShift). Stage handoffs are point-to-point
+# activation slabs overlapped with compute, so they enter as a bandwidth
+# bound rather than a per-boundary stall; K/V never crosses stages.
+
+def chain_speeds(speeds: Sequence[float], n_stages: int) -> List[float]:
+    """The stage chain runs on the ``n_stages`` fastest devices, in speed
+    order (stage 0 = fastest) — the placement convention the planner, the
+    simulator and the serving engine share."""
+    return sorted(speeds, reverse=True)[:n_stages]
+
+
+def pipefuse_stage_seconds(stages: Sequence[int], chain: Sequence[float],
+                           cm: CostModel,
+                           tasks: Sequence[Tuple[int, float]]) -> List[float]:
+    """Per-stage busy seconds for a stream of micro-tasks ``(substeps,
+    effective_rows)``: the per-step fixed overhead and the row work are both
+    depth-proportional, so stage d pays its block fraction of each."""
+    L = sum(stages)
+    work = sum(s * (cm.t_fixed + cm.t_row * r) for s, r in tasks)
+    return [b / L * work / max(v, 1e-9) for b, v in zip(stages, chain)]
+
+
+def pipefuse_fill_bubble(stages: Sequence[int], chain: Sequence[float],
+                         cm: CostModel, rows: float) -> float:
+    """Pipeline-fill bubble: the first micro-task traverses the whole chain
+    before steady state; all but its bottleneck-stage share is startup
+    latency (plus one link latency per handoff)."""
+    L = sum(stages)
+    per = [b / L * (cm.t_fixed + cm.t_row * rows) / max(v, 1e-9)
+           for b, v in zip(stages, chain)]
+    return sum(per) - max(per) + (len(stages) - 1) * cm.link_latency
+
+
+def pipefuse_warmup_seconds(stages: Sequence[int], chain: Sequence[float],
+                            cm: CostModel, rows: float,
+                            act_row_bytes: float) -> float:
+    """One synchronous full-image task, sequential through the chain."""
+    per = pipefuse_stage_seconds(stages, chain, cm, [(1, rows)])
+    hop = act_row_bytes * rows / cm.link_bw + cm.link_latency
+    return sum(per) + (len(stages) - 1) * hop
+
+
+def pipefuse_interval_seconds(stages: Sequence[int], chain: Sequence[float],
+                              cm: CostModel,
+                              tasks: Sequence[Tuple[int, float]],
+                              fill: bool, kind: str, latent_bytes: float,
+                              act_row_bytes: float) -> float:
+    """Modeled seconds of one adaptive interval through the stage chain —
+    the one place the staged interval cost lives (the trace replay and the
+    serving engine's round costing both call it). Steady state is
+    bottleneck-bound and competes with the activation stream's bandwidth;
+    fill intervals pay the bubble; "full" boundaries drain and add the
+    latent handoff back to stage 0."""
+    busy = pipefuse_stage_seconds(stages, chain, cm, tasks)
+    handoff = sum(s * act_row_bytes * r for s, r in tasks) / cm.link_bw \
+        if len(stages) > 1 else 0.0
+    total = max(max(busy), handoff)
+    if fill:
+        total += pipefuse_fill_bubble(stages, chain, cm, tasks[0][1])
+    if kind == "full":
+        total += latent_bytes / cm.link_bw + cm.link_latency
+    return total
+
+
+def _simulate_staged(trace: ExecutionTrace, speeds: Sequence[float],
+                     cm: CostModel) -> float:
+    stages = trace.stages
+    if trace.cond_tokens:
+        # prompt cross-attention is per-row work spread over the depth like
+        # t_row, so it folds into the row rate
+        cm = dataclasses.replace(
+            cm, t_row=cm.t_row + cm.t_xattn * trace.cond_tokens)
+    chain = chain_speeds(speeds, len(stages))
+    total = 0.0
+    rows_total = max(sum(trace.patches), 1)
+    # guided staged runs: both CFG branches stream through the chain as one
+    # micro-task, so every task carries 2x the row work (the fixed overhead
+    # is shared); each stage's doubled context never crosses devices
+    mult = 2 if trace.guidance is not None else 1
+    for ev in trace.events:
+        tasks = [(sub, rows * mult) for sub, rows
+                 in zip(ev.substeps, ev.patches) if sub > 0 and rows > 0]
+        if not tasks:
+            continue
+        if ev.synchronous:
+            total += pipefuse_warmup_seconds(stages, chain, cm,
+                                             rows_total * mult,
+                                             trace.act_row_bytes)
+        else:
+            total += pipefuse_interval_seconds(
+                stages, chain, cm, tasks, ev.fill, ev.exchange,
+                trace.latent_bytes, trace.act_row_bytes)
+    return total
 
 
 # ----------------------------------------------------------------------
@@ -232,10 +337,12 @@ def simulate_trace(trace: ExecutionTrace, speeds: Sequence[float],
     """End-to-end makespan (s) of a schedule on devices with given speeds."""
     for field, slice_name in _LATER_AXES:
         value = getattr(trace, field)
-        if value is not None and (field != "stages" or len(value) > 1):
+        if value is not None:
             raise NotImplementedError(
                 f"pricing a trace with {field}={value!r} comes with "
                 f"{slice_name}")
+    if trace.stages and len(trace.stages) > 1:
+        return _simulate_staged(trace, speeds, cm)
     if trace.seq is not None and len(trace.seq.segments) > 1:
         return _simulate_seq(trace, speeds, cm)
     if trace.guidance is not None:

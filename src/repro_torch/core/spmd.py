@@ -1,6 +1,7 @@
 """Multi-rank execution of a STADI schedule on ``torch.distributed`` — the
-port of ``repro.core.spmd`` (``run_spmd``, ``run_spmd_guidance`` and
-``run_spmd_seq``; the pipefuse and frame executors come with their slices).
+port of ``repro.core.spmd`` (``run_spmd``, ``run_spmd_guidance``,
+``run_spmd_seq``, ``run_spmd_pipefuse`` and the serving engine's
+``make_interval_step``; the frame executor comes with its slice).
 
 One process per rank, each owning one row-slab of the latent padded to the
 largest patch (``Pmax`` rows), as the reference's ``shard_map`` body does on
@@ -40,6 +41,17 @@ goes through the seq subgroup of the rank's dev column instead of K2: the
 Ulysses head scatter, S ring hops of K/V segments, each attended by kernel
 K4 and merged with an fp32 online log-sum-exp, and the regather.
 
+The displaced stage chain (DESIGN.md §11, ``run_spmd_pipefuse``) runs one
+rank per STAGE: rank s holds the displaced K/V context of its own blocks,
+which never crosses ranks, and runs its blocks when a micro-task reaches it
+(:func:`repro_torch.core.comm.stage_handoff` brings the hidden state from
+rank s - 1); the last stage's eps goes to every rank for the replicated DDIM
+update.
+
+``make_interval_step`` is the serving engine's round-granular form of
+``run_spmd``: one adaptive interval of a lane cohort per call, the state
+carried between calls by the caller.
+
 Every rank must call these functions together inside an initialized
 default process group (:mod:`repro_torch.launch.ranks` starts one); each
 returns the full final image on every rank.
@@ -58,8 +70,9 @@ from repro_torch.core import buffers as buf_lib
 from repro_torch.core import comm as comm_lib
 from repro_torch.core import events as ir
 from repro_torch.core import sampler as sampler_lib
+from repro_torch.core.pipefuse import stage_blocks, stage_bounds
 from repro_torch.core.sampler import NoiseSchedule
-from repro_torch.core.schedule import TemporalPlan
+from repro_torch.core.schedule import TemporalPlan, patch_bounds
 from repro_torch.kernels import ops as kops
 from repro_torch.models.diffusion import dit
 
@@ -138,14 +151,18 @@ def _run_substeps(params, cfg: DiTConfig, sched: NoiseSchedule, ts, m_base,
 
 
 def _gather_and_merge(cfg: DiTConfig, patches, lay: Layout, my_slab, fresh,
-                      pub, group=None, tok_axis: int = 2):
+                      pub, group=None, tok_axis: int = 2, merge_kv=True):
     """Interval boundary ("full"): padded uneven all-gathers rebuild the
     full latent and every rank's fresh K/V valid prefix. The prefixes tile
     the image's ``n_tokens`` rows in rank order, so the merged buffers are
     the gathered K/V followed by the old scratch tail — new tensors; the
-    old ones stay as they were (prediction keeps them)."""
+    old ones stay as they were (prediction keeps them). ``merge_kv=False``
+    is the "skip" kind: only the latent is gathered and ``pub`` comes back
+    as it was."""
     x_full = comm_lib.uneven_all_gather_padded(
         my_slab, [n * lay.p for n in patches], group, axis=1)
+    if not merge_kv:
+        return x_full, pub
     sizes = [n * lay.wp for n in patches]
     merged = []
     for new, old in zip(fresh, pub):
@@ -259,6 +276,170 @@ def run_spmd(params, cfg: DiTConfig, sched: NoiseSchedule, x_T, cond,
     return _execute(params, cfg, sched, x_T, cond, plan, patches, evs,
                     dist.get_rank(), guidance_scale=(
                         guidance.scale if guidance is not None else None))
+
+
+def _world_check(what: str, n: int, unit: str) -> None:
+    world = dist.get_world_size()
+    if world != n:
+        raise ValueError(f"{what} runs one rank per {unit}: {n} {unit}s, "
+                         f"{world} ranks")
+
+
+def make_interval_step(cfg: DiTConfig, sched: NoiseSchedule,
+                       plan: TemporalPlan, patches: Sequence[int],
+                       exchange_kind: str = "full"):
+    """Round-granular multi-rank STADI: one adaptive interval a call
+    (reference ``repro.core.spmd.make_interval_step``).
+
+    Returns ``fn(params, x_full [G,H,W,C], cond [G], pub_k, pub_v
+    [L,G,N,H,hd], m0) -> (x_full, pub_k, pub_v)``, which every rank calls
+    together: the R = plan.lcm fine steps from fine step ``m0`` (an int) on
+    the rank's padded slab with the same inactive-substep skipping, padded
+    all-gathers and publish-at-first-substep rule as :func:`run_spmd`, so
+    every buffered read is kernel K2. The carried state lives with the
+    caller between calls, so the serving engine interleaves many cohorts
+    of lanes across rounds (DESIGN.md §9); the buffers are scratch-padded on
+    entry and sliced back to ``cfg.n_tokens`` on exit, new tensors.
+
+    ``exchange_kind`` picks the boundary: "full" merges the fresh K/V,
+    "skip" leaves the buffers as they were (predictive callers extrapolate
+    the buffers themselves and call the "skip" form). Eager PyTorch has no
+    program to compile, so unlike the reference nothing is cached per
+    variant."""
+    if exchange_kind not in ("full", "skip"):
+        raise ValueError(f"make_interval_step runs 'full' or 'skip' "
+                         f"boundaries, not {exchange_kind!r}")
+    _require_process_group("spmd")
+    _world_check("make_interval_step", len(patches), "patch worker")
+    lay = _static_layout(cfg, patches)
+    idx = dist.get_rank()
+    my_start = lay.row_starts[idx]
+    my_tok = patches[idx] * lay.wp
+    my_ratio = plan.ratios[idx] or 1
+    ts = sampler_lib.ddim_timesteps(sched.T, plan.m_base).tolist()
+    R = plan.lcm
+    n_pad = cfg.n_tokens + lay.Nl_max
+
+    def fn(params, x_full, cond, pub_k, pub_v, m0: int):
+        pub = tuple(comm_lib.pad_to(b, n_pad, axis=2) for b in (pub_k, pub_v))
+        my_slab = _reslice(x_full, my_start, lay)
+        my_slab, fresh = _run_substeps(
+            params, cfg, sched, ts, plan.m_base, R, my_slab, cond, pub[0],
+            pub[1], my_start, my_tok, my_ratio, int(m0))
+        x_full, pub = _gather_and_merge(cfg, patches, lay, my_slab, fresh,
+                                        pub, merge_kv=exchange_kind == "full")
+        return (x_full,) + tuple(b.narrow(2, 0, cfg.n_tokens) for b in pub)
+
+    fn.substeps = len(range(0, R, my_ratio))   # this rank's forwards a call
+    return fn
+
+
+def run_spmd_pipefuse(params, cfg: DiTConfig, sched: NoiseSchedule, x_T,
+                      cond, plan: TemporalPlan, patches: Sequence[int],
+                      stages: Sequence[int], exchange: str = "sync",
+                      exchange_refresh: int = 2):
+    """The displaced stage chain on one rank per stage (reference
+    ``repro.core.spmd.run_spmd_pipefuse``, DESIGN.md §11). Returns the final
+    image [B,H,W,C] on every rank.
+
+    Rank d owns the ``stages[d]`` contiguous blocks of its stage and the
+    displaced K/V context of exactly those blocks. Per micro-task (the
+    substep-major order of :func:`repro_torch.core.pipefuse.run_pipefuse`)
+    every rank embeds the slab; rank d > 0 receives the hidden state from
+    rank d - 1 (:func:`repro_torch.core.comm.stage_handoff`), runs its
+    blocks against its context (kernel K1, static ``tok_start``) and writes
+    its fresh rows into it; the last rank runs the head and its eps goes to
+    every rank (:func:`repro_torch.core.comm.chain_broadcast`) for the
+    replicated DDIM update. Where the reference runs every stage on every
+    device in lockstep and masks the result, a rank here runs its blocks
+    only. Warm-up steps run the full-depth forward on every rank, as in the
+    reference. The numerics are those of ``run_pipefuse``."""
+    stages = list(stages)
+    S = len(stages)
+    if sum(stages) != cfg.n_layers:
+        raise ValueError(f"stages {stages} must cover all {cfg.n_layers} "
+                         "blocks")
+    if S == 1:
+        return run_spmd(params, cfg, sched, x_T, cond, plan, patches,
+                        exchange=exchange, exchange_refresh=exchange_refresh)
+    _require_process_group("spmd_pipefuse")
+    _world_check("run_spmd_pipefuse", S, "stage")
+    policy = comm_lib.get_exchange(exchange, exchange_refresh)
+    evs = list(ir.lower(plan, patches, policy, stages=stages))
+    me = dist.get_rank()
+    lo, hi = stage_bounds(stages)[me]
+    my_blocks = stage_blocks(params, lo, hi)
+    pairs = (_subgroups([(s, s + 1) for s in range(S - 1)])
+             if dist.get_backend() != "nccl" else [None] * (S - 1))
+    p, wp = cfg.patch_size, cfg.tokens_per_side
+    bounds_tok = patch_bounds(patches)
+    ts = sampler_lib.ddim_timesteps(sched.T, plan.m_base).tolist()
+    eps_dtype = params["final_proj"].dtype
+    for name in ("final_mod_w", "final_mod_b"):
+        eps_dtype = torch.promote_types(eps_dtype, params[name].dtype)
+
+    def my_kv(kvs):
+        """This stage's rows of a full-depth forward's K/V (a copy: the
+        other stages' rows are not kept)."""
+        return tuple(kv[lo:hi].clone() for kv in kvs)
+
+    def micro_task(x_loc, t, row_start, ctx_k, ctx_v):
+        rows_tok = x_loc.shape[1] // p
+        h, c = dit.embed_patch(params, cfg, x_loc, t, cond, row_start)
+        tok_start = row_start * wp
+        if me > 0:                       # h becomes the receive buffer
+            h = comm_lib.stage_handoff(h.contiguous(), me - 1, me,
+                                       pairs[me - 1])
+        h, (k, v) = dit.block_stack(my_blocks, cfg, h, c, tok_start,
+                                    buffers=(ctx_k, ctx_v))
+        rows = slice(tok_start, tok_start + h.shape[1])
+        ctx_k[:, :, rows] = k
+        ctx_v[:, :, rows] = v
+        if me < S - 1:
+            comm_lib.stage_handoff(h.contiguous(), me, me + 1, pairs[me])
+            eps = torch.empty(x_loc.shape, dtype=torch.promote_types(
+                h.dtype, eps_dtype), device=x_loc.device)
+        else:
+            eps = dit.final_head(params, cfg, h, c, rows_tok).contiguous()
+        return comm_lib.chain_broadcast(eps, S - 1), k, v
+
+    x_full = x_T.clone()
+    my_pub = my_ctx = None               # (k, v) of my blocks
+    pend = {}                            # worker -> (k, v, token start)
+    for ev in evs:
+        if isinstance(ev, ir.Warmup):
+            t_from, t_to = ts[ev.fine_step], ts[ev.fine_step + 1]
+            eps, kvs = dit.forward_patch(params, cfg, x_full, t_from, cond, 0)
+            x_full = sampler_lib.ddim_step(sched, x_full, eps, t_from, t_to)
+            my_pub = my_kv(kvs)
+        elif isinstance(ev, ir.StageShift):
+            if my_pub is None:           # M_w == 0: bootstrap once
+                _, kvs = dit.forward_patch(params, cfg, x_full, ts[0], cond, 0)
+                my_pub = my_kv(kvs)
+            my_ctx = tuple(kv.clone() for kv in my_pub)
+        elif isinstance(ev, ir.ComputeInterval):
+            pend = {}
+            for f in range(ev.length):
+                for i in ev.workers:
+                    r = ev.ratios[i]
+                    if f % r:
+                        continue
+                    a, b = bounds_tok[i]
+                    t_from = ts[ev.fine_step + f]
+                    t_to = ts[ev.fine_step + f + r]
+                    x_loc = x_full[:, a * p:b * p]
+                    eps, k, v = micro_task(x_loc, t_from, a, *my_ctx)
+                    x_full[:, a * p:b * p] = sampler_lib.ddim_step(
+                        sched, x_loc, eps, t_from, t_to)
+                    if f == 0:
+                        pend[i] = (k, v, a * wp)
+        elif isinstance(ev, ir.Exchange) and ev.kind == "full":
+            for i in sorted(pend):       # merge substep-0 K/V, my blocks
+                k, v, start = pend[i]
+                for buf, new in zip(my_pub, (k, v)):
+                    buf.narrow(2, start, new.shape[2]).copy_(new)
+        # skip/predict: the pipe stays full and the context persists
+    return x_full
 
 
 #: subgroups by their member lists, with the default group they belong to.

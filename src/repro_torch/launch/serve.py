@@ -11,9 +11,17 @@ model is the ``reduced()`` form, as there.
   PYTHONPATH=src python -m repro_torch.launch.serve --diffusion \\
       --arch tiny-dit --occupancies 0.0,0.6 --requests 8 --slots 4 \\
       --slo-ms 200 --cfg-scale 4.0 --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve --diffusion \\
+      --backend pipefuse --num-stages 2 --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve --diffusion \\
+      --backend spmd --occupancies 0.0,0.5 --device cpu
 
-The diffusion flags of later slices (``--num-stages``, ``--num-frames``,
-``--frame-groups``, the prompt flags, and ``--backend spmd``) raise
+``--backend spmd`` starts one rank per device of ``--occupancies``
+(:mod:`repro_torch.launch.ranks`; NCCL with one card per rank, or gloo with
+``--dist-backend gloo``),
+each of which builds the same engine, receives the same requests and
+drains them; rank 0's requests are reported. The diffusion flags of later
+slices (``--num-frames``, ``--frame-groups``, the prompt flags) raise
 NotImplementedError naming their ROADMAP.md queue 1 items.
 """
 from __future__ import annotations
@@ -31,7 +39,7 @@ from repro_torch.models import build_model
 from repro_torch.serving import Request, ServingEngine
 
 #: the reference's diffusion flags that later slices of the port bring
-_LATER_FLAGS = {"--num-stages": "stages", "--num-frames": "frames",
+_LATER_FLAGS = {"--num-frames": "frames",
                 "--frame-groups": "frames", "--prompt": "prompt",
                 "--cond-tokens": "prompt", "--cond-seq-len": "prompt"}
 
@@ -71,21 +79,58 @@ def serve_diffusion(arch: str = "tiny-dit", *, occupancies=(0.0, 0.6),
                     backend: str = "emulated", reduced: bool = True,
                     slo_s: float = None, seed: int = 0,
                     exchange: str = "sync", exchange_refresh: int = 2,
-                    cfg_scale: float = 0.0, seq_shards: int = 1,
-                    plan_cache_dir: str = None, device=None):
+                    num_stages: int = 1, cfg_scale: float = 0.0,
+                    seq_shards: int = 1, plan_cache_dir: str = None,
+                    dist_backend: str = None,
+                    device=None):
     """Continuous batching on a heterogeneous cluster: requests enter a FIFO
     queue, the :class:`DiffusionServingEngine` admits them into ``slots``
     concurrent lanes and drains the queue with batched denoise rounds.
     ``cfg_scale > 0`` makes every other request a classifier-free-guidance
     one (DESIGN.md §12) — the mixed CFG / non-CFG workload the engine's
-    per-lane guidance state exists for. Returns the finished requests."""
+    per-lane guidance state exists for. ``num_stages > 1`` with backend
+    ``pipefuse`` serves the displaced stage chain (DESIGN.md §11). Backend
+    ``spmd`` runs the engine on one rank per device of the cluster, every
+    rank on the same requests; rank 0 reports. Returns the finished requests (rank 0's, on the CPU, for
+    ``spmd``)."""
+    from repro_torch.core.pipeline import resolve_device
+
+    kw = dict(arch=arch, occupancies=list(occupancies), n_requests=n_requests,
+              slots=slots, m_base=m_base, m_warmup=m_warmup, planner=planner,
+              backend=backend, reduced=reduced, slo_s=slo_s, seed=seed,
+              exchange=exchange, exchange_refresh=exchange_refresh,
+              num_stages=num_stages, cfg_scale=cfg_scale,
+              seq_shards=seq_shards, plan_cache_dir=plan_cache_dir)
+    device = resolve_device(device)
+    if backend != "spmd":
+        return _serve_diffusion_here(**kw, device=device)
+    from repro_torch.launch import ranks as ranks_lib
+    return ranks_lib.spawn(_serve_rank, len(occupancies),
+                           device_type=device.type,
+                           dist_backend=dist_backend, args=(kw,))[0]
+
+
+def _serve_rank(ctx, kw):
+    """One rank of ``serve --diffusion --backend spmd``: the same engine and
+    requests as every other rank; rank 0 prints the report."""
+    done = _serve_diffusion_here(**kw, device=ctx.device,
+                                 report=ctx.rank == 0)
+    for req in done:                     # returned by value, off the card
+        req.x_T, req.cond, req.image = (req.x_T.cpu(), req.cond.cpu(),
+                                        req.image.cpu())
+    return done
+
+
+def _serve_diffusion_here(arch, *, occupancies, n_requests, slots, m_base,
+                          m_warmup, planner, backend, reduced, slo_s, seed,
+                          exchange, exchange_refresh, num_stages, cfg_scale,
+                          seq_shards, plan_cache_dir, device, report=True):
+    """The body of :func:`serve_diffusion` in this process on ``device``."""
     from repro_torch.core import sampler as sampler_lib
-    from repro_torch.core.pipeline import (StadiConfig, StadiPipeline,
-                                           resolve_device)
+    from repro_torch.core.pipeline import StadiConfig, StadiPipeline
     from repro_torch.models.diffusion import dit
     from repro_torch.serving import DiffusionServingEngine
 
-    device = resolve_device(device)
     cfg = get_config(arch)
     if reduced:
         cfg = cfg.reduced()
@@ -96,6 +141,7 @@ def serve_diffusion(arch: str = "tiny-dit", *, occupancies=(0.0, 0.6),
                                           m_warmup=m_warmup, planner=planner,
                                           backend=backend, exchange=exchange,
                                           exchange_refresh=exchange_refresh,
+                                          num_stages=num_stages,
                                           seq_shards=seq_shards,
                                           plan_cache_dir=plan_cache_dir)
     pipe = StadiPipeline(cfg, params, sched, config, device=device)
@@ -115,6 +161,8 @@ def serve_diffusion(arch: str = "tiny-dit", *, occupancies=(0.0, 0.6),
     dt = time.perf_counter() - t0
     for req in done:
         assert bool(torch.isfinite(req.image.float()).all())
+    if not report:
+        return done
     stats = engine.stats()
     note = ("" if stats["cost_model"] == "configured"
             else " [default-uncalibrated cost model]")
@@ -123,7 +171,8 @@ def serve_diffusion(arch: str = "tiny-dit", *, occupancies=(0.0, 0.6),
           f"img/s wall, {stats['throughput_modeled_rps']:.2f} img/s "
           f"modeled{note}) planner={planner} backend={backend} "
           f"slots={slots} rounds={stats['rounds']} "
-          f"patches={engine.plan.patches} seq={engine.seq} on {device}; "
+          f"patches={engine.plan.patches} stages={engine.stages} "
+          f"seq={engine.seq} on {device}; "
           f"dispatches {stats['dispatches']}, launches {stats['kernels']}")
     if stats["plan_cache"] is not None:
         c = stats["plan_cache"]
@@ -140,7 +189,10 @@ def serve_diffusion(arch: str = "tiny-dit", *, occupancies=(0.0, 0.6),
 
 
 def main(argv=None):
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    # no abbreviations: "--prompt" (a later slice's flag) must not parse as
+    # "--prompt-len"
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0],
+                                 allow_abbrev=False)
     ap.add_argument("--arch", default="hymba-1.5b",
                     help="the port serves hymba-1.5b (the reference's "
                          "default, gemma-2b, comes with queue 1 item 15b)")
@@ -156,11 +208,20 @@ def main(argv=None):
     ap.add_argument("--planner", default="stadi",
                     help="allocation planner (diffusion only): uniform / "
                          "spatial / temporal / stadi / makespan / "
-                         "stadi_guidance / stadi_seq")
+                         "stadi_pipefuse / stadi_guidance / stadi_seq")
     ap.add_argument("--backend", default="emulated",
-                    help="serving stepper (diffusion only): 'emulated'; the "
-                         "multi-rank 'spmd' stepper comes with queue 1 item "
-                         "9b, 'pipefuse' with item 10")
+                    choices=["emulated", "pipefuse", "spmd"],
+                    help="serving stepper (diffusion only): 'emulated', "
+                         "'pipefuse' (the displaced stage chain with "
+                         "--num-stages) or 'spmd' (the multi-rank stepper, "
+                         "one rank per device of --occupancies)")
+    ap.add_argument("--num-stages", type=int, default=1,
+                    help="depth stages for --backend pipefuse (diffusion "
+                         "only, DESIGN.md §11): 1 = pure patch parallelism, "
+                         "0 = let stadi_pipefuse search")
+    ap.add_argument("--dist-backend", default=None, choices=["nccl", "gloo"],
+                    help="collectives of --backend spmd: NCCL (the default "
+                         "on CUDA, one card per rank) or gloo")
     ap.add_argument("--m-base", type=int, default=16)
     ap.add_argument("--m-warmup", type=int, default=4)
     ap.add_argument("--slo-ms", type=float, default=None,
@@ -198,8 +259,10 @@ def main(argv=None):
             backend=args.backend,
             slo_s=None if args.slo_ms is None else args.slo_ms / 1e3,
             exchange=args.exchange, exchange_refresh=args.exchange_refresh,
-            cfg_scale=args.cfg_scale, seq_shards=args.seq_shards,
-            plan_cache_dir=args.plan_cache, device=args.device)
+            num_stages=args.num_stages, cfg_scale=args.cfg_scale,
+            seq_shards=args.seq_shards, plan_cache_dir=args.plan_cache,
+            dist_backend=args.dist_backend,
+            device=args.device)
     return serve(args.arch, n_requests=args.requests, slots=args.slots,
                  prompt_len=args.prompt_len, max_new=args.max_new,
                  device=args.device)

@@ -2,19 +2,22 @@
 
 Thin CLI over :class:`repro_torch.core.pipeline.StadiPipeline`; strategy
 selection is ``--planner`` (uniform / spatial / temporal / stadi / makespan /
-stadi_guidance / stadi_seq) and ``--backend`` (emulated / simulate / spmd /
-spmd_guidance / spmd_seq; ``--spmd`` is short for ``--backend spmd``);
+stadi_pipefuse / stadi_guidance / stadi_seq) and ``--backend`` (emulated /
+simulate / pipefuse / spmd / spmd_pipefuse / spmd_guidance / spmd_seq;
+``--spmd`` is short for ``--backend spmd``); ``--num-stages`` splits the
+depth into a stage chain (``--micro-patches`` pins its micro-batch count),
 ``--cfg-scale`` turns on classifier-free guidance and ``--seq-shards``
-sequence-parallel attention. It runs on the GPU unless ``--device
-cpu`` is given. Weights are random (``--seed``), as in the reference driver.
+sequence-parallel attention. It runs on the GPU unless ``--device cpu`` is
+given. Weights are random (``--seed``), as in the reference's CLI.
 
-The multi-rank backends start one rank per device of the cluster, and
-``spmd_seq`` ``seq_shards`` ranks per patch worker
-(:mod:`repro_torch.launch.ranks`): NCCL with one card per rank, or gloo with
-``--dist-backend gloo``, which also lets the ranks share fewer cards (their
-times are then not a multi-GPU makespan); CPU ranks always run gloo.
-``--check-vs-emulation`` also runs the emulated backend in this process and
-holds the ranks' image to it (relative error < 1e-3).
+The multi-rank backends start one rank per device of the cluster,
+``spmd_seq`` ``seq_shards`` ranks per patch worker and ``spmd_pipefuse`` one
+rank per stage (:mod:`repro_torch.launch.ranks`): NCCL with one card per
+rank, or gloo with ``--dist-backend gloo``, which also lets the ranks share
+fewer cards (their times are then not a multi-GPU makespan); CPU ranks
+always run gloo. ``--check-vs-emulation`` also runs the emulated backend
+(``pipefuse`` for ``spmd_pipefuse``) in this process and holds the ranks'
+image to it (relative error < 1e-3).
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.stadi_infer --arch sdxl-dit \
@@ -24,6 +27,8 @@ Usage:
   PYTHONPATH=src python -m repro_torch.launch.stadi_infer --device cpu \
       --reduced --seq-shards 2 --exchange ring --backend spmd_seq \
       --check-vs-emulation
+  PYTHONPATH=src python -m repro_torch.launch.stadi_infer --device cpu \
+      --reduced --num-stages 2 --backend spmd_pipefuse --check-vs-emulation
 """
 from __future__ import annotations
 
@@ -35,8 +40,6 @@ import time
 
 #: reference flags and choices that later slices of the port bring
 _LATER_FLAGS = {
-    "--num-stages": "the pipefuse slice (queue 1 item 10)",
-    "--micro-patches": "the pipefuse slice (queue 1 item 10)",
     "--num-frames": "the frames slice (queue 1 item 12)",
     "--frame-groups": "the frames slice (queue 1 item 12)",
     "--prompt": "the prompt-conditioning slice (queue 1 item 13)",
@@ -59,12 +62,20 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--batch", type=int, default=1)
     ap.add_argument("--planner", default="stadi",
                     choices=["uniform", "spatial", "temporal", "stadi",
-                             "makespan", "stadi_guidance", "stadi_seq"])
+                             "makespan", "stadi_pipefuse", "stadi_guidance",
+                             "stadi_seq"])
     ap.add_argument("--backend", default="emulated",
-                    choices=["emulated", "simulate", "spmd", "spmd_guidance",
-                             "spmd_seq"])
+                    choices=["emulated", "simulate", "pipefuse", "spmd",
+                             "spmd_pipefuse", "spmd_guidance", "spmd_seq"])
     ap.add_argument("--spmd", action="store_true",
                     help="short for --backend spmd")
+    ap.add_argument("--num-stages", type=int, default=1,
+                    help="displaced stage chain (DESIGN.md §11): depth "
+                         "stages for the pipefuse backends (1 = pure patch "
+                         "parallelism, 0 = let stadi_pipefuse search)")
+    ap.add_argument("--micro-patches", type=int, default=0,
+                    help="micro-batches streaming through the stage chain "
+                         "(0 = auto)")
     ap.add_argument("--dist-backend", default=None, choices=["nccl", "gloo"],
                     help="collectives of the multi-rank backends: NCCL (the "
                          "default on CUDA, one card per rank) or gloo (CPU "
@@ -146,7 +157,8 @@ def _setup(args, device):
         rebalance_every=args.rebalance_every, exchange=args.exchange,
         exchange_refresh=args.exchange_refresh, guidance=args.guidance,
         cfg_scale=args.cfg_scale, uncond_refresh=args.uncond_refresh,
-        seq_shards=args.seq_shards, **knobs)
+        seq_shards=args.seq_shards, num_stages=args.num_stages,
+        micro_patches=args.micro_patches, **knobs)
     return cfg, params, sched, x_T, cond, config
 
 
@@ -199,16 +211,19 @@ def main(argv=None):
     plan = pipe.plan()
     print(f"speeds={config.speeds} steps={plan.temporal.steps} "
           f"ratios={plan.temporal.ratios} patches={plan.patches} "
-          f"guidance={plan.guidance} seq={plan.seq}")
+          f"stages={plan.stages} guidance={plan.guidance} seq={plan.seq}")
     summary = {"patches": plan.patches, "steps": plan.temporal.steps,
                "planner": args.planner, "backend": args.backend,
                "device": str(device)}
 
-    if args.backend in ("spmd", "spmd_guidance", "spmd_seq"):
+    if args.backend in ("spmd", "spmd_guidance", "spmd_seq", "spmd_pipefuse"):
         from repro_torch.launch import ranks
-        world = (plan.seq.n_shards * len(plan.patches)
-                 if args.backend == "spmd_seq" and plan.seq is not None
-                 else config.n_devices)
+        if args.backend == "spmd_seq" and plan.seq is not None:
+            world = plan.seq.n_shards * len(plan.patches)
+        elif args.backend == "spmd_pipefuse" and plan.stages:
+            world = len(plan.stages)
+        else:
+            world = config.n_devices
         per_rank = ranks.spawn(_rank_generate, world, device_type=device.type,
                                dist_backend=args.dist_backend, args=(argv,))
         backend = ranks.resolve_backend(device.type, world, args.dist_backend)
@@ -226,7 +241,8 @@ def main(argv=None):
         summary.update(ranks=world, dist_backend=backend, finite=finite)
         if args.check_vs_emulation:
             emu = StadiPipeline(cfg, params, sched, dataclasses.replace(
-                config, backend="emulated"), device=device)
+                config, backend=("pipefuse" if args.backend == "spmd_pipefuse"
+                                 else "emulated")), device=device)
             ref = emu.generate(x_T, cond).image.float().cpu().numpy()
             err = float(np.linalg.norm(img - ref) / np.linalg.norm(ref))
             print(f"rel_err_vs_emulation={err:.3e}")

@@ -239,12 +239,18 @@ def block_stack(blocks, cfg: DiTConfig, h, c, tok_start: int,
     Returns (h', kvs) with kvs the fresh (k, v), each [n_blocks, B, Nl, H,
     hd], or None when ``return_kv`` is False.
 
-    The reference's ``enable`` stage mask, frame ``ctx_tokens`` and
-    ``prompt_ctx`` cross-attention serve the pipefuse, frames and prompt
-    slices of the port, which bring them.
+    The reference's ``enable`` stage mask pads the stages of its lockstep
+    chain; the port's chain runs each stage's own blocks
+    (:func:`repro_torch.core.pipefuse.stage_blocks`) and refuses it. Frame
+    ``ctx_tokens`` and ``prompt_ctx`` cross-attention serve the frames and
+    prompt slices of the port, which bring them.
     """
+    if enable is not None:
+        raise NotImplementedError(
+            "block_stack(enable=...) is not ported: the stage chain of "
+            "ROADMAP queue 1 item 10 slices the blocks a stage runs "
+            "(pipefuse.stage_blocks) instead of masking them")
     for name, value, slice_name in (
-            ("enable", enable, "the pipefuse slice (item 10)"),
             ("ctx_tokens", ctx_tokens, "the frames slice (item 12)"),
             ("prompt_ctx", prompt_ctx, "the prompt-conditioning slice (item 13)")):
         if value is not None:

@@ -1,6 +1,6 @@
 """Slot-based continuous batching for diffusion requests over StadiPipeline
-— the port of ``repro.serving.diffusion_engine`` (DESIGN.md §9), its
-emulated lanes.
+— the port of ``repro.serving.diffusion_engine`` (DESIGN.md §9): its
+emulated, pipefuse and multi-rank spmd lanes.
 
 Each :class:`DiffusionRequest` carries its own position on the fine DDIM
 grid, so requests admitted at different times coexist in one denoise
@@ -46,9 +46,25 @@ patch-worker load to the fastest device (deterministic) — and each request
 accrues modeled wall-clock from submission to completion, giving queueing +
 service latency and SLO accounting that tests can assert exactly.
 
-The reference's other lanes come with later slices of the port: the
-multi-rank ``spmd`` stepper (ROADMAP.md queue 1 item 9b), the displaced
-stage chain (item 10), video lanes (item 12) and prompt lanes (item 13).
+The ``pipefuse`` stepper serves the displaced stage chain (DESIGN.md §11):
+at one stage it is the emulated stepper; at S > 1 every lane carries its
+own displaced contexts ``[L, slots, N, H, hd]``, refilled from the published
+buffers on the intervals the IR's StageShift names, and the round cost
+prices the stage chain. It serves unguided lanes only at S > 1, as the
+reference does.
+
+The ``spmd`` stepper runs each adaptive interval across the ranks of a
+``torch.distributed`` process group
+(:func:`repro_torch.core.spmd.make_interval_step`, kernel K2 in every
+block), on cohorts of lanes that share a fine step. Where the reference
+drives the devices from one controller, every rank here builds the same
+engine, receives the same submissions and runs the same rounds; admission
+is FIFO and the clock modeled, so the rounds agree, and each interval is a
+collective call. Warm-up steps run on every rank. It serves unguided lanes
+and refuses online replanning, as the reference does.
+
+Video lanes (ROADMAP.md queue 1 item 12) and prompt lanes (item 13) come
+with later slices of the port.
 """
 from __future__ import annotations
 
@@ -64,6 +80,7 @@ from repro_torch.core import buffers as buf_lib
 from repro_torch.core import comm as comm_lib
 from repro_torch.core import events as ir
 from repro_torch.core import hetero
+from repro_torch.core import pipefuse as pipefuse_lib
 from repro_torch.core import sampler as sampler_lib
 from repro_torch.core import simulate as sim
 from repro_torch.core.pipeline import (ReplanEvent, StadiPipeline,
@@ -190,6 +207,8 @@ class _LaneWarmupMixin:
 
     #: can this stepper run guided (CFG) lanes? (DESIGN.md §12)
     supports_guidance = False
+    #: does every lane of one interval call have to share its fine step?
+    cohort_only = False
 
     def _init_warmup(self, params, model_cfg, sched):
         self.params = params
@@ -241,11 +260,13 @@ class EmulatedStepper(_LaneWarmupMixin):
 
     def _interval_impl(self, xs, fine0, pub_k, pub_v, merge, step_fn,
                        tok_axis):
-        """The ONE lane-interval loop both the plain and guided entry
-        points share: per (worker, substep) one ``step_fn`` dispatch covers
-        every lane, slabs scatter back, and first-substep K/V merges into
-        the buffers at ``tok_axis`` (2 plain, 3 branch-stacked) in ascending
-        worker order — mirroring ``buffers.merge``."""
+        """The ONE lane-interval loop every entry point shares: per (fine
+        step, worker) one ``step_fn`` dispatch covers every lane, in the
+        substep-major micro order of the stage chain (each worker's slab
+        reads only the interval's buffers, so the order changes no number
+        of the unstaged steps), slabs scatter back, and first-substep K/V
+        merges into the buffers at ``tok_axis`` (2 plain, 3 branch-stacked)
+        in ascending worker order — mirroring ``buffers.merge``."""
         plan, cfg = self.plan.temporal, self.model_cfg
         R, p = plan.lcm, cfg.patch_size
         G = xs.shape[0]
@@ -254,27 +275,27 @@ class EmulatedStepper(_LaneWarmupMixin):
         workers = [i for i in plan.active if self.plan.patches[i] > 0]
         tshape = (G,) + (1,) * (xs.dim() - 1)
 
-        pending, new_slabs = {}, {}
-        for i in workers:
-            r = plan.ratios[i]
-            row0, row1 = bounds_tok[i]
-            x_loc = xs[:, row0 * p:row1 * p]
-            for s in range(R // r):
-                t_from = self._ts[fine0 + s * r]
-                t_to = self._ts[fine0 + (s + 1) * r]
-                eps, kv = step_fn(x_loc, t_from, row0, s == 0)
-                x_loc = sampler_lib.ddim_step(self.sched, x_loc, eps,
-                                              t_from.reshape(tshape),
-                                              t_to.reshape(tshape))
-                if s == 0:           # Alg.1: publish the first substep's KV
+        pending = {}
+        slabs = {i: xs[:, bounds_tok[i][0] * p:bounds_tok[i][1] * p]
+                 for i in workers}
+        for f in range(R):
+            for i in workers:
+                r = plan.ratios[i]
+                if f % r:
+                    continue
+                t_from = self._ts[fine0 + f]
+                t_to = self._ts[fine0 + f + r]
+                eps, kv = step_fn(slabs[i], t_from, bounds_tok[i][0], f == 0)
+                slabs[i] = sampler_lib.ddim_step(self.sched, slabs[i], eps,
+                                                 t_from.reshape(tshape),
+                                                 t_to.reshape(tshape))
+                if f == 0:           # Alg.1: publish the first substep's KV
                     pending[i] = kv
-            new_slabs[i] = x_loc
         # interval boundary: all-gather of x + buffer merge (same order as
         # buffers.merge: ascending worker id)
         xs = xs.clone()
         for i in workers:
-            row0, row1 = bounds_tok[i]
-            xs[:, row0 * p:row1 * p] = new_slabs[i]
+            xs[:, bounds_tok[i][0] * p:bounds_tok[i][1] * p] = slabs[i]
         if merge:
             for i in sorted(pending):
                 k, v = pending[i]
@@ -315,6 +336,85 @@ class EmulatedStepper(_LaneWarmupMixin):
                                            pub_v, scales, row0, first)
         return self._interval_impl(xs, fine0, pub_k, pub_v, merge, step,
                                    tok_axis=3)
+
+
+@register_stepper_factory("pipefuse")
+class PipefuseStepper(EmulatedStepper):
+    """Displaced stage-chain serving (DESIGN.md §11): at one stage this IS
+    the EmulatedStepper; at S > 1 each interval runs the substep-major micro
+    order of ``pipefuse.run_pipefuse`` over the lanes' displaced contexts,
+    so every lane's image matches a lone ``generate`` on the pipefuse
+    backend (within float tolerance: a lane group is one batched forward)."""
+
+    def __init__(self, pipeline: StadiPipeline, plan: ExecutionPlan,
+                 slots: int):
+        super().__init__(pipeline, plan, slots)
+        self.stages = plan.stages or [pipeline.model_cfg.n_layers]
+        self.bounds = pipefuse_lib.stage_bounds(self.stages)
+
+    @property
+    def wants_ctx(self) -> bool:
+        return len(self.stages) > 1
+
+    @property
+    def supports_guidance(self) -> bool:
+        # at one stage this IS the EmulatedStepper; the lanes' displaced
+        # contexts carry no guided branch state, as in the reference
+        return not self.wants_ctx
+
+    def interval_ctx(self, xs, fine0, conds, pub_k, pub_v, ctx_k, ctx_v,
+                     merge: bool = True):
+        """One adaptive interval through the stage chain for every lane.
+
+        ctx_{k,v} [L, G, N, H, hd] are the lanes' displaced contexts (the
+        engine resets them to the published buffers on fill intervals),
+        written in place; pub_{k,v} as in :meth:`interval`. Returns (xs',
+        pub_k, pub_v, ctx_k, ctx_v)."""
+        def step(x_loc, t_from, row0, first):
+            self._count("plain", x_loc.shape[0])
+            eps, k, v, _, _ = pipefuse_lib.displaced_step(
+                self.params, self.model_cfg, x_loc, t_from, conds, row0,
+                ctx_k, ctx_v, self.bounds)
+            return eps, (k, v)
+        xs, pub_k, pub_v = self._interval_impl(xs, fine0, pub_k, pub_v, merge,
+                                               step, tok_axis=2)
+        return xs, pub_k, pub_v, ctx_k, ctx_v
+
+
+@register_stepper_factory("spmd")
+class SpmdStepper(_LaneWarmupMixin):
+    """Adaptive intervals across the ranks of the default process group
+    (:func:`repro_torch.core.spmd.make_interval_step`): the lanes of one
+    call are stacked on the batch axis and must share a fine step
+    (``cohort_only``), so the engine groups cohorts by ``fine_step``. Every
+    rank builds the same engine and makes the same calls. Warm-up steps run
+    on every rank (a synchronous step is the exact full-image forward,
+    which the multi-rank executors also run on every rank). Dispatches of
+    kind "padded" count this rank's patch forwards (kernel K2 in each of
+    their blocks)."""
+
+    cohort_only = True
+
+    def __init__(self, pipeline: StadiPipeline, plan: ExecutionPlan,
+                 slots: int):
+        from repro_torch.core import spmd
+        self._init_warmup(pipeline.params, pipeline.model_cfg, pipeline.sched)
+        self.plan = plan
+        self._steps = {kind: spmd.make_interval_step(
+            pipeline.model_cfg, pipeline.sched, plan.temporal, plan.patches,
+            exchange_kind=kind) for kind in ("full", "skip")}
+
+    def interval(self, xs, fine0, conds, pub_k, pub_v, merge: bool = True):
+        """One adaptive interval of a cohort, as
+        :meth:`EmulatedStepper.interval`; returns new buffers."""
+        fine0 = np.asarray(fine0)
+        if not (fine0 == fine0[0]).all():
+            raise ValueError("the spmd stepper is cohort-only: the lanes of "
+                             f"one call must share a fine step, got {fine0}")
+        fn = self._steps["full" if merge else "skip"]
+        self.dispatches["padded"] += fn.substeps
+        self.dispatches["padded_lanes"] += fn.substeps * xs.shape[0]
+        return fn(self.params, xs, conds, pub_k, pub_v, int(fine0[0]))
 
 
 #: a lane group's index into slot-major state: a slice for consecutive
@@ -394,11 +494,14 @@ class DiffusionServingEngine:
         self._prev_gk = self._prev_gv = None
         self._prev_k = self._prev_v = None
         self._scales = torch.zeros(slots, dtype=torch.float32, device=dev)
-        # the displaced stage chain and video lanes come with later slices;
-        # the port's planners never return them
+        # displaced stage chain (DESIGN.md §11): the lanes' displaced
+        # contexts, only materialized when the depth is partitioned
         self.stages = self.plan.stages
-        if self.stages is not None and len(self.stages) > 1:
-            raise later_slice("stages")
+        staged = self.stages is not None and len(self.stages) > 1
+        self._ctx_k = torch.zeros_like(self._pub_k) if staged else None
+        self._ctx_v = torch.zeros_like(self._pub_v) if staged else None
+        # video lanes come with a later slice; the port's planners never
+        # return a frame plan
         self.frames = self.plan.frames
         if self.frames is not None and self.frames.num_frames > 1:
             raise later_slice("frames")
@@ -410,6 +513,11 @@ class DiffusionServingEngine:
         self.seq = self.plan.seq
         if self.seq is not None and len(self.seq.segments) < 2:
             self.seq = None
+        if self.seq is not None and staged:
+            raise ValueError(
+                "serving does not compose sequence sharding with a "
+                "displaced stage chain; run seq-sharded lanes on the "
+                "single-stage 'emulated' backend")
         self._seq_groups = None
         self._seq_seg_pad = 0.0
         if self.seq is not None:
@@ -441,7 +549,7 @@ class DiffusionServingEngine:
         self._rounds_since_check = 0
         self.profiler: Optional[hetero.OnlineProfiler] = None
         if self.rebalance_every:
-            if self.seq is not None:
+            if staged or self.seq is not None:
                 raise ValueError(
                     "engine replanning re-deals patch workers; staged / "
                     "seq-sharded plans pin their device grouping — serve "
@@ -459,14 +567,19 @@ class DiffusionServingEngine:
         self.modeled_clock_s = 0.0
         self._next_uid = 0
         self._install_plan(self.plan)
+        if self.rebalance_every and self.stepper.cohort_only:
+            raise ValueError("engine replanning rebuilds the lane stepper "
+                             "per plan; the cohort-only (spmd) stepper "
+                             "compiles one static program — serve it with "
+                             "rebalance_every=0")
 
     def _install_plan(self, plan: ExecutionPlan) -> None:
         """(Re)build every plan-derived piece of engine state: the lane
         stepper, the split-guidance pair map, the per-fine-step boundary
         info, the predictive-extrapolation buffers, and the comm byte
         sizing. Called once at construction and again at every online
-        replan (same m_base/m_warmup grid; seq replans are rejected up
-        front)."""
+        replan (same m_base/m_warmup grid; staged and seq replans are
+        rejected up front)."""
         pipeline, config = self.pipeline, self.pipeline.config
         cfg = pipeline.model_cfg
         self.plan = plan
@@ -485,30 +598,36 @@ class DiffusionServingEngine:
                 and not self.stepper.supports_guidance):
             raise ValueError(f"backend {config.backend!r} has no guided "
                              "serving stepper (guided lanes need "
-                             "'emulated')")
+                             "'emulated' or single-stage 'pipefuse')")
+        staged = self.stages is not None and len(self.stages) > 1
         # boundary-exchange policy (DESIGN.md §10): replay the SAME schedule
         # IR every lane follows and precompute, per adaptive-interval start
-        # fine step, (read_factor, trail_kind, seq_hops): read_factor is the
-        # K/V extrapolation coefficient applied BEFORE the interval (0.0 =
-        # fresh/stale reuse), trail_kind the exchange at the boundary AFTER
-        # it, seq_hops the interval's ring hops. Lanes are grouped by this
-        # info, so one batched dispatch never mixes boundary behaviors. (The
-        # reference's tuple also carries the stage chain's refill flag,
-        # which item 10 brings.)
-        self._interval_info: Dict[int, Tuple[float, str, int]] = {}
+        # fine step, (read_factor, trail_kind, fill, seq_hops): read_factor
+        # is the K/V extrapolation coefficient applied BEFORE the interval
+        # (0.0 = fresh/stale reuse), trail_kind the exchange at the boundary
+        # AFTER it, fill whether the stage chain refills entering it,
+        # seq_hops the interval's ring hops. Lanes are grouped by this info,
+        # so one batched dispatch never mixes boundary behaviors.
+        self._interval_info: Dict[int, Tuple[float, str, bool, int]] = {}
         read_factor = 0.0
         m_prev: Optional[int] = None
         m_last = plan.temporal.m_warmup - 1   # warmup publish (-1 = boot)
         cur: Optional[int] = None
+        fill = False
         seq_hops = 0
         for ev in ir.lower(plan.temporal, plan.patches, self.policy,
+                           stages=self.stages if staged else None,
                            seq_shards=self.seq):
-            if isinstance(ev, ir.SeqShard):
+            if isinstance(ev, ir.StageShift):
+                fill = True
+            elif isinstance(ev, ir.SeqShard):
                 seq_hops = ev.hops
             elif isinstance(ev, ir.ComputeInterval):
                 cur = ev.fine_step
             elif isinstance(ev, ir.Exchange):
-                self._interval_info[cur] = (read_factor, ev.kind, seq_hops)
+                self._interval_info[cur] = (read_factor, ev.kind, fill,
+                                            seq_hops)
+                fill = False
                 seq_hops = 0
                 if ev.kind == "full":
                     m_prev, m_last = m_last, ev.fine_step
@@ -522,9 +641,12 @@ class DiffusionServingEngine:
         # last-but-one published K/V per lane (predictive extrapolation
         # base): these double the per-slot staged-KV footprint and cost a
         # copy per full boundary, so only materialize them when some
-        # boundary actually extrapolates
-        self._track_prev = any(info[0] for info in
-                               self._interval_info.values())
+        # boundary actually extrapolates — never for staged steppers, whose
+        # displaced contexts subsume prediction (extrapolated buffers would
+        # never be attended)
+        self._track_prev = (not staged
+                            and any(info[0] for info in
+                                    self._interval_info.values()))
         if self._track_prev and self._prev_k is None:
             self._prev_k = torch.zeros_like(self._pub_k)
             self._prev_v = torch.zeros_like(self._pub_v)
@@ -534,7 +656,8 @@ class DiffusionServingEngine:
         # per-lane comm sizing: taken from the same trace builder the
         # simulate backend replays, so serving cost accounting cannot
         # diverge from simulate_trace's
-        trace = sim.build_trace(plan.temporal, plan.patches, cfg, batch=1)
+        trace = sim.build_trace(plan.temporal, plan.patches, cfg, batch=1,
+                                stages=self.stages)
         self._latent_bytes = trace.latent_bytes
         self._kv_bytes = trace.kv_bytes_per_worker
         self._act_row_bytes = trace.act_row_bytes
@@ -577,7 +700,7 @@ class DiffusionServingEngine:
                 raise ValueError(
                     f"backend {self.pipeline.config.backend!r} has no "
                     "guided serving stepper (guided requests need "
-                    "'emulated')")
+                    "'emulated' or single-stage 'pipefuse')")
             if self._gk is None:
                 self._gk = torch.zeros(self._kshape2, dtype=self._kdt,
                                        device=self.device)
@@ -723,7 +846,8 @@ class DiffusionServingEngine:
 
         if adapt:
             placement = None
-            for group, (read_factor, trail_kind, seq_hops,
+            wants_ctx = getattr(self.stepper, "wants_ctx", False)
+            for group, (read_factor, trail_kind, fill, seq_hops,
                         guided) in self._groups(adapt):
                 idx = self._index(group)
                 fine = np.asarray([self.active[s].fine_step for s in group])
@@ -734,7 +858,9 @@ class DiffusionServingEngine:
                 prev = ((self._prev_gk, self._prev_gv) if guided
                         else (self._prev_k, self._prev_v))
                 bk, bv = (self._take(b, axis, idx, guided) for b in state)
-                if read_factor:      # predictive boundary before this group
+                # predictive boundary before this group (staged steppers
+                # never read it: their contexts subsume it)
+                if read_factor and not wants_ctx:
                     bk = buf_lib.extrapolate_arrays(
                         bk, self._take(prev[0], axis, idx, False), read_factor)
                     bv = buf_lib.extrapolate_arrays(
@@ -749,6 +875,17 @@ class DiffusionServingEngine:
                     xs, ks, vs = self.stepper.interval_guided(
                         self._x[idx], fine, self._conds(idx),
                         self._scales[idx], bk, bv, merge=merge)
+                elif wants_ctx:
+                    if fill:         # pipe refill: contexts <- published
+                        self._put(self._ctx_k, 1, idx, bk)
+                        self._put(self._ctx_v, 1, idx, bv)
+                    ck, cv = (self._take(c, 1, idx, False)
+                              for c in (self._ctx_k, self._ctx_v))
+                    xs, ks, vs, ck, cv = self.stepper.interval_ctx(
+                        self._x[idx], fine, self._conds(idx), bk, bv, ck, cv,
+                        merge=merge)
+                    self._put(self._ctx_k, 1, idx, ck)
+                    self._put(self._ctx_v, 1, idx, cv)
                 else:
                     xs, ks, vs = self.stepper.interval(
                         self._x[idx], fine, self._conds(idx), bk, bv,
@@ -760,8 +897,8 @@ class DiffusionServingEngine:
                 for s in group:
                     self.active[s].fine_step += R
                 placement, cost = self._phase_cost(
-                    len(group), warm=False, kind=trail_kind, guided=guided,
-                    seq_hops=seq_hops)
+                    len(group), warm=False, kind=trail_kind, fill=fill,
+                    guided=guided, seq_hops=seq_hops)
                 report.modeled_s += cost
                 report.exchange_kinds.append(trail_kind)
             report.placement = placement
@@ -860,26 +997,35 @@ class DiffusionServingEngine:
         return [(g, keyed[g]) for g in sorted(keyed)]
 
     def _groups(self, lanes: List[int]
-                ) -> List[Tuple[List[int], Tuple[float, str, int, bool]]]:
-        """Batchable lane groups + their (read_factor, trail_kind, seq_hops,
-        guided) info: every lane whose boundary behavior, seq-shard ring
-        identity and guidance state match (under "sync" with no CFG lanes
-        and no seq sharding that is ONE group). The reference's cohort-only
-        grouping serves its spmd stepper, which comes with queue 1 item
-        9b."""
-        keyed: Dict[Tuple[float, str, int, bool], List[int]] = {}
+                ) -> List[Tuple[List[int], Tuple[float, str, bool, int, bool]]]:
+        """Batchable lane groups + their (read_factor, trail_kind, fill,
+        seq_hops, guided) info. The batching steppers group every lane whose
+        boundary behavior, stage-chain fill, seq-shard ring identity and
+        guidance state match (under "sync" with no CFG lanes and no seq
+        sharding that is ONE group); the cohort-only (spmd) stepper groups
+        by fine step, which pins the interval info (it serves no guided
+        lane). (The reference also keys on the prompt bucket, which item 13
+        brings.)"""
+        if not self.stepper.cohort_only:
+            keyed: Dict[Tuple[float, str, bool, int, bool], List[int]] = {}
+            for s in lanes:
+                keyed.setdefault(self._lane_info(s), []).append(s)
+            return [(keyed[k], k) for k in sorted(keyed)]
+        cohorts: Dict[int, List[int]] = {}
         for s in lanes:
-            keyed.setdefault(self._lane_info(s), []).append(s)
-        return [(keyed[k], k) for k in sorted(keyed)]
+            cohorts.setdefault(self.active[s].fine_step, []).append(s)
+        return [(cohorts[k], self._lane_info(cohorts[k][0]))
+                for k in sorted(cohorts)]
 
-    def _lane_info(self, slot: int) -> Tuple[float, str, int, bool]:
+    def _lane_info(self, slot: int) -> Tuple[float, str, bool, int, bool]:
         info = self._interval_info[self.active[slot].fine_step]
         return info + (self.active[slot].guided,)
 
     # ---------------- modeled cost & placement ----------------
 
     def _phase_cost(self, group: int, warm: bool, kind: str = "full",
-                    guided: bool = False, seq_hops: int = 0
+                    fill: bool = False, guided: bool = False,
+                    seq_hops: int = 0
                     ) -> Tuple[Tuple[Tuple[int, int], ...], float]:
         """Placement + modeled seconds for one batched phase of a round.
 
@@ -887,9 +1033,11 @@ class DiffusionServingEngine:
         count: batching multiplies the per-row work but amortizes t_fixed —
         the modeled reason continuous batching beats sequential serving.
         Latent traffic is the per-worker uneven all-gather (padded slabs),
-        and "skip"/"predict" boundaries move no bytes at all. Guided
-        (fused-CFG) phases double the per-row work and the staged-K/V
-        payload — both branches ride every lane (DESIGN.md §12).
+        and "skip"/"predict" boundaries move no bytes at all. With a stage
+        chain (DESIGN.md §11) the placement maps STAGES to devices instead
+        (:meth:`_staged_phase_cost`). Guided (fused-CFG) phases double the
+        per-row work and the staged-K/V payload — both branches ride every
+        lane (DESIGN.md §12).
         Sequence-sharded lanes (DESIGN.md §13) run each patch worker on a
         GROUP of ``seq.n_shards`` devices (placement entries map workers to
         groups, speed = group aggregate) and overlap ``seq_hops`` ring K/V
@@ -897,6 +1045,8 @@ class DiffusionServingEngine:
         ``simulate._simulate_seq``. (The reference also prices a prompt
         lane's cross-attention read, which item 13 brings.)
         """
+        if self.stages is not None and len(self.stages) > 1:
+            return self._staged_phase_cost(group, warm, kind, fill)
         if guided and self._guide_pairs is not None:
             return self._split_phase_cost(group, warm, kind)
         plan, cm = self.plan, self.cm
@@ -993,6 +1143,36 @@ class DiffusionServingEngine:
         comm = comm_bytes / cm.link_bw + cm.link_latency
         return placement, max(compute, async_t) + comm + eps_t
 
+    def _staged_phase_cost(self, group: int, warm: bool, kind: str,
+                           fill: bool
+                           ) -> Tuple[Tuple[Tuple[int, int], ...], float]:
+        """Stage-chain placement + modeled seconds (DESIGN.md §11): stage d
+        (chain order) runs on the d-th fastest device; micro-batches stream
+        through the chain, so steady state is bound by the slowest stage,
+        with point-to-point handoffs, a fill bubble on refill rounds and a
+        latent handoff on draining boundaries (the same
+        :mod:`repro_torch.core.simulate` helpers the trace replay prices).
+        Placement entries are (stage, device). (The reference also folds a
+        prompt lane's cross-attention read into the row rate, which item 13
+        brings.)"""
+        plan, cm = self.plan, self.cm
+        temporal = plan.temporal
+        S = len(self.stages)
+        speeds = self.measured_speeds
+        by_speed = sorted(range(len(speeds)), key=lambda d: (-speeds[d], d))
+        chain = [speeds[d] for d in by_speed[:S]]
+        placement = tuple((s, by_speed[s]) for s in range(S))
+        if warm:
+            return placement, sim.pipefuse_warmup_seconds(
+                self.stages, chain, cm, sum(plan.patches) * group,
+                self._act_row_bytes)
+        workers = [i for i in temporal.active if plan.patches[i] > 0]
+        tasks = [(temporal.lcm // temporal.ratios[i],
+                  plan.patches[i] * group) for i in workers]
+        return placement, sim.pipefuse_interval_seconds(
+            self.stages, chain, cm, tasks, fill, kind,
+            self._latent_bytes * group, self._act_row_bytes)
+
     # ---------------- reporting ----------------
 
     def stats(self) -> Dict:
@@ -1000,7 +1180,9 @@ class DiffusionServingEngine:
         ``kernels`` holds the CUDA kernel launches since the engine was
         built (empty on the CPU), ``dispatches`` its denoiser dispatches by
         kind and the lanes they carried: K1 runs once a layer of each
-        dispatch, K3 once a guided one, whatever its lane count."""
+        "plain", "guided" and "bootstrap" dispatch, K2 once a layer of each
+        "padded" one (this rank's patch forwards of the spmd stepper), K3
+        once a guided one, whatever its lane count."""
         done = sorted(self.completed, key=lambda r: r.uid)
         lats = [r.modeled_latency_s for r in done]
         wall = sum(r.wall_s for r in self.rounds)

@@ -897,3 +897,116 @@ def test_hymba_serving_on_card_matches_cpu(cuda):
     want, got = logits["cpu"], logits[str(cuda)]
     assert ((got - want).norm() / want.norm()).item() < 1e-4
     assert torch.equal(got.argmax(-1), want.argmax(-1))
+
+
+# ----------------------------------------------------------------------
+# the displaced stage chain and the multi-rank serving lanes
+# ----------------------------------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("G,first", [(2, 1), (4, 0)])
+@pytest.mark.parametrize("N,Nl,tok_start", MAIN_PATH_CASES[:2])
+def test_k1_at_pipefuse_lane_batches(cuda, N, Nl, tok_start, G, first, dtype):
+    """K1 over G lanes of the pipefuse stepper: the stale K/V the slot-range
+    view of one layer of the [L, slots, N, H, hd] displaced contexts, read
+    in place; the bars, and the planted faults rejected."""
+    g = torch.Generator(device="cpu").manual_seed(G + first)
+
+    def mk(*shape, std=1.0):
+        return (std * torch.randn(*shape, generator=g)).to(dtype).to(cuda)
+    ctx_k, ctx_v = mk(2, 4, N, 16, 72, std=QK_STD), mk(2, 4, N, 16, 72)
+    ks, vs = ctx_k[1, first:first + G], ctx_v[1, first:first + G]
+    q, kf, vf = mk(G, Nl, 16, 72, std=QK_STD), mk(G, Nl, 16, 72, std=QK_STD), \
+        mk(G, Nl, 16, 72)
+    ops.reset_launch_counts()
+    out = ops.stale_kv_attention(q, kf, vf, ks, vs, tok_start=tok_start)
+    assert ops.launch_counts() == {"stale_kv_attention": 1}
+    want = ref.stale_kv_attention_ref(q, kf, vf, ks, vs, tok_start)
+    torch.cuda.synchronize()
+    _assert_within_bars(out, want, dtype)
+    skipped = ks.clone(), vs.clone()
+    skipped[0][:, tok_start:tok_start + Nl] = kf
+    skipped[1][:, tok_start:tok_start + Nl] = vf
+    keep = torch.ones(1, 1, 1, N, dtype=torch.bool, device=cuda)
+    keep[..., N - TILE:] = False
+    bad = layers.attend(q.float(), skipped[0].float(), skipped[1].float(),
+                        mask=keep).to(dtype)
+    assert not _within_bars(out, bad, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("tok,valid", K2_LAYOUTS[:2])
+def test_k2_at_spmd_cohort_batch(cuda, tok, valid, dtype):
+    """K2 over a cohort of 4 lanes of the spmd stepper at the rank layouts:
+    the bars, and the planted faults rejected."""
+    args = _k2_inputs(dtype, cuda, 4)
+    out = ops.stale_kv_attention_padded(*args, tok, valid, n_tokens=K2_N)
+    want = ref.stale_kv_attention_padded_ref(*args, tok, valid, K2_N)
+    torch.cuda.synchronize()
+    _assert_within_bars(out, want, dtype)
+    _assert_rejects_faults(out, want, _k2_faults(
+        ref.stale_kv_attention_padded_ref, args, tok, valid), dtype)
+
+
+def _tiny_chain(device):
+    from repro_torch.configs import get_config
+    from repro_torch.models.diffusion import dit
+
+    cfg = get_config("tiny-dit").reduced()
+    gen = torch.Generator(device="cpu").manual_seed(0)
+    params = dit.nondegenerate_params(dit.init_params(gen, cfg), gen)
+    x_T = torch.randn(1, cfg.latent_size, cfg.latent_size, cfg.channels,
+                      generator=gen)
+    return cfg, params, x_T
+
+
+@pytest.mark.cuda
+def test_guided_displaced_step_one_k3_launch_with_delta(cuda):
+    """The guided displaced step takes ONE K3 launch, with the delta, and
+    its combined eps and delta are what K3's plain version gives for the
+    step's own branch outputs; card against CPU within 1e-4."""
+    from repro_torch.core import pipefuse
+    from repro_torch.core.pipeline import _to_device
+
+    cfg, params, x_T = _tiny_chain(cuda)
+    L, H = cfg.n_layers, cfg.n_heads
+    g = torch.Generator(device="cpu").manual_seed(5)
+    ctx = [torch.randn(L, 2, cfg.n_tokens, H, cfg.d_model // H, generator=g)
+           for _ in range(2)]
+    x = x_T[:, 2 * cfg.patch_size:5 * cfg.patch_size]
+    out = {}
+    for d in ("cpu", cuda):
+        ops.reset_launch_counts()
+        eps, delta, k2, v2, ck, cv = pipefuse.guided_displaced_step(
+            _to_device(params, d), cfg, x.to(d), 40, torch.tensor([3], device=d),
+            2, ctx[0].clone().to(d), ctx[1].clone().to(d), ((0, 1), (1, 2)),
+            4.0)
+        out[d] = (eps.cpu(), delta.cpu(), ck.cpu(), ops.launch_counts())
+    assert out[cuda][3] == {"stale_kv_attention": L, "cfg_epilogue": 1}
+    for a, b in zip(out[cuda][:3], out["cpu"][:3]):
+        assert ((a - b).norm() / b.norm()).item() < 1e-4
+
+
+@pytest.mark.cuda
+def test_pipefuse_one_stage_bitwise_emulated_on_card(cuda):
+    """On the card too, the pipefuse backend at one stage is the emulated
+    backend bitwise; at two stages its launches follow the trace."""
+    from repro_torch.core import sampler
+    from repro_torch.core.pipeline import StadiConfig, StadiPipeline
+
+    cfg, params, x_T = _tiny_chain(cuda)
+    base = StadiConfig.from_occupancies([0.0, 0.5], m_base=8, m_warmup=2)
+    res = {}
+    for label, knobs in (("emulated", {}), ("one", dict(backend="pipefuse")),
+                         ("two", dict(backend="pipefuse", num_stages=2))):
+        res[label] = StadiPipeline(
+            cfg, params, sampler.linear_schedule(1000),
+            dataclasses.replace(base, **knobs), device=cuda).generate(
+                x_T, torch.tensor([3]))
+    assert torch.equal(res["one"].image, res["emulated"].image)
+    trace = res["two"].trace
+    evals = sum(1 if e.synchronous else sum(e.substeps) for e in trace.events)
+    assert res["two"].kernel_stats["launches"] == {
+        "stale_kv_attention": cfg.n_layers * evals}

@@ -499,10 +499,11 @@ def test_model_api_and_serve_entry_point():
     # diffusion serving is ported; its later slices' flags name their items
     with pytest.raises(NotImplementedError, match="queue 1 item 12"):
         tserve.main(["--diffusion", "--num-frames", "2"])
-    with pytest.raises(NotImplementedError, match="queue 1 item 9b"):
-        tserve.main(["--diffusion", "--backend", "spmd", "--occupancies",
-                     "0.0,0.5", "--m-base", "4", "--m-warmup", "2",
-                     "--device", "cpu"])
+    with pytest.raises(NotImplementedError, match="queue 1 item 13"):
+        tserve.main(["--diffusion", "--cond-tokens", "4", "--device",
+                     "cpu"])
+    with pytest.raises(NotImplementedError, match="queue 1 item 13"):
+        tserve.main(["--diffusion", "--prompt", "a red fox"])
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             tserve.main(["--requests", "1"])

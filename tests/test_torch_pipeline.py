@@ -177,19 +177,24 @@ def test_entry_points_refuse_without_device_and_later_slices(setup):
         from repro_torch.launch import stadi_infer
         with pytest.raises(RuntimeError, match="no CUDA device"):
             stadi_infer.main(["--reduced"])
-    for knobs, match in (({"num_stages": 2}, "pipefuse"),
-                         ({"num_frames": 2}, "frames"),
-                         ({"planner": "stadi_pipefuse"}, "pipefuse")):
-        bad = dataclasses.replace(conf, **knobs)
-        with pytest.raises(NotImplementedError, match=match):
-            tpipe.StadiPipeline(tcfg, tparams, sched, bad, device="cpu")
+    with pytest.raises(NotImplementedError, match="frames"):
+        tpipe.StadiPipeline(tcfg, tparams, sched,
+                            dataclasses.replace(conf, num_frames=2),
+                            device="cpu")
+    # the pipefuse slice is ported: stages need a staged backend, as in the
+    # reference, and stadi_pipefuse builds
+    with pytest.raises(ValueError, match="staged backend"):
+        tpipe.StadiPipeline(tcfg, tparams, sched,
+                            dataclasses.replace(conf, num_stages=2),
+                            device="cpu")
+    tpipe.StadiPipeline(tcfg, tparams, sched, dataclasses.replace(
+        conf, planner="stadi_pipefuse"), device="cpu")
     # the serving slice is ported: a plan cache directory builds (nothing is
     # written before the first plan())
     cached = tpipe.StadiPipeline(tcfg, tparams, sched, dataclasses.replace(
         conf, plan_cache_dir="x"), device="cpu")
     assert cached.plan_cache is not None and cached.planner_calls == 0
-    with pytest.raises(NotImplementedError, match="item 9b"):
-        tpipe.get_stepper_factory("spmd")
+    assert tpipe.get_stepper_factory("spmd") is not None   # item 9b ported
     # the sequence-parallel slice is ported: seq_shards and stadi_seq build
     for knobs in ({"seq_shards": 2}, {"planner": "stadi_seq"}):
         tpipe.StadiPipeline(tcfg, tparams, sched,
@@ -200,7 +205,8 @@ def test_entry_points_refuse_without_device_and_later_slices(setup):
                                         "cfg_scale": 3.0,
                                         "planner": "stadi_guidance",
                                         "guidance": "split"},
-                  {"backend": "spmd_seq", "seq_shards": 2}):
+                  {"backend": "spmd_seq", "seq_shards": 2},
+                  {"backend": "spmd_pipefuse", "num_stages": 2}):
         pipe = tpipe.StadiPipeline(tcfg, tparams, sched,
                                    dataclasses.replace(conf, **knobs),
                                    device="cpu")

@@ -159,7 +159,8 @@ def test_planners_equal(speeds, name, p_total, tiers):
 
 def test_planner_registry():
     assert set(tplan.PLANNERS) == {"uniform", "spatial", "temporal", "stadi",
-                                   "makespan", "stadi_guidance", "stadi_seq"}
+                                   "makespan", "stadi_pipefuse",
+                                   "stadi_guidance", "stadi_seq"}
     assert set(tplan.PLANNERS) <= set(jplan.PLANNERS)
     with pytest.raises(KeyError):
         tplan.get_planner("nope")
@@ -281,9 +282,9 @@ def test_fit_cost_model_equal():
 def test_simulate_refuses_later_axes():
     tp = tsl.TemporalPlan([8, 8], [1, 1], [False, False], 8, 2)
     trace = tsim.build_trace(tp, [4, 4], get_config("tiny-dit").reduced())
-    trace.stages = [1, 1]
-    with pytest.raises(NotImplementedError, match="pipefuse"):
-        tsim.simulate_trace(trace, [1.0, 1.0], tsim.CostModel(1e-3, 1e-3))
+    trace.stages = [1, 1]                 # the pipefuse slice prices stages
+    assert tsim.simulate_trace(trace, [1.0, 1.0],
+                               tsim.CostModel(1e-3, 1e-3)) > 0.0
     trace = tsim.build_trace(tp, [4, 4], get_config("tiny-dit").reduced())
     trace.frames = object()
     with pytest.raises(NotImplementedError, match="frames"):
