@@ -7,11 +7,13 @@ path (STADI on sdxl-dit at full width), the guided paths (classifier-free guidan
 interleaved) through ``StadiPipeline.generate`` and the multi-rank paths
 (spmd, unguided, fused and split guidance, and spmd_seq, sequence-parallel
 attention) on gloo ranks that share the card, the displaced stage chain
-(pipefuse, its serving lanes and spmd_pipefuse) and the multi-rank serving
-lanes (the spmd stepper), and checks card-vs-CPU outputs.
+(pipefuse, its serving lanes and spmd_pipefuse), the multi-rank serving
+lanes (the spmd stepper) and the frame axis (4-frame videos: emulated,
+guided, the stadi_video plan, spmd_frames and the video serving lanes), and
+checks card-vs-CPU outputs.
 
     python3 chip_smoke.py
-    python3 chip_smoke.py --nccl     # only phases 11 and 19, over NCCL
+    python3 chip_smoke.py --nccl     # only phases 11, 19 and 22, over NCCL
 
 Phases (any failure raises, so the script exits non-zero):
   1. the card: name and power limit (nvidia-smi), TF32 off for fp32 products
@@ -151,8 +153,32 @@ Phases (any failure raises, so the script exits non-zero):
      lanes on the six unguided requests (``diffusion_serve_spmd``: per
      rank K1 28 x warm-up dispatches, K2 28 x its padded forwards, each
      image bitwise its lone emulated generate, drain seconds).
+ 20. K1 and K2 over a video frame's 2N context (8192 rows: the frame's own
+     published K/V and the previous frame's, joined by ``torch.cat`` as
+     the path joins them): K1 at Nl 2304 / 1792 / 4096 / 2048 / 200, batch
+     1 and the guided batch 2, K2 at n_tokens 8192 over 8192 + Nl_max rows
+     (Nl_max 2048 and 2304), fp32 and bf16, with the bars and planted
+     faults of phases 3 and 6 plus the previous frame's half dropped (K1)
+     and n_tokens of one frame (K2); times at bf16 against the bound and
+     SDPA over the same context (``k1_ctx2n_check``, ``k2_ctx2n_check``).
+ 21. the video paths on sdxl-dit, 4 frames (frame 0 the main path's x_T):
+     frame-sequential on the main path's cluster unguided
+     (``frames_check``) and fused guided (``frames_guided_check``), each
+     driven as in phase 9 (K1 and K3 from the trace, once a frame), frame 0
+     bitwise the image path's; the stadi_video plan on [0.0, 0.0, 0.5,
+     0.5] with two frame rows (``stadi_video_check``), bitwise the
+     frame-sequential executor on its plan; the video serving lanes, three
+     clips on 2 slots (``diffusion_serve_video``: launches three times the
+     generate's, the first clip bitwise its lone generate).
+ 22. spmd_frames on that plan, 2 frame rows x 2 columns (gloo ranks sharing
+     the card; NCCL a card each under --nccl): each rank's K1 and K2 those
+     of its row's frames, the video equal on every rank and within 1e-2 of
+     the emulated video (bitwise printed), the handoffs' and gathers'
+     seconds a rank from a generate under the collectives wrapper
+     (``spmd_frames_check``).
  Phases 13 to 15 run after phase 8, before the sdxl-dit paths; phase 16
- after phase 10, 17 after 7, 18 after 16 and 19 after 11.
+ after phase 10, 17 after 7, 18 after 16, 19 after 11, 20 after 17, 21
+ after 18 and 22 after 11.
 Every path is driven with the launch counters set to 0 just before it and
 read just after (on every rank for the multi-rank paths). The
 second-to-last line is the kernels' JSON record, the last line the device
@@ -617,7 +643,7 @@ K2_N, K2_NL, K2_NPAD = 4096, 2304, 6400
 K2_LAYOUTS = [(0, 2304), (2304, 1792), (0, 1792)]
 
 
-def k2_inputs(dtype, dev, gen, B, lead=()):
+def k2_inputs(dtype, dev, gen, B, lead=(), nl=K2_NL, npad=K2_NPAD):
     """q, k_fresh, v_fresh of [*lead, B, Nl_max, 16, 72] and the stale
     K/V of [*lead, B, Npad, 16, 72]: random everywhere, the slab's rows past
     valid_tokens and the buffer's scratch tail included, so that a dropped
@@ -625,37 +651,38 @@ def k2_inputs(dtype, dev, gen, B, lead=()):
     def mk(n, std):
         return (std * torch.randn(*lead, B, n, 16, 72, generator=gen)
                 ).to(dtype).to(dev)
-    return (mk(K2_NL, QK_STD), mk(K2_NL, QK_STD), mk(K2_NL, 1.0),
-            mk(K2_NPAD, QK_STD), mk(K2_NPAD, 1.0))
+    return (mk(nl, QK_STD), mk(nl, QK_STD), mk(nl, 1.0),
+            mk(npad, QK_STD), mk(npad, 1.0))
 
 
-def k2_planted_faults(plain, args, tok, valid):
+def k2_planted_faults(plain, args, tok, valid, n=K2_N):
     """K2's output under planted faults, from its plain version ``plain``
     (called as ``plain(*args, tok_start, valid_tokens, n_tokens)``):
     valid_tokens ignored (the whole slab fresh), the scratch key mask
     dropped, tok_start off by one 64-key tile."""
-    shifted = tok + TILE if tok + TILE <= K2_NPAD - K2_NL else tok - TILE
-    return {"valid_tokens ignored": plain(*args, tok, K2_NL, K2_N),
-            "scratch mask dropped": plain(*args, tok, valid, K2_NPAD),
-            f"tok_start {shifted - tok:+d}": plain(*args, shifted, valid, K2_N)}
+    nl, npad = args[0].shape[-3], args[3].shape[-3]
+    shifted = tok + TILE if tok + TILE <= npad - nl else tok - TILE
+    return {"valid_tokens ignored": plain(*args, tok, nl, n),
+            "scratch mask dropped": plain(*args, tok, valid, npad),
+            f"tok_start {shifted - tok:+d}": plain(*args, shifted, valid, n)}
 
 
-def k2_bound_ms(B, tok, valid, dtype, peaks):
+def k2_bound_ms(B, tok, valid, dtype, peaks, nl=K2_NL, n=K2_N):
     """Least time for K2's work: every slab row's query against the n_tokens
     real keys, 4*B*H*Nl_max*n_tokens*hd operations at the input type's
     peak, or its bytes (q and the output once; the fresh rows the function
     reads and the stale rows it reads, each once) at the memory rate."""
     H, hd = 16, 72
-    flops = 4 * B * H * K2_NL * K2_N * hd
-    fresh = max(0, min(valid, K2_N - tok))
+    flops = 4 * B * H * nl * n * hd
+    fresh = max(0, min(valid, n - tok))
     elem = torch.tensor([], dtype=dtype).element_size()
-    nbytes = elem * B * H * hd * (2 * K2_NL + 2 * fresh + 2 * (K2_N - fresh))
+    nbytes = elem * B * H * hd * (2 * nl + 2 * fresh + 2 * (n - fresh))
     ops_ms = flops / (peaks[0] if dtype == torch.bfloat16 else peaks[1]) * 1e3
     bytes_ms = nbytes / peaks[2] * 1e3
     return max(ops_ms, bytes_ms), ("operations" if ops_ms >= bytes_ms else "bytes")
 
 
-def k2_library_call(args, tok, valid):
+def k2_library_call(args, tok, valid, n=K2_N):
     """The library yardstick for K2 (and K5 folded to batch 2B): one
     scaled_dot_product_attention call over the K/V materialized with the
     fresh rows written in, the scratch keys masked by a boolean mask."""
@@ -664,7 +691,7 @@ def k2_library_call(args, tok, valid):
     full_k[:, tok:tok + valid] = kf[:, :valid]
     full_v[:, tok:tok + valid] = vf[:, :valid]
     qt, kt, vt = (t.transpose(1, 2) for t in (q, full_k, full_v))
-    keep = (torch.arange(ks.shape[1], device=q.device) < K2_N)[None, :]
+    keep = (torch.arange(ks.shape[1], device=q.device) < n)[None, :]
     return lambda: torch.nn.functional.scaled_dot_product_attention(
         qt, kt, vt, attn_mask=keep)
 
@@ -905,15 +932,15 @@ def _expected_launches(result, n_layers):
     eval per substep; a guided eval runs both branches in one launch), and
     on a guided run K3 once per eval whose uncond branch is computed
     (interleaved reuse evals run the cond branch alone and apply the
-    cached delta instead)."""
+    cached delta instead); a video's eval runs once a frame."""
     trace = result.trace
     evals = fresh = 0
-    for e in trace.events:
+    for e in trace.events:                   # a video evaluates every frame
         subs = [1] if e.synchronous else e.substeps
-        evals += sum(subs)
-        fresh += sum(s for i, s in enumerate(subs)
-                     if e.synchronous or e.uncond_fresh
-                     or not trace.guidance.worker_reuses(i))
+        evals += sum(subs) * e.frames
+        fresh += e.frames * sum(s for i, s in enumerate(subs)
+                                if e.synchronous or e.uncond_fresh
+                                or not trace.guidance.worker_reuses(i))
     expected = {"stale_kv_attention": n_layers * evals}
     if trace.guidance is not None:
         expected["cfg_epilogue"] = fresh
@@ -1014,7 +1041,7 @@ def drive_path(ops, label, cfg, params, x_T, cond, config, dev, profile=True):
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, image "
           f"{tuple(img.shape)} {img.dtype}, launches {launches}, expected "
           f"launches {expected}, kernel_stats {res.kernel_stats}", flush=True)
-    check(tuple(img.shape) == (1, cfg.latent_size, cfg.latent_size, cfg.channels),
+    check(tuple(img.shape) == tuple(x_T.shape),
           f"{label}: image shape {tuple(img.shape)}")
     check(bool(torch.isfinite(img.float()).all()), f"{label}: non-finite image")
     check(launches == expected and all(expected.values()),
@@ -1240,6 +1267,301 @@ def serve_cross_device(dev):
     check(launches == expected, f"tiny diffusion_serve: launches {launches}, "
           f"the dispatches need {expected}")
     check(max(rels) < 1e-3, f"tiny diffusion_serve card vs CPU: {rels}")
+
+
+# ----------------------------------------------------------------------
+# the frame axis: K1 and K2 over the 2N cross-frame context, and
+# the video paths
+# ----------------------------------------------------------------------
+
+#: the context of a video frame f > 0: its own 4096 published rows and frame
+#: f-1's. K1's (Nl, tok_start): frame-sequential's two patches, the warm-up
+#: step over the context, the stadi_video plan's two columns, an unaligned
+#: layout; K2's (Nl_max, tok_start, valid_tokens): the stadi_video plan's
+#: two rank columns and the main path's rank layouts
+CTX_N = 8192
+K1_CTX_CASES = [(2304, 0), (1792, 2304), (4096, 0), (2048, 2048), (200, 72)]
+K2_CTX_LAYOUTS = [(2048, 0, 2048), (2048, 2048, 2048), (2304, 0, 2304),
+                  (2304, 2304, 1792)]
+VIDEO_FRAMES = 4
+
+
+def phase_ctx2n(ops, ref, layers, dev, peaks):
+    """K1 and K2 over a video frame's 2N context, built as the path builds
+    it (``torch.cat`` of the frame's own published K/V and the previous
+    frame's), fp32 and bf16, K1 at batch 1 and at the guided batch 2, with
+    the bars and planted faults of phases 3 and 6 plus the previous frame's
+    half dropped (K1) and n_tokens of one frame (K2, a lost
+    ``ctx_tokens``); times at bf16 against the bound and SDPA over the same
+    context. Returns (K1's timed readings, K2's)."""
+    F = torch.nn.functional
+    gen = torch.Generator(device="cpu").manual_seed(SEED + 20)
+    H, hd, half = 16, 72, CTX_N // 2
+    k1_timed, k2_timed = [], []
+    for dtype in (torch.float32, torch.bfloat16):
+        for B in (1, 2):
+            for Nl, tok in K1_CTX_CASES:
+                if B == 2 and Nl not in (2304, 4096):
+                    continue                 # the guided video's layouts
+                q, kf, vf, own_k, own_v = k1_inputs(half, Nl, dtype, dev, gen,
+                                                    B, H, hd)
+                _, _, _, prev_k, prev_v = k1_inputs(half, 1, dtype, dev, gen,
+                                                    B, H, hd)
+                ks, vs = torch.cat([own_k, prev_k], 1), torch.cat([own_v, prev_v], 1)
+                out = ops.stale_kv_attention(q, kf, vf, ks, vs, tok_start=tok)
+                want = ref.stale_kv_attention_ref(q, kf, vf, ks, vs, tok)
+                faults = k1_planted_faults(layers, ref, q, kf, vf, ks, vs, tok)
+                faults["previous frame's half dropped"] = \
+                    ref.stale_kv_attention_ref(q, kf, vf, own_k, own_v, tok)
+                line = {"kernel": "stale_kv_attention", "batch": B,
+                        "dtype": str(dtype), "N": CTX_N, "Nl": Nl,
+                        "tok_start": tok}
+                if dtype == torch.bfloat16 and Nl % 256 == 0 and (
+                        B == 1 or Nl == 2304):
+                    full_k, full_v = ks.clone(), vs.clone()
+                    full_k[:, tok:tok + Nl] = kf
+                    full_v[:, tok:tok + Nl] = vf
+                    qt, kt, vt = (t.transpose(1, 2) for t in (q, full_k, full_v))
+                    bound_ms, bound_by = k1_bound_ms(B, H, Nl, CTX_N, hd, dtype,
+                                                     peaks)
+                    line.update(
+                        ms=time_ms(lambda: ops.stale_kv_attention(
+                            q, kf, vf, ks, vs, tok_start=tok)),
+                        plain_ms=time_ms(lambda: ref.stale_kv_attention_ref(
+                            q, kf, vf, ks, vs, tok), reps=3),
+                        library_ms=time_ms(lambda: F.scaled_dot_product_attention(
+                            qt, kt, vt)),
+                        bound_ms=bound_ms, bound_by=bound_by)
+                check_with_faults("k1_ctx2n_check", out, want, faults, dtype, line)
+                if "ms" in line:
+                    k1_timed.append(line)
+        for nl, tok, valid in K2_CTX_LAYOUTS:
+            args = k2_inputs(dtype, dev, gen, 1, nl=nl, npad=CTX_N + nl)
+            out = ops.stale_kv_attention_padded(*args, tok, valid,
+                                                n_tokens=CTX_N)
+            plain = ref.stale_kv_attention_padded_ref
+            want = plain(*args, tok, valid, CTX_N)
+            faults = k2_planted_faults(plain, args, tok, valid, CTX_N)
+            faults["n_tokens of one frame"] = plain(*args, tok, valid, half)
+            line = {"kernel": "stale_kv_attention_padded", "dtype": str(dtype),
+                    "tok_start": tok, "valid_tokens": valid,
+                    "n_tokens": CTX_N, "Nl_max": nl, "Npad": CTX_N + nl}
+            if dtype == torch.bfloat16:
+                bound_ms, bound_by = k2_bound_ms(1, tok, valid, dtype, peaks,
+                                                 nl=nl, n=CTX_N)
+                line.update(
+                    ms=time_ms(lambda: ops.stale_kv_attention_padded(
+                        *args, tok, valid, n_tokens=CTX_N)),
+                    plain_ms=time_ms(lambda: plain(*args, tok, valid, CTX_N),
+                                     reps=3),
+                    library_ms=time_ms(k2_library_call(args, tok, valid,
+                                                       CTX_N)),
+                    bound_ms=bound_ms, bound_by=bound_by)
+            check_with_faults("k2_ctx2n_check", out, want, faults, dtype, line)
+            if "ms" in line:
+                k2_timed.append(line)
+    return k1_timed, k2_timed
+
+
+def video_setup(dev):
+    """sdxl_setup's model and class with a clip of VIDEO_FRAMES frames whose
+    frame 0 is the main path's x_T (the rest from SEED + 21), and that
+    x_T."""
+    cfg, params, x_T, cond = sdxl_setup(dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 21)
+    rest = torch.randn(1, VIDEO_FRAMES - 1, *x_T.shape[1:], generator=gen,
+                       device=dev).to(x_T.dtype)
+    return cfg, params, torch.cat([x_T[:, None], rest], 1), cond, x_T
+
+
+def video_configs():
+    """(frame-sequential on the main path's cluster, the stadi_video plan on
+    [0.0, 0.0, 0.5, 0.5] with two frame rows)."""
+    from repro_torch.core.pipeline import StadiConfig
+
+    seq = StadiConfig.from_occupancies([0.0, 0.5], m_base=16, m_warmup=4,
+                                       planner="stadi", backend="emulated",
+                                       exchange="sync", num_frames=VIDEO_FRAMES)
+    video = StadiConfig.from_occupancies(
+        [0.0, 0.0, 0.5, 0.5], m_base=16, m_warmup=4, planner="stadi_video",
+        frame_groups=2, backend="emulated", exchange="sync",
+        num_frames=VIDEO_FRAMES)
+    return seq, video
+
+
+def phase_frames(ops, dev):
+    """The emulated video paths on sdxl-dit (4 frames): frame-sequential
+    unguided (``frames_check``) and fused guided (``frames_guided_check``),
+    each driven as in phase 9 (launches: the trace's evals once a frame),
+    frame 0 bitwise the main path's image; the stadi_video plan
+    (``stadi_video_check``), bitwise the frame-sequential executor on its
+    plan (placement invariance); and the video serving lanes
+    (``diffusion_serve_video``: three clips on 2 slots, each run whole in
+    its round, the first bitwise its lone generate). Returns {label:
+    launches}."""
+    from repro_torch.core import frames as frames_lib
+    from repro_torch.core import sampler
+    from repro_torch.core.pipeline import StadiPipeline
+    from repro_torch.serving import DiffusionServingEngine
+
+    cfg, params, video, cond, x_T = video_setup(dev)
+    seq, stadi_video = video_configs()
+    sched = sampler.linear_schedule(1000)
+    image = StadiPipeline(cfg, params, sched, dataclasses.replace(
+        seq, num_frames=1), device=dev).generate(x_T, cond).image
+    out = {}
+    for label, config in (("frames_check", seq),
+                          ("frames_guided_check", dataclasses.replace(
+                              seq, cfg_scale=CFG_SCALE))):
+        guided_image = None
+        if config.cfg_scale:
+            guided_image = StadiPipeline(cfg, params, sched, dataclasses.replace(
+                config, num_frames=1), device=dev).generate(x_T, cond).image
+        launches, img, seconds = drive_path(ops, label, cfg, params, video,
+                                            cond, config, dev)
+        frame0 = torch.equal(img[:, 0], image if guided_image is None
+                             else guided_image)
+        line = {"path": label, "frames": VIDEO_FRAMES, "seconds": seconds,
+                "seconds_per_frame": seconds / VIDEO_FRAMES,
+                "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+                "launches": launches, "frame0_bitwise_image": frame0,
+                "finite_frames": [bool(torch.isfinite(img[:, f].float()).all())
+                                  for f in range(VIDEO_FRAMES)]}
+        print(label, json.dumps(line), flush=True)
+        check(frame0, f"{label}: frame 0 is not bitwise the image path's")
+        out[label] = launches
+
+    launches, vid, seconds = drive_path(ops, "stadi_video_check", cfg, params,
+                                        video, cond, stadi_video, dev,
+                                        profile=False)
+    pipe = StadiPipeline(cfg, params, sched, stadi_video, device=dev)
+    plan = pipe.plan()
+    seq_vid = frames_lib.run_frames(
+        pipe.params, cfg, sched, video, cond, plan.temporal, plan.patches,
+        frames=frames_lib.FramePlan(VIDEO_FRAMES, (VIDEO_FRAMES,))).image
+    invariant = torch.equal(vid, seq_vid)
+    print("stadi_video_check", json.dumps({
+        "plan": {"steps": plan.temporal.steps, "ratios": plan.temporal.ratios,
+                 "patches": plan.patches, "frame_groups": list(plan.frames.groups),
+                 "modeled_interval_cost": plan.modeled_interval_cost},
+        "seconds": seconds, "launches": launches,
+        "bitwise_frame_sequential_on_its_plan": invariant}), flush=True)
+    check(invariant, "stadi_video: the video depends on the frame placement")
+    out["stadi_video_check"] = launches
+
+    engine = DiffusionServingEngine(pipe, slots=2)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 22)
+    clips = [video] + [torch.randn(video.shape, generator=gen, device=dev).to(
+        video.dtype) for _ in range(2)]
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    reqs = [engine.submit(c, int(cond[0])) for c in clips]
+    engine.run_to_completion()
+    drain_s = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    first = torch.equal(reqs[0].image, vid)
+    expected = {k: 3 * n for k, n in out["stadi_video_check"].items()}
+    print("diffusion_serve_video", json.dumps({
+        "clips": len(clips), "frames": VIDEO_FRAMES, "slots": 2,
+        "rounds": len(engine.rounds), "drain_s": drain_s,
+        "clips_per_s": len(clips) / drain_s,
+        "wall_latency_s": [r.wall_latency_s for r in reqs],
+        "modeled_latency_s": [r.modeled_latency_s for r in reqs],
+        "cost_model": engine.stats()["cost_model"], "launches": launches,
+        "expected_launches": expected, "first_clip_bitwise_lone_generate": first}),
+        flush=True)
+    check(first, "diffusion_serve_video: the first clip is not bitwise its "
+          "lone generate")
+    check(launches == expected, f"diffusion_serve_video: launches {launches}, "
+          f"three clips need {expected}")
+    check(all(bool(torch.isfinite(r.image.float()).all()) for r in reqs),
+          "diffusion_serve_video: a clip is not finite")
+    out["diffusion_serve_video"] = launches
+    return out
+
+
+def frames_rank(ctx, config):
+    """One rank of spmd_frames on sdxl-dit: a cold generate with the launch
+    counters set to 0 just before it, then one with the collectives timed.
+    Returns its seconds, launches, the owned frames' launches, peak memory,
+    the collectives' seconds and the video."""
+    from repro_torch.core import sampler
+    from repro_torch.core.pipeline import StadiPipeline
+    from repro_torch.kernels import ops
+
+    cfg, params, video, cond, _ = video_setup(ctx.device)
+    pipe = StadiPipeline(cfg, params, sampler.linear_schedule(1000), config,
+                         device=ctx.device)
+    torch.cuda.reset_peak_memory_stats(ctx.device)
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = pipe.generate(video, cond)
+    torch.cuda.synchronize(ctx.device)
+    seconds = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    _, timed_s, spent = timed_generate(pipe, video, cond, ctx.device)
+    plan = res.plan
+    W = len(plan.patches)
+    g, w = divmod(ctx.rank, W)
+    owned = plan.frames.groups[g]
+    warm = sum(1 for e in res.trace.events if e.synchronous)
+    patch = sum(e.substeps[w] for e in res.trace.events if not e.synchronous)
+    return {"seconds": seconds, "timed_wall_s": timed_s, "collective_s": spent,
+            "launches": launches, "owned_frames": owned,
+            "expected": {"stale_kv_attention": cfg.n_layers * max(warm, 1) * owned,
+                         "stale_kv_attention_padded": cfg.n_layers * patch * owned},
+            "peak_gib": torch.cuda.max_memory_allocated(ctx.device) / 2**30,
+            "video": res.image.float().cpu().numpy()}
+
+
+def phase_spmd_frames(dev, dist_backend="gloo"):
+    """spmd_frames on the stadi_video plan: 2 frame rows x 2 patch-worker
+    columns (gloo ranks sharing the card, or NCCL a card a rank): each
+    rank's K1 and K2 launches those of its row's frames, the video equal on
+    every rank and against the emulated video on the card, the handoffs'
+    and gathers' seconds per rank. Returns the per-rank results."""
+    from repro_torch.core import sampler
+    from repro_torch.core.pipeline import StadiPipeline
+    from repro_torch.launch import ranks
+
+    _, stadi_video = video_configs()
+    cfg, params, video, cond, _ = video_setup(dev)
+    emu = StadiPipeline(cfg, params, sampler.linear_schedule(1000), stadi_video,
+                        device=dev).generate(video, cond).image.float().cpu().numpy()
+    del params
+    torch.cuda.empty_cache()
+    config = dataclasses.replace(stadi_video, backend="spmd_frames")
+    t0 = time.perf_counter()
+    outs = ranks.spawn(frames_rank, 4, device_type="cuda",
+                       dist_backend=dist_backend, args=(config,),
+                       timeout=900 if dist_backend == "gloo" else 300)
+    rels = [float(np.linalg.norm(o["video"] - emu) / np.linalg.norm(emu))
+            for o in outs]
+    bitwise = [bool(np.array_equal(o["video"], emu)) for o in outs]
+    print("spmd_frames_check", json.dumps({
+        "ranks": 4, "dist_backend": dist_backend,
+        "note": ("ranks share one card, gloo transport, not a makespan"
+                 if dist_backend == "gloo" else "one card per rank, NCCL"),
+        "phase_s": time.perf_counter() - t0,
+        "seconds_per_rank": [o["seconds"] for o in outs],
+        "timed_wall_s": [o["timed_wall_s"] for o in outs],
+        "handoff_s": [o["collective_s"]["stage_handoff"] for o in outs],
+        "gather_s": [o["collective_s"]["uneven_all_gather_padded"] for o in outs],
+        "peak_gib_per_rank": [o["peak_gib"] for o in outs],
+        "owned_frames": [o["owned_frames"] for o in outs],
+        "launches_per_rank": [o["launches"] for o in outs],
+        "expected_per_rank": [o["expected"] for o in outs],
+        "rel_err_vs_emulated": rels, "bitwise_emulated": bitwise}), flush=True)
+    for r, o in enumerate(outs):
+        check(bool(np.isfinite(o["video"]).all()), f"spmd_frames: rank {r} "
+              "video not finite")
+        check(o["launches"] == o["expected"], f"spmd_frames: rank {r} launches "
+              f"{o['launches']}, its frames need {o['expected']}")
+        check(np.array_equal(o["video"], outs[0]["video"]),
+              f"spmd_frames: rank {r} returned another video than rank 0")
+    check(max(rels) < 1e-2, f"spmd_frames vs emulated {rels} (bar 1e-2)")
+    return outs
 
 
 def phase_cross_device(dev):
@@ -2229,10 +2551,12 @@ def main():
         check(torch.cuda.device_count() >= 4, "--nccl needs 4 cards")
         spmd = phase_spmd(dev, dist_backend="nccl")
         _, chain_s = phase_chain_ranks(dev, dist_backend="nccl")
+        video = phase_spmd_frames(dev, dist_backend="nccl")
         print(json.dumps({"nccl_makespan_s": {
             **{label: max(o["seconds"] for o in outs)
                for label, outs in spmd.items()},
-            **{label: max(per_rank) for label, per_rank in chain_s.items()}}}),
+            **{label: max(per_rank) for label, per_rank in chain_s.items()},
+            "spmd_frames": max(o["timed_wall_s"] for o in video)}}),
             flush=True)
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
@@ -2255,6 +2579,7 @@ def main():
     k5 = phase(phase_k5, ops, ref, dev, peaks)
     k1_lanes = phase(phase_k1_lanes, ops, ref, layers, dev, peaks)
     k2_cohort = phase(phase_k2_cohorts, ops, ref, dev, peaks)
+    k1_ctx, k2_ctx = phase(phase_ctx2n, ops, ref, layers, dev, peaks)
     k4_timed = phase(phase_k4, ops, ref, dev, peaks)
     k4 = k4_timed[0]
     k6_timed = phase(phase_k6, ops, ref, dev, peaks)
@@ -2267,7 +2592,9 @@ def main():
     launches.update(phase(phase_pipefuse, ops, dev))
     launches["diffusion_serve_pipefuse"] = phase(
         phase_diffusion_serve_pipefuse, ops, dev)
+    launches.update(phase(phase_frames, ops, dev))
     spmd = phase(phase_spmd, dev)
+    spmd["spmd_frames"] = phase(phase_spmd_frames, dev)
     launches.update(phase(phase_chain_ranks, dev)[0])
     phase(phase_cross_device, dev)
     for label, outs in spmd.items():      # launches summed over the ranks
@@ -2293,6 +2620,9 @@ def main():
          "batch2_ms": k1_b2["ms"], "batch2_bound_ms": k1_b2["bound_ms"],
          "lanes4": {k: k1_lanes[k] for k in (
              "Nl", "ms", "plain_ms", "library_ms", "bound_ms")},
+         "ctx2n": [{k: line[k] for k in (
+             "batch", "N", "Nl", "tok_start", "ms", "plain_ms", "library_ms",
+             "bound_ms", "max_abs_err")} for line in k1_ctx],
          "wrapper_host_us": k1["wrapper_host_us"]},
         {**entry("cfg_epilogue", "src/repro_torch/kernels/csrc/cfg_epilogue.cu",
                  "src/repro/kernels/cfg_epilogue.py:34", k3, "diffusion_serve"),
@@ -2308,6 +2638,13 @@ def main():
          "cohort4": {k: k2_cohort[k] for k in (
              "tok_start", "valid_tokens", "ms", "plain_ms", "library_ms",
              "bound_ms")},
+         "ctx2n": [{k: line[k] for k in (
+             "n_tokens", "Nl_max", "tok_start", "valid_tokens", "ms",
+             "plain_ms", "library_ms", "bound_ms", "max_abs_err")}
+            for line in k2_ctx],
+         "launches_per_rank_spmd_frames": [
+             o["launches"].get("stale_kv_attention_padded", 0)
+             for o in spmd["spmd_frames"]],
          "timed_layouts": [{k: line[k] for k in (
              "batch", "tok_start", "valid_tokens", "ms", "plain_ms",
              "library_ms", "bound_ms", "wrapper_host_us")} for line in k2_timed]},

@@ -3,11 +3,11 @@ exchange policy) into a typed stream of interval events, and every executor
 interprets that stream (reference: ``repro.core.events``, DESIGN.md §10).
 
 This port lowers the image axes — steps x patches under a boundary-exchange
-policy — and the depth, guidance and sequence axes:
+policy — and the depth, guidance, sequence and frame axes:
 
     stream   := Warmup*  adaptive*
-    adaptive := StageShift?  GuidanceExchange?  SeqShard?  ComputeInterval
-                Exchange  Replan?
+    adaptive := StageShift?  GuidanceExchange?  SeqShard?  FrameShard?
+                ComputeInterval  Exchange  Replan?
 
     Warmup(m)             one synchronous full-image fine step
     StageShift(m, stages) the displaced stage chain (DESIGN.md §11) refills:
@@ -27,9 +27,12 @@ policy — and the depth, guidance and sequence axes:
     SeqShard(m)           a seq-sharded plan: every attention of the coming
                           interval scatters its heads over the shards and
                           runs ``hops`` ring hops of K/V segments
+    FrameShard(m)         a multi-frame plan (DESIGN.md §16): the frames
+                          each group-member row evaluates in the coming
+                          interval; every frame f > 0 attends over its own
+                          published context concatenated with frame f-1's
 
-The frame events of the reference come with the slice that ports that
-axis. Replying to an :class:`Exchange` with ``gen.send((plan, patches))``
+Replying to an :class:`Exchange` with ``gen.send((plan, patches))``
 re-allocates the remaining fine steps, exactly as in the reference. The
 trace records keep every field of the reference so that records from the
 two packages compare equal.
@@ -53,8 +56,8 @@ class IntervalEvent:
     boundary-exchange kind that followed it. ``fill`` marks an interval that
     begins with a stage-chain (re)fill (the staged cost model charges the
     pipeline bubble there), ``uncond_fresh`` records the guidance verdict
-    and ``seq_hops`` the ring hops of every attention; ``frames`` keeps its
-    image-path value in this port."""
+    and ``seq_hops`` the ring hops of every attention; ``frames`` is the
+    latent frames evaluated per substep (1 = image)."""
     fine_step: int                       # first fine step of the interval
     substeps: List[int]                  # steps executed by each worker
     patches: List[int]                   # token-rows per worker
@@ -164,6 +167,24 @@ class SeqShard:
 
 
 @dataclasses.dataclass(frozen=True)
+class FrameShard:
+    """Multi-frame staging (DESIGN.md §16), emitted before each adaptive
+    interval of a multi-frame plan: ``frames`` is the number of latent
+    frames each group-member row evaluates this interval. Every frame
+    ``f > 0`` attends over its own published context concatenated with frame
+    ``f-1``'s, a 2N-token context that ages under the same full/skip/predict
+    boundary policy as the within-frame halo; frame 0's context is the
+    image's. It carries no numerics."""
+    fine_step: int                       # first fine step of the interval
+    frames: Tuple[int, ...]              # latent frames per group-member row
+    index: int                           # 0-based adaptive interval counter
+
+    @property
+    def num_frames(self) -> int:
+        return sum(self.frames)
+
+
+@dataclasses.dataclass(frozen=True)
 class Replan:
     """An online re-allocation (sent into the generator) took effect."""
     fine_step: int
@@ -183,9 +204,9 @@ def active_workers(plan: TemporalPlan, patches: Sequence[int]) -> List[int]:
 def lower(plan: TemporalPlan, patches: Sequence[int],
           policy: Optional[comm_lib.BoundaryExchange] = None,
           stages: Optional[Sequence[int]] = None,
-          guidance=None, seq_shards=None) -> Iterator:
+          guidance=None, seq_shards=None, frames=None) -> Iterator:
     """Lower (plan, patches, exchange policy[, stages][, guidance][, seq
-    shards]) into events (see the module docstring). A coroutine-style
+    shards][, frames]) into events (see the module docstring). A coroutine-style
     generator: reply to an :class:`Exchange` with ``gen.send((new_plan,
     new_patches))`` to re-allocate the remaining fine steps (the new plan's
     interval LCM must divide them); the generator then emits a
@@ -203,7 +224,11 @@ def lower(plan: TemporalPlan, patches: Sequence[int],
     ``seq_shards`` (a :class:`~repro_torch.core.seqpar.SeqPlan`): a plan with
     more than one shard emits a :class:`SeqShard` before every adaptive
     interval; a single-shard plan emits nothing, so its stream is the
-    unsharded one."""
+    unsharded one.
+
+    ``frames`` (a :class:`~repro_torch.core.frames.FramePlan`): a plan with
+    more than one frame emits a :class:`FrameShard` before every adaptive
+    interval; a single-frame plan emits nothing."""
     policy = policy or comm_lib.get_exchange("sync")
     patches = list(patches)
     n = len(patches)
@@ -211,6 +236,7 @@ def lower(plan: TemporalPlan, patches: Sequence[int],
     pipelined = len(stages) > 1
     guided_exchange = guidance is not None and guidance.mode != "fused"
     seq_sharded = seq_shards is not None and len(seq_shards.segments) > 1
+    framed = frames is not None and frames.num_frames > 1
     # fine steps count in ABSOLUTE coordinates of the original plan; a
     # replanned TemporalPlan covers the remaining steps (its m_base is the
     # remaining count) and only contributes ratios/activity from then on
@@ -232,6 +258,8 @@ def lower(plan: TemporalPlan, patches: Sequence[int],
         if seq_sharded:
             yield SeqShard(m0, tuple(seq_shards.heads),
                            tuple(seq_shards.segments), boundary)
+        if framed:
+            yield FrameShard(m0, tuple(frames.groups), boundary)
         R = plan.lcm
         workers = active_workers(plan, patches)
         subs = tuple(R // plan.ratios[i] if i in workers else 0
@@ -259,22 +287,25 @@ def lower(plan: TemporalPlan, patches: Sequence[int],
 # ----------------------------------------------------------------------
 
 def record(interval: ComputeInterval, kind: str, fill: bool = False,
-           uncond_fresh: bool = True, seq_hops: int = 0) -> IntervalEvent:
+           uncond_fresh: bool = True, seq_hops: int = 0,
+           frames: int = 1) -> IntervalEvent:
     """The trace record for one adaptive interval + its boundary kind."""
     return IntervalEvent(interval.fine_step, list(interval.substeps),
                          list(interval.patches), exchange=kind, fill=fill,
-                         uncond_fresh=uncond_fresh, seq_hops=seq_hops)
+                         uncond_fresh=uncond_fresh, seq_hops=seq_hops,
+                         frames=frames)
 
 
-def warmup_record(ev: Warmup) -> IntervalEvent:
+def warmup_record(ev: Warmup, frames: int = 1) -> IntervalEvent:
     return IntervalEvent(ev.fine_step, list(ev.substeps), list(ev.patches),
-                         synchronous=True)
+                         synchronous=True, frames=frames)
 
 
 def replay(plan: TemporalPlan, patches: Sequence[int],
            policy: Optional[comm_lib.BoundaryExchange] = None,
            stages: Optional[Sequence[int]] = None,
-           guidance=None, seq_shards=None) -> List[IntervalEvent]:
+           guidance=None, seq_shards=None,
+           frames=None) -> List[IntervalEvent]:
     """Trace records of the whole schedule without executing any numerics —
     the latency-only path (`simulate.build_trace`) and the numerics paths
     (`patch_parallel.run_schedule`, `pipefuse.run_pipefuse`) all derive
@@ -285,10 +316,11 @@ def replay(plan: TemporalPlan, patches: Sequence[int],
     fill = False
     fresh = True
     hops = 0
+    n_frames = frames.num_frames if frames is not None else 1
     for ev in lower(plan, patches, policy, stages, guidance=guidance,
-                    seq_shards=seq_shards):
+                    seq_shards=seq_shards, frames=frames):
         if isinstance(ev, Warmup):
-            out.append(warmup_record(ev))
+            out.append(warmup_record(ev, frames=n_frames))
         elif isinstance(ev, StageShift):
             fill = True
         elif isinstance(ev, GuidanceExchange):
@@ -299,7 +331,8 @@ def replay(plan: TemporalPlan, patches: Sequence[int],
             pending = ev
         elif isinstance(ev, Exchange):
             out.append(record(pending, ev.kind, fill=fill,
-                              uncond_fresh=fresh, seq_hops=hops))
+                              uncond_fresh=fresh, seq_hops=hops,
+                              frames=n_frames))
             fill = False
             fresh = True
     return out
@@ -308,9 +341,11 @@ def replay(plan: TemporalPlan, patches: Sequence[int],
 def make_trace(records: List[IntervalEvent], plan: TemporalPlan,
                patches: Sequence[int], cfg, batch: int,
                stages: Optional[Sequence[int]] = None,
-               guidance=None, seq=None) -> ExecutionTrace:
+               guidance=None, seq=None, frames=None) -> ExecutionTrace:
     """Byte-size provenance shared by every trace producer (K/V is priced
-    at 2 bytes per element, the latent at 4, as in the reference)."""
+    at 2 bytes per element, the latent at 4, as in the reference). Byte
+    sizes are per frame: the frame cost model multiplies them by the frames
+    each member row owns."""
     H = cfg.latent_size
     lat_bytes = int(batch * H * H * cfg.channels * 4)
     kv_bytes = [int(2 * cfg.n_layers * batch * pr * cfg.tokens_per_side
@@ -319,4 +354,5 @@ def make_trace(records: List[IntervalEvent], plan: TemporalPlan,
     return ExecutionTrace(records, plan, list(patches), cfg.n_tokens,
                           lat_bytes, kv_bytes,
                           stages=list(stages) if stages else None,
-                          act_row_bytes=act_row, guidance=guidance, seq=seq)
+                          act_row_bytes=act_row, guidance=guidance, seq=seq,
+                          frames=frames)

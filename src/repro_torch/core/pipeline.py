@@ -22,6 +22,8 @@ Backends registered in the port:
                 run_pipefuse; bitwise "emulated" at one stage)
     "spmd_pipefuse"  the stage chain on one rank per stage
                 (core/spmd.run_spmd_pipefuse)
+    "spmd_frames"  the frame axis on n_groups x n_workers ranks
+                (core/spmd.run_spmd_frames)
     "simulate"  trace-only latency modeling (no numerics; needs a CostModel)
 
 The multi-rank backends run inside the ranks of an initialized process
@@ -37,7 +39,11 @@ DESIGN.md §12): plain planners get the fused placement, and the
 (DESIGN.md §13): the emulated backend runs its numerics, ``spmd_seq`` its
 ranks. ``num_stages > 1`` (or the ``stadi_pipefuse`` planner) splits the
 DiT depth into a stage chain (DESIGN.md §11) that the ``pipefuse`` and
-``spmd_pipefuse`` backends run.
+``spmd_pipefuse`` backends run. ``num_frames > 1`` generates a video
+(DESIGN.md §16) from a ``[B, F, H, W, C]`` latent: frame-sequential for plain
+planners, or the frame placement the ``stadi_video`` planner searches
+(``frame_groups`` pins it); the emulated backend runs it in one process
+(:func:`repro_torch.core.frames.run_frames`), ``spmd_frames`` on ranks.
 
 The pipeline runs on ``cuda`` unless the caller passes ``device="cpu"``; with
 no CUDA device and no explicit CPU request it raises. On the card every
@@ -69,6 +75,7 @@ from typing import Callable, Dict, List, Optional, Protocol, Sequence, Tuple
 import torch
 
 from repro_torch.configs.diffusion import DiTConfig
+from repro_torch.core import frames as frames_lib
 from repro_torch.core import hetero
 from repro_torch.core import patch_parallel as pp
 from repro_torch.core import simulate as sim
@@ -84,9 +91,6 @@ from repro_torch.kernels import ops as kops
 #: where the reference's later axes, planners and backends arrive in the
 #: port (ROADMAP.md queue 1)
 _LATER = {
-    "frames": "the frames slice (queue 1 item 12)",
-    "spmd_frames": "the frames slice (queue 1 item 12)",
-    "stadi_video": "the frames slice (queue 1 item 12)",
     "prompt": "the prompt-conditioning slice (queue 1 item 13)",
 }
 
@@ -153,9 +157,12 @@ class StadiConfig:
     num_stages: int = 1
     micro_patches: int = 0
     depth: Optional[int] = None
-    # the frame axis of the reference comes with a later slice; a value
-    # other than 1 raises NotImplementedError naming it
+    # video (DESIGN.md §16): latent frames denoised jointly (1 = image);
+    # frame_groups picks the placement: 1 = frame-sequential, > 1 =
+    # frame-parallel member rows (planner='stadi_video'), 0 = let the
+    # stadi_video planner search
     num_frames: int = 1
+    frame_groups: int = 0
     # persistent plan cache (DESIGN.md §14): directory for serialized
     # planner outputs keyed by (cluster signature, model hash, workload
     # shape). None = no cache; StadiPipeline.plan() consults it before any
@@ -271,8 +278,6 @@ def register_executor(name: str, *, supports: Sequence[str] = (),
 
 
 def get_executor_spec(name: str) -> BackendSpec:
-    if name in _LATER and name not in EXECUTORS:
-        raise later_slice(name)
     try:
         return EXECUTORS[name]
     except KeyError:
@@ -293,8 +298,9 @@ def backends_supporting(feature: str) -> Tuple[str, ...]:
 
 
 def required_features(plan: ExecutionPlan, config=None) -> List[str]:
-    """Feature tokens a plan (and the config's ``seq_shards``) demands of a
-    backend, in the check order (stages, guidance, seq, frames)."""
+    """Feature tokens a plan (and the config's ``seq_shards`` and
+    ``num_frames``) demands of a backend, in the check order (stages,
+    guidance, seq, frames)."""
     feats: List[str] = []
     if plan.stages is not None and len(plan.stages) > 1:
         feats.append("stages")
@@ -305,7 +311,8 @@ def required_features(plan: ExecutionPlan, config=None) -> List[str]:
         feats.append("seq")
         if planned_seq and not plan.seq.even_heads():
             feats.append("seq.uneven")
-    if plan.frames is not None and plan.frames.num_frames > 1:
+    if ((plan.frames is not None and plan.frames.num_frames > 1)
+            or (config is not None and config.num_frames > 1)):
         feats.append("frames")
     return feats
 
@@ -342,6 +349,11 @@ _BACKEND_REQUIRES_ERRORS: Dict[Tuple[str, str], str] = {
         "seq-sharded plan: set seq_shards > 1, or planner='stadi_seq' "
         "with seq_shards=0 (auto); an attention-unsharded plan runs on "
         "the plain 'spmd' backend",
+    ("spmd_frames", "frames"):
+        "backend 'spmd_frames' runs the frame mesh and needs a "
+        "multi-frame plan: set num_frames > 1 (optionally "
+        "planner='stadi_video' for the frame-parallel placement); a "
+        "single-frame plan runs on the plain 'spmd' backend",
 }
 
 
@@ -361,6 +373,10 @@ def _reject_message(backend: str, feature: str, plan: ExecutionPlan) -> str:
                 f"backend ({list(backends_supporting('seq'))}), not "
                 f"{backend!r}; pin seq_shards=1 to force attention-"
                 "unsharded execution")
+    if feature == "frames":
+        return (f"a multi-frame plan (num_frames > 1) needs a frame "
+                f"backend ({list(backends_supporting('frames'))}), not "
+                f"{backend!r}; pin num_frames=1 for the image path")
     return f"{backend!r} does not support the planned {feature!r}"
 
 
@@ -427,9 +443,21 @@ _GUIDANCE_FEATURES = ("guidance.fused", "guidance.split",
 
 
 @register_executor("emulated",
-                   supports=_GUIDANCE_FEATURES + ("seq", "seq.uneven"))
+                   supports=_GUIDANCE_FEATURES + ("seq", "seq.uneven",
+                                                  "frames"))
 def emulated_executor(params, model_cfg, sched, x_T, cond, plan, config,
                       interval_hook=None):
+    if plan.frames is not None and plan.frames.num_frames > 1:
+        # fused CFG composes with frames; split/interleaved guidance and
+        # seq sharding are refused when the pipeline is built
+        res = frames_lib.run_frames(params, model_cfg, sched, x_T, cond,
+                                    plan.temporal, plan.patches,
+                                    interval_hook=interval_hook,
+                                    exchange=config.exchange,
+                                    exchange_refresh=config.exchange_refresh,
+                                    frames=plan.frames,
+                                    guidance=plan.guidance)
+        return res.image, res.trace
     res = pp.run_schedule(params, model_cfg, sched, x_T, cond,
                           plan.temporal, plan.patches,
                           interval_hook=interval_hook,
@@ -472,11 +500,11 @@ def _spmd_trace(model_cfg, x_T, plan, config, stages=None) -> ExecutionTrace:
                            batch=int(x_T.shape[0]), exchange=config.exchange,
                            exchange_refresh=config.exchange_refresh,
                            stages=stages, guidance=plan.guidance,
-                           seq=plan.seq)
+                           seq=plan.seq, frames=plan.frames)
 
 
 @register_executor("simulate", supports=("stages",) + _GUIDANCE_FEATURES
-                   + ("seq", "seq.uneven"))
+                   + ("seq", "seq.uneven", "frames"))
 def simulate_executor(params, model_cfg, sched, x_T, cond, plan, config,
                       interval_hook=None):
     batch = int(x_T.shape[0]) if x_T is not None else 1
@@ -484,7 +512,7 @@ def simulate_executor(params, model_cfg, sched, x_T, cond, plan, config,
                             batch=batch, exchange=config.exchange,
                             exchange_refresh=config.exchange_refresh,
                             stages=plan.stages, guidance=plan.guidance,
-                            seq=plan.seq)
+                            seq=plan.seq, frames=plan.frames)
     return None, trace
 
 
@@ -536,11 +564,29 @@ def spmd_pipefuse_executor(params, model_cfg, sched, x_T, cond, plan, config,
     return img, _spmd_trace(model_cfg, x_T, plan, config, stages=stages)
 
 
+@register_executor("spmd_frames", supports=("frames",), requires=("frames",))
+def spmd_frames_executor(params, model_cfg, sched, x_T, cond, plan, config,
+                         interval_hook=None):
+    """The frame axis on n_groups x n_workers ranks: member rows own frame
+    chunks, patch-worker columns share each row's frames."""
+    from repro_torch.core import spmd
+    if plan.frames is None or plan.frames.num_frames <= 1:
+        raise ValueError(_BACKEND_REQUIRES_ERRORS[("spmd_frames", "frames")])
+    img = spmd.run_spmd_frames(params, model_cfg, sched, x_T, cond,
+                               plan.temporal, plan.patches, plan.frames,
+                               exchange=config.exchange,
+                               exchange_refresh=config.exchange_refresh)
+    return img, _spmd_trace(model_cfg, x_T, plan, config)
+
+
 #: backends that can execute a depth-partitioned (staged) plan
 STAGED_BACKENDS = backends_supporting("stages")
 
 #: backends that can execute a sequence-sharded plan (DESIGN.md §13)
 SEQ_BACKENDS = backends_supporting("seq")
+
+#: backends that can execute a multi-frame (video) plan (DESIGN.md §16)
+FRAME_BACKENDS = backends_supporting("frames")
 
 
 def _resolve_stages(plan: ExecutionPlan, model_cfg, config: StadiConfig
@@ -585,6 +631,24 @@ def _resolve_seq(plan: ExecutionPlan, model_cfg, config: StadiConfig):
                                 S)
 
 
+def _resolve_frames(plan: ExecutionPlan, config: StadiConfig):
+    """The FramePlan an executor runs: the plan's own (from the stadi_video
+    planner) or, for plain planners with ``num_frames > 1``, the
+    frame-sequential placement (every patch worker evaluates all frames).
+    None = the image path."""
+    if plan.frames is not None and plan.frames.num_frames > 1:
+        return plan.frames
+    F = config.num_frames
+    if F <= 1:
+        return None
+    if config.frame_groups > 1:
+        raise ValueError(
+            f"frame_groups={config.frame_groups} places frame chunks on "
+            "device member rows — plan it with planner='stadi_video' "
+            f"(planner {config.planner!r} allocates per-device workers)")
+    return frames_lib.FramePlan(F, (F,))
+
+
 def _resolve_guidance(plan: ExecutionPlan, config: StadiConfig):
     """The GuidancePlan an executor runs: the plan's own (from the
     stadi_guidance planner) or, for plain planners with ``cfg_scale`` set,
@@ -603,6 +667,55 @@ def _resolve_guidance(plan: ExecutionPlan, config: StadiConfig):
     return GuidancePlan("fused", config.cfg_scale)
 
 
+def _check_frame_knobs(config: StadiConfig, guided: bool) -> None:
+    """The frame knobs' validation, with the reference's messages."""
+    if config.num_frames < 1:
+        raise ValueError(f"num_frames must be >= 1, got {config.num_frames}")
+    if config.frame_groups < 0:
+        raise ValueError(f"frame_groups must be >= 0 (0 = auto), got "
+                         f"{config.frame_groups}")
+    if config.num_frames == 1:
+        if config.frame_groups > 1:
+            raise ValueError(f"frame_groups={config.frame_groups} needs "
+                             "num_frames > 1 (there is only one frame to "
+                             "place)")
+        return
+    if config.backend not in FRAME_BACKENDS:
+        raise ValueError(
+            f"num_frames={config.num_frames} needs a frame backend "
+            f"({sorted(FRAME_BACKENDS)}), not {config.backend!r} — "
+            "multi-frame diffusion (DESIGN.md §16)")
+    if config.frame_groups > config.num_frames:
+        raise ValueError(
+            f"frame_groups={config.frame_groups} cannot split "
+            f"{config.num_frames} frames (>= 1 frame per group)")
+    if config.frame_groups > config.n_devices:
+        raise ValueError(
+            f"frame_groups={config.frame_groups} is infeasible: "
+            "every group-member row needs at least one device and "
+            f"the cluster has {config.n_devices}")
+    if guided and config.guidance in ("split", "interleaved"):
+        raise ValueError(
+            f"guidance={config.guidance!r} is not composed with "
+            "the frame axis: guided video runs FUSED classifier-"
+            "free guidance only (branch pairing and frame grouping "
+            "compete for the same devices) — use guidance='fused' "
+            "or guidance='none' with cfg_scale > 0")
+    if config.seq_shards != 1:
+        raise ValueError(
+            "sequence sharding is not composed with the frame axis "
+            "yet (ring groups and frame rows compete for the same "
+            "devices) — pin seq_shards=1 with num_frames > 1")
+    if config.num_stages != 1:
+        raise ValueError(
+            "the displaced patch pipeline is not composed with the "
+            "frame axis yet — pin num_stages=1 with num_frames > 1")
+    if config.rebalance_every:
+        raise ValueError("online rebalancing is not supported with "
+                         "the frame axis (the frame grouping is "
+                         "static)")
+
+
 def _to_device(tree, device):
     return {k: (_to_device(v, device) if isinstance(v, dict) else v.to(device))
             for k, v in tree.items()}
@@ -619,13 +732,8 @@ class StadiPipeline:
 
     def __init__(self, model_cfg: DiTConfig, params, sched: NoiseSchedule,
                  config: StadiConfig, device=None):
-        later = {"frames": config.num_frames != 1,
-                 "prompt": model_cfg.cross_attn}
-        for name, asked in later.items():
-            if asked:
-                raise later_slice(name)
-        if config.planner in _LATER:
-            raise later_slice(config.planner)
+        if model_cfg.cross_attn:
+            raise later_slice("prompt")
         get_planner(config.planner)      # fail fast on typos
         get_executor(config.backend)
         get_exchange(config.exchange, config.exchange_refresh)
@@ -670,6 +778,7 @@ class StadiPipeline:
                 raise ValueError("online rebalancing is not supported with "
                                  "sequence sharding (the device grouping "
                                  "is static)")
+        _check_frame_knobs(config, guided)
         self.device = resolve_device(device)
         self.model_cfg = model_cfg
         self.params = _to_device(params, self.device)
@@ -715,8 +824,8 @@ class StadiPipeline:
     def _workload_key(self, knobs: StadiConfig) -> Dict:
         """The workload-shape component of the plan-cache key: every knob
         that changes what the planner returns, as the reference names them.
-        The later axes' knobs enter at the values this port runs (one frame,
-        no prompt bucket), so a key never depends on which slices are
+        The prompt axis's knobs enter at the values this port runs (no
+        prompt bucket), so a key never depends on which slices are
         ported."""
         cm = knobs.cost_model
         return {
@@ -735,7 +844,7 @@ class StadiPipeline:
             "kv_row_bytes": knobs.kv_row_bytes,
             "seq_shards": knobs.seq_shards, "n_heads": knobs.n_heads,
             "num_frames": knobs.num_frames,
-            "frame_groups": 0,
+            "frame_groups": knobs.frame_groups,
             "cond_bucket": 0,
             "cross_attn": bool(self.model_cfg.cross_attn),
             "cost_model": (None if cm is None else dataclasses.asdict(cm)),
@@ -744,8 +853,8 @@ class StadiPipeline:
     def plan(self, speeds: Optional[Sequence[float]] = None, *,
              use_cache: bool = True) -> ExecutionPlan:
         """Run the configured planner (no execution); the plan's stage,
-        guidance and seq axes are resolved from the planner output or the
-        config in the same pass. With a plan cache configured, the persistent cache is
+        guidance, seq and frame axes are resolved from the planner output or
+        the config in the same pass. With a plan cache configured, the persistent cache is
         consulted before any planner search (``use_cache=False`` forces a
         live search without touching the cache)."""
         speeds = list(speeds) if speeds is not None else self.config.speeds
@@ -764,7 +873,9 @@ class StadiPipeline:
             raw, stages=_resolve_stages(raw, self.model_cfg, knobs),
             guidance=_resolve_guidance(raw, knobs),
             seq=(raw.seq if raw.seq is not None
-                 else _resolve_seq(raw, self.model_cfg, knobs)))
+                 else _resolve_seq(raw, self.model_cfg, knobs)),
+            frames=(raw.frames if raw.frames is not None
+                    else _resolve_frames(raw, knobs)))
         if key is not None:
             self.plan_cache.put(key, plan)
             self.last_plan_key = key

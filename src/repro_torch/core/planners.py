@@ -14,9 +14,7 @@ consumes. Registered planners:
     "stadi_pipefuse"  joint (steps, patches, stage split) search
     "stadi_guidance"  joint (steps, patches, CFG placement) search
     "stadi_seq" joint (steps, patches, sequence shards) search
-
-The frame axis's joint planner (stadi_video) comes with the slice that
-ports that axis.
+    "stadi_video"  joint (steps, patches, frame placement) search
 """
 from __future__ import annotations
 
@@ -49,8 +47,12 @@ class ExecutionPlan:
         guided run (None = unguided)
     seq: the :class:`~repro_torch.core.seqpar.SeqPlan` of a
         sequence-sharded run (None = attention-unsharded)
-    frames: the frame axis of the reference's six-axis plan; None on every
-        plan the port's planners return.
+    frames: the :class:`~repro_torch.core.frames.FramePlan` of a
+        multi-frame run (None / single-frame = the image path). With
+        ``len(groups) > 1`` the plan is frame-parallel: ``temporal`` and
+        ``patches`` describe the patch-worker COLUMNS every member row
+        shares (:func:`repro_torch.core.frames.frame_group_layout`); ``speeds``
+        stays the raw device speeds.
     """
     temporal: TemporalPlan
     patches: List[int]
@@ -461,4 +463,133 @@ def stadi_seq_planner(speeds, knobs, p_total) -> ExecutionPlan:
         raise ValueError(
             f"seq_shards={forced} is infeasible: need 1 <= S <= "
             f"min(n_devices={n}, n_heads={n_heads}, p_total={p_total})")
+    return min(candidates, key=lambda c: c.modeled_interval_cost)
+
+
+def _frame_plan_cost(plan: ExecutionPlan, rows, p_total: int, cm,
+                     kv_row: float, latent_bytes: float,
+                     refresh: int) -> float:
+    """Modeled seconds of one adaptive interval under the frame cost model
+    of :func:`repro_torch.core.simulate._simulate_frames`, averaged over the
+    stale_async refresh cadence (1 full boundary + E-1 degraded per E).
+    ``rows`` is the member-speed layout of a frame-parallel candidate
+    (``frame_group_layout`` rows, column-aligned with ``plan.patches``);
+    None for the frame-sequential candidate. Frame f > 0 attends over the 2N
+    (own ⊕ previous frame) context, so the attention term charges ``p_total
+    * (2 * frames_in_row - [row owns frame 0])`` context rows per substep. A
+    full boundary wires every frame's K/V and latent gather, and a
+    multi-row placement pays the (G-1) cross-row previous-frame K/V
+    handoffs. Without byte provenance (kv_row == 0) the score is the compute
+    makespan."""
+    fplan = plan.frames
+    G = fplan.n_groups
+    t = plan.temporal
+    R = t.lcm
+    row_bytes = latent_bytes / max(p_total, 1)
+    # fused CFG x frames: row work, context reads and published K/V double,
+    # the fixed overhead is shared
+    mult = 2 if plan.guidance is not None else 1
+    kv_row = kv_row * mult
+    # frame 0 sits in the first row (bounds are contiguous from frame 0)
+    ctx = [mult * p_total * (2 * fplan.groups[g] - (1 if g == 0 else 0))
+           for g in range(G)]
+    compute = async_b = 0.0
+    for i in plan.active:
+        sub = R // t.ratios[i]
+        rows_i = plan.patches[i]
+        members = ([(rows[g][i], g) for g in range(G)] if rows is not None
+                   else [(plan.speeds[i], 0)])
+        wt = max(fplan.groups[g] * (cm.t_fixed + cm.t_row * rows_i * mult)
+                 / max(v, 1e-9) + cm.attn_time(ctx[g], 1.0, v)
+                 for v, g in members)
+        compute = max(compute, sub * wt)
+        async_b = max(async_b, max(kv_row * rows_i * fplan.groups[g]
+                                   for _, g in members))
+    gather_rows = comm_lib.uneven_all_gather_rows(
+        [plan.patches[i] for i in plan.active])
+    gather_t = gather_rows * row_bytes * fplan.num_frames / cm.link_bw
+    handoff_t = (G - 1) * kv_row * p_total / cm.link_bw
+    full = max(compute, async_b / cm.link_bw) \
+        + gather_t + handoff_t + cm.link_latency
+    degraded = compute
+    E = max(refresh, 1)
+    return (full + (E - 1) * degraded) / E
+
+
+@register_planner("stadi_video")
+def stadi_video_planner(speeds, knobs, p_total) -> ExecutionPlan:
+    """Joint (steps, patches, frame placement) search (DESIGN.md §16).
+
+    Candidates: the frame-SEQUENTIAL placement (the plain STADI plan over
+    all devices, every worker stepping all ``num_frames`` frames,
+    ``FramePlan(F, (F,))``) and, for each group count G, a frame-PARALLEL
+    placement: the cluster dealt row-wise into G member rows
+    (:func:`repro_torch.core.frames.frame_group_layout`), the frames split
+    speed-proportionally over the rows
+    (:func:`repro_torch.core.frames.frame_partition`), and the STADI
+    allocator run over the per-column speeds ``min_g rows[g][w] /
+    frames[g]`` so one patch split fits every row. Each candidate is scored
+    by :func:`_frame_plan_cost` and the cheapest wins.
+
+    ``knobs.frame_groups > 0`` pins G (1 = frame-sequential); 0 = auto.
+    ``knobs.num_frames > 1`` is required. ``knobs.cfg_scale > 0`` plans
+    guided video: every candidate carries a FUSED GuidancePlan, the only
+    mode that composes with the frame axis; a split or interleaved
+    ``knobs.guidance`` raises.
+    """
+    from repro_torch.core import frames as frames_lib
+    n = len(speeds)
+    F = getattr(knobs, "num_frames", 1)
+    if F < 2:
+        raise ValueError("the stadi_video planner plans MULTI-frame "
+                         "generation: set num_frames > 1 (single-frame "
+                         "image plans come from planner='stadi')")
+    forced = getattr(knobs, "frame_groups", 0) or 0
+    cm = getattr(knobs, "cost_model", None) or CostModel(t_fixed=1e-3,
+                                                         t_row=1e-3)
+    kv_row = getattr(knobs, "kv_row_bytes", 0)
+    latent_bytes = getattr(knobs, "latent_bytes", 0)
+    refresh = getattr(knobs, "exchange_refresh", 2)
+    scale = getattr(knobs, "cfg_scale", 0.0)
+    gp = None
+    if scale > 0.0:
+        gmode = getattr(knobs, "guidance", "none")
+        if gmode not in ("none", "fused"):
+            raise ValueError(
+                f"guidance={gmode!r} is not composed with the frame axis: "
+                "guided video runs FUSED classifier-free guidance only "
+                "(branch-vmapped per member — DESIGN.md §17)")
+        gp = guide_lib.GuidancePlan("fused", scale)
+    candidates = []
+    if forced in (0, 1):
+        base = stadi_planner(speeds, knobs, p_total)
+        cand = dataclasses.replace(base, planner="stadi_video",
+                                   frames=frames_lib.FramePlan(F, (F,)),
+                                   guidance=gp)
+        candidates.append(dataclasses.replace(
+            cand, modeled_interval_cost=_frame_plan_cost(
+                cand, None, p_total, cm, kv_row, latent_bytes, refresh)))
+    if forced == 1:                       # pinned frame-sequential
+        return candidates[0]
+    g_options = [forced] if forced > 1 else range(2, min(n, F) + 1)
+    for G in g_options:
+        if G < 2 or G > min(n, F):
+            continue
+        rows, row_speeds = frames_lib.frame_group_layout(speeds, G)
+        groups = frames_lib.frame_partition(F, G, row_speeds)
+        fplan = frames_lib.FramePlan(F, tuple(groups))
+        n_cols = len(rows[0])
+        col_speeds = [min(rows[g][w] / groups[g] for g in range(G))
+                      for w in range(n_cols)]
+        base = stadi_planner(col_speeds, knobs, p_total)
+        cand = dataclasses.replace(base, planner="stadi_video",
+                                   speeds=list(speeds), frames=fplan,
+                                   guidance=gp)
+        candidates.append(dataclasses.replace(
+            cand, modeled_interval_cost=_frame_plan_cost(
+                cand, rows, p_total, cm, kv_row, latent_bytes, refresh)))
+    if not candidates:
+        raise ValueError(
+            f"frame_groups={forced} is infeasible: need 1 <= G <= "
+            f"min(n_devices={n}, num_frames={F})")
     return min(candidates, key=lambda c: c.modeled_interval_cost)

@@ -12,11 +12,11 @@ slab rows) plus link latency, with async KV publication masked by compute and
 only the excess charged; "skip" and "predict" move no bytes (DESIGN.md §10).
 
 The trace is built by replaying the SAME event stream the emulated engine
-interprets (:func:`repro_torch.core.events.replay`). The port prices
-single-frame traces: unguided, staged (the displaced stage chain of
-DESIGN.md §11), guided (the fabric-contention model of DESIGN.md §12) or
-sequence-sharded (the ring-contention model of DESIGN.md §13); the frame
-cost model comes with the slice that ports that axis.
+interprets (:func:`repro_torch.core.events.replay`). Traces are priced
+unguided, staged (the displaced stage chain of DESIGN.md §11), guided (the
+fabric-contention model of DESIGN.md §12), sequence-sharded (the
+ring-contention model of DESIGN.md §13) or multi-frame (the frame cost
+model of DESIGN.md §16).
 """
 from __future__ import annotations
 
@@ -27,24 +27,24 @@ from repro_torch.core import comm as comm_lib
 from repro_torch.core import events as ir
 from repro_torch.core.events import ExecutionTrace
 
-#: the slice of the port that brings each trace axis's cost model
-_LATER_AXES = (("frames", "the frames slice (ROADMAP queue 1 item 12)"),)
-
 
 def build_trace(plan, patches: Sequence[int], cfg, batch: int = 1,
                 exchange: str = "sync", exchange_refresh: int = 2,
                 stages: Optional[Sequence[int]] = None,
-                guidance=None, seq=None) -> ExecutionTrace:
+                guidance=None, seq=None, frames=None) -> ExecutionTrace:
     """Schedule trace without running numerics (latency-only replay of
     :func:`repro_torch.core.events.lower` for (plan, patches, policy[,
-    stages][, guidance][, seq])); a staged trace carries its pipeline-fill
-    provenance, a guided one its uncond-refresh provenance, a
-    sequence-sharded one (``seq``, a SeqPlan) its ring hops."""
+    stages][, guidance][, seq][, frames])); a staged trace carries its
+    pipeline-fill provenance, a guided one its uncond-refresh provenance, a
+    sequence-sharded one (``seq``, a SeqPlan) its ring hops, a multi-frame
+    one (``frames``, a FramePlan) its frame count, with byte sizes per
+    frame."""
     policy = comm_lib.get_exchange(exchange, exchange_refresh)
     records = ir.replay(plan, patches, policy, stages=stages,
-                        guidance=guidance, seq_shards=seq)
+                        guidance=guidance, seq_shards=seq, frames=frames)
     return ir.make_trace(records, plan, list(patches), cfg, batch,
-                         stages=stages, guidance=guidance, seq=seq)
+                         stages=stages, guidance=guidance, seq=seq,
+                         frames=frames)
 
 
 @dataclasses.dataclass
@@ -332,19 +332,98 @@ def _simulate_seq(trace: ExecutionTrace, speeds: Sequence[float],
     return total
 
 
+# ----------------------------------------------------------------------
+# frame-axis costing (DESIGN.md §16)
+# ----------------------------------------------------------------------
+#
+# In a multi-frame trace the "workers" are patch-worker COLUMNS shared by
+# every member row of the row-dealt frame placement (frames.
+# frame_group_layout); member (g, w) steps its row's frame chunk over the
+# column's token rows each fine step. Frame f > 0 attends over the 2N (own ⊕
+# previous frame) context, so the t_ctx term charges about 2x the context
+# rows per owned frame. Trace byte sizes are per frame; a "full" boundary
+# wires every frame's K/V and latent slabs, and a multi-row placement adds
+# the (G-1) cross-row previous-frame K/V handoffs.
+
+def _simulate_frames(trace: ExecutionTrace, speeds: Sequence[float],
+                     cm: CostModel) -> float:
+    """Makespan of a multi-frame trace: per-member frame-chunk compute with
+    the cross-frame context term plus per-frame boundary wire. Fused
+    guidance composes: row work, context reads and published K/V double,
+    the fixed overhead is shared (the fused convention of
+    :func:`_simulate_guided`)."""
+    from repro_torch.core import frames as frames_lib
+
+    fplan = trace.frames
+    F = fplan.num_frames
+    G = fplan.n_groups
+    mult = 2 if trace.guidance is not None else 1
+    t_row_eff = cm.t_row + cm.t_xattn * trace.cond_tokens
+    if G > 1:
+        rows_layout, _ = frames_lib.frame_group_layout(speeds, G)
+        n_cols = len(rows_layout[0])
+    else:
+        rows_layout, n_cols = None, len(speeds)
+    kv_row = _kv_bytes_per_row(trace) * mult
+    total = 0.0
+    for ev in trace.events:
+        parts: List[int] = []
+        total_rows = max(sum(ev.patches), 1)
+        row_bytes = trace.latent_bytes / total_rows
+        # context rows a member row reads per fine step: 2N per owned
+        # frame, minus the previous-frame half frame 0 does not have
+        ctx = [mult * total_rows
+               * (2 * fplan.groups[g] - (1 if g == 0 else 0))
+               for g in range(G)]
+        compute = async_b = 0.0
+        for i, (sub, rows) in enumerate(zip(ev.substeps, ev.patches)):
+            if sub == 0 or rows == 0:
+                continue
+            parts.append(i)
+            members = ([(rows_layout[g][min(i, n_cols - 1)], g)
+                        for g in range(G)] if rows_layout is not None
+                       else [(speeds[i], 0)])
+            wt = max(fplan.groups[g]
+                     * (cm.t_fixed + t_row_eff * rows * mult)
+                     / max(v, 1e-9) + cm.attn_time(ctx[g], 1.0, v)
+                     for v, g in members)
+            compute = max(compute, sub * wt)
+            async_b = max(async_b, max(kv_row * rows * fplan.groups[g]
+                                       for _, g in members))
+        if not parts:
+            continue
+        gather_rows = comm_lib.uneven_all_gather_rows(
+            [ev.patches[i] for i in parts])
+        handoff = (G - 1) * kv_row * total_rows / cm.link_bw
+        if ev.synchronous:
+            # warm-up: per-step per-frame activation sync + latent slabs
+            comm_bytes = gather_rows * row_bytes * F
+            if len(parts) > 1:
+                comm_bytes += F * sum(kv_row * ev.patches[i] for i in parts)
+                total += compute + comm_bytes / cm.link_bw \
+                    + handoff + cm.link_latency
+            else:
+                total += compute + handoff
+            continue
+        if ev.exchange != "full" or len(parts) <= 1:
+            total += compute             # degraded boundary: nothing moves
+            continue
+        comm = gather_rows * row_bytes * F / cm.link_bw + cm.link_latency
+        total += max(compute, async_b / cm.link_bw) + comm + handoff
+    return total
+
+
 def simulate_trace(trace: ExecutionTrace, speeds: Sequence[float],
                    cm: CostModel) -> float:
     """End-to-end makespan (s) of a schedule on devices with given speeds."""
-    for field, slice_name in _LATER_AXES:
-        value = getattr(trace, field)
-        if value is not None:
-            raise NotImplementedError(
-                f"pricing a trace with {field}={value!r} comes with "
-                f"{slice_name}")
     if trace.stages and len(trace.stages) > 1:
         return _simulate_staged(trace, speeds, cm)
     if trace.seq is not None and len(trace.seq.segments) > 1:
         return _simulate_seq(trace, speeds, cm)
+    # frames dispatch before guidance: a guided multi-frame trace is a frame
+    # trace whose members evaluate both branches
+    if trace.frames is not None and trace.frames.num_frames > 1:
+        return _simulate_frames(trace, speeds, cm)
     if trace.guidance is not None:
         return _simulate_guided(trace, speeds, cm)
     total = 0.0

@@ -1,7 +1,7 @@
 """Multi-rank execution of a STADI schedule on ``torch.distributed`` — the
 port of ``repro.core.spmd`` (``run_spmd``, ``run_spmd_guidance``,
-``run_spmd_seq``, ``run_spmd_pipefuse`` and the serving engine's
-``make_interval_step``; the frame executor comes with its slice).
+``run_spmd_seq``, ``run_spmd_pipefuse``, ``run_spmd_frames`` and the
+serving engine's ``make_interval_step``).
 
 One process per rank, each owning one row-slab of the latent padded to the
 largest patch (``Pmax`` rows), as the reference's ``shard_map`` body does on
@@ -47,6 +47,13 @@ which never crosses ranks, and runs its blocks when a micro-task reaches it
 (:func:`repro_torch.core.comm.stage_handoff` brings the hidden state from
 rank s - 1); the last stage's eps goes to every rank for the replicated DDIM
 update.
+
+The frame axis (DESIGN.md §16, ``run_spmd_frames``) runs on ``G * W``
+ranks, rank ``g * W + w`` being patch-worker column w of member row g. Row g
+owns the contiguous frame chunk ``frames.bounds[g]`` and runs the body above
+for each of its frames, gathering over its row subgroup; the previous
+frame's K/V crosses a row boundary from column w of row g - 1 to column w of
+row g (:func:`repro_torch.core.comm.stage_handoff`).
 
 ``make_interval_step`` is the serving engine's round-granular form of
 ``run_spmd``: one adaptive interval of a lane cohort per call, the state
@@ -115,7 +122,7 @@ def _reslice(x_full, start: int, lay: Layout):
 def _run_substeps(params, cfg: DiTConfig, sched: NoiseSchedule, ts, m_base,
                   R, my_slab, cond, read_k, read_v, my_start, my_tok,
                   my_ratio, m0, guidance_scale=None, eps_combine=None,
-                  attend_fn=None):
+                  attend_fn=None, frame=None, ctx_tokens=None):
     """R fine steps on this rank's padded slab: a rank with interval ratio r
     runs every r-th substep and skips the others (the reference computes
     and discards them). Returns the slab and the FIRST substep's fresh K/V
@@ -125,7 +132,8 @@ def _run_substeps(params, cfg: DiTConfig, sched: NoiseSchedule, ts, m_base,
     branch-stacked buffers, combined by kernel K3; ``eps_combine``
     post-processes the raw local eps (split guidance's cross-branch
     all_reduce); ``attend_fn`` replaces every buffered attention read (the
-    sequence-parallel ring read)."""
+    sequence-parallel ring read); ``frame`` and ``ctx_tokens`` make each
+    eval a video frame's against its 2N context (:func:`run_spmd_frames`)."""
     fresh = None
     for s in range(0, R, my_ratio):
         t_from = ts[m0 + s]
@@ -141,7 +149,8 @@ def _run_substeps(params, cfg: DiTConfig, sched: NoiseSchedule, ts, m_base,
             eps, kvs = dit.forward_patch(
                 params, cfg, my_slab, t_from, cond, my_start,
                 buffers=(read_k, read_v), return_kv=(s == 0),
-                valid_tokens=my_tok, attend_fn=attend_fn)
+                valid_tokens=my_tok, attend_fn=attend_fn, frame=frame,
+                ctx_tokens=ctx_tokens)
         if eps_combine is not None:
             eps = eps_combine(eps)
         my_slab = sampler_lib.ddim_step(sched, my_slab, eps, t_from, t_to)
@@ -440,6 +449,190 @@ def run_spmd_pipefuse(params, cfg: DiTConfig, sched: NoiseSchedule, x_T,
                     buf.narrow(2, start, new.shape[2]).copy_(new)
         # skip/predict: the pipe stays full and the context persists
     return x_full
+
+
+def _frame_groups(G: int, W: int) -> Tuple[List, List]:
+    """spmd_frames' subgroups: (the row of each member row g, ranks ``g * W
+    .. g * W + W - 1``; the handoff pair of each row boundary b and column
+    w, ranks ``(b - 1) * W + w`` and ``b * W + w``, indexed ``(b - 1) * W +
+    w``, or None under NCCL, whose handoff is a send/recv pair)."""
+    pairs = ([] if dist.get_backend() == "nccl" else
+             [((b - 1) * W + w, b * W + w)
+              for b in range(1, G) for w in range(W)])
+    groups = _subgroups([range(g * W, (g + 1) * W) for g in range(G)] + pairs)
+    return groups[:G], (groups[G:] if pairs else [None] * ((G - 1) * W))
+
+
+def run_spmd_frames(params, cfg: DiTConfig, sched: NoiseSchedule, x_T, cond,
+                    plan: TemporalPlan, patches: Sequence[int], frames,
+                    exchange: str = "sync", exchange_refresh: int = 2):
+    """The frame axis on ``G * W`` ranks (reference
+    ``repro.core.spmd.run_spmd_frames``): G = ``frames.n_groups`` member
+    rows of W = ``len(patches)`` patch-worker columns, rank ``g * W + w``
+    column w of row g. Returns the final video [B, F, H, W, C] on every
+    rank.
+
+    Row g computes only the frames it owns, ``frames.bounds[g]``, each
+    under the snapshot semantics of
+    :func:`repro_torch.core.frames.run_frames`: every substep of frame
+    f > 0 reads the 2N-token context of the last boundary, its own
+    published K/V ⊕ frame f-1's what the substeps read (``ctx_tokens`` =
+    2N keeps the scratch mask past both halves), so kernel K2 runs over a
+    context of 2N + Nl_max rows. The frame f-1 that row g's first frame
+    needs belongs to row g - 1: column w of row g - 1 hands it to column w
+    of row g (:func:`repro_torch.core.comm.stage_handoff`) after every
+    warm-up step (the published full-image K/V), and in the adaptive phase
+    whenever what its substeps read changed (a "full" boundary, a
+    prediction). Each row's gathers run in its row subgroup. Where the
+    reference's lockstep mesh computes every frame on every row and masks
+    what a row does not own, a rank here computes its row's frames only;
+    the video is the same. At the end every frame is broadcast from its
+    row, so every rank returns the whole video.
+
+    ``frames=None`` or a single-frame plan delegates to :func:`run_spmd` (a
+    leading frame axis of 1 is squeezed and restored)."""
+    if frames is None or frames.num_frames == 1:
+        img = x_T[:, 0] if x_T.ndim == 5 else x_T
+        out = run_spmd(params, cfg, sched, img, cond, plan, patches,
+                       exchange=exchange, exchange_refresh=exchange_refresh)
+        return out[:, None] if x_T.ndim == 5 else out
+    from repro_torch.core import frames as frames_lib
+    _require_process_group("spmd_frames")
+    frames_lib.validate_frames(frames, x_T)
+    F, G, W = frames.num_frames, frames.n_groups, len(patches)
+    world = dist.get_world_size()
+    if world != G * W:
+        raise ValueError(f"frame_groups={G} over {W} patch workers needs "
+                         f"{G * W} ranks, have {world}")
+    policy = comm_lib.get_exchange(exchange, exchange_refresh)
+    evs = list(ir.lower(plan, patches, policy, frames=frames))
+    me = dist.get_rank()
+    g, w = divmod(me, W)
+    rows, pairs = _frame_groups(G, W)
+    lo, hi = frames.bounds[g]
+    mine = range(lo, hi)
+    lay = _static_layout(cfg, patches)
+    my_start = lay.row_starts[w]
+    my_tok = patches[w] * lay.wp
+    my_ratio = plan.ratios[w] or 1
+    ts = sampler_lib.ddim_timesteps(sched.T, plan.m_base).tolist()
+    N = cfg.n_tokens
+
+    def scratch_pad(kv, rows_=N):
+        return comm_lib.pad_to(kv, rows_ + lay.Nl_max, axis=2)
+
+    xs = {f: x_T[:, f].clone(memory_format=torch.contiguous_format)
+          for f in mine}
+    pubs, prevs, reads, slabs, fresh = {}, {}, {}, {}, {}
+    prev_in = None                    # frame lo-1's K/V as row g reads it
+    m_prev = m_last = None            # fine steps of the last two "full"
+    sent_pub = True                   # the last handoff carried pubs
+
+    def prev_of(f, table):
+        """Frame f-1's (k, v) of N rows as frame f reads them."""
+        if f - 1 in table:
+            return tuple(t.narrow(2, 0, N) for t in table[f - 1])
+        return prev_in
+
+    def full_forward(f, x, t):
+        if f == 0 or f not in pubs:
+            return dit.forward_patch(params, cfg, x, t, cond, 0,
+                                     frame=None if f == 0 else f)
+        own = pubs[f]
+        prev = prev_of(f, pubs)
+        return dit.forward_patch(params, cfg, x, t, cond, 0,
+                                 buffers=(torch.cat([own[0], prev[0]], 2),
+                                          torch.cat([own[1], prev[1]], 2)),
+                                 frame=f)
+
+    def pass_on(table):
+        """The row-boundary handoffs of the first N rows of ``table``'s
+        (k, v): row g > 0 receives frame lo-1's from column w of row g - 1,
+        then row g < G - 1 sends its last frame's to column w of row g + 1
+        (receive first, so the chain of rows never waits in a cycle)."""
+        nonlocal prev_in
+        if g > 0:
+            like = table[lo][0].narrow(2, 0, N)
+            prev_in = tuple(
+                comm_lib.stage_handoff(
+                    torch.empty(like.shape, dtype=like.dtype,
+                                device=like.device), me - W, me,
+                    pairs[me - W])
+                for _ in range(2))
+        if g < G - 1:
+            for t in table[hi - 1]:
+                comm_lib.stage_handoff(t.narrow(2, 0, N).contiguous(), me,
+                                       me + W, pairs[me])
+
+    for ev in evs:
+        if isinstance(ev, ir.Warmup):
+            t_from, t_to = ts[ev.fine_step], ts[ev.fine_step + 1]
+            new = {}
+            for f in mine:            # snapshot: read, then publish all
+                eps, new[f] = full_forward(f, xs[f], t_from)
+                xs[f] = sampler_lib.ddim_step(sched, xs[f], eps, t_from, t_to)
+            pubs = new
+            m_last = ev.fine_step
+            pass_on(pubs)
+        elif isinstance(ev, ir.ComputeInterval):
+            if not slabs:             # entering the adaptive phase
+                if not pubs:          # M_w == 0: bootstrap the buffers once
+                    pubs = {f: full_forward(f, xs[f], ts[0])[1] for f in mine}
+                    m_last = -1
+                    pass_on(pubs)
+                pubs = {f: tuple(scratch_pad(kv) for kv in pubs[f])
+                        for f in mine}
+                reads = dict(pubs)
+                slabs = {f: _reslice(xs[f], my_start, lay) for f in mine}
+            for f in mine:
+                if f == 0:            # the image path, as run_spmd runs it
+                    bk, bv, extra = reads[0][0], reads[0][1], {}
+                else:
+                    prev = prev_of(f, reads)
+                    bk, bv = (scratch_pad(torch.cat(
+                        [reads[f][i].narrow(2, 0, N), prev[i]], 2), 2 * N)
+                        for i in range(2))
+                    extra = dict(frame=f, ctx_tokens=2 * N)
+                slabs[f], fresh[f] = _run_substeps(
+                    params, cfg, sched, ts, plan.m_base, ev.length, slabs[f],
+                    cond, bk, bv, my_start, my_tok, my_ratio, ev.fine_step,
+                    **extra)
+                del bk, bv
+        elif isinstance(ev, ir.Exchange):
+            fac = 0.0
+            if ev.kind == "full":
+                m_prev, m_last = m_last, ev.fine_step
+            elif ev.kind == "predict" and m_prev is not None:
+                fac = buf_lib.extrapolation_factor(m_prev, m_last,
+                                                   ev.fine_step)
+            for f in mine:
+                if ev.kind == "full":
+                    prevs[f] = pubs[f]
+                    xs[f], pubs[f] = _gather_and_merge(
+                        cfg, patches, lay, slabs[f], fresh[f], pubs[f],
+                        rows[g])
+                    reads[f] = pubs[f]
+                    slabs[f] = _reslice(xs[f], my_start, lay)
+                elif fac:
+                    reads[f] = tuple(buf_lib.extrapolate_arrays(a, b, fac)
+                                     for a, b in zip(pubs[f], prevs[f]))
+                else:                 # "skip", or nothing to extrapolate
+                    reads[f] = pubs[f]
+            # hand on what frame hi-1's substeps read, when it changed and
+            # an interval follows
+            if not ev.last and (ev.kind == "full" or fac or not sent_pub):
+                pass_on(reads)
+            sent_pub = not fac
+            fresh = {}
+    # every frame's final latent, from column 0 of its row
+    out = []
+    for f in range(F):
+        src = frames.row_of(f) * W
+        x = (xs[f].contiguous() if f in xs else
+             x_T.new_empty(x_T[:, f].shape))
+        dist.broadcast(x, src=src)
+        out.append(x)
+    return torch.stack(out, dim=1)
 
 
 #: subgroups by their member lists, with the default group they belong to.

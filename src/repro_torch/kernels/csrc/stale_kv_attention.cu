@@ -269,22 +269,32 @@ stale_kv_attention_fma_kernel(const float* __restrict__ q, const float* __restri
       if (k0 + j >= N) s[j] = kMaskedScore;  // ragged last tile
       m_new = fmaxf(m_new, s[j]);
     }
+    // two-level sums: the tile's 32 terms first, then one update of the
+    // running sums a tile, so a row's rounding grows with 32 + N / 32 terms,
+    // not N (an 8192-key context otherwise drifts past the 5e-5 bar)
     const float alpha = exp2f(m - m_new);
-    l *= alpha;
-#pragma unroll
-    for (int d = 0; d < HD; ++d) acc[d] *= alpha;
+    float l_tile = 0.f;
 #pragma unroll
     for (int j = 0; j < kFmaBK; ++j) {
-      const float p = exp2f(s[j] - m_new);
-      l += p;
+      s[j] = exp2f(s[j] - m_new);  // s now holds the probabilities
+      l_tile += s[j];
+    }
+    l = fmaf(l, alpha, l_tile);
 #pragma unroll
-      for (int d = 0; d < HD; d += 4) {
+    for (int d = 0; d < HD; d += 4) {
+      float t0 = 0.f, t1 = 0.f, t2 = 0.f, t3 = 0.f;
+#pragma unroll
+      for (int j = 0; j < kFmaBK; ++j) {
         const float4 vv = *reinterpret_cast<const float4*>(&v_tile[j][d]);
-        acc[d] = fmaf(p, vv.x, acc[d]);
-        acc[d + 1] = fmaf(p, vv.y, acc[d + 1]);
-        acc[d + 2] = fmaf(p, vv.z, acc[d + 2]);
-        acc[d + 3] = fmaf(p, vv.w, acc[d + 3]);
+        t0 = fmaf(s[j], vv.x, t0);
+        t1 = fmaf(s[j], vv.y, t1);
+        t2 = fmaf(s[j], vv.z, t2);
+        t3 = fmaf(s[j], vv.w, t3);
       }
+      acc[d] = fmaf(acc[d], alpha, t0);
+      acc[d + 1] = fmaf(acc[d + 1], alpha, t1);
+      acc[d + 2] = fmaf(acc[d + 2], alpha, t2);
+      acc[d + 3] = fmaf(acc[d + 3], alpha, t3);
     }
     m = m_new;
   }

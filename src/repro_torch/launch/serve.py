@@ -15,14 +15,18 @@ model is the ``reduced()`` form, as there.
       --backend pipefuse --num-stages 2 --device cpu
   PYTHONPATH=src python -m repro_torch.launch.serve --diffusion \\
       --backend spmd --occupancies 0.0,0.5 --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve --diffusion \\
+      --num-frames 3 --requests 3 --slots 2 --device cpu
 
-``--backend spmd`` starts one rank per device of ``--occupancies``
-(:mod:`repro_torch.launch.ranks`; NCCL with one card per rank, or gloo with
-``--dist-backend gloo``),
-each of which builds the same engine, receives the same requests and
-drains them; rank 0's requests are reported. The diffusion flags of later
-slices (``--num-frames``, ``--frame-groups``, the prompt flags) raise
-NotImplementedError naming their ROADMAP.md queue 1 items.
+``--num-frames F`` serves video lanes: one clip of F frames a request, run
+whole in its admission round (``--frame-groups`` pins the frame placement
+of ``--planner stadi_video``). ``--backend spmd`` starts one rank per device
+of ``--occupancies``, ``--backend spmd_frames`` one per patch-worker column
+of each frame row (:mod:`repro_torch.launch.ranks`; NCCL with one card per
+rank, or gloo with ``--dist-backend gloo``), each of which builds the same
+engine, receives the same requests and drains them; rank 0's requests are
+reported. The prompt flags raise NotImplementedError naming ROADMAP.md
+queue 1 item 13.
 """
 from __future__ import annotations
 
@@ -34,14 +38,14 @@ import numpy as np
 import torch
 
 from repro_torch.configs import get_config
-from repro_torch.core.pipeline import later_slice
+from repro_torch.core.pipeline import (StadiConfig, StadiPipeline,
+                                       later_slice)
 from repro_torch.models import build_model
 from repro_torch.serving import Request, ServingEngine
 
 #: the reference's diffusion flags that later slices of the port bring
-_LATER_FLAGS = {"--num-frames": "frames",
-                "--frame-groups": "frames", "--prompt": "prompt",
-                "--cond-tokens": "prompt", "--cond-seq-len": "prompt"}
+_LATER_FLAGS = {"--prompt": "prompt", "--cond-tokens": "prompt",
+                "--cond-seq-len": "prompt"}
 
 
 def serve(arch: str, *, n_requests: int = 8, slots: int = 4,
@@ -80,7 +84,8 @@ def serve_diffusion(arch: str = "tiny-dit", *, occupancies=(0.0, 0.6),
                     slo_s: float = None, seed: int = 0,
                     exchange: str = "sync", exchange_refresh: int = 2,
                     num_stages: int = 1, cfg_scale: float = 0.0,
-                    seq_shards: int = 1, plan_cache_dir: str = None,
+                    seq_shards: int = 1, num_frames: int = 1,
+                    frame_groups: int = 0, plan_cache_dir: str = None,
                     dist_backend: str = None,
                     device=None):
     """Continuous batching on a heterogeneous cluster: requests enter a FIFO
@@ -89,10 +94,12 @@ def serve_diffusion(arch: str = "tiny-dit", *, occupancies=(0.0, 0.6),
     ``cfg_scale > 0`` makes every other request a classifier-free-guidance
     one (DESIGN.md §12) — the mixed CFG / non-CFG workload the engine's
     per-lane guidance state exists for. ``num_stages > 1`` with backend
-    ``pipefuse`` serves the displaced stage chain (DESIGN.md §11). Backend
-    ``spmd`` runs the engine on one rank per device of the cluster, every
-    rank on the same requests; rank 0 reports. Returns the finished requests (rank 0's, on the CPU, for
-    ``spmd``)."""
+    ``pipefuse`` serves the displaced stage chain (DESIGN.md §11);
+    ``num_frames > 1`` serves video lanes, one clip a request (DESIGN.md
+    §16). Backend ``spmd`` runs the engine on one rank per device of the
+    cluster, ``spmd_frames`` on one per column of each frame row, every rank
+    on the same requests; rank 0 reports. Returns the finished requests
+    (rank 0's, on the CPU, for the multi-rank backends)."""
     from repro_torch.core.pipeline import resolve_device
 
     kw = dict(arch=arch, occupancies=list(occupancies), n_requests=n_requests,
@@ -100,19 +107,53 @@ def serve_diffusion(arch: str = "tiny-dit", *, occupancies=(0.0, 0.6),
               backend=backend, reduced=reduced, slo_s=slo_s, seed=seed,
               exchange=exchange, exchange_refresh=exchange_refresh,
               num_stages=num_stages, cfg_scale=cfg_scale,
-              seq_shards=seq_shards, plan_cache_dir=plan_cache_dir)
+              seq_shards=seq_shards, num_frames=num_frames,
+              frame_groups=frame_groups, plan_cache_dir=plan_cache_dir)
     device = resolve_device(device)
-    if backend != "spmd":
+    if backend not in ("spmd", "spmd_frames"):
         return _serve_diffusion_here(**kw, device=device)
+    world = len(occupancies)
+    if backend == "spmd_frames":
+        # the frame plan decides the ranks: planning reads no weights
+        cfg, config = _model_and_config(**{k: kw[k] for k in _CONFIG_KW})
+        plan = StadiPipeline(cfg, {}, None, config, device="cpu").plan()
+        if plan.frames is not None:
+            world = plan.frames.n_groups * len(plan.patches)
     from repro_torch.launch import ranks as ranks_lib
-    return ranks_lib.spawn(_serve_rank, len(occupancies),
-                           device_type=device.type,
+    return ranks_lib.spawn(_serve_rank, world, device_type=device.type,
                            dist_backend=dist_backend, args=(kw,))[0]
 
 
+#: the arguments of :func:`_model_and_config`
+_CONFIG_KW = ("arch", "occupancies", "m_base", "m_warmup", "planner",
+              "backend", "reduced", "exchange", "exchange_refresh",
+              "num_stages", "seq_shards", "num_frames", "frame_groups",
+              "plan_cache_dir")
+
+
+def _model_and_config(arch, *, occupancies, m_base, m_warmup, planner,
+                      backend, reduced, exchange, exchange_refresh,
+                      num_stages, seq_shards, num_frames, frame_groups,
+                      plan_cache_dir):
+    """The served model's config and the pipeline config."""
+    cfg = get_config(arch)
+    if reduced:
+        cfg = cfg.reduced()
+    config = StadiConfig.from_occupancies(list(occupancies), m_base=m_base,
+                                          m_warmup=m_warmup, planner=planner,
+                                          backend=backend, exchange=exchange,
+                                          exchange_refresh=exchange_refresh,
+                                          num_stages=num_stages,
+                                          seq_shards=seq_shards,
+                                          num_frames=num_frames,
+                                          frame_groups=frame_groups,
+                                          plan_cache_dir=plan_cache_dir)
+    return cfg, config
+
+
 def _serve_rank(ctx, kw):
-    """One rank of ``serve --diffusion --backend spmd``: the same engine and
-    requests as every other rank; rank 0 prints the report."""
+    """One rank of ``serve --diffusion --backend spmd|spmd_frames``: the same
+    engine and requests as every other rank; rank 0 prints the report."""
     done = _serve_diffusion_here(**kw, device=ctx.device,
                                  report=ctx.rank == 0)
     for req in done:                     # returned by value, off the card
@@ -124,26 +165,22 @@ def _serve_rank(ctx, kw):
 def _serve_diffusion_here(arch, *, occupancies, n_requests, slots, m_base,
                           m_warmup, planner, backend, reduced, slo_s, seed,
                           exchange, exchange_refresh, num_stages, cfg_scale,
-                          seq_shards, plan_cache_dir, device, report=True):
+                          seq_shards, num_frames, frame_groups,
+                          plan_cache_dir, device, report=True):
     """The body of :func:`serve_diffusion` in this process on ``device``."""
     from repro_torch.core import sampler as sampler_lib
-    from repro_torch.core.pipeline import StadiConfig, StadiPipeline
     from repro_torch.models.diffusion import dit
     from repro_torch.serving import DiffusionServingEngine
 
-    cfg = get_config(arch)
-    if reduced:
-        cfg = cfg.reduced()
+    cfg, config = _model_and_config(
+        arch, occupancies=occupancies, m_base=m_base, m_warmup=m_warmup,
+        planner=planner, backend=backend, reduced=reduced, exchange=exchange,
+        exchange_refresh=exchange_refresh, num_stages=num_stages,
+        seq_shards=seq_shards, num_frames=num_frames,
+        frame_groups=frame_groups, plan_cache_dir=plan_cache_dir)
     params = dit.init_params(torch.Generator(device=device).manual_seed(seed),
                              cfg)
     sched = sampler_lib.linear_schedule(T=1000)
-    config = StadiConfig.from_occupancies(list(occupancies), m_base=m_base,
-                                          m_warmup=m_warmup, planner=planner,
-                                          backend=backend, exchange=exchange,
-                                          exchange_refresh=exchange_refresh,
-                                          num_stages=num_stages,
-                                          seq_shards=seq_shards,
-                                          plan_cache_dir=plan_cache_dir)
     pipe = StadiPipeline(cfg, params, sched, config, device=device)
     engine = DiffusionServingEngine(pipe, slots=slots)
     gen = torch.Generator(device="cpu").manual_seed(seed + 1)
@@ -151,6 +188,8 @@ def _serve_diffusion_here(arch, *, occupancies, n_requests, slots, m_base,
     t0 = time.perf_counter()
     n_guided = 0
     shape = (1, cfg.latent_size, cfg.latent_size, cfg.channels)
+    if num_frames > 1:                   # video lanes: one clip a request
+        shape = shape[:1] + (num_frames,) + shape[1:]
     for uid in range(n_requests):
         x_T = torch.randn(shape, generator=gen)
         scale = cfg_scale if (cfg_scale > 0 and uid % 2 == 0) else None
@@ -172,7 +211,7 @@ def _serve_diffusion_here(arch, *, occupancies, n_requests, slots, m_base,
           f"modeled{note}) planner={planner} backend={backend} "
           f"slots={slots} rounds={stats['rounds']} "
           f"patches={engine.plan.patches} stages={engine.stages} "
-          f"seq={engine.seq} on {device}; "
+          f"seq={engine.seq} frames={engine.frames} on {device}; "
           f"dispatches {stats['dispatches']}, launches {stats['kernels']}")
     if stats["plan_cache"] is not None:
         c = stats["plan_cache"]
@@ -208,13 +247,16 @@ def main(argv=None):
     ap.add_argument("--planner", default="stadi",
                     help="allocation planner (diffusion only): uniform / "
                          "spatial / temporal / stadi / makespan / "
-                         "stadi_pipefuse / stadi_guidance / stadi_seq")
+                         "stadi_pipefuse / stadi_guidance / stadi_seq / "
+                         "stadi_video")
     ap.add_argument("--backend", default="emulated",
-                    choices=["emulated", "pipefuse", "spmd"],
+                    choices=["emulated", "pipefuse", "spmd", "spmd_frames"],
                     help="serving stepper (diffusion only): 'emulated', "
                          "'pipefuse' (the displaced stage chain with "
-                         "--num-stages) or 'spmd' (the multi-rank stepper, "
-                         "one rank per device of --occupancies)")
+                         "--num-stages), 'spmd' (the multi-rank stepper, "
+                         "one rank per device of --occupancies) or "
+                         "'spmd_frames' (video lanes on the frame rows' "
+                         "ranks)")
     ap.add_argument("--num-stages", type=int, default=1,
                     help="depth stages for --backend pipefuse (diffusion "
                          "only, DESIGN.md §11): 1 = pure patch parallelism, "
@@ -241,6 +283,15 @@ def main(argv=None):
                     help="sequence-parallel attention (diffusion only): "
                          "lanes batch by ring-hop identity (1 = unsharded, "
                          "0 = let stadi_seq search)")
+    ap.add_argument("--num-frames", type=int, default=1,
+                    help="video serving lanes (diffusion only, DESIGN.md "
+                         "§16): latent frames per request (1 = image; > 1 "
+                         "serves one clip a request, run to completion in "
+                         "its admission round)")
+    ap.add_argument("--frame-groups", type=int, default=0,
+                    help="frame placement (diffusion only): 1 = frame-"
+                         "sequential, > 1 = frame-parallel member rows "
+                         "(needs --planner stadi_video), 0 = auto search")
     args, rest = ap.parse_known_args(sys.argv[1:] if argv is None else argv)
     for tok in rest:
         name = _LATER_FLAGS.get(tok.split("=", 1)[0])
@@ -260,7 +311,8 @@ def main(argv=None):
             slo_s=None if args.slo_ms is None else args.slo_ms / 1e3,
             exchange=args.exchange, exchange_refresh=args.exchange_refresh,
             num_stages=args.num_stages, cfg_scale=args.cfg_scale,
-            seq_shards=args.seq_shards, plan_cache_dir=args.plan_cache,
+            seq_shards=args.seq_shards, num_frames=args.num_frames,
+            frame_groups=args.frame_groups, plan_cache_dir=args.plan_cache,
             dist_backend=args.dist_backend,
             device=args.device)
     return serve(args.arch, n_requests=args.requests, slots=args.slots,

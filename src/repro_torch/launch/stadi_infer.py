@@ -2,17 +2,20 @@
 
 Thin CLI over :class:`repro_torch.core.pipeline.StadiPipeline`; strategy
 selection is ``--planner`` (uniform / spatial / temporal / stadi / makespan /
-stadi_pipefuse / stadi_guidance / stadi_seq) and ``--backend`` (emulated /
-simulate / pipefuse / spmd / spmd_pipefuse / spmd_guidance / spmd_seq;
-``--spmd`` is short for ``--backend spmd``); ``--num-stages`` splits the
-depth into a stage chain (``--micro-patches`` pins its micro-batch count),
-``--cfg-scale`` turns on classifier-free guidance and ``--seq-shards``
-sequence-parallel attention. It runs on the GPU unless ``--device cpu`` is
+stadi_pipefuse / stadi_guidance / stadi_seq / stadi_video) and ``--backend``
+(emulated / simulate / pipefuse / spmd / spmd_pipefuse / spmd_guidance /
+spmd_seq / spmd_frames; ``--spmd`` is short for ``--backend spmd``);
+``--num-stages`` splits the depth into a stage chain (``--micro-patches``
+pins its micro-batch count), ``--cfg-scale`` turns on classifier-free
+guidance, ``--seq-shards`` sequence-parallel attention and ``--num-frames``
+a video of that many frames (a ``[B, F, H, W, C]`` latent; ``--frame-groups``
+pins the frame placement). It runs on the GPU unless ``--device cpu`` is
 given. Weights are random (``--seed``), as in the reference's CLI.
 
 The multi-rank backends start one rank per device of the cluster,
-``spmd_seq`` ``seq_shards`` ranks per patch worker and ``spmd_pipefuse`` one
-rank per stage (:mod:`repro_torch.launch.ranks`): NCCL with one card per
+``spmd_seq`` ``seq_shards`` ranks per patch worker, ``spmd_pipefuse`` one
+rank per stage and ``spmd_frames`` one per patch-worker column of each frame
+row (leftover devices idle) (:mod:`repro_torch.launch.ranks`): NCCL with one card per
 rank, or gloo with ``--dist-backend gloo``, which also lets the ranks share
 fewer cards (their times are then not a multi-GPU makespan); CPU ranks
 always run gloo. ``--check-vs-emulation`` also runs the emulated backend
@@ -29,6 +32,10 @@ Usage:
       --check-vs-emulation
   PYTHONPATH=src python -m repro_torch.launch.stadi_infer --device cpu \
       --reduced --num-stages 2 --backend spmd_pipefuse --check-vs-emulation
+  PYTHONPATH=src python -m repro_torch.launch.stadi_infer --device cpu \
+      --reduced --num-frames 3 --occupancies 0.0,0.0,0.5,0.5 \
+      --planner stadi_video --frame-groups 2 --backend spmd_frames \
+      --check-vs-emulation
 """
 from __future__ import annotations
 
@@ -40,8 +47,6 @@ import time
 
 #: reference flags and choices that later slices of the port bring
 _LATER_FLAGS = {
-    "--num-frames": "the frames slice (queue 1 item 12)",
-    "--frame-groups": "the frames slice (queue 1 item 12)",
     "--prompt": "the prompt-conditioning slice (queue 1 item 13)",
     "--cond-tokens": "the prompt-conditioning slice (queue 1 item 13)",
     "--cond-seq-len": "the prompt-conditioning slice (queue 1 item 13)",
@@ -63,10 +68,11 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--planner", default="stadi",
                     choices=["uniform", "spatial", "temporal", "stadi",
                              "makespan", "stadi_pipefuse", "stadi_guidance",
-                             "stadi_seq"])
+                             "stadi_seq", "stadi_video"])
     ap.add_argument("--backend", default="emulated",
                     choices=["emulated", "simulate", "pipefuse", "spmd",
-                             "spmd_pipefuse", "spmd_guidance", "spmd_seq"])
+                             "spmd_pipefuse", "spmd_guidance", "spmd_seq",
+                             "spmd_frames"])
     ap.add_argument("--spmd", action="store_true",
                     help="short for --backend spmd")
     ap.add_argument("--num-stages", type=int, default=1,
@@ -109,6 +115,15 @@ def _parser() -> argparse.ArgumentParser:
                     help="sequence-parallel attention (DESIGN.md §13): "
                          "Ulysses/ring shards per patch worker (1 = off, 0 = "
                          "let --planner stadi_seq search)")
+    ap.add_argument("--num-frames", type=int, default=1,
+                    help="video (DESIGN.md §16): latent frames denoised "
+                         "jointly (1 = image; > 1 needs a frame backend: "
+                         "emulated, simulate or spmd_frames)")
+    ap.add_argument("--frame-groups", type=int, default=0,
+                    help="frame placement: 1 = frame-sequential, > 1 = "
+                         "frame-parallel member rows (needs --planner "
+                         "stadi_video; spmd_frames runs groups x workers "
+                         "ranks), 0 = let stadi_video search")
     ap.add_argument("--exchange-refresh", type=int, default=2,
                     help="full refresh every E boundaries (stale/predictive)")
     ap.add_argument("--seed", type=int, default=0)
@@ -136,6 +151,8 @@ def _setup(args, device):
         torch.Generator(device=device).manual_seed(args.seed), cfg)
     sched = sampler_lib.linear_schedule(T=1000)
     shape = (args.batch, cfg.latent_size, cfg.latent_size, cfg.channels)
+    if args.num_frames > 1:               # video latent: [B, F, H, W, C]
+        shape = shape[:1] + (args.num_frames,) + shape[1:]
     x_T = torch.randn(shape, device=device,
                       generator=torch.Generator(device=device)
                       .manual_seed(args.seed + 1)).to(dit._torch_dtype(cfg.dtype))
@@ -158,7 +175,8 @@ def _setup(args, device):
         exchange_refresh=args.exchange_refresh, guidance=args.guidance,
         cfg_scale=args.cfg_scale, uncond_refresh=args.uncond_refresh,
         seq_shards=args.seq_shards, num_stages=args.num_stages,
-        micro_patches=args.micro_patches, **knobs)
+        micro_patches=args.micro_patches, num_frames=args.num_frames,
+        frame_groups=args.frame_groups, **knobs)
     return cfg, params, sched, x_T, cond, config
 
 
@@ -211,17 +229,21 @@ def main(argv=None):
     plan = pipe.plan()
     print(f"speeds={config.speeds} steps={plan.temporal.steps} "
           f"ratios={plan.temporal.ratios} patches={plan.patches} "
-          f"stages={plan.stages} guidance={plan.guidance} seq={plan.seq}")
+          f"stages={plan.stages} guidance={plan.guidance} seq={plan.seq} "
+          f"frames={plan.frames}")
     summary = {"patches": plan.patches, "steps": plan.temporal.steps,
                "planner": args.planner, "backend": args.backend,
                "device": str(device)}
 
-    if args.backend in ("spmd", "spmd_guidance", "spmd_seq", "spmd_pipefuse"):
+    if args.backend in ("spmd", "spmd_guidance", "spmd_seq", "spmd_pipefuse",
+                        "spmd_frames"):
         from repro_torch.launch import ranks
         if args.backend == "spmd_seq" and plan.seq is not None:
             world = plan.seq.n_shards * len(plan.patches)
         elif args.backend == "spmd_pipefuse" and plan.stages:
             world = len(plan.stages)
+        elif args.backend == "spmd_frames" and plan.frames is not None:
+            world = plan.frames.n_groups * len(plan.patches)
         else:
             world = config.n_devices
         per_rank = ranks.spawn(_rank_generate, world, device_type=device.type,

@@ -161,18 +161,27 @@ def _ln(x, eps=1e-6):
     return F.layer_norm(x, (x.shape[-1],), eps=eps)
 
 
-def _cond_vector(params, cfg, t, cond, B):
+def _per_row(value, B, dev):
+    """A number, a 0-d tensor or one value a batch row, as float32 [B]."""
+    if isinstance(value, torch.Tensor) and value.dim():
+        return value.to(device=dev, dtype=torch.float32).expand(B)
+    return torch.full((B,), float(value), dtype=torch.float32, device=dev)
+
+
+def _cond_vector(params, cfg, t, cond, B, frame=None):
     """Timestep + class conditioning vector [B, D]. ``t`` is a number (or a
     0-d tensor), or one timestep a batch row ([B]: the serving engine's
     lanes, each at its own step); ``cond`` None, or class ids broadcastable
     to [B] where the reserved :data:`NULL_COND` selects the zero
-    (unconditional) embedding."""
+    (unconditional) embedding. ``frame`` (the video path, DESIGN.md §16):
+    None, or the latent frame index in either form of ``t``, whose
+    sinusoidal embedding is summed into the timestep features in float32
+    before the shared MLP; None adds no op, so frame 0 and the image path
+    stay bitwise."""
     dev = params["t_w1"].device
-    if isinstance(t, torch.Tensor) and t.dim():
-        tt = t.to(device=dev, dtype=torch.float32).expand(B)
-    else:
-        tt = torch.full((B,), float(t), dtype=torch.float32, device=dev)
-    temb = layers.sinusoidal_embedding(tt, 256)
+    temb = layers.sinusoidal_embedding(_per_row(t, B, dev), 256)
+    if frame is not None:
+        temb = temb + layers.sinusoidal_embedding(_per_row(frame, B, dev), 256)
     temb = _linear(F.silu(_linear(temb.to(params["t_w1"].dtype),
                                   params["t_w1"])), params["t_w2"])
     if cond is None:
@@ -192,9 +201,11 @@ def _cond_vector(params, cfg, t, cond, B):
 # forward
 # ----------------------------------------------------------------------
 
-def embed_patch(params, cfg: DiTConfig, x_rows, t, cond, row_start: int):
+def embed_patch(params, cfg: DiTConfig, x_rows, t, cond, row_start: int,
+                frame=None):
     """Pre-block embedding of a row-patch: patchify + patch embed + 2D pos
-    embed + conditioning vector. Returns (h [B,Nl,D], c [B,D])."""
+    embed + conditioning vector (``frame``: see :func:`_cond_vector`).
+    Returns (h [B,Nl,D], c [B,D])."""
     B = x_rows.shape[0]
     wp = cfg.tokens_per_side
     tok = patchify(x_rows, cfg.patch_size)               # [B, Nl, token_dim]
@@ -206,7 +217,7 @@ def embed_patch(params, cfg: DiTConfig, x_rows, t, cond, row_start: int):
     pe = F.pad(pe, (0, 0, 0, Nl - pe.shape[0]))
     h = _linear(tok, params["patch_embed"]) + params["patch_bias"] \
         + pe.to(tok.dtype)
-    return h, _cond_vector(params, cfg, t, cond, B)
+    return h, _cond_vector(params, cfg, t, cond, B, frame=frame)
 
 
 def block_stack(blocks, cfg: DiTConfig, h, c, tok_start: int,
@@ -233,29 +244,34 @@ def block_stack(blocks, cfg: DiTConfig, h, c, tok_start: int,
              with this slab's K/V written at ``tok_start`` (under
              ``valid_tokens`` its rows past that blended back to the
              buffer's) and, under ``valid_tokens``, ``key_mask`` [1, 1, 1,
-             N_total] (True = attend; keys from ``cfg.n_tokens`` on are
+             N_total] (True = attend; keys from ``ctx_tokens`` on are
              scratch), else None. The sequence-parallel executor routes the
              read through its head scatter and ring hops here.
+    ctx_tokens: the real context tokens of scratch-padded buffers (with
+             ``valid_tokens``); None = ``cfg.n_tokens``. The multi-frame
+             executors pass ``2 * n_tokens`` for their own ⊕ previous frame
+             context (DESIGN.md §16). Without ``valid_tokens`` the context
+             is the whole buffer, whatever its length: the fresh rows land
+             at ``tok_start`` within it.
     Returns (h', kvs) with kvs the fresh (k, v), each [n_blocks, B, Nl, H,
     hd], or None when ``return_kv`` is False.
 
     The reference's ``enable`` stage mask pads the stages of its lockstep
     chain; the port's chain runs each stage's own blocks
-    (:func:`repro_torch.core.pipefuse.stage_blocks`) and refuses it. Frame
-    ``ctx_tokens`` and ``prompt_ctx`` cross-attention serve the frames and
-    prompt slices of the port, which bring them.
+    (:func:`repro_torch.core.pipefuse.stage_blocks`) and refuses it.
+    ``prompt_ctx`` cross-attention serves the prompt slice of the port,
+    which brings it.
     """
     if enable is not None:
         raise NotImplementedError(
             "block_stack(enable=...) is not ported: the stage chain of "
             "ROADMAP queue 1 item 10 slices the blocks a stage runs "
             "(pipefuse.stage_blocks) instead of masking them")
-    for name, value, slice_name in (
-            ("ctx_tokens", ctx_tokens, "the frames slice (item 12)"),
-            ("prompt_ctx", prompt_ctx, "the prompt-conditioning slice (item 13)")):
-        if value is not None:
-            raise NotImplementedError(f"block_stack({name}=...) comes with "
-                                      f"{slice_name} of ROADMAP queue 1")
+    if prompt_ctx is not None:
+        raise NotImplementedError("block_stack(prompt_ctx=...) comes with the "
+                                  "prompt-conditioning slice (item 13) of "
+                                  "ROADMAP queue 1")
+    n_real = ctx_tokens or cfg.n_tokens
     B, Nl, D = h.shape
     H = cfg.n_heads
     hd = D // H
@@ -274,14 +290,14 @@ def block_stack(blocks, cfg: DiTConfig, h, c, tok_start: int,
             att = kops.stale_kv_attention(q, k, v, k, v, tok_start=0)
         elif attend_fn is not None:
             att = attend_fn(q, *_blended_context(
-                cfg, k, v, buffers[0][i], buffers[1][i], tok_start,
-                valid_tokens))
+                k, v, buffers[0][i], buffers[1][i], tok_start, valid_tokens,
+                n_real))
         elif valid_tokens is not None:
             # padded multi-rank layout: fresh over the real rows only,
             # scratch keys masked (kernel K2)
             att = kops.stale_kv_attention_padded(
                 q, k, v, buffers[0][i].to(q.dtype), buffers[1][i].to(q.dtype),
-                tok_start, valid_tokens, n_tokens=cfg.n_tokens)
+                tok_start, valid_tokens, n_tokens=n_real)
         else:
             att = kops.stale_kv_attention(q, k, v, buffers[0][i].to(q.dtype),
                                           buffers[1][i].to(q.dtype),
@@ -297,13 +313,14 @@ def block_stack(blocks, cfg: DiTConfig, h, c, tok_start: int,
     return x, ((torch.stack(ks), torch.stack(vs)) if return_kv else None)
 
 
-def _blended_context(cfg: DiTConfig, k, v, bk, bv, tok_start: int,
-                     valid_tokens: Optional[int]):
+def _blended_context(k, v, bk, bv, tok_start: int,
+                     valid_tokens: Optional[int], n_real: int):
     """The context an ``attend_fn`` reads: copies of the buffers (they are
     published, shared state) with the slab's K/V written at ``tok_start``,
     the slab's rows past ``valid_tokens`` blended back to the buffer's
-    rows, and the key mask of the scratch-padded layout (None without
-    ``valid_tokens``). Returns (full_k, full_v, key_mask)."""
+    rows, and the key mask of the scratch-padded layout (keys from
+    ``n_real`` on; None without ``valid_tokens``). Returns (full_k, full_v,
+    key_mask)."""
     Nl = k.shape[1]
     rows = slice(tok_start, tok_start + Nl)
     ku, vu, key_mask = k.to(bk.dtype), v.to(bv.dtype), None
@@ -312,7 +329,7 @@ def _blended_context(cfg: DiTConfig, k, v, bk, bv, tok_start: int,
         ku = torch.where(fresh, ku, bk[:, rows])
         vu = torch.where(fresh, vu, bv[:, rows])
         key_mask = (torch.arange(bk.shape[1], device=k.device)
-                    < cfg.n_tokens)[None, None, None, :]
+                    < n_real)[None, None, None, :]
     full_k, full_v = bk.clone(), bv.clone()
     full_k[:, rows] = ku
     full_v[:, rows] = vu
@@ -330,13 +347,17 @@ def final_head(params, cfg: DiTConfig, h, c, rows_tok: int):
 
 def forward_patch(params, cfg: DiTConfig, x_rows, t, cond, row_start: int,
                   buffers: Optional[Tuple] = None, return_kv: bool = True,
-                  valid_tokens: Optional[int] = None, attend_fn=None):
+                  valid_tokens: Optional[int] = None, attend_fn=None,
+                  frame=None, ctx_tokens: Optional[int] = None):
     """Denoise a row-patch with stale remote K/V.
 
     x_rows: [B, rows_local, W, C] latent slab (full width).
     buffers: None (local-only attention: exact when patch == full image)
              or (buf_k, buf_v) each [L, B, N_total, H, hd] — stale K/V for
-             the WHOLE image; the local rows are read fresh instead.
+             the WHOLE image; the local rows are read fresh instead. N_total
+             may exceed the image's tokens: the video path passes its 2N
+             (own ⊕ previous frame) context, whose first N rows take the
+             fresh rows.
     row_start: first token-row of this patch (positional embeddings and the
              fresh rows' offset in the context).
     valid_tokens: the multi-rank executors' padded layout — number of REAL
@@ -344,22 +365,27 @@ def forward_patch(params, cfg: DiTConfig, x_rows, t, cond, row_start: int,
              the buffers are then scratch-padded (see :func:`block_stack`).
     attend_fn: replaces every buffered attention read (see
              :func:`block_stack`).
+    frame:   None (image) or the latent frame index (a number, or one a
+             batch row), summed into the conditioning vector.
+    ctx_tokens: the real context tokens of scratch-padded buffers (see
+             :func:`block_stack`).
     Returns (eps_rows [B, rows_local, W, C], (fresh_k, fresh_v)
     [L,B,Nl,H,hd] or None).
     """
     rows_tok = x_rows.shape[1] // cfg.patch_size         # token rows in patch
-    h, c = embed_patch(params, cfg, x_rows, t, cond, row_start)
+    h, c = embed_patch(params, cfg, x_rows, t, cond, row_start, frame=frame)
     tok_start = row_start * cfg.tokens_per_side
     h, kvs = block_stack(params["blocks"], cfg, h, c, tok_start,
                          buffers=buffers, return_kv=return_kv,
-                         valid_tokens=valid_tokens, attend_fn=attend_fn)
+                         valid_tokens=valid_tokens, attend_fn=attend_fn,
+                         ctx_tokens=ctx_tokens)
     return final_head(params, cfg, h, c, rows_tok), kvs
 
 
-def forward(params, cfg: DiTConfig, x, t, cond=None):
+def forward(params, cfg: DiTConfig, x, t, cond=None, frame=None):
     """Full-image denoiser: [B,H,W,C] -> eps [B,H,W,C] (the Origin path)."""
     eps, _ = forward_patch(params, cfg, x, t, cond, 0, buffers=None,
-                           return_kv=False)
+                           return_kv=False, frame=frame)
     return eps
 
 
@@ -387,7 +413,8 @@ def guidance_conds(cond) -> torch.Tensor:
 
 def forward_patch_cfg(params, cfg: DiTConfig, x_rows, t, cond, row_start: int,
                       buffers: Optional[Tuple] = None, return_kv: bool = True,
-                      valid_tokens: Optional[int] = None, branch_axis: int = 0):
+                      valid_tokens: Optional[int] = None, branch_axis: int = 0,
+                      frame=None, ctx_tokens: Optional[int] = None):
     """Both guidance branches of :func:`forward_patch` in ONE forward — the
     port's form of the reference's ``jax.vmap`` over the branch axis. The
     branches are folded into the batch: x (and a per-row ``t``) repeated to
@@ -402,6 +429,8 @@ def forward_patch_cfg(params, cfg: DiTConfig, x_rows, t, cond, row_start: int,
     buffers are contiguous.
     valid_tokens: as in :func:`forward_patch`; both branches are fresh over
     the same rows, so the padded read runs K2 at batch 2B.
+    frame, ctx_tokens: as in :func:`forward_patch`; a frame a batch row is
+    repeated for the second branch like ``t``.
     Returns (eps2 [2, B, rows, W, C], branch-stacked fresh (k, v) in the
     buffers' layout — [2, L, B, Nl, H, hd] or [L, 2, B, Nl, H, hd] — or
     None)."""
@@ -410,12 +439,15 @@ def forward_patch_cfg(params, cfg: DiTConfig, x_rows, t, cond, row_start: int,
     conds = conds.expand(2, B).reshape(2 * B)
     if isinstance(t, torch.Tensor) and t.dim():
         t = torch.cat([t.reshape(-1).expand(B)] * 2)
+    if isinstance(frame, torch.Tensor) and frame.dim():
+        frame = torch.cat([frame.reshape(-1).expand(B)] * 2)
     if buffers is not None:
         buffers = tuple(b.movedim(branch_axis, 1).flatten(1, 2)
                         for b in buffers)
     eps, kvs = forward_patch(params, cfg, torch.cat([x_rows, x_rows]), t,
                              conds, row_start, buffers=buffers,
-                             return_kv=return_kv, valid_tokens=valid_tokens)
+                             return_kv=return_kv, valid_tokens=valid_tokens,
+                             frame=frame, ctx_tokens=ctx_tokens)
     if kvs is not None:
         kvs = tuple(k.unflatten(1, (2, B)).movedim(1, branch_axis)
                     for k in kvs)

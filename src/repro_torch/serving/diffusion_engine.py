@@ -63,8 +63,14 @@ is FIFO and the clock modeled, so the rounds agree, and each interval is a
 collective call. Warm-up steps run on every rank. It serves unguided lanes
 and refuses online replanning, as the reference does.
 
-Video lanes (ROADMAP.md queue 1 item 12) and prompt lanes (item 13) come
-with later slices of the port.
+Video lanes (DESIGN.md §16): with a multi-frame plan a request is one
+clip ``[1, F, H, W, C]``, whose cross-frame K/V state lives per clip, so
+each admitted clip runs its whole schedule in its round through the
+configured frame executor (``emulated`` or ``spmd_frames``; on the latter
+every rank builds the same engine, as with the spmd stepper) and accrues the
+frame-priced makespan of :func:`repro_torch.core.simulate.simulate_trace`.
+Prompt lanes (ROADMAP.md queue 1 item 13) come with a later slice of the
+port.
 """
 from __future__ import annotations
 
@@ -84,8 +90,8 @@ from repro_torch.core import pipefuse as pipefuse_lib
 from repro_torch.core import sampler as sampler_lib
 from repro_torch.core import simulate as sim
 from repro_torch.core.pipeline import (ReplanEvent, StadiPipeline,
-                                       check_backend_can_run,
-                                       get_stepper_factory, later_slice,
+                                       check_backend_can_run, get_executor,
+                                       get_stepper_factory,
                                        register_stepper_factory)
 from repro_torch.core.planners import ExecutionPlan
 from repro_torch.core.schedule import patch_bounds
@@ -474,17 +480,30 @@ class DiffusionServingEngine:
         self.cm_calibrated = self.cm is not None
         if self.cm is None:
             self.cm = CostModel(t_fixed=1e-3, t_row=1e-3)
+        # frame axis (DESIGN.md §16): video lanes. The cross-frame K/V state
+        # lives per CLIP, so a clip runs its whole schedule in the round it
+        # is admitted (a run-to-completion cohort) and the lanes' slot-major
+        # state below is never allocated
+        self.frames = self.plan.frames
+        if self.frames is not None and self.frames.num_frames < 2:
+            self.frames = None
+        if self.frames is not None and rebalance_every:
+            raise ValueError(
+                "the frame grouping is static — engine replanning would "
+                "re-deal the frame-group rows; serve video plans with "
+                "rebalance_every=0")
         cfg = pipeline.model_cfg
         dev = self.device
         self._ts = sampler_lib.ddim_timesteps(pipeline.sched.T,
                                               self.plan.temporal.m_base)
         H, C = cfg.latent_size, cfg.channels
+        lanes = 0 if self.frames is not None else slots
         self._kdt = dit._torch_dtype(cfg.dtype)
-        self._x = torch.zeros((slots, H, H, C), dtype=self._kdt, device=dev)
-        self._kshape = dit.buffer_shape(cfg, slots)     # [L, slots, N, H, hd]
+        self._x = torch.zeros((lanes, H, H, C), dtype=self._kdt, device=dev)
+        self._kshape = dit.buffer_shape(cfg, lanes)     # [L, slots, N, H, hd]
         self._pub_k = torch.zeros(self._kshape, dtype=self._kdt, device=dev)
         self._pub_v = torch.zeros(self._kshape, dtype=self._kdt, device=dev)
-        self._cond = torch.zeros(slots, dtype=torch.int32, device=dev)
+        self._cond = torch.zeros(lanes, dtype=torch.int32, device=dev)
         # guided lanes: branch-stacked published K/V [L, 2, slots, N, H, hd]
         # + the per-slot cfg_scale on the device (K3 reads it in place);
         # the buffers are allocated on the first guided submission so
@@ -493,18 +512,13 @@ class DiffusionServingEngine:
         self._gk = self._gv = None
         self._prev_gk = self._prev_gv = None
         self._prev_k = self._prev_v = None
-        self._scales = torch.zeros(slots, dtype=torch.float32, device=dev)
+        self._scales = torch.zeros(lanes, dtype=torch.float32, device=dev)
         # displaced stage chain (DESIGN.md §11): the lanes' displaced
         # contexts, only materialized when the depth is partitioned
         self.stages = self.plan.stages
         staged = self.stages is not None and len(self.stages) > 1
         self._ctx_k = torch.zeros_like(self._pub_k) if staged else None
         self._ctx_v = torch.zeros_like(self._pub_v) if staged else None
-        # video lanes come with a later slice; the port's planners never
-        # return a frame plan
-        self.frames = self.plan.frames
-        if self.frames is not None and self.frames.num_frames > 1:
-            raise later_slice("frames")
         # sequence-parallel attention (DESIGN.md §13): seq sharding
         # repartitions WHERE attention runs (device groups + ring hops),
         # never WHAT is computed, so the emulated stepper serves seq-sharded
@@ -583,6 +597,25 @@ class DiffusionServingEngine:
         pipeline, config = self.pipeline, self.pipeline.config
         cfg = pipeline.model_cfg
         self.plan = plan
+        if self.frames is not None:
+            # video lanes: no lane stepper; every clip runs the frame
+            # executor, and its modeled cost is the frame-priced trace the
+            # simulate backend replays
+            self._guide_pairs = None
+            self.stepper = None
+            self._interval_info = {}
+            self._track_prev = False
+            trace = sim.build_trace(plan.temporal, plan.patches, cfg,
+                                    batch=1, exchange=config.exchange,
+                                    exchange_refresh=config.exchange_refresh,
+                                    frames=self.frames,
+                                    guidance=plan.guidance)
+            self._latent_bytes = trace.latent_bytes
+            self._kv_bytes = trace.kv_bytes_per_worker
+            self._act_row_bytes = trace.act_row_bytes
+            self._clip_cost_s = sim.simulate_trace(
+                trace, self.measured_speeds, self.cm)
+            return
         gplan = plan.guidance
         # split-guidance lane groups: logical worker i is the device pair
         # (cond_devices[i], uncond_devices[i]) — used for pair-placed round
@@ -667,15 +700,21 @@ class DiffusionServingEngine:
     def submit(self, x_T, cond, *, slo_s: Optional[float] = None,
                uid: Optional[int] = None,
                cfg_scale: Optional[float] = None) -> DiffusionRequest:
-        """Queue one request. x_T: [H,W,C] or [1,H,W,C]; cond: int or [1].
+        """Queue one request. x_T: [H,W,C] or [1,H,W,C] (video lanes: one
+        clip, [F,H,W,C] or [1,F,H,W,C]); cond: int or [1].
 
         cfg_scale > 0 makes this a GUIDED request (classifier-free
         guidance, DESIGN.md §12); None inherits the pipeline config's
         cfg_scale (0 = unguided). CFG and non-CFG requests mix freely —
-        guidance state is per lane.
+        guidance state is per lane. A video clip runs the plan's fused
+        guidance, whose scale a request cannot change.
         """
         x_T = torch.as_tensor(x_T)
-        if x_T.dim() == 3:
+        if self.frames is not None:
+            self._check_clip(x_T, cfg_scale)
+            if x_T.dim() == 4:
+                x_T = x_T[None]
+        elif x_T.dim() == 3:
             x_T = x_T[None]
         if x_T.shape[0] != 1:
             raise ValueError("one request = one image; got batch "
@@ -695,7 +734,7 @@ class DiffusionServingEngine:
             cfg_scale = self.default_scale
         req = DiffusionRequest(uid=uid, x_T=x_T.to(self.device), cond=cond,
                                slo_s=slo_s, cfg_scale=cfg_scale)
-        if req.guided:
+        if req.guided and self.frames is None:
             if not self.stepper.supports_guidance:
                 raise ValueError(
                     f"backend {self.pipeline.config.backend!r} has no "
@@ -713,6 +752,32 @@ class DiffusionServingEngine:
         req._submit_wall = time.perf_counter()
         self.queue.append(req)
         return req
+
+    def _check_clip(self, x_T, cfg_scale) -> None:
+        """A video lane's submit checks, with the reference's messages."""
+        clip = x_T[None] if x_T.dim() == 4 else x_T
+        if clip.dim() != 5 or clip.shape[0] != 1:
+            raise ValueError(
+                "one request = one clip; video lanes take [F,H,W,C] "
+                f"or [1,F,H,W,C], got shape {tuple(x_T.shape)}")
+        if clip.shape[1] != self.frames.num_frames:
+            raise ValueError(
+                f"request carries {clip.shape[1]} frames, the plan "
+                f"serves {self.frames.num_frames}")
+        if cfg_scale is not None and cfg_scale > 0:
+            gplan = self.plan.guidance
+            if gplan is None:
+                raise ValueError(
+                    "guided video lanes run the plan's fused CFG: "
+                    "plan with cfg_scale > 0 (e.g. "
+                    "planner='stadi_video') instead of a per-request "
+                    "scale")
+            if float(cfg_scale) != float(gplan.scale):
+                raise ValueError(
+                    "video lanes run whole-clip schedules through the "
+                    f"planned executor: per-request cfg_scale="
+                    f"{cfg_scale} cannot override the plan's fused "
+                    f"scale {gplan.scale}")
 
     def _admit(self, report: RoundReport) -> None:
         M_w = self.plan.temporal.m_warmup
@@ -813,6 +878,8 @@ class DiffusionServingEngine:
         """One round: admit -> warmup group -> adaptive group(s) -> retire."""
         report = RoundReport(index=len(self.rounds))
         wall0 = time.perf_counter()
+        if self.frames is not None:
+            return self._frames_round(report, wall0)
         if self._pending_plan is not None:
             self._try_install_pending()
         self._admit(report)
@@ -919,6 +986,48 @@ class DiffusionServingEngine:
         for slot in done_slots:
             req = self.active.pop(slot)
             req.image = self._x[slot:slot + 1].clone()
+            req.done = True
+            req.finish_round = report.index
+            req.modeled_latency_s = self.modeled_clock_s - req.submit_clock_s
+            req.wall_latency_s = time.perf_counter() - req._submit_wall
+            finished.append(req)
+        self.completed.extend(finished)
+        report.wall_s = time.perf_counter() - wall0
+        self.rounds.append(report)
+        return finished
+
+    def _frames_round(self, report: RoundReport,
+                      wall0: float) -> List[DiffusionRequest]:
+        """One video round: admit FIFO into free slots, then run every
+        admitted clip's whole schedule back to back through the configured
+        frame executor. Each clip accrues the frame-priced makespan in turn
+        (the cluster serves one clip at a time), so later clips of a round
+        see the earlier ones' service as queueing."""
+        config = self.pipeline.config
+        M_base = self.plan.temporal.m_base
+        while self.queue and len(self.active) < self.slots:
+            req = self.queue.pop(0)
+            slot = next(s for s in range(self.slots) if s not in self.active)
+            req.fine_step = 0
+            req.admit_round = report.index
+            self.active[slot] = req
+            report.admitted.append((req.uid, slot))
+        executor = get_executor(config.backend)
+        finished: List[DiffusionRequest] = []
+        for slot in sorted(self.active):
+            req = self.active.pop(slot)
+            image, _ = executor(
+                params=self.pipeline.params,
+                model_cfg=self.pipeline.model_cfg,
+                sched=self.pipeline.sched, x_T=req.x_T, cond=req.cond,
+                plan=self.plan, config=config, interval_hook=None)
+            self.dispatches["clip"] += 1
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+            report.modeled_s += self._clip_cost_s
+            self.modeled_clock_s += self._clip_cost_s
+            req.image = image
+            req.fine_step = M_base
             req.done = True
             req.finish_round = report.index
             req.modeled_latency_s = self.modeled_clock_s - req.submit_clock_s

@@ -15,8 +15,7 @@ reference's, so an entry written by either package is a hit in the other:
 the *cluster signature* rounds profiled speeds to ``speed_decimals``; the
 *model* component is a content hash of the DiTConfig (whose repr is the
 reference's, field for field); the *workload* component is every
-planner-visible knob, the later axes' knobs (stages, frames, prompt bucket)
-included at their values in this port
+planner-visible knob, the prompt bucket included at its value in this port
 (:meth:`repro_torch.core.pipeline.StadiPipeline._workload_key`).
 
 ``StadiPipeline.plan()`` consults the cache before any planner search when
@@ -24,9 +23,7 @@ included at their values in this port
 pipeline rebalance hook or the serving engine's replanner) invalidates the
 entry the drifted run was planned from. Corrupted or unreadable entries
 fall back to live planning loudly — a warning and a ``corrupt`` counter,
-never a crash. An entry carrying a frame plan (written by the reference for
-a video workload) cannot be read here; no key of this port can name one,
-since the port plans images only. Framework-free: json and hashlib.
+never a crash. Framework-free: json and hashlib.
 """
 from __future__ import annotations
 
@@ -38,6 +35,7 @@ import tempfile
 import warnings
 from typing import Dict, Optional, Sequence
 
+from repro_torch.core.frames import FramePlan
 from repro_torch.core.guidance import GuidancePlan
 from repro_torch.core.planners import ExecutionPlan
 from repro_torch.core.schedule import TemporalPlan
@@ -53,7 +51,7 @@ DEFAULT_CACHE_DIR = os.path.join("results", "plan_cache")
 
 def plan_to_dict(plan: ExecutionPlan) -> Dict:
     """JSON-ready dict for a fully-populated ExecutionPlan (the reference's
-    six-axis layout; frames is None on every plan of the port)."""
+    six-axis layout)."""
     t = plan.temporal
     d = {
         "version": CACHE_VERSION,
@@ -82,13 +80,15 @@ def plan_to_dict(plan: ExecutionPlan) -> Dict:
     if plan.seq is not None:
         d["seq"] = {"heads": list(plan.seq.heads),
                     "segments": list(plan.seq.segments)}
+    if plan.frames is not None:
+        d["frames"] = {"num_frames": plan.frames.num_frames,
+                       "groups": list(plan.frames.groups)}
     return d
 
 
 def plan_from_dict(d: Dict) -> ExecutionPlan:
     """Inverse of :func:`plan_to_dict`; raises on any layout mismatch (the
-    caller treats that as a corrupt entry), and on a frame plan, which the
-    port cannot represent until the frames slice (queue 1 item 12)."""
+    caller treats that as a corrupt entry)."""
     if d.get("version") != CACHE_VERSION:
         raise ValueError(f"plan-cache entry version {d.get('version')!r} "
                          f"!= {CACHE_VERSION}")
@@ -112,9 +112,11 @@ def plan_from_dict(d: Dict) -> ExecutionPlan:
     if d["seq"] is not None:
         seq = SeqPlan(heads=tuple(int(h) for h in d["seq"]["heads"]),
                       segments=tuple(int(s) for s in d["seq"]["segments"]))
+    frames = None
     if d["frames"] is not None:
-        raise ValueError("a frame plan comes with the frames slice of the "
-                         "port (ROADMAP.md queue 1 item 12)")
+        frames = FramePlan(num_frames=int(d["frames"]["num_frames"]),
+                           groups=tuple(int(g) for g in
+                                        d["frames"]["groups"]))
     mic = d["modeled_interval_cost"]
     return ExecutionPlan(temporal=temporal,
                          patches=[int(p) for p in d["patches"]],
@@ -124,7 +126,7 @@ def plan_from_dict(d: Dict) -> ExecutionPlan:
                                                 else float(mic)),
                          stages=(None if d["stages"] is None
                                  else [int(s) for s in d["stages"]]),
-                         guidance=guidance, seq=seq)
+                         guidance=guidance, seq=seq, frames=frames)
 
 
 @dataclasses.dataclass

@@ -1010,3 +1010,91 @@ def test_pipefuse_one_stage_bitwise_emulated_on_card(cuda):
     evals = sum(1 if e.synchronous else sum(e.substeps) for e in trace.events)
     assert res["two"].kernel_stats["launches"] == {
         "stale_kv_attention": cfg.n_layers * evals}
+
+
+# ----------------------------------------------------------------------
+# the frame axis: K1 and K2 over a video frame's 2N context
+# ----------------------------------------------------------------------
+
+#: a frame f > 0 reads its own 4096 published rows and frame f-1's; K1's
+#: (Nl, tok_start) and K2's (Nl_max, tok_start, valid_tokens) at the video
+#: paths' layouts (chip_smoke.py phase_ctx2n)
+CTX_N = 8192
+K1_CTX_CASES = [(2304, 0), (1792, 2304), (4096, 0), (2048, 2048), (200, 72)]
+K2_CTX_LAYOUTS = [(2048, 0, 2048), (2048, 2048, 2048), (2304, 2304, 1792)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("Nl,tok_start", K1_CTX_CASES)
+def test_k1_over_the_2n_context_matches_plain(cuda, Nl, tok_start, dtype):
+    """K1 with its stale K/V the ``torch.cat`` of two frames' 4096 rows, as
+    the video path builds it; dropping the previous frame's half is outside
+    the bars."""
+    q, kf, vf, own_k, own_v = _inputs(CTX_N // 2, Nl, dtype, cuda, seed=5)
+    _, _, _, prev_k, prev_v = _inputs(CTX_N // 2, 1, dtype, cuda, seed=6)
+    ks, vs = torch.cat([own_k, prev_k], 1), torch.cat([own_v, prev_v], 1)
+    out = ops.stale_kv_attention(q, kf, vf, ks, vs, tok_start=tok_start)
+    want = ref.stale_kv_attention_ref(q, kf, vf, ks, vs, tok_start)
+    torch.cuda.synchronize()
+    _assert_within_bars(out, want, dtype)
+    _assert_rejects_faults(out, want, [ref.stale_kv_attention_ref(
+        q, kf, vf, own_k, own_v, tok_start)], dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("nl,tok,valid", K2_CTX_LAYOUTS)
+def test_k2_with_2n_tokens_matches_plain(cuda, nl, tok, valid, dtype):
+    """K2 with n_tokens two frames' worth over a buffer of 2N + Nl_max rows;
+    the faults of K2 and n_tokens of one frame are outside the bars."""
+    g = torch.Generator(device="cpu").manual_seed(7)
+
+    def mk(n, std):
+        return (std * torch.randn(1, n, 16, 72, generator=g)).to(dtype).to(cuda)
+    args = (mk(nl, QK_STD), mk(nl, QK_STD), mk(nl, 1.0),
+            mk(CTX_N + nl, QK_STD), mk(CTX_N + nl, 1.0))
+    plain = ref.stale_kv_attention_padded_ref
+    out = ops.stale_kv_attention_padded(*args, tok, valid, n_tokens=CTX_N)
+    want = plain(*args, tok, valid, CTX_N)
+    torch.cuda.synchronize()
+    _assert_within_bars(out, want, dtype)
+    _assert_rejects_faults(out, want, [
+        plain(*args, tok, nl, CTX_N), plain(*args, tok, valid, CTX_N + nl),
+        plain(*args, tok + TILE, valid, CTX_N),
+        plain(*args, tok, valid, CTX_N // 2)], dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cfg_scale", [0.0, 4.0])
+def test_video_frame_zero_is_bitwise_the_image_on_the_card(cuda, cfg_scale):
+    """tiny-dit.reduced() in fp32, a 3-frame video on the card: frame 0
+    bitwise the image path's, K1 once a layer of every eval of every frame,
+    and the video within 1e-3 of the CPU's."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import sampler
+    from repro_torch.core.pipeline import StadiConfig, StadiPipeline
+    from repro_torch.models.diffusion import dit
+
+    cfg = get_config("tiny-dit").reduced()
+    gen = torch.Generator(device="cpu").manual_seed(0)
+    params = dit.nondegenerate_params(dit.init_params(gen, cfg), gen)
+    video = torch.randn(1, 3, cfg.latent_size, cfg.latent_size, cfg.channels,
+                        generator=gen)
+    cond = torch.tensor([3])
+    config = StadiConfig.from_occupancies([0.0, 0.5], m_base=8, m_warmup=2,
+                                          exchange="stale_async",
+                                          cfg_scale=cfg_scale, num_frames=3)
+    sched = sampler.linear_schedule(1000)
+    vid = {d: StadiPipeline(cfg, params, sched, config, device=d).generate(
+        video, cond) for d in ("cpu", cuda)}
+    image = StadiPipeline(cfg, params, sched, dataclasses.replace(
+        config, num_frames=1), device=cuda).generate(video[:, 0], cond).image
+    assert torch.equal(vid[cuda].image[:, 0], image)
+    got, want = vid[cuda].image.cpu(), vid["cpu"].image
+    assert ((got - want).norm() / want.norm()).item() < 1e-3
+    evals = sum((1 if e.synchronous else sum(e.substeps)) * e.frames
+                for e in vid[cuda].trace.events)
+    launches = vid[cuda].kernel_stats["launches"]
+    assert launches["stale_kv_attention"] == cfg.n_layers * evals
+    assert launches.get("cfg_epilogue", 0) == (evals if cfg_scale else 0)

@@ -121,7 +121,7 @@ def test_block_stack_refuses_later_slices(model):
     _, _, tcfg, tparams, *_ = model
     h = torch.zeros(1, 8, tcfg.d_model)
     c = torch.zeros(1, tcfg.d_model)
-    for kw in ({"ctx_tokens": 8}, {"enable": torch.ones(2, dtype=torch.bool)},
+    for kw in ({"enable": torch.ones(2, dtype=torch.bool)},
                {"prompt_ctx": (h, None)}):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             tdit.block_stack(tparams["blocks"], tcfg, h, c, 0, **kw)
@@ -138,3 +138,11 @@ def test_block_stack_refuses_later_slices(model):
     tdit.block_stack(tparams["blocks"], tcfg, h, c, 0, buffers=(bk, bk.clone()),
                      attend_fn=attend_fn)
     assert seen == [((1, tcfg.n_tokens, H, hd), None)] * L
+    # ctx_tokens is ported (the frames slice): the scratch mask of a padded
+    # 2N context ends at ctx_tokens, not at the image's n_tokens
+    seen.clear()
+    N2 = 2 * tcfg.n_tokens
+    bk2 = torch.randn(L, 1, N2 + 8, H, hd)
+    tdit.block_stack(tparams["blocks"], tcfg, h, c, 0, buffers=(bk2, bk2),
+                     valid_tokens=8, attend_fn=attend_fn, ctx_tokens=N2)
+    assert [int(m.sum()) for _, m in seen] == [N2] * L

@@ -496,9 +496,12 @@ def test_model_api_and_serve_entry_point():
                         max_new=4, device="cpu")
     assert sorted(len(r.out_tokens) for r in done) == [4, 4, 4]
     assert all(0 <= t < tcfg.vocab for r in done for t in r.out_tokens)
-    # diffusion serving is ported; its later slices' flags name their items
-    with pytest.raises(NotImplementedError, match="queue 1 item 12"):
-        tserve.main(["--diffusion", "--num-frames", "2"])
+    # diffusion serving is ported, its video lanes too (one clip a
+    # request); the prompt slice's flags name their item
+    (clip,) = tserve.main(["--diffusion", "--num-frames", "2", "--requests",
+                           "1", "--slots", "1", "--m-base", "4",
+                           "--m-warmup", "2", "--device", "cpu"])
+    assert clip.image.shape[:2] == (1, 2) and clip.done
     with pytest.raises(NotImplementedError, match="queue 1 item 13"):
         tserve.main(["--diffusion", "--cond-tokens", "4", "--device",
                      "cpu"])

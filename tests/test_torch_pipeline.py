@@ -177,10 +177,19 @@ def test_entry_points_refuse_without_device_and_later_slices(setup):
         from repro_torch.launch import stadi_infer
         with pytest.raises(RuntimeError, match="no CUDA device"):
             stadi_infer.main(["--reduced"])
-    with pytest.raises(NotImplementedError, match="frames"):
+    # the frames slice is ported: a video needs a frame backend, as in the
+    # reference, and stadi_video builds
+    with pytest.raises(ValueError, match="frame backend"):
         tpipe.StadiPipeline(tcfg, tparams, sched,
-                            dataclasses.replace(conf, num_frames=2),
+                            dataclasses.replace(conf, num_frames=2,
+                                                backend="spmd"),
                             device="cpu")
+    tpipe.StadiPipeline(tcfg, tparams, sched, dataclasses.replace(
+        conf, num_frames=2, planner="stadi_video"), device="cpu")
+    # the prompt slice is not: a text-conditioned model refuses
+    with pytest.raises(NotImplementedError, match="item 13"):
+        tpipe.StadiPipeline(dataclasses.replace(tcfg, cross_attn=True),
+                            tparams, sched, conf, device="cpu")
     # the pipefuse slice is ported: stages need a staged backend, as in the
     # reference, and stadi_pipefuse builds
     with pytest.raises(ValueError, match="staged backend"):
@@ -206,7 +215,8 @@ def test_entry_points_refuse_without_device_and_later_slices(setup):
                                         "planner": "stadi_guidance",
                                         "guidance": "split"},
                   {"backend": "spmd_seq", "seq_shards": 2},
-                  {"backend": "spmd_pipefuse", "num_stages": 2}):
+                  {"backend": "spmd_pipefuse", "num_stages": 2},
+                  {"backend": "spmd_frames", "num_frames": 2}):
         pipe = tpipe.StadiPipeline(tcfg, tparams, sched,
                                    dataclasses.replace(conf, **knobs),
                                    device="cpu")

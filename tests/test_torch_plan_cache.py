@@ -1,6 +1,6 @@
 """The port's persistent plan cache against the JAX package's, on the CPU:
 the hit/miss/invalidation semantics of tests/test_plan_cache.py for the axes
-this port plans (steps, patches, guidance, seq), plans that round-trip
+this port plans (steps, patches, guidance, seq, frames), plans that round-trip
 ``==``, and the shared key recipe — the same key for the same workload in
 both packages, so an entry written by either is a hit in the other. Sizes
 are ``tiny-dit.reduced()`` in fp32 with T = 100."""
@@ -268,14 +268,27 @@ def test_engine_stats_surface_cache_counters(setup, tmp_path):
     assert pipe2.plan_cache.hits == 1
 
 
-def test_frame_plan_is_unreadable_in_the_port():
-    """A reference entry for a video workload carries a frame plan the port
-    cannot represent yet: it reads as corrupt (a live plan instead), and no
-    key of the port can name it (num_frames stays 1)."""
-    d = tpc.plan_to_dict(_plain_plan())
-    d["frames"] = {"num_frames": 4, "groups": [1, 1]}
-    with pytest.raises(ValueError, match="item 12"):
-        tpc.plan_from_dict(d)
+def test_frame_plan_round_trips_between_packages(setup, tmp_path):
+    """A stadi_video entry written by either package hits in the other with
+    its FramePlan equal, and a frame_groups change is another key (a
+    miss)."""
+    speeds = (1.0, 1.0, 0.5, 0.5)
+    knobs = dict(planner="stadi_video", num_frames=4, frame_groups=2)
+    jplan = _jax_pipe(setup, tmp_path / "ref", speeds, **knobs).plan()
+    port = _pipe(setup, tmp_path / "ref", speeds, **knobs)
+    hit = port.plan()
+    assert port.planner_calls == 0 and port.plan_cache.hits == 1
+    assert hit.frames is not None and hit.frames.groups == tuple(
+        jplan.frames.groups) == (3, 1)
+    assert tpc.plan_from_dict(tpc.plan_to_dict(hit)) == hit
+    tplan = _pipe(setup, tmp_path / "port", speeds, **knobs).plan()
+    ref = _jax_pipe(setup, tmp_path / "port", speeds, **knobs)
+    assert jpc.plan_to_dict(ref.plan()) == tpc.plan_to_dict(tplan)
+    assert ref.planner_calls == 0 and ref.plan_cache.hits == 1
+    other = _pipe(setup, tmp_path / "ref", speeds,
+                  **dict(knobs, frame_groups=1))
+    assert other.plan().frames.groups == (4,)
+    assert other.planner_calls == 1 and other.plan_cache.misses == 1
 
 
 def _plain_plan():
@@ -308,6 +321,9 @@ WORKLOADS = [
     dict(speeds=(1.0, 0.8, 0.6, 0.4), seq_shards=2),
     dict(speeds=(1.0, 0.5, 0.5), planner="makespan", tiers=(1, 2, 3),
          cost_model=CostModel(t_fixed=1e-3, t_row=1e-4, t_ctx=1e-6)),
+    dict(speeds=(1.0, 1.0, 0.5, 0.5), planner="stadi_video", num_frames=4,
+         cost_model=CostModel(t_fixed=1e-5, t_row=1e-5, t_ctx=5e-3)),
+    dict(speeds=(1.0, 0.5), num_frames=3, cfg_scale=2.0),
 ]
 
 

@@ -160,7 +160,8 @@ def test_planners_equal(speeds, name, p_total, tiers):
 def test_planner_registry():
     assert set(tplan.PLANNERS) == {"uniform", "spatial", "temporal", "stadi",
                                    "makespan", "stadi_pipefuse",
-                                   "stadi_guidance", "stadi_seq"}
+                                   "stadi_guidance", "stadi_seq",
+                                   "stadi_video"}
     assert set(tplan.PLANNERS) <= set(jplan.PLANNERS)
     with pytest.raises(KeyError):
         tplan.get_planner("nope")
@@ -285,7 +286,14 @@ def test_simulate_refuses_later_axes():
     trace.stages = [1, 1]                 # the pipefuse slice prices stages
     assert tsim.simulate_trace(trace, [1.0, 1.0],
                                tsim.CostModel(1e-3, 1e-3)) > 0.0
-    trace = tsim.build_trace(tp, [4, 4], get_config("tiny-dit").reduced())
-    trace.frames = object()
-    with pytest.raises(NotImplementedError, match="frames"):
-        tsim.simulate_trace(trace, [1.0, 1.0], tsim.CostModel(1e-3, 1e-3))
+    # the frames slice prices frames: a 3-frame trace costs more than the
+    # image, a one-frame plan is the image's
+    from repro_torch.core.frames import FramePlan
+    cfg = get_config("tiny-dit").reduced()
+    cm = tsim.CostModel(1e-3, 1e-3, t_ctx=1e-5)
+    image = tsim.simulate_trace(tsim.build_trace(tp, [4, 4], cfg),
+                                [1.0, 1.0], cm)
+    one = tsim.build_trace(tp, [4, 4], cfg, frames=FramePlan(1, (1,)))
+    assert tsim.simulate_trace(one, [1.0, 1.0], cm) == image
+    three = tsim.build_trace(tp, [4, 4], cfg, frames=FramePlan(3, (3,)))
+    assert tsim.simulate_trace(three, [1.0, 1.0], cm) > image
