@@ -8,9 +8,11 @@ interleaved) through ``StadiPipeline.generate`` and the multi-rank paths
 (spmd, unguided, fused and split guidance, and spmd_seq, sequence-parallel
 attention) on gloo ranks that share the card, the displaced stage chain
 (pipefuse, its serving lanes and spmd_pipefuse), the multi-rank serving
-lanes (the spmd stepper) and the frame axis (4-frame videos: emulated,
-guided, the stadi_video plan, spmd_frames and the video serving lanes), and
-checks card-vs-CPU outputs.
+lanes (the spmd stepper), the frame axis (4-frame videos: emulated,
+guided, the stadi_video plan, spmd_frames and the video serving lanes) and
+prompt conditioning (the frozen text encoder and the DiT's prompt
+cross-attention: the main path, guided, a guided video, the prompt-bucket
+serving lanes and spmd on a prompt), and checks card-vs-CPU outputs.
 
     python3 chip_smoke.py
     python3 chip_smoke.py --nccl     # only phases 11, 19 and 22, over NCCL
@@ -79,7 +81,9 @@ Phases (any failure raises, so the script exits non-zero):
      spmd_guidance on 4 ranks at [0.0, 0.0, 0.5, 0.5] (split), and backend
      spmd_seq on 2 x 2 ranks (the main path's cluster, seq_shards 2,
      exchange ring; timed on its one generate, its collectives timed
-     between card synchronisations); each rank's K1, K2, K3 and K4
+     between card synchronisations), and backend spmd on 2 ranks with the
+     text-conditioned model on PROMPT (``spmd_prompt_check``); each rank's
+     K1, K2, K3 and K4
      launches equal to its trace's count, finite images equal on every
      rank, relative error against the emulated image on the card < 1e-2
      (bf16, 16 steps). tiny-dit.reduced() fp32 through the same backends
@@ -88,7 +92,9 @@ Phases (any failure raises, so the script exits non-zero):
      card take turns on it, so they are not a multi-GPU makespan.
  12. tiny-dit.reduced() in fp32, unguided, fused and interleaved: the card's
      image (through K1 and K3) against the CPU's (through the plain
-     versions), relative error < 1e-3
+     versions), relative error < 1e-3; the same for
+     tiny-dit.reduced().text_conditioned(8) on two prompts, unguided and
+     fused, after the frozen tower (card vs CPU max abs error < 1e-4)
  13. K6 (causal / sliding-window flash attention with GQA and a meta-token
      prefix) against its plain version at Hymba-1.5B's prefill shapes (q
      [1, 2048, 25, 64], k/v [1, 2048, 5, 64]) for causal only, causal +
@@ -176,9 +182,27 @@ Phases (any failure raises, so the script exits non-zero):
      the emulated video (bitwise printed), the handoffs' and gathers'
      seconds a rank from a generate under the collectives wrapper
      (``spmd_frames_check``).
+ 23. prompt conditioning on sdxl-dit .text_conditioned(32), bf16, weights
+     from SEED (the class leaves bitwise phase 9's): the main path's plan on
+     a 7-word prompt (bucket 8) from the port's tower (``prompt_check``:
+     launches the class path's 616 K1, seconds beside the class path's
+     in this call, another prompt of its bucket steers the image apart and
+     a shorter one (bucket 4) by more than 1e-2, class ids
+     under the text config bitwise the class path, the tower's time, and
+     a profiled generate with the cross-attention's and the tower's
+     device time, ``prompt_profile``); fused guidance 4.0
+     (``prompt_guided_check``: 22 K3 as the class guided path, the fused
+     null branch bitwise an explicit null_cond forward, the read of the
+     null sequence exactly 0.0 in bf16); a 2-frame guided video on the
+     stadi_video plan at [0.0, 0.0, 0.5, 0.5] (``prompt_video_check``:
+     frame 0 bitwise the guided image on its schedule); six prompt requests
+     of buckets 8, 8, 4, 32, 4, 32 (two guided) on 4 slots
+     (``diffusion_serve_prompt``: launches from the dispatches, dispatches
+     by guidance and bucket, each image bitwise its lone generate, drain
+     seconds).
  Phases 13 to 15 run after phase 8, before the sdxl-dit paths; phase 16
  after phase 10, 17 after 7, 18 after 16, 19 after 11, 20 after 17, 21
- after 18 and 22 after 11.
+ after 18, 23 after 21 and 22 after 11.
 Every path is driven with the launch counters set to 0 just before it and
 read just after (on every rank for the multi-rank paths). The
 second-to-last line is the kernels' JSON record, the last line the device
@@ -985,11 +1009,15 @@ def sdxl_setup(dev):
     cfg = get_config("sdxl-dit")
     gen = torch.Generator(device=dev).manual_seed(SEED)
     params = dit.nondegenerate_params(dit.init_params(gen, cfg), gen)
-    gen = torch.Generator(device=dev).manual_seed(SEED + 3)
-    x_T = torch.randn(1, cfg.latent_size, cfg.latent_size, cfg.channels,
-                      generator=gen, device=dev).to(torch.bfloat16)
     cond = torch.tensor([SEED % cfg.n_classes], device=dev)
-    return cfg, params, x_T, cond
+    return cfg, params, main_x_T(cfg, dev), cond
+
+
+def main_x_T(cfg, dev):
+    """The main path's x_T, from SEED + 3 on ``dev``."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 3)
+    return torch.randn(1, cfg.latent_size, cfg.latent_size, cfg.channels,
+                       generator=gen, device=dev).to(torch.bfloat16)
 
 
 def tiny_setup():
@@ -1564,26 +1592,317 @@ def phase_spmd_frames(dev, dist_backend="gloo"):
     return outs
 
 
-def phase_cross_device(dev):
-    """tiny-dit.reduced() in fp32 on the card and on the CPU: unguided,
-    guided fused and guided interleaved."""
+# ----------------------------------------------------------------------
+# prompt conditioning: the frozen text encoder and the DiT's prompt
+# cross-attention on sdxl-dit .text_conditioned(32)
+# ----------------------------------------------------------------------
+
+PROMPT_SEQ_LEN = 32
+#: the main path's prompt (7 words: bucket 8), another of its length, and
+#: a shorter one (bucket 4). The stand-in tower's tokens are mostly its
+#: sinusoidal positions (the hash-token embedding is drawn at std 0.02), so
+#: prompts of one length steer the image apart far less than lengths do
+PROMPT = "a red fox in the deep snow"
+PROMPT_OTHER = "a blue whale singing under the ice"
+PROMPT_SHORT = "whale song"
+#: diffusion_serve_prompt traffic on 4 slots: (cfg_scale, round it is
+#: submitted before, prompt). Buckets 8, 8, 4 (guided) and 32 at round 0,
+#: then 4 (guided) and 32, queued until the first wave retires
+PROMPT_TRAFFIC = [
+    (None, 0, PROMPT),
+    (None, 0, "an old lighthouse on a rocky shore"),
+    (3.0, 0, "fox at dusk"),
+    (None, 0, "a quiet mountain village at dawn with mist over the river "
+              "and smoke rising from the chimneys of small stone houses"),
+    (5.0, 3, "whale song"),
+    (None, 3, "a crowded night market in the rain with neon signs reflected "
+              "in puddles and people holding umbrellas of every color"),
+]
+PROMPT_BUCKETS = [8, 8, 4, 32, 4, 32]
+#: the prompt read's helpers in models/diffusion/dit.py that the profile
+#: wraps in record_function ranges
+PROMPT_RANGES = ("_prompt_kv", "_prompt_read")
+
+
+def prompt_setup(dev):
+    """sdxl-dit .text_conditioned(PROMPT_SEQ_LEN) with weights from SEED
+    (its class leaves bitwise sdxl_setup's, the cross-attention leaves from
+    their own stream), the main path's x_T, and PROMPT's tokens from the
+    port's frozen tower on ``dev``."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import text_encoder
+    from repro_torch.models.diffusion import dit
+
+    cfg = get_config("sdxl-dit").text_conditioned(cond_seq_len=PROMPT_SEQ_LEN)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    params = dit.nondegenerate_params(dit.init_params(gen, cfg), gen)
+    return (cfg, params, main_x_T(cfg, dev),
+            text_encoder.encode([PROMPT], cfg, device=dev))
+
+
+def profile_prompt(pipe, x_T, wall_s, top=12):
+    """One encode of PROMPT and one generate on its tokens under
+    torch.profiler, the prompt read's helpers (PROMPT_RANGES) and the
+    encode in record_function ranges: the device time of the tower, of the
+    prompt K/V projection and of the cross-attention read (each range's
+    kernels), the device busy time by kernel, and the generate's idle share
+    against the unprofiled wall time."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+    from repro_torch.models import text_encoder
+    from repro_torch.models.diffusion import dit
+
+    originals = {name: getattr(dit, name) for name in PROMPT_RANGES}
+
+    def ranged(name):
+        def call(*args, **kw):
+            with record_function(name):
+                return originals[name](*args, **kw)
+        return call
+    for name in PROMPT_RANGES:
+        setattr(dit, name, ranged(name))
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            with record_function("text_encoder.encode"):
+                tok = text_encoder.encode([PROMPT], pipe.model_cfg,
+                                          device=pipe.device)
+            pipe.generate(x_T, tok)
+            torch.cuda.synchronize()
+    finally:
+        for name, fn in originals.items():
+            setattr(dit, name, fn)
+    cpu = torch.autograd.DeviceType.CPU
+    events = prof.events()
+
+    def range_s(name):
+        return sum(e.device_time_total for e in events
+                   if e.name == name and e.device_type == cpu) * 1e-6
+    kernels = []
+    for ev in prof.key_averages():
+        dev_us = getattr(ev, "self_device_time_total",
+                         getattr(ev, "self_cuda_time_total", 0.0))
+        # the ranges also show on the device's timeline, spanning their
+        # kernels and the gaps between them: they are no kernels
+        if (dev_us > 0 and ev.device_type == torch.autograd.DeviceType.CUDA
+                and ev.key not in PROMPT_RANGES + ("text_encoder.encode",)):
+            kernels.append((ev.key, dev_us, ev.count))
+    kernels.sort(key=lambda k: -k[1])
+    tower_s = range_s("text_encoder.encode")
+    busy_s = sum(us for _, us, _ in kernels) * 1e-6 - tower_s
+    line = {"wall_s": wall_s, "device_busy_s": busy_s,
+            "device_idle_share": max(0.0, 1.0 - busy_s / wall_s),
+            "tower_device_s": tower_s,
+            "prompt_kv_device_s": range_s("_prompt_kv"),
+            "cross_attention_device_s": range_s("_prompt_read"),
+            "k1_device_s": sum(us for n, us, _ in kernels
+                               if "stale_kv_attention" in n) * 1e-6,
+            "kernel_launches": sum(c for _, _, c in kernels),
+            "top_kernels": [{"name": n[:120], "device_s": us * 1e-6,
+                             "calls": c} for n, us, c in kernels[:top]]}
+    print("prompt_profile", json.dumps(line), flush=True)
+    return line
+
+
+def phase_prompt(ops, dev, class_launches):
+    """The prompt paths on sdxl-dit .text_conditioned(32), bf16: the main
+    path's plan on PROMPT (``prompt_check``: launches the class path's,
+    seconds beside the class path's in this call, other prompts steer the
+    image apart (a shorter one by more than 1e-2), class ids under the text
+    config bitwise the class path, the tower's time, a profile); fused
+    guidance (``prompt_guided_check``: K3 as the class guided path, the
+    fused null branch bitwise an explicit null_cond
+    forward, one block's read of the null sequence exactly 0.0); a 2-frame
+    guided video on the stadi_video plan (``prompt_video_check``: frame 0
+    bitwise the guided image on its schedule); and six prompt requests of
+    buckets 4, 8 and 32 on 4 slots (``diffusion_serve_prompt``: each image
+    bitwise its lone generate). Returns {label: launches}."""
+    from repro_torch.core import patch_parallel as pp
     from repro_torch.core import sampler
     from repro_torch.core.pipeline import StadiConfig, StadiPipeline
+    from repro_torch.models import text_encoder
+    from repro_torch.models.diffusion import dit
+    from repro_torch.serving import DiffusionServingEngine
+
+    cfg, params, x_T, tok = prompt_setup(dev)
+    ccfg, cparams, _, cond = sdxl_setup(dev)
+    sched = sampler.linear_schedule(1000)
+    main = StadiConfig.from_occupancies([0.0, 0.5], m_base=16, m_warmup=4,
+                                        planner="stadi", backend="emulated",
+                                        exchange="sync")
+    leaves = all(torch.equal(v, params[k]) for k, v in cparams.items()
+                 if k != "blocks") and all(
+        torch.equal(v, params["blocks"][k]) for k, v in cparams["blocks"].items())
+    class_res, class_s = timed_pipe_generate(
+        StadiPipeline(ccfg, cparams, sched, main, device=dev), x_T, cond)
+    del cparams
+    torch.cuda.empty_cache()
+    pipe = StadiPipeline(cfg, params, sched, main, device=dev)
+    class_ids = torch.equal(pipe.generate(x_T, cond).image, class_res.image)
+    tower_ms = time_ms(lambda: text_encoder.encode([PROMPT], cfg, device=dev))
+    launches, img, seconds = drive_path(ops, "prompt_check", cfg, params, x_T,
+                                        tok, main, dev, profile=False)
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    steer, steer_len = (rel_err(pipe.generate(x_T, text_encoder.encode(
+        [p], cfg, device=dev)).image, img) for p in (PROMPT_OTHER, PROMPT_SHORT))
+    prof = profile_prompt(pipe, x_T, seconds)
+    print("prompt_check", json.dumps({
+        "prompt": PROMPT, "bucket": tok.shape[1], "seconds": seconds,
+        "class_seconds": class_s, "ratio_to_class": seconds / class_s,
+        "launches": launches, "class_launches": class_launches["main_path"],
+        "finite": bool(torch.isfinite(img.float()).all()),
+        "rel_diff_other_prompt": steer, "rel_diff_short_prompt": steer_len,
+        "class_leaves_bitwise": leaves, "class_ids_bitwise_class_path": class_ids,
+        "tower_ms": tower_ms, "tower_device_s": prof["tower_device_s"],
+        "cross_attention_device_s": prof["cross_attention_device_s"],
+        "prompt_kv_device_s": prof["prompt_kv_device_s"],
+        "device_idle_share": prof["device_idle_share"],
+        "peak_gib": peak_gib}), flush=True)
+    check(tok.shape[1] == 8, f"prompt_check: bucket {tok.shape[1]}, not 8")
+    check(launches == class_launches["main_path"],
+          f"prompt_check: launches {launches}, the class path's "
+          f"{class_launches['main_path']}")
+    check(bool(torch.isfinite(img.float()).all()), "prompt_check: non-finite image")
+    check(steer > 0 and steer_len > 1e-2, f"prompt_check: prompts steer the "
+          f"image apart by {steer} (same bucket) and {steer_len} (bucket 4)")
+    check(leaves, "prompt_check: the text config's class leaves differ")
+    check(class_ids, "prompt_check: class ids under the text config are not "
+          "bitwise the class path")
+
+    guided = dataclasses.replace(main, cfg_scale=CFG_SCALE)
+    g_launches, _, g_seconds = drive_path(ops, "prompt_guided_check", cfg,
+                                          params, x_T, tok, guided, dev,
+                                          profile=False)
+    eps2, _ = dit.forward_patch_cfg(pipe.params, cfg, x_T, 500, tok, 0,
+                                    return_kv=False)
+    null = text_encoder.null_cond(1, tok.shape[1], cfg, device=dev)
+    null_bitwise = torch.equal(eps2[1], dit.forward(pipe.params, cfg, x_T, 500,
+                                                    null))
+    h = torch.randn(1, 2304, cfg.d_model, device=dev).to(torch.bfloat16)
+    blk = {k: v[0] for k, v in pipe.params["blocks"].items()}
+    kv = dit._prompt_kv(pipe.params["blocks"]["xkv"][:1], null[..., :-1],
+                        h.dtype)[0]
+    null_read = dit._prompt_read(blk, h, kv, (null[..., -1] > 0.5)[
+        :, None, None, :], cfg.n_heads)
+    null_zero = torch.equal(null_read, h)
+    print("prompt_guided_check", json.dumps({
+        "cfg_scale": CFG_SCALE, "seconds": g_seconds, "launches": g_launches,
+        "class_launches": class_launches["guided_fused"],
+        "fused_null_bitwise_explicit_null": null_bitwise,
+        "null_read_exactly_zero_bf16": null_zero}), flush=True)
+    check(g_launches == class_launches["guided_fused"],
+          f"prompt_guided_check: launches {g_launches}, the class guided "
+          f"path's {class_launches['guided_fused']}")
+    check(null_bitwise, "prompt_guided_check: the fused null branch is not "
+          "bitwise an explicit null_cond forward")
+    check(null_zero, "prompt_guided_check: the read of the null sequence "
+          "is not exactly 0.0")
+
+    video_cfg = StadiConfig.from_occupancies(
+        [0.0, 0.0, 0.5, 0.5], m_base=16, m_warmup=4, planner="stadi_video",
+        num_frames=2, guidance="fused", cfg_scale=CFG_SCALE,
+        backend="emulated", exchange="sync")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 31)
+    clip = torch.cat([x_T[:, None], torch.randn(
+        1, 1, *x_T.shape[1:], generator=gen, device=dev).to(x_T.dtype)], 1)
+    v_launches, vid, v_seconds = drive_path(ops, "prompt_video_check", cfg,
+                                            params, clip, tok, video_cfg, dev,
+                                            profile=False)
+    plan = StadiPipeline(cfg, params, sched, video_cfg, device=dev).plan()
+    image = pp.run_schedule(pipe.params, cfg, sched, x_T, tok, plan.temporal,
+                            plan.patches, guidance=plan.guidance).image
+    frame0 = torch.equal(vid[:, 0], image)
+    print("prompt_video_check", json.dumps({
+        "frames": 2, "plan": {"steps": plan.temporal.steps,
+                              "patches": plan.patches,
+                              "frame_groups": list(plan.frames.groups),
+                              "guidance": plan.guidance.mode},
+        "seconds": v_seconds, "launches": v_launches,
+        "frame0_bitwise_guided_image": frame0}), flush=True)
+    check(frame0, "prompt_video_check: frame 0 is not bitwise the guided "
+          "image on its schedule")
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 5)
+    xs = [torch.randn(1, cfg.latent_size, cfg.latent_size, cfg.channels,
+                      generator=gen, device=dev).to(torch.bfloat16)
+          for _ in PROMPT_TRAFFIC]
+    toks = [text_encoder.encode([p], cfg, device=dev)
+            for _, _, p in PROMPT_TRAFFIC]
+    traffic = [(scale, at) for scale, at, _ in PROMPT_TRAFFIC]
+    check([t.shape[1] for t in toks] == PROMPT_BUCKETS,
+          f"diffusion_serve_prompt: buckets {[t.shape[1] for t in toks]}")
+    serve_drain(DiffusionServingEngine(pipe, slots=SERVE_SLOTS), xs, toks,
+                traffic)
+    torch.cuda.synchronize()
+    engine = DiffusionServingEngine(pipe, slots=SERVE_SLOTS)
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    reqs, walls = serve_drain(engine, xs, toks, traffic, sync=True)
+    drain_s = time.perf_counter() - t0
+    s_launches = ops.launch_counts()
+    stats = engine.stats()
+    expected = serve_expected_launches(stats, cfg.n_layers)
+    bitwise = [torch.equal(req.image, StadiPipeline(
+        cfg, params, sched, dataclasses.replace(main, cfg_scale=scale or 0.0),
+        device=dev).generate(xs[i], toks[i]).image)
+        for i, (req, (scale, _)) in enumerate(zip(reqs, traffic))]
+    print("diffusion_serve_prompt", json.dumps({
+        "slots": SERVE_SLOTS, "traffic": traffic, "buckets": PROMPT_BUCKETS,
+        "drain_s": drain_s, "images_per_s": len(reqs) / drain_s,
+        "rounds": len(engine.rounds), "round_walls_s": walls,
+        "dispatches": stats["dispatches"],
+        "dispatches_by_bucket": stats["dispatches_by_bucket"],
+        "launches": s_launches, "expected_launches": expected,
+        "bitwise_vs_generate": bitwise,
+        "wall_latency_s": [r.wall_latency_s for r in reqs]}), flush=True)
+    check(s_launches == expected and all(expected.values()),
+          f"diffusion_serve_prompt: launches {s_launches}, the dispatches "
+          f"need {expected}")
+    check(all(bitwise), f"diffusion_serve_prompt: served images not bitwise "
+          f"their lone generate: {bitwise}")
+    return {"prompt_check": launches, "prompt_guided_check": g_launches,
+            "prompt_video_check": v_launches,
+            "diffusion_serve_prompt": s_launches}
+
+
+def phase_cross_device(dev):
+    """tiny-dit.reduced() in fp32 on the card and on the CPU: unguided,
+    guided fused and guided interleaved; and tiny-dit.reduced()
+    .text_conditioned(8) on two prompts, unguided and guided fused, after
+    the frozen tower itself (card against CPU within 1e-4)."""
+    from repro_torch.core import sampler
+    from repro_torch.core.pipeline import StadiConfig, StadiPipeline
+    from repro_torch.models import text_encoder
+    from repro_torch.models.diffusion import dit
 
     cfg, params, x_T, cond = tiny_setup()
-    configs = {
-        "unguided": StadiConfig.from_occupancies([0.0, 0.5], m_base=8,
-                                                 m_warmup=2),
-        "guided_fused": StadiConfig.from_occupancies(
-            [0.0, 0.5], m_base=8, m_warmup=2, cfg_scale=CFG_SCALE),
-        "guided_interleaved": StadiConfig.from_occupancies(
+    tcfg = cfg.text_conditioned(cond_seq_len=8)
+    gen = torch.Generator(device="cpu").manual_seed(SEED)
+    tparams = dit.nondegenerate_params(dit.init_params(gen, tcfg), gen)
+    prompts = ["a red fox", "blue whale song under the ice"]
+    tok = text_encoder.encode(prompts, tcfg, device="cpu")
+    tower_err = (text_encoder.encode(prompts, tcfg, device=dev).cpu()
+                 - tok).abs().max().item()
+    print(f"cross_device text encoder (cond_dim {tcfg.cond_dim}, bucket "
+          f"{tok.shape[1]}): card vs CPU max abs error {tower_err:.3e} "
+          "(bar 1e-4)", flush=True)
+    check(tower_err < 1e-4, f"the tower on the card differs from the CPU's: "
+          f"{tower_err}")
+    unguided = StadiConfig.from_occupancies([0.0, 0.5], m_base=8, m_warmup=2)
+    fused = dataclasses.replace(unguided, cfg_scale=CFG_SCALE)
+    runs = {
+        "unguided": (cfg, params, cond, unguided),
+        "guided_fused": (cfg, params, cond, fused),
+        "guided_interleaved": (cfg, params, cond, StadiConfig.from_occupancies(
             [0.0, 0.0, 0.5, 0.5], m_base=16, m_warmup=4, cfg_scale=CFG_SCALE,
-            planner="stadi_guidance", guidance="interleaved"),
+            planner="stadi_guidance", guidance="interleaved")),
+        "prompt": (tcfg, tparams, tok, unguided),
+        "prompt_guided_fused": (tcfg, tparams, tok, fused),
     }
     rels = {}
-    for label, config in configs.items():
-        images = {d: StadiPipeline(cfg, params, sampler.linear_schedule(1000),
-                                   config, device=d).generate(x_T, cond).image.cpu()
+    for label, (model_cfg, weights, c, config) in runs.items():
+        images = {d: StadiPipeline(model_cfg, weights,
+                                   sampler.linear_schedule(1000), config,
+                                   device=d).generate(x_T, c).image.cpu()
                   for d in ("cpu", dev)}
         rel = ((images[dev] - images["cpu"]).norm() / images["cpu"].norm()).item()
         print(f"cross_device tiny-dit.reduced fp32 {label}: card vs CPU "
@@ -1921,7 +2240,8 @@ def phase_chain_ranks(dev, dist_backend="gloo"):
 def spmd_paths():
     """The multi-rank paths: label -> (model, ranks, config). sdxl-dit at
     full width on the main path's cluster (unguided and fused guidance, 2
-    ranks; sequence-parallel at seq_shards 2, 2 x 2 ranks) and the split
+    ranks; on PROMPT with the text-conditioned model, 2 ranks;
+    sequence-parallel at seq_shards 2, 2 x 2 ranks) and the split
     placement (4 ranks); tiny-dit.reduced() in fp32 under each exchange
     kind and placement the card-vs-CPU check covers."""
     from repro_torch.core.pipeline import StadiConfig
@@ -1937,6 +2257,7 @@ def spmd_paths():
                               backend="spmd_seq")
     return {
         "spmd": ("sdxl", 2, main),
+        "spmd_prompt": ("sdxl_prompt", 2, main),
         "spmd_fused": ("sdxl", 2, dataclasses.replace(main, cfg_scale=CFG_SCALE)),
         "spmd_split": ("sdxl", 4, split),
         "tiny_spmd_sync": ("tiny", 2, tiny),
@@ -2013,6 +2334,12 @@ def timed_generate(pipe, x_T, cond, device):
             setattr(comm, name, fn)
 
 
+def model_setup(model, dev):
+    """(cfg, params, x_T, cond) of a model of ``spmd_paths``."""
+    return {"sdxl": sdxl_setup, "sdxl_prompt": prompt_setup,
+            "tiny": lambda _: tiny_setup()}[model](dev)
+
+
 def spmd_rank(ctx, jobs):
     """One rank of the spmd phase: for each job, an optional warm-up
     generate, then a generate with the launch counters set to 0 just before
@@ -2030,13 +2357,14 @@ def spmd_rank(ctx, jobs):
     models, out = {}, {}
     for label, model, config in jobs:
         if model not in models:
-            models[model] = sdxl_setup(ctx.device) if model == "sdxl" else tiny_setup()
+            models[model] = model_setup(model, ctx.device)
         cfg, params, x_T, cond = models[model]
         pipe = StadiPipeline(cfg, params, sampler.linear_schedule(1000), config,
                              device=ctx.device)
-        single = (model == "sdxl" and config.backend == "spmd_seq"
+        sdxl = model.startswith("sdxl")
+        single = (sdxl and config.backend == "spmd_seq"
                   and dist.get_backend() == "gloo")
-        if model == "sdxl" and not single:       # first call: cuBLAS warm-up
+        if sdxl and not single:                  # first call: cuBLAS warm-up
             pipe.generate(x_T, cond)
             torch.cuda.synchronize(ctx.device)
         torch.cuda.reset_peak_memory_stats(ctx.device)
@@ -2050,7 +2378,7 @@ def spmd_rank(ctx, jobs):
             seconds = time.perf_counter() - t0
         launches = ops.launch_counts()
         peak_gib = torch.cuda.max_memory_allocated(ctx.device) / 2**30
-        if model == "sdxl" and not single:
+        if sdxl and not single:
             _, timed_s, spent = timed_generate(pipe, x_T, cond, ctx.device)
         elif single:
             timed_s = seconds
@@ -2081,8 +2409,9 @@ def phase_spmd(dev, dist_backend="gloo"):
 
     paths = spmd_paths()
     refs = {}
-    for model, device, bar in (("sdxl", dev, 1e-2), ("tiny", "cpu", 1e-3)):
-        cfg, params, x_T, cond = sdxl_setup(dev) if model == "sdxl" else tiny_setup()
+    for model, device, bar in (("sdxl", dev, 1e-2), ("sdxl_prompt", dev, 1e-2),
+                               ("tiny", "cpu", 1e-3)):
+        cfg, params, x_T, cond = model_setup(model, dev)
         for label, (m, _, config) in paths.items():
             if m == model:
                 emu = dataclasses.replace(config, backend="emulated")
@@ -2130,7 +2459,8 @@ def phase_spmd(dev, dist_backend="gloo"):
                     "expected_per_rank": [o["expected"] for o in outs],
                     "rel_err_vs_emulated": rels, "bar": bar,
                     "emulated_on": str(ref_device)}
-            print("spmd_check", json.dumps(line), flush=True)
+            print("spmd_prompt_check" if label == "spmd_prompt" else
+                  "spmd_check", json.dumps(line), flush=True)
             for r, o in enumerate(outs):
                 check(bool(np.isfinite(o["image"]).all()),
                       f"{label}: rank {r} image not finite")
@@ -2593,6 +2923,7 @@ def main():
     launches["diffusion_serve_pipefuse"] = phase(
         phase_diffusion_serve_pipefuse, ops, dev)
     launches.update(phase(phase_frames, ops, dev))
+    launches.update(phase(phase_prompt, ops, dev, launches))
     spmd = phase(phase_spmd, dev)
     spmd["spmd_frames"] = phase(phase_spmd_frames, dev)
     launches.update(phase(phase_chain_ranks, dev)[0])

@@ -22,10 +22,8 @@ class DiTConfig:
     cond_dim: int = 64               # class/prompt conditioning embedding dim
     n_classes: int = 16              # synthetic conditioning vocabulary
     # prompt conditioning (DESIGN.md §17): cond_seq_len > 0 declares the
-    # workload prompt-conditioned and cross_attn interleaves a prompt
-    # cross-attention read into every DiT block. The port's DiT runs the
-    # class-conditional defaults (0 / False); prompt conditioning comes
-    # with a later slice of the port.
+    # workload prompt-conditioned (its largest prompt bucket) and cross_attn
+    # interleaves a prompt cross-attention read into every DiT block
     cond_seq_len: int = 0
     cross_attn: bool = False
     # numerics

@@ -341,18 +341,24 @@ def replay(plan: TemporalPlan, patches: Sequence[int],
 def make_trace(records: List[IntervalEvent], plan: TemporalPlan,
                patches: Sequence[int], cfg, batch: int,
                stages: Optional[Sequence[int]] = None,
-               guidance=None, seq=None, frames=None) -> ExecutionTrace:
+               guidance=None, seq=None, frames=None,
+               cond_tokens: Optional[int] = None) -> ExecutionTrace:
     """Byte-size provenance shared by every trace producer (K/V is priced
     at 2 bytes per element, the latent at 4, as in the reference). Byte
     sizes are per frame: the frame cost model multiplies them by the frames
-    each member row owns."""
+    each member row owns. ``cond_tokens`` (the prompt bucket the
+    cross-attention reads) defaults to the model's ``cond_seq_len`` when it
+    has ``cross_attn``, else 0; serving passes a lane group's own bucket."""
     H = cfg.latent_size
     lat_bytes = int(batch * H * H * cfg.channels * 4)
     kv_bytes = [int(2 * cfg.n_layers * batch * pr * cfg.tokens_per_side
                     * cfg.d_model * 2) for pr in patches]
     act_row = int(batch * cfg.tokens_per_side * cfg.d_model * 4)
+    if cond_tokens is None:
+        cond_tokens = (cfg.cond_seq_len
+                       if getattr(cfg, "cross_attn", False) else 0)
     return ExecutionTrace(records, plan, list(patches), cfg.n_tokens,
                           lat_bytes, kv_bytes,
                           stages=list(stages) if stages else None,
                           act_row_bytes=act_row, guidance=guidance, seq=seq,
-                          frames=frames)
+                          frames=frames, cond_tokens=int(cond_tokens))

@@ -68,6 +68,20 @@ def stage_blocks(params, lo: int, hi: int):
     return {name: leaf[lo:hi] for name, leaf in params["blocks"].items()}
 
 
+def refuse_prompt(cond, where: str) -> None:
+    """Raise for prompt-token conds on the displaced chain (two or more
+    stages). The reference's chain calls ``block_stack`` without its
+    ``prompt_ctx``, so a prompt there silently loses every block's
+    cross-attention and keeps only the pooled conditioning vector; the
+    port neither copies that loss nor adds a chain cross-attention the
+    reference lacks (ROADMAP.md queue 3)."""
+    if getattr(cond, "ndim", 0) >= 2:
+        raise ValueError(
+            f"{where} takes class conds only: the displaced stage chain has "
+            "no prompt cross-attention (the reference's chain drops it "
+            "silently); run prompts on one stage or another backend")
+
+
 def displaced_step(params, cfg: DiTConfig, x_loc, t, cond, row_start: int,
                    ctx_k, ctx_v, bounds):
     """One micro-task: a patch slab traverses every stage of the chain.
@@ -157,6 +171,8 @@ def run_pipefuse(params, cfg: DiTConfig, sched: NoiseSchedule, x_T, cond,
         raise ValueError("guided generation needs a class condition")
     tok_axis = 3 if guided else 2
     S = len(stages)
+    if S > 1:
+        refuse_prompt(cond, "the pipefuse backend")
     bounds = stage_bounds(stages)
     p = cfg.patch_size
     plan0, patches0 = plan, list(patches)

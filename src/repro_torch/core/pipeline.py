@@ -88,19 +88,6 @@ from repro_torch.core.sampler import NoiseSchedule
 from repro_torch.core.simulate import CostModel
 from repro_torch.kernels import ops as kops
 
-#: where the reference's later axes, planners and backends arrive in the
-#: port (ROADMAP.md queue 1)
-_LATER = {
-    "prompt": "the prompt-conditioning slice (queue 1 item 13)",
-}
-
-
-def later_slice(name: str) -> NotImplementedError:
-    """The error for a reference feature this slice of the port lacks."""
-    return NotImplementedError(f"{name!r} is not ported yet: it comes with "
-                               f"{_LATER[name]} of ROADMAP.md")
-
-
 def resolve_device(device=None) -> torch.device:
     """The device an entry point runs on: ``cuda`` unless the caller names
     another. Raises when CUDA is asked for (or implied) and absent — never
@@ -163,6 +150,11 @@ class StadiConfig:
     # stadi_video planner search
     num_frames: int = 1
     frame_groups: int = 0
+    # prompt conditioning (DESIGN.md §17): the prompt-token bucket the
+    # planner prices (CostModel.t_xattn per token read). 0 = derive from the
+    # model config (cond_seq_len when cross_attn, else no cross-attention
+    # cost); a serving bucket pins a shorter one
+    cond_bucket: int = 0
     # persistent plan cache (DESIGN.md §14): directory for serialized
     # planner outputs keyed by (cluster signature, model hash, workload
     # shape). None = no cache; StadiPipeline.plan() consults it before any
@@ -512,7 +504,8 @@ def simulate_executor(params, model_cfg, sched, x_T, cond, plan, config,
                             batch=batch, exchange=config.exchange,
                             exchange_refresh=config.exchange_refresh,
                             stages=plan.stages, guidance=plan.guidance,
-                            seq=plan.seq, frames=plan.frames)
+                            seq=plan.seq, frames=plan.frames,
+                            cond_tokens=(config.cond_bucket or None))
     return None, trace
 
 
@@ -717,6 +710,8 @@ def _check_frame_knobs(config: StadiConfig, guided: bool) -> None:
 
 
 def _to_device(tree, device):
+    if tree is None:                     # the simulate backend reads no weights
+        return None
     return {k: (_to_device(v, device) if isinstance(v, dict) else v.to(device))
             for k, v in tree.items()}
 
@@ -732,8 +727,6 @@ class StadiPipeline:
 
     def __init__(self, model_cfg: DiTConfig, params, sched: NoiseSchedule,
                  config: StadiConfig, device=None):
-        if model_cfg.cross_attn:
-            raise later_slice("prompt")
         get_planner(config.planner)      # fail fast on typos
         get_executor(config.backend)
         get_exchange(config.exchange, config.exchange_refresh)
@@ -779,6 +772,19 @@ class StadiPipeline:
                                  "sequence sharding (the device grouping "
                                  "is static)")
         _check_frame_knobs(config, guided)
+        if config.cond_bucket < 0:
+            raise ValueError(f"cond_bucket must be >= 0 (0 = derive from "
+                             f"the model config), got {config.cond_bucket}")
+        if config.cond_bucket > 0 and not model_cfg.cross_attn:
+            raise ValueError(
+                f"cond_bucket={config.cond_bucket} prices prompt-token "
+                "cross-attention but the model has cross_attn=False — "
+                "use DiTConfig.text_conditioned()")
+        if config.cond_bucket > model_cfg.cond_seq_len:
+            raise ValueError(
+                f"cond_bucket={config.cond_bucket} exceeds the model's "
+                f"cond_seq_len={model_cfg.cond_seq_len} (the encoder "
+                "never emits a longer prompt bucket)")
         self.device = resolve_device(device)
         self.model_cfg = model_cfg
         self.params = _to_device(params, self.device)
@@ -798,9 +804,9 @@ class StadiPipeline:
         return self.model_cfg.tokens_per_side
 
     def _plan_knobs(self) -> StadiConfig:
-        """The config with the model-derived depth, head count and byte
-        sizes filled in, which the staged, guided and seq planners price —
-        what planners actually see."""
+        """The config with the model-derived depth, head count, byte sizes
+        and prompt bucket filled in, which the staged, guided, seq and frame
+        planners price — what planners actually see."""
         knobs = self.config
         if knobs.depth is None:          # stage planning needs the DiT depth
             knobs = dataclasses.replace(knobs, depth=self.model_cfg.n_layers)
@@ -813,6 +819,11 @@ class StadiPipeline:
                 latent_bytes=int(cfg.latent_size ** 2 * cfg.channels * 4),
                 kv_row_bytes=int(2 * cfg.n_layers * cfg.tokens_per_side
                                  * cfg.d_model * 2))
+        if knobs.cond_bucket == 0 and self.model_cfg.cross_attn:
+            # a prompt model prices its whole cond_seq_len unless a serving
+            # bucket pins a shorter one
+            knobs = dataclasses.replace(
+                knobs, cond_bucket=self.model_cfg.cond_seq_len)
         return knobs
 
     def _model_key(self) -> str:
@@ -823,10 +834,8 @@ class StadiPipeline:
 
     def _workload_key(self, knobs: StadiConfig) -> Dict:
         """The workload-shape component of the plan-cache key: every knob
-        that changes what the planner returns, as the reference names them.
-        The prompt axis's knobs enter at the values this port runs (no
-        prompt bucket), so a key never depends on which slices are
-        ported."""
+        that changes what the planner returns, as the reference names them,
+        so an entry either package writes hits in the other."""
         cm = knobs.cost_model
         return {
             "planner": knobs.planner,
@@ -845,7 +854,7 @@ class StadiPipeline:
             "seq_shards": knobs.seq_shards, "n_heads": knobs.n_heads,
             "num_frames": knobs.num_frames,
             "frame_groups": knobs.frame_groups,
-            "cond_bucket": 0,
+            "cond_bucket": knobs.cond_bucket,
             "cross_attn": bool(self.model_cfg.cross_attn),
             "cost_model": (None if cm is None else dataclasses.asdict(cm)),
         }

@@ -271,18 +271,22 @@ def stadi_pipefuse_planner(speeds, knobs, p_total) -> ExecutionPlan:
 
 
 def _guided_plan_cost(plan: ExecutionPlan, speeds, p_total: int, cm,
-                      kv_row: float, latent_bytes: float) -> float:
+                      kv_row: float, latent_bytes: float,
+                      cond_tokens: int = 0) -> float:
     """Modeled seconds of one adaptive interval ending in a full boundary,
     under the guided cost model of :func:`repro_torch.core.simulate.
     _simulate_guided` (fused serializes both branches' staged K/V; split
     runs the branch domains concurrently and pays only the per-substep
     epsilon combine across them). With no byte provenance (kv_row == 0)
     this is the compute-only makespan. Interleaved costs average the
-    fresh/stale interval mix over the uncond_refresh cadence."""
+    fresh/stale interval mix over the uncond_refresh cadence. A prompt
+    model's ``cond_tokens`` add the cross-attention read to every row of
+    each branch."""
     g = plan.guidance
     t = plan.temporal
     R = t.lcm
     row_bytes = latent_bytes / max(p_total, 1)
+    t_row_eff = cm.t_row + cm.t_xattn * cond_tokens
 
     def interval_cost(fresh: bool) -> float:
         compute, eps_bytes, kv_bytes, hops = 0.0, 0.0, 0.0, 0
@@ -290,12 +294,12 @@ def _guided_plan_cost(plan: ExecutionPlan, speeds, p_total: int, cm,
             sub = R // t.ratios[i]
             rows = plan.patches[i]
             if g.mode == "fused":
-                step_t = cm.t_fixed + cm.t_row * rows * 2.0
+                step_t = cm.t_fixed + t_row_eff * rows * 2.0
                 tt = sub * step_t / max(speeds[i], 1e-9)
             else:
                 vc = speeds[g.cond_devices[i]]
                 vu = speeds[g.uncond_devices[i]]
-                step_t = cm.t_fixed + cm.t_row * rows
+                step_t = cm.t_fixed + t_row_eff * rows
                 if fresh or not g.worker_reuses(i):
                     tt = sub * step_t / max(min(vc, vu), 1e-9)
                 else:                    # reuse: uncond idles, cond runs
@@ -361,14 +365,16 @@ def stadi_guidance_planner(speeds, knobs, p_total) -> ExecutionPlan:
         cand = dataclasses.replace(base, planner="stadi_guidance",
                                    speeds=list(speeds), guidance=gp)
         cost = _guided_plan_cost(cand, speeds, p_total, cm,
-                                 knobs.kv_row_bytes, knobs.latent_bytes)
+                                 knobs.kv_row_bytes, knobs.latent_bytes,
+                                 cond_tokens=knobs.cond_bucket)
         candidates.append(dataclasses.replace(cand,
                                               modeled_interval_cost=cost))
     return min(candidates, key=lambda c: c.modeled_interval_cost)
 
 
 def _seq_plan_cost(plan: ExecutionPlan, groups, p_total: int, cm,
-                   kv_row: float, latent_bytes: float, refresh: int) -> float:
+                   kv_row: float, latent_bytes: float, refresh: int,
+                   cond_tokens: int = 0) -> float:
     """Modeled seconds of one adaptive interval under the ring-contention
     cost model of :func:`repro_torch.core.simulate._simulate_seq`, averaged
     over the "ring" policy's refresh cadence (1 full boundary and E-1
@@ -391,7 +397,8 @@ def _seq_plan_cost(plan: ExecutionPlan, groups, p_total: int, cm,
         sub = R // t.ratios[i]
         rows = plan.patches[i]
         members = groups[i] if groups is not None else [plan.speeds[i]]
-        wt = max((cm.t_fixed + cm.t_row * rows * segf[j]) / max(v, 1e-9)
+        wt = max((cm.t_fixed + (cm.t_row + cm.t_xattn * cond_tokens)
+                  * rows * segf[j]) / max(v, 1e-9)
                  + cm.attn_time(p_total, headf[j], v)
                  for j, v in enumerate(members))
         compute = max(compute, sub * wt)
@@ -439,7 +446,8 @@ def stadi_seq_planner(speeds, knobs, p_total) -> ExecutionPlan:
         cand = dataclasses.replace(base, planner="stadi_seq")
         candidates.append(dataclasses.replace(
             cand, modeled_interval_cost=_seq_plan_cost(
-                cand, None, p_total, cm, kv_row, latent_bytes, refresh)))
+                cand, None, p_total, cm, kv_row, latent_bytes, refresh,
+                cond_tokens=knobs.cond_bucket)))
     if n_heads is None and forced > 1:
         raise ValueError("stadi_seq needs knobs.n_heads (the attention "
                          "head count) to scatter heads; StadiPipeline "
@@ -458,7 +466,8 @@ def stadi_seq_planner(speeds, knobs, p_total) -> ExecutionPlan:
                                    speeds=list(speeds), seq=seq)
         candidates.append(dataclasses.replace(
             cand, modeled_interval_cost=_seq_plan_cost(
-                cand, groups, p_total, cm, kv_row, latent_bytes, refresh)))
+                cand, groups, p_total, cm, kv_row, latent_bytes, refresh,
+                cond_tokens=knobs.cond_bucket)))
     if not candidates:
         raise ValueError(
             f"seq_shards={forced} is infeasible: need 1 <= S <= "
@@ -468,7 +477,7 @@ def stadi_seq_planner(speeds, knobs, p_total) -> ExecutionPlan:
 
 def _frame_plan_cost(plan: ExecutionPlan, rows, p_total: int, cm,
                      kv_row: float, latent_bytes: float,
-                     refresh: int) -> float:
+                     refresh: int, cond_tokens: int = 0) -> float:
     """Modeled seconds of one adaptive interval under the frame cost model
     of :func:`repro_torch.core.simulate._simulate_frames`, averaged over the
     stale_async refresh cadence (1 full boundary + E-1 degraded per E).
@@ -490,6 +499,7 @@ def _frame_plan_cost(plan: ExecutionPlan, rows, p_total: int, cm,
     # the fixed overhead is shared
     mult = 2 if plan.guidance is not None else 1
     kv_row = kv_row * mult
+    t_row_eff = cm.t_row + cm.t_xattn * cond_tokens
     # frame 0 sits in the first row (bounds are contiguous from frame 0)
     ctx = [mult * p_total * (2 * fplan.groups[g] - (1 if g == 0 else 0))
            for g in range(G)]
@@ -499,7 +509,7 @@ def _frame_plan_cost(plan: ExecutionPlan, rows, p_total: int, cm,
         rows_i = plan.patches[i]
         members = ([(rows[g][i], g) for g in range(G)] if rows is not None
                    else [(plan.speeds[i], 0)])
-        wt = max(fplan.groups[g] * (cm.t_fixed + cm.t_row * rows_i * mult)
+        wt = max(fplan.groups[g] * (cm.t_fixed + t_row_eff * rows_i * mult)
                  / max(v, 1e-9) + cm.attn_time(ctx[g], 1.0, v)
                  for v, g in members)
         compute = max(compute, sub * wt)
@@ -568,7 +578,8 @@ def stadi_video_planner(speeds, knobs, p_total) -> ExecutionPlan:
                                    guidance=gp)
         candidates.append(dataclasses.replace(
             cand, modeled_interval_cost=_frame_plan_cost(
-                cand, None, p_total, cm, kv_row, latent_bytes, refresh)))
+                cand, None, p_total, cm, kv_row, latent_bytes, refresh,
+                cond_tokens=knobs.cond_bucket)))
     if forced == 1:                       # pinned frame-sequential
         return candidates[0]
     g_options = [forced] if forced > 1 else range(2, min(n, F) + 1)
@@ -587,7 +598,8 @@ def stadi_video_planner(speeds, knobs, p_total) -> ExecutionPlan:
                                    guidance=gp)
         candidates.append(dataclasses.replace(
             cand, modeled_interval_cost=_frame_plan_cost(
-                cand, rows, p_total, cm, kv_row, latent_bytes, refresh)))
+                cand, rows, p_total, cm, kv_row, latent_bytes, refresh,
+                cond_tokens=knobs.cond_bucket)))
     if not candidates:
         raise ValueError(
             f"frame_groups={forced} is infeasible: need 1 <= G <= "

@@ -31,20 +31,22 @@ from repro_torch.core.events import ExecutionTrace
 def build_trace(plan, patches: Sequence[int], cfg, batch: int = 1,
                 exchange: str = "sync", exchange_refresh: int = 2,
                 stages: Optional[Sequence[int]] = None,
-                guidance=None, seq=None, frames=None) -> ExecutionTrace:
+                guidance=None, seq=None, frames=None,
+                cond_tokens: Optional[int] = None) -> ExecutionTrace:
     """Schedule trace without running numerics (latency-only replay of
     :func:`repro_torch.core.events.lower` for (plan, patches, policy[,
     stages][, guidance][, seq][, frames])); a staged trace carries its
     pipeline-fill provenance, a guided one its uncond-refresh provenance, a
     sequence-sharded one (``seq``, a SeqPlan) its ring hops, a multi-frame
     one (``frames``, a FramePlan) its frame count, with byte sizes per
-    frame."""
+    frame; ``cond_tokens`` is the prompt bucket its cross-attention reads
+    (see :func:`repro_torch.core.events.make_trace`)."""
     policy = comm_lib.get_exchange(exchange, exchange_refresh)
     records = ir.replay(plan, patches, policy, stages=stages,
                         guidance=guidance, seq_shards=seq, frames=frames)
     return ir.make_trace(records, plan, list(patches), cfg, batch,
                          stages=stages, guidance=guidance, seq=seq,
-                         frames=frames)
+                         frames=frames, cond_tokens=cond_tokens)
 
 
 @dataclasses.dataclass

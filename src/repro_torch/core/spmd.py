@@ -77,7 +77,8 @@ from repro_torch.core import buffers as buf_lib
 from repro_torch.core import comm as comm_lib
 from repro_torch.core import events as ir
 from repro_torch.core import sampler as sampler_lib
-from repro_torch.core.pipefuse import stage_blocks, stage_bounds
+from repro_torch.core.pipefuse import (refuse_prompt, stage_blocks,
+                                       stage_bounds)
 from repro_torch.core.sampler import NoiseSchedule
 from repro_torch.core.schedule import TemporalPlan, patch_bounds
 from repro_torch.kernels import ops as kops
@@ -371,6 +372,7 @@ def run_spmd_pipefuse(params, cfg: DiTConfig, sched: NoiseSchedule, x_T,
     if S == 1:
         return run_spmd(params, cfg, sched, x_T, cond, plan, patches,
                         exchange=exchange, exchange_refresh=exchange_refresh)
+    refuse_prompt(cond, "the spmd_pipefuse backend")
     _require_process_group("spmd_pipefuse")
     _world_check("run_spmd_pipefuse", S, "stage")
     policy = comm_lib.get_exchange(exchange, exchange_refresh)

@@ -17,6 +17,8 @@ model is the ``reduced()`` form, as there.
       --backend spmd --occupancies 0.0,0.5 --device cpu
   PYTHONPATH=src python -m repro_torch.launch.serve --diffusion \\
       --num-frames 3 --requests 3 --slots 2 --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve --diffusion \\
+      --cond-tokens 8 --device cpu
 
 ``--num-frames F`` serves video lanes: one clip of F frames a request, run
 whole in its admission round (``--frame-groups`` pins the frame placement
@@ -25,8 +27,11 @@ of ``--occupancies``, ``--backend spmd_frames`` one per patch-worker column
 of each frame row (:mod:`repro_torch.launch.ranks`; NCCL with one card per
 rank, or gloo with ``--dist-backend gloo``), each of which builds the same
 engine, receives the same requests and drains them; rank 0's requests are
-reported. The prompt flags raise NotImplementedError naming ROADMAP.md
-queue 1 item 13.
+reported. ``--prompt`` (the prompt, suffixed with the request's uid, through
+the frozen text encoder) or ``--cond-tokens L`` (1 to L random prompt
+tokens, varied by uid so that more than one bucket is served) serves
+prompt lanes of a text-conditioned model (``--cond-seq-len`` its largest
+bucket).
 """
 from __future__ import annotations
 
@@ -38,14 +43,9 @@ import numpy as np
 import torch
 
 from repro_torch.configs import get_config
-from repro_torch.core.pipeline import (StadiConfig, StadiPipeline,
-                                       later_slice)
+from repro_torch.core.pipeline import StadiConfig, StadiPipeline
 from repro_torch.models import build_model
 from repro_torch.serving import Request, ServingEngine
-
-#: the reference's diffusion flags that later slices of the port bring
-_LATER_FLAGS = {"--prompt": "prompt", "--cond-tokens": "prompt",
-                "--cond-seq-len": "prompt"}
 
 
 def serve(arch: str, *, n_requests: int = 8, slots: int = 4,
@@ -86,7 +86,8 @@ def serve_diffusion(arch: str = "tiny-dit", *, occupancies=(0.0, 0.6),
                     num_stages: int = 1, cfg_scale: float = 0.0,
                     seq_shards: int = 1, num_frames: int = 1,
                     frame_groups: int = 0, plan_cache_dir: str = None,
-                    dist_backend: str = None,
+                    prompt: str = None, cond_tokens: int = None,
+                    cond_seq_len: int = 32, dist_backend: str = None,
                     device=None):
     """Continuous batching on a heterogeneous cluster: requests enter a FIFO
     queue, the :class:`DiffusionServingEngine` admits them into ``slots``
@@ -96,9 +97,11 @@ def serve_diffusion(arch: str = "tiny-dit", *, occupancies=(0.0, 0.6),
     per-lane guidance state exists for. ``num_stages > 1`` with backend
     ``pipefuse`` serves the displaced stage chain (DESIGN.md §11);
     ``num_frames > 1`` serves video lanes, one clip a request (DESIGN.md
-    §16). Backend ``spmd`` runs the engine on one rank per device of the
-    cluster, ``spmd_frames`` on one per column of each frame row, every rank
-    on the same requests; rank 0 reports. Returns the finished requests
+    §16). ``prompt`` or ``cond_tokens`` builds the model text-conditioned
+    and serves prompt lanes (DESIGN.md §17). Backend ``spmd`` runs the
+    engine on one rank per device of the cluster, ``spmd_frames`` on one per
+    column of each frame row, every rank on the same requests; rank 0
+    reports. Returns the finished requests
     (rank 0's, on the CPU, for the multi-rank backends)."""
     from repro_torch.core.pipeline import resolve_device
 
@@ -108,7 +111,9 @@ def serve_diffusion(arch: str = "tiny-dit", *, occupancies=(0.0, 0.6),
               exchange=exchange, exchange_refresh=exchange_refresh,
               num_stages=num_stages, cfg_scale=cfg_scale,
               seq_shards=seq_shards, num_frames=num_frames,
-              frame_groups=frame_groups, plan_cache_dir=plan_cache_dir)
+              frame_groups=frame_groups, plan_cache_dir=plan_cache_dir,
+              prompt=prompt, cond_tokens=cond_tokens,
+              cond_seq_len=cond_seq_len)
     device = resolve_device(device)
     if backend not in ("spmd", "spmd_frames"):
         return _serve_diffusion_here(**kw, device=device)
@@ -128,17 +133,20 @@ def serve_diffusion(arch: str = "tiny-dit", *, occupancies=(0.0, 0.6),
 _CONFIG_KW = ("arch", "occupancies", "m_base", "m_warmup", "planner",
               "backend", "reduced", "exchange", "exchange_refresh",
               "num_stages", "seq_shards", "num_frames", "frame_groups",
-              "plan_cache_dir")
+              "plan_cache_dir", "prompt", "cond_tokens", "cond_seq_len")
 
 
 def _model_and_config(arch, *, occupancies, m_base, m_warmup, planner,
                       backend, reduced, exchange, exchange_refresh,
                       num_stages, seq_shards, num_frames, frame_groups,
-                      plan_cache_dir):
-    """The served model's config and the pipeline config."""
+                      plan_cache_dir, prompt, cond_tokens, cond_seq_len):
+    """The served model's config (text-conditioned for prompt lanes) and
+    the pipeline config."""
     cfg = get_config(arch)
     if reduced:
         cfg = cfg.reduced()
+    if prompt is not None or cond_tokens is not None:
+        cfg = cfg.text_conditioned(cond_seq_len=cond_seq_len)
     config = StadiConfig.from_occupancies(list(occupancies), m_base=m_base,
                                           m_warmup=m_warmup, planner=planner,
                                           backend=backend, exchange=exchange,
@@ -166,9 +174,11 @@ def _serve_diffusion_here(arch, *, occupancies, n_requests, slots, m_base,
                           m_warmup, planner, backend, reduced, slo_s, seed,
                           exchange, exchange_refresh, num_stages, cfg_scale,
                           seq_shards, num_frames, frame_groups,
-                          plan_cache_dir, device, report=True):
+                          plan_cache_dir, prompt, cond_tokens, cond_seq_len,
+                          device, report=True):
     """The body of :func:`serve_diffusion` in this process on ``device``."""
     from repro_torch.core import sampler as sampler_lib
+    from repro_torch.models import text_encoder
     from repro_torch.models.diffusion import dit
     from repro_torch.serving import DiffusionServingEngine
 
@@ -177,7 +187,8 @@ def _serve_diffusion_here(arch, *, occupancies, n_requests, slots, m_base,
         planner=planner, backend=backend, reduced=reduced, exchange=exchange,
         exchange_refresh=exchange_refresh, num_stages=num_stages,
         seq_shards=seq_shards, num_frames=num_frames,
-        frame_groups=frame_groups, plan_cache_dir=plan_cache_dir)
+        frame_groups=frame_groups, plan_cache_dir=plan_cache_dir,
+        prompt=prompt, cond_tokens=cond_tokens, cond_seq_len=cond_seq_len)
     params = dit.init_params(torch.Generator(device=device).manual_seed(seed),
                              cfg)
     sched = sampler_lib.linear_schedule(T=1000)
@@ -194,8 +205,18 @@ def _serve_diffusion_here(arch, *, occupancies, n_requests, slots, m_base,
         x_T = torch.randn(shape, generator=gen)
         scale = cfg_scale if (cfg_scale > 0 and uid % 2 == 0) else None
         n_guided += scale is not None
-        engine.submit(x_T, int(rng.integers(0, cfg.n_classes)), slo_s=slo_s,
-                      cfg_scale=scale)
+        if prompt is not None:
+            cond = text_encoder.encode([f"{prompt} #{uid}"], cfg,
+                                       device=device)[0]
+        elif cond_tokens is not None:
+            n_tok = 1 + uid % cond_tokens
+            L = text_encoder.bucket_length(n_tok, cfg.cond_seq_len)
+            mask = (torch.arange(L) < n_tok).float()[:, None]
+            feats = torch.randn((L, cfg.cond_dim), generator=gen)
+            cond = torch.cat([feats * mask, mask], dim=-1)
+        else:
+            cond = int(rng.integers(0, cfg.n_classes))
+        engine.submit(x_T, cond, slo_s=slo_s, cfg_scale=scale)
     done = engine.run_to_completion()
     dt = time.perf_counter() - t0
     for req in done:
@@ -213,6 +234,9 @@ def _serve_diffusion_here(arch, *, occupancies, n_requests, slots, m_base,
           f"patches={engine.plan.patches} stages={engine.stages} "
           f"seq={engine.seq} frames={engine.frames} on {device}; "
           f"dispatches {stats['dispatches']}, launches {stats['kernels']}")
+    if engine._prompt_mode:
+        print(f"  dispatches by (guidance/prompt bucket): "
+              f"{stats['dispatches_by_bucket']}")
     if stats["plan_cache"] is not None:
         c = stats["plan_cache"]
         print(f"  plan cache: {c['hits']} hits / {c['misses']} misses "
@@ -228,8 +252,7 @@ def _serve_diffusion_here(arch, *, occupancies, n_requests, slots, m_base,
 
 
 def main(argv=None):
-    # no abbreviations: "--prompt" (a later slice's flag) must not parse as
-    # "--prompt-len"
+    # no abbreviations: "--prompt" and "--prompt-len" are two flags
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0],
                                  allow_abbrev=False)
     ap.add_argument("--arch", default="hymba-1.5b",
@@ -292,13 +315,21 @@ def main(argv=None):
                     help="frame placement (diffusion only): 1 = frame-"
                          "sequential, > 1 = frame-parallel member rows "
                          "(needs --planner stadi_video), 0 = auto search")
-    args, rest = ap.parse_known_args(sys.argv[1:] if argv is None else argv)
-    for tok in rest:
-        name = _LATER_FLAGS.get(tok.split("=", 1)[0])
-        if name is not None:
-            raise later_slice(name)
-    if rest:
-        ap.error(f"unrecognized arguments: {' '.join(rest)}")
+    cond_group = ap.add_mutually_exclusive_group()
+    cond_group.add_argument("--prompt", default=None,
+                            help="text prompt (diffusion only, DESIGN.md "
+                                 "§17): the model is built text-conditioned "
+                                 "and every request carries encoded prompt "
+                                 "tokens (suffixed with its uid)")
+    cond_group.add_argument("--cond-tokens", type=int, default=None,
+                            metavar="L",
+                            help="prompt lanes with 1 to L random prompt "
+                                 "tokens a request (varied by uid, so that "
+                                 "more than one bucket is served)")
+    ap.add_argument("--cond-seq-len", type=int, default=32,
+                    help="text-conditioned models: the largest prompt "
+                         "bucket (DiTConfig.cond_seq_len)")
+    args = ap.parse_args(sys.argv[1:] if argv is None else argv)
     if args.diffusion:
         arch = "tiny-dit" if args.arch == ap.get_default("arch") else args.arch
         if "dit" not in arch:
@@ -313,7 +344,8 @@ def main(argv=None):
             num_stages=args.num_stages, cfg_scale=args.cfg_scale,
             seq_shards=args.seq_shards, num_frames=args.num_frames,
             frame_groups=args.frame_groups, plan_cache_dir=args.plan_cache,
-            dist_backend=args.dist_backend,
+            prompt=args.prompt, cond_tokens=args.cond_tokens,
+            cond_seq_len=args.cond_seq_len, dist_backend=args.dist_backend,
             device=args.device)
     return serve(args.arch, n_requests=args.requests, slots=args.slots,
                  prompt_len=args.prompt_len, max_new=args.max_new,

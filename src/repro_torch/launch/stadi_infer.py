@@ -9,8 +9,12 @@ spmd_seq / spmd_frames; ``--spmd`` is short for ``--backend spmd``);
 pins its micro-batch count), ``--cfg-scale`` turns on classifier-free
 guidance, ``--seq-shards`` sequence-parallel attention and ``--num-frames``
 a video of that many frames (a ``[B, F, H, W, C]`` latent; ``--frame-groups``
-pins the frame placement). It runs on the GPU unless ``--device cpu`` is
-given. Weights are random (``--seed``), as in the reference's CLI.
+pins the frame placement). ``--prompt`` (encoded by the frozen text
+encoder) or ``--cond-tokens L`` (L random tokens) builds the model
+text-conditioned (``--cond-seq-len`` its largest prompt bucket) and runs the
+prompt cross-attention path instead of a class id (``--cond``). It runs on
+the GPU unless ``--device cpu`` is given. Weights are random (``--seed``),
+as in the reference's CLI.
 
 The multi-rank backends start one rank per device of the cluster,
 ``spmd_seq`` ``seq_shards`` ranks per patch worker, ``spmd_pipefuse`` one
@@ -25,6 +29,8 @@ image to it (relative error < 1e-3).
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.stadi_infer --arch sdxl-dit \
       --occupancies 0.0,0.5 --m-base 16 --m-warmup 4 [--cfg-scale 4.0]
+  PYTHONPATH=src python -m repro_torch.launch.stadi_infer --device cpu \
+      --reduced --prompt "a red fox"
   PYTHONPATH=src python -m repro_torch.launch.stadi_infer --device cpu \
       --reduced --spmd --check-vs-emulation
   PYTHONPATH=src python -m repro_torch.launch.stadi_infer --device cpu \
@@ -45,11 +51,8 @@ import json
 import sys
 import time
 
-#: reference flags and choices that later slices of the port bring
+#: reference flags the port does not take, and why
 _LATER_FLAGS = {
-    "--prompt": "the prompt-conditioning slice (queue 1 item 13)",
-    "--cond-tokens": "the prompt-conditioning slice (queue 1 item 13)",
-    "--cond-seq-len": "the prompt-conditioning slice (queue 1 item 13)",
     "--use-pallas": "no slice: on the port the device picks the kernel path",
 }
 
@@ -90,8 +93,22 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--check-vs-emulation", action="store_true",
                     help="multi-rank backends: also run the emulated backend "
                          "and require relative error < 1e-3")
-    ap.add_argument("--cond", type=int, default=0,
-                    help="class id to condition on")
+    cond_group = ap.add_mutually_exclusive_group()
+    cond_group.add_argument("--cond", type=int, default=0,
+                            help="class id to condition on (mutually "
+                                 "exclusive with --prompt / --cond-tokens)")
+    cond_group.add_argument("--prompt", default=None,
+                            help="text prompt (DESIGN.md §17): encoded by "
+                                 "the frozen text encoder; the model is "
+                                 "built text-conditioned and runs the "
+                                 "cross-attention path")
+    cond_group.add_argument("--cond-tokens", type=int, default=None,
+                            metavar="L",
+                            help="run the prompt path on L random prompt "
+                                 "tokens instead of an encoded prompt")
+    ap.add_argument("--cond-seq-len", type=int, default=32,
+                    help="text-conditioned models: the largest prompt "
+                         "bucket (DiTConfig.cond_seq_len)")
     ap.add_argument("--cfg-scale", type=float, default=0.0,
                     help="classifier-free guidance weight w (DESIGN.md "
                          "§12): 0 = unguided; > 0 runs CFG "
@@ -134,7 +151,7 @@ def _parser() -> argparse.ArgumentParser:
 
 
 def _setup(args, device):
-    """Model, weights, noise, class and pipeline config of a run, all from
+    """Model, weights, noise, cond and pipeline config of a run, all from
     ``args`` and its seed: every rank and the parent build the same."""
     import torch
 
@@ -142,11 +159,14 @@ def _setup(args, device):
     from repro_torch.core import sampler as sampler_lib
     from repro_torch.core.pipeline import StadiConfig
     from repro_torch.core.simulate import CostModel
+    from repro_torch.models import text_encoder
     from repro_torch.models.diffusion import dit
 
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
+    if args.prompt is not None or args.cond_tokens is not None:
+        cfg = cfg.text_conditioned(cond_seq_len=args.cond_seq_len)
     params = dit.init_params(
         torch.Generator(device=device).manual_seed(args.seed), cfg)
     sched = sampler_lib.linear_schedule(T=1000)
@@ -156,8 +176,20 @@ def _setup(args, device):
     x_T = torch.randn(shape, device=device,
                       generator=torch.Generator(device=device)
                       .manual_seed(args.seed + 1)).to(dit._torch_dtype(cfg.dtype))
-    cond = torch.full((args.batch,), args.cond % cfg.n_classes,
-                      dtype=torch.int64, device=device)
+    if args.prompt is not None:
+        tok = text_encoder.encode([args.prompt], cfg, device=device)
+        cond = tok.expand(args.batch, *tok.shape[1:])
+    elif args.cond_tokens is not None:
+        L = text_encoder.bucket_length(args.cond_tokens, cfg.cond_seq_len)
+        feats = torch.randn((args.batch, L, cfg.cond_dim), device=device,
+                            generator=torch.Generator(device=device)
+                            .manual_seed(args.seed + 2))
+        mask = (torch.arange(L, device=device) < args.cond_tokens).float()
+        mask = mask[None, :, None].expand(args.batch, L, 1)
+        cond = torch.cat([feats * mask, mask], dim=-1)
+    else:
+        cond = torch.full((args.batch,), args.cond % cfg.n_classes,
+                          dtype=torch.int64, device=device)
 
     knobs = {}
     if args.backend == "simulate":
@@ -227,13 +259,16 @@ def main(argv=None):
     cfg, params, sched, x_T, cond, config = _setup(args, device)
     pipe = StadiPipeline(cfg, params, sched, config, device=device)
     plan = pipe.plan()
+    if cond.dim() == 3:
+        print(f"prompt bucket={cond.shape[1]} (of {cfg.cond_seq_len})")
     print(f"speeds={config.speeds} steps={plan.temporal.steps} "
           f"ratios={plan.temporal.ratios} patches={plan.patches} "
           f"stages={plan.stages} guidance={plan.guidance} seq={plan.seq} "
           f"frames={plan.frames}")
     summary = {"patches": plan.patches, "steps": plan.temporal.steps,
                "planner": args.planner, "backend": args.backend,
-               "device": str(device)}
+               "device": str(device),
+               "cond_bucket": int(cond.shape[1]) if cond.dim() == 3 else 0}
 
     if args.backend in ("spmd", "spmd_guidance", "spmd_seq", "spmd_pipefuse",
                         "spmd_frames"):
@@ -290,7 +325,8 @@ def main(argv=None):
     print(f"{args.backend} run on {device}: {seconds:.2f}s image "
           f"{tuple(res.image.shape)} finite={finite} "
           f"kernel_stats={json.dumps(res.kernel_stats, sort_keys=True)}")
-    print(json.dumps({**summary, "finite": finite}))
+    summary["finite"] = finite
+    print(json.dumps(summary))
     return summary
 
 

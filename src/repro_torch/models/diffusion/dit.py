@@ -18,6 +18,15 @@ to the largest patch), the buffered read goes through
 :func:`repro_torch.kernels.ops.stale_kv_attention_padded` (kernel K2)
 instead. Dtypes follow JAX's promotion rule: a product of activations and
 weights of two float dtypes runs in the wider one.
+
+A text-conditioned config (``DiTConfig.text_conditioned``, DESIGN.md §17)
+adds a prompt cross-attention read to every block, between self-attention
+and the MLP, and pools the prompt tokens into the adaLN conditioning vector.
+The reference runs that read as its plain ``layers.attend`` (it has no
+kernel for it), and so does the port: a guidance null branch masks every
+prompt key, and only the reference's finite ``-1e30`` fill turns that into
+uniform weights over zero values, an exact 0.0, where a ``-inf`` fill or
+``scaled_dot_product_attention`` gives NaN.
 """
 from __future__ import annotations
 
@@ -85,15 +94,30 @@ def pos_embed_2d(hp: int, wp: int, dim: int, device=None):
 # params
 # ----------------------------------------------------------------------
 
+#: seed offsets of the streams the prompt leaves are drawn from: the
+#: cross-attention params of :func:`init_params` and xo's values in
+#: :func:`nondegenerate_params` (the reference's ``seed + 101`` stream).
+#: Drawing them apart leaves every class leaf bitwise what the same generator
+#: gives a class-conditional config.
+_XATTN_STREAM = 1_000_003
+_XO_STREAM = 101
+
+
+def _stream(gen: torch.Generator, offset: int) -> torch.Generator:
+    """A generator on gen's device seeded ``offset`` past gen's seed."""
+    return torch.Generator(device=gen.device).manual_seed(
+        gen.initial_seed() + offset)
+
+
 def init_params(gen: torch.Generator, cfg: DiTConfig):
     """Untrained DiT params (adaLN-zero) drawn from ``gen`` on its device.
     The draws are torch's, so they differ from the reference's
     ``jax.random`` draws; tests carry the reference's params through
-    :mod:`repro_torch.bridge` instead."""
-    if cfg.cross_attn:
-        raise NotImplementedError("prompt cross-attention params come with "
-                                  "the prompt-conditioning slice (ROADMAP "
-                                  "queue 1 item 13)")
+    :mod:`repro_torch.bridge` instead. A text-conditioned config adds the
+    prompt cross-attention leaves ``blocks.xq`` [L, D, D], ``blocks.xkv``
+    [L, cond_dim, 2D], ``blocks.xo`` (zeros, adaLN-zero) and ``ctx_pool``
+    [cond_dim, D], drawn from a second stream so the class leaves stay
+    bitwise those of the class-conditional config."""
     dt = _torch_dtype(cfg.param_dtype)
     D, L = cfg.d_model, cfg.n_layers
     Fd = int(cfg.mlp_ratio * D)
@@ -107,7 +131,7 @@ def init_params(gen: torch.Generator, cfg: DiTConfig):
         "mod_w": zeros(L, D, 6 * D),                     # adaLN-zero init
         "mod_b": zeros(L, 6 * D),
     }
-    return {
+    out = {
         "patch_embed": layers.dense_init(gen, (cfg.token_dim, D), dt),
         "patch_bias": zeros(D),
         "t_w1": layers.dense_init(gen, (256, D), dt),
@@ -118,6 +142,13 @@ def init_params(gen: torch.Generator, cfg: DiTConfig):
         "final_mod_b": zeros(2 * D),
         "final_proj": zeros(D, cfg.token_dim),           # zero-init output
     }
+    if cfg.cross_attn:
+        xgen = _stream(gen, _XATTN_STREAM)
+        blocks["xq"] = layers.dense_init(xgen, (L, D, D), dt)
+        blocks["xkv"] = layers.dense_init(xgen, (L, cfg.cond_dim, 2 * D), dt)
+        blocks["xo"] = zeros(L, D, D)
+        out["ctx_pool"] = layers.dense_init(xgen, (cfg.cond_dim, D), dt)
+    return out
 
 
 def nondegenerate_params(params, gen: torch.Generator):
@@ -126,12 +157,14 @@ def nondegenerate_params(params, gen: torch.Generator):
     entirely. This replaces those zeros with small draws from ``gen`` so
     remote K/V genuinely influences the trajectory. Returns a modified copy.
 
-    Unlike the reference, whose ``jax.random.normal`` draws turn these four
-    leaves into float32 even in a bf16 model, every leaf keeps its dtype
-    here, so a bf16 model stays bf16 end to end."""
-    def draw(like, std):
-        w = torch.randn(like.shape, generator=gen, dtype=torch.float32,
-                        device=gen.device)
+    A text-conditioned model's ``xo`` (adaLN-zero too) gets 0.05 x N(0, 1)
+    from a stream of its own, so the class leaves get the draws they get
+    without it. Unlike the reference, whose ``jax.random.normal`` draws turn
+    these leaves into float32 even in a bf16 model, every leaf keeps its
+    dtype here, so a bf16 model stays bf16 end to end."""
+    def draw(like, std, g=gen):
+        w = torch.randn(like.shape, generator=g, dtype=torch.float32,
+                        device=g.device)
         return (std * w).to(device=like.device, dtype=like.dtype)
 
     params = dict(params)
@@ -141,6 +174,8 @@ def nondegenerate_params(params, gen: torch.Generator):
     params["blocks"] = blk
     params["final_mod_w"] = draw(params["final_mod_w"], 0.02)
     params["final_proj"] = draw(params["final_proj"], 0.05)
+    if "xo" in blk:
+        blk["xo"] = draw(blk["xo"], 0.05, _stream(gen, _XO_STREAM))
     return params
 
 
@@ -169,12 +204,14 @@ def _per_row(value, B, dev):
 
 
 def _cond_vector(params, cfg, t, cond, B, frame=None):
-    """Timestep + class conditioning vector [B, D]. ``t`` is a number (or a
-    0-d tensor), or one timestep a batch row ([B]: the serving engine's
-    lanes, each at its own step); ``cond`` None, or class ids broadcastable
-    to [B] where the reserved :data:`NULL_COND` selects the zero
-    (unconditional) embedding. ``frame`` (the video path, DESIGN.md §16):
-    None, or the latent frame index in either form of ``t``, whose
+    """Timestep + class or prompt conditioning vector [B, D]. ``t`` is a
+    number (or a 0-d tensor), or one timestep a batch row ([B]: the serving
+    engine's lanes, each at its own step); ``cond`` None, class ids
+    broadcastable to [B] where the reserved :data:`NULL_COND` selects the
+    zero (unconditional) embedding, or prompt tokens [B, L, cond_dim + 1]
+    whose masked mean is projected by ``ctx_pool`` (the all-zero null
+    sequence pools to exactly 0.0). ``frame`` (the video path, DESIGN.md
+    §16): None, or the latent frame index in either form of ``t``, whose
     sinusoidal embedding is summed into the timestep features in float32
     before the shared MLP; None adds no op, so frame 0 and the image path
     stay bitwise."""
@@ -188,13 +225,24 @@ def _cond_vector(params, cfg, t, cond, B, frame=None):
         return F.silu(temb)
     cond = torch.as_tensor(cond, device=dev)
     if cond.ndim >= 2:
-        raise NotImplementedError("prompt-token conditioning comes with the "
-                                  "prompt-conditioning slice (ROADMAP queue 1 "
-                                  "item 13)")
+        return F.silu(temb + _pooled_prompt(params["ctx_pool"], cond))
     idx = cond.to(torch.int64).expand(B)
     gathered = params["cond_embed"][idx.clamp(min=0)]
     cemb = torch.where((idx >= 0)[:, None], gathered, torch.zeros_like(gathered))
     return F.silu(temb + cemb)
+
+
+def _pooled_prompt(ctx_pool, cond):
+    """The prompt's part of the conditioning vector [B, D]: the masked mean
+    of the tokens of ``cond`` [B, L, Dc+1] (divided by max(real tokens, 1),
+    so the null sequence pools to exactly 0.0), projected by ``ctx_pool``
+    as the reference's broadcast-multiply-reduce rather than ``pooled @
+    ctx_pool``: a GEMM's algorithm changes with the rows it is given, the
+    reduction's order does not, so a served lane's vector stays bitwise
+    that of its lone generate."""
+    toks, w = cond[..., :-1], cond[..., -1:]
+    pooled = ((toks * w).sum(1) / w.sum(1).clamp(min=1.0)).to(ctx_pool.dtype)
+    return (pooled[..., :, None] * ctx_pool).sum(-2)
 
 
 # ----------------------------------------------------------------------
@@ -253,24 +301,22 @@ def block_stack(blocks, cfg: DiTConfig, h, c, tok_start: int,
              context (DESIGN.md §16). Without ``valid_tokens`` the context
              is the whole buffer, whatever its length: the fresh rows land
              at ``tok_start`` within it.
+    prompt_ctx: None, or (tokens [B, Lc, cond_dim], key mask [B, 1, 1, Lc]
+             bool) read by every block's prompt cross-attention, between
+             self-attention and the MLP (the reference's plain attend). None
+             adds no op, so the class-conditional path stays bitwise.
     Returns (h', kvs) with kvs the fresh (k, v), each [n_blocks, B, Nl, H,
     hd], or None when ``return_kv`` is False.
 
     The reference's ``enable`` stage mask pads the stages of its lockstep
     chain; the port's chain runs each stage's own blocks
     (:func:`repro_torch.core.pipefuse.stage_blocks`) and refuses it.
-    ``prompt_ctx`` cross-attention serves the prompt slice of the port,
-    which brings it.
     """
     if enable is not None:
         raise NotImplementedError(
             "block_stack(enable=...) is not ported: the stage chain of "
             "ROADMAP queue 1 item 10 slices the blocks a stage runs "
             "(pipefuse.stage_blocks) instead of masking them")
-    if prompt_ctx is not None:
-        raise NotImplementedError("block_stack(prompt_ctx=...) comes with the "
-                                  "prompt-conditioning slice (item 13) of "
-                                  "ROADMAP queue 1")
     n_real = ctx_tokens or cfg.n_tokens
     B, Nl, D = h.shape
     H = cfg.n_heads
@@ -278,6 +324,9 @@ def block_stack(blocks, cfg: DiTConfig, h, c, tok_start: int,
     n_blocks = blocks["qkv"].shape[0]
     x = h
     ks, vs = [], []
+    if prompt_ctx is not None:
+        ck, cmask = prompt_ctx
+        prompt_kv = _prompt_kv(blocks["xkv"], ck, x.dtype)
     for i in range(n_blocks):
         bp = {name: leaf[i] for name, leaf in blocks.items()}
         mod = _linear(c.to(x.dtype), bp["mod_w"], bp["mod_b"])
@@ -303,6 +352,8 @@ def block_stack(blocks, cfg: DiTConfig, h, c, tok_start: int,
                                           buffers[1][i].to(q.dtype),
                                           tok_start=tok_start)
         x2 = torch.addcmul(x, g1[:, None], _linear(att.reshape(B, Nl, D), bp["wo"]))
+        if prompt_ctx is not None:
+            x2 = _prompt_read(bp, x2, prompt_kv[i], cmask, H)
         xn = _modulate(_ln(x2), sh2, sc2)
         hmid = _linear(F.gelu(_linear(xn, bp["w1"]), approximate="tanh"),
                        bp["w2"])
@@ -311,6 +362,30 @@ def block_stack(blocks, cfg: DiTConfig, h, c, tok_start: int,
             ks.append(k)
             vs.append(v)
     return x, ((torch.stack(ks), torch.stack(vs)) if return_kv else None)
+
+
+def _prompt_kv(xkv, ck, dtype):
+    """Every block's prompt K/V projection, ``ck.to(dtype) @ xkv`` as the
+    reference's per-block product, as [n_blocks, B, Lc, 2D]: one product
+    over the blocks a batch row, so each row runs the same GEMM whatever
+    batch it is in (a served lane group's G*Lc rows would pick another
+    algorithm than a lone request's Lc, and another rounding)."""
+    return torch.stack([_linear(row.to(dtype), xkv) for row in ck], dim=1)
+
+
+def _prompt_read(bp, x2, kv, cmask, n_heads: int):
+    """One block's prompt cross-attention added to ``x2`` [B, Nl, D]: every
+    latent token's query (``_ln(x2) @ xq``) reads the prompt's K/V ``kv``
+    [B, Lc, 2D] (this block's rows of :func:`_prompt_kv`) under the key
+    mask ``cmask`` [B, 1, 1, Lc] through the reference's plain attend, and
+    ``xo`` projects the read. The null branch's zero tokens give zero V, so
+    its read adds exactly 0.0."""
+    B, Nl, D = x2.shape
+    hd = D // n_heads
+    xkv = kv.reshape(B, -1, 2, n_heads, hd)
+    xq = _linear(_ln(x2), bp["xq"]).reshape(B, Nl, n_heads, hd)
+    xatt = layers.attend(xq, xkv[:, :, 0], xkv[:, :, 1], mask=cmask)
+    return x2 + _linear(xatt.reshape(B, Nl, D), bp["xo"])
 
 
 def _blended_context(k, v, bk, bv, tok_start: int,
@@ -369,16 +444,28 @@ def forward_patch(params, cfg: DiTConfig, x_rows, t, cond, row_start: int,
              batch row), summed into the conditioning vector.
     ctx_tokens: the real context tokens of scratch-padded buffers (see
              :func:`block_stack`).
+    cond:    class ids, or prompt tokens [B, Lc, cond_dim + 1] whose last
+             channel is the validity mask (a text-conditioned config only):
+             the tokens feed every block's cross-attention under that key
+             mask, and the conditioning vector.
     Returns (eps_rows [B, rows_local, W, C], (fresh_k, fresh_v)
     [L,B,Nl,H,hd] or None).
     """
     rows_tok = x_rows.shape[1] // cfg.patch_size         # token rows in patch
     h, c = embed_patch(params, cfg, x_rows, t, cond, row_start, frame=frame)
     tok_start = row_start * cfg.tokens_per_side
+    prompt_ctx = None
+    if getattr(cond, "ndim", 0) >= 3:
+        if not cfg.cross_attn:
+            raise ValueError(
+                "prompt-token cond needs DiTConfig.cross_attn=True "
+                "(see DiTConfig.text_conditioned())")
+        cond = cond.to(h.device)
+        prompt_ctx = (cond[..., :-1], (cond[..., -1] > 0.5)[:, None, None, :])
     h, kvs = block_stack(params["blocks"], cfg, h, c, tok_start,
                          buffers=buffers, return_kv=return_kv,
                          valid_tokens=valid_tokens, attend_fn=attend_fn,
-                         ctx_tokens=ctx_tokens)
+                         ctx_tokens=ctx_tokens, prompt_ctx=prompt_ctx)
     return final_head(params, cfg, h, c, rows_tok), kvs
 
 
@@ -389,25 +476,28 @@ def forward(params, cfg: DiTConfig, x, t, cond=None, frame=None):
     return eps
 
 
-def _class_conds(cond) -> torch.Tensor:
+def _conds(cond) -> torch.Tensor:
+    """Prompt tokens (ndim >= 2) as they are, class ids as int32."""
     cond = torch.as_tensor(cond)
-    if cond.ndim >= 2:
-        raise NotImplementedError("guidance over prompt tokens comes with the "
-                                  "prompt-conditioning slice (ROADMAP queue 1 "
-                                  "item 13)")
-    return cond.to(torch.int32)
+    return cond if cond.ndim >= 2 else cond.to(torch.int32)
 
 
 def null_like(cond) -> torch.Tensor:
-    """The unconditional branch of class conds: the reserved
-    :data:`NULL_COND` id in cond's shape."""
-    return torch.full_like(_class_conds(cond), NULL_COND)
+    """The unconditional branch of a cond of either kind: all-zero prompt
+    tokens (the empty sequence, mask channel included) for tokens [B, L,
+    Dc+1], the reserved :data:`NULL_COND` id in cond's shape for class
+    ids."""
+    cond = _conds(cond)
+    if cond.ndim >= 2:
+        return torch.zeros_like(cond)
+    return torch.full_like(cond, NULL_COND)
 
 
 def guidance_conds(cond) -> torch.Tensor:
-    """Branch-stacked class conds: row 0 the conditional branch, row 1 the
-    unconditional one (:data:`NULL_COND`); [2, B] for conds [B]."""
-    cond = _class_conds(cond)
+    """Branch-stacked conds: row 0 the conditional branch, row 1 the
+    unconditional one (:func:`null_like`); [2, B] for class ids [B], [2, B,
+    L, Dc+1] for prompt tokens."""
+    cond = _conds(cond)
     return torch.stack([cond, null_like(cond)])
 
 
@@ -430,13 +520,18 @@ def forward_patch_cfg(params, cfg: DiTConfig, x_rows, t, cond, row_start: int,
     valid_tokens: as in :func:`forward_patch`; both branches are fresh over
     the same rows, so the padded read runs K2 at batch 2B.
     frame, ctx_tokens: as in :func:`forward_patch`; a frame a batch row is
-    repeated for the second branch like ``t``.
+    repeated for the second branch like ``t``. Prompt tokens fold to [2B,
+    L, Dc+1] (one prompt a row, or one for every row).
     Returns (eps2 [2, B, rows, W, C], branch-stacked fresh (k, v) in the
     buffers' layout — [2, L, B, Nl, H, hd] or [L, 2, B, Nl, H, hd] — or
     None)."""
     B = x_rows.shape[0]
-    conds = guidance_conds(cond).to(x_rows.device).reshape(2, -1)
-    conds = conds.expand(2, B).reshape(2 * B)
+    conds = guidance_conds(cond).to(x_rows.device)
+    if conds.ndim >= 4:                   # prompt tokens [2, B|1, L, Dc+1]
+        rest = conds.shape[2:]
+        conds = conds.expand(2, B, *rest).reshape(2 * B, *rest)
+    else:
+        conds = conds.reshape(2, -1).expand(2, B).reshape(2 * B)
     if isinstance(t, torch.Tensor) and t.dim():
         t = torch.cat([t.reshape(-1).expand(B)] * 2)
     if isinstance(frame, torch.Tensor) and frame.dim():

@@ -69,8 +69,15 @@ each admitted clip runs its whole schedule in its round through the
 configured frame executor (``emulated`` or ``spmd_frames``; on the latter
 every rank builds the same engine, as with the spmd stepper) and accrues the
 frame-priced makespan of :func:`repro_torch.core.simulate.simulate_trace`.
-Prompt lanes (ROADMAP.md queue 1 item 13) come with a later slice of the
-port.
+
+Prompt lanes (DESIGN.md §17): with a text-conditioned model every request
+carries prompt tokens ``[1, L, cond_dim + 1]``
+(:func:`repro_torch.models.text_encoder.encode`), whose length bucket L
+varies by request. The tokens live on the requests; a lane group stacks its
+lanes' and the bucket joins every lane-group key, so one dispatch never
+mixes buckets, and every round is priced with the group's bucket
+(``CostModel.t_xattn`` a prompt token a row). The displaced stage chain has
+no prompt cross-attention, so a staged ``pipefuse`` engine refuses prompts.
 """
 from __future__ import annotations
 
@@ -110,7 +117,8 @@ class DiffusionRequest:
     """
     uid: int
     x_T: torch.Tensor                    # [1, H, W, C]
-    cond: torch.Tensor                   # [1] int32 class condition
+    # [1] int32 class id, or [1, L, cond_dim+1] prompt tokens
+    cond: torch.Tensor
     slo_s: Optional[float] = None        # modeled-latency SLO target
     # classifier-free guidance (DESIGN.md §12): None = unguided request;
     # > 0 = this request denoises with eps_u + cfg_scale*(eps_c - eps_u)
@@ -504,6 +512,11 @@ class DiffusionServingEngine:
         self._pub_k = torch.zeros(self._kshape, dtype=self._kdt, device=dev)
         self._pub_v = torch.zeros(self._kshape, dtype=self._kdt, device=dev)
         self._cond = torch.zeros(lanes, dtype=torch.int32, device=dev)
+        # prompt lanes: the tokens' bucket varies by request, so they live
+        # on the requests and a lane group stacks its own (_conds)
+        self._prompt_mode = bool(cfg.cross_attn)
+        #: denoiser dispatches by (guided, prompt bucket); bucket 0 = class
+        self.bucket_dispatches: collections.Counter = collections.Counter()
         # guided lanes: branch-stacked published K/V [L, 2, slots, N, H, hd]
         # + the per-slot cfg_scale on the device (K3 reads it in place);
         # the buffers are allocated on the first guided submission so
@@ -609,7 +622,8 @@ class DiffusionServingEngine:
                                     batch=1, exchange=config.exchange,
                                     exchange_refresh=config.exchange_refresh,
                                     frames=self.frames,
-                                    guidance=plan.guidance)
+                                    guidance=plan.guidance,
+                                    cond_tokens=(config.cond_bucket or None))
             self._latent_bytes = trace.latent_bytes
             self._kv_bytes = trace.kv_bytes_per_worker
             self._act_row_bytes = trace.act_row_bytes
@@ -701,7 +715,9 @@ class DiffusionServingEngine:
                uid: Optional[int] = None,
                cfg_scale: Optional[float] = None) -> DiffusionRequest:
         """Queue one request. x_T: [H,W,C] or [1,H,W,C] (video lanes: one
-        clip, [F,H,W,C] or [1,F,H,W,C]); cond: int or [1].
+        clip, [F,H,W,C] or [1,F,H,W,C]); cond: int or [1], or with a
+        text-conditioned model prompt tokens [L, cond_dim+1] or [1, L,
+        cond_dim+1].
 
         cfg_scale > 0 makes this a GUIDED request (classifier-free
         guidance, DESIGN.md §12); None inherits the pipeline config's
@@ -719,13 +735,7 @@ class DiffusionServingEngine:
         if x_T.shape[0] != 1:
             raise ValueError("one request = one image; got batch "
                              f"{x_T.shape[0]} (submit per image)")
-        if torch.as_tensor(cond).dim() >= 2:
-            raise ValueError(
-                "prompt-token cond needs a text-conditioned model, which "
-                "comes with the prompt-conditioning slice (ROADMAP.md queue "
-                "1 item 13); this engine serves class-conditional requests")
-        cond = torch.as_tensor(cond).to(device=self.device,
-                                        dtype=torch.int32).reshape(1)
+        cond = self._check_cond(cond)
         if uid is None:
             uid, self._next_uid = self._next_uid, self._next_uid + 1
         else:
@@ -752,6 +762,40 @@ class DiffusionServingEngine:
         req._submit_wall = time.perf_counter()
         self.queue.append(req)
         return req
+
+    def _check_cond(self, cond) -> torch.Tensor:
+        """A request's cond on the lanes' device, checked with the
+        reference's messages: prompt tokens [1, L, cond_dim+1] on a
+        text-conditioned model, a class id [1] otherwise."""
+        cond = torch.as_tensor(cond)
+        if not self._prompt_mode:
+            if cond.dim() >= 2:
+                raise ValueError(
+                    "prompt-token cond needs a text-conditioned model "
+                    "(DiTConfig.cross_attn=True, e.g. "
+                    "cfg.text_conditioned()); this engine serves class-"
+                    "conditional requests")
+            return cond.to(device=self.device, dtype=torch.int32).reshape(1)
+        if cond.dim() == 2:
+            cond = cond[None]
+        if cond.dim() != 3 or cond.shape[0] != 1:
+            raise ValueError(
+                "a text-conditioned model takes prompt tokens "
+                "[L, cond_dim+1] or [1, L, cond_dim+1] (see "
+                "repro_torch.models.text_encoder.encode), got shape "
+                f"{tuple(cond.shape)}")
+        mcfg = self.pipeline.model_cfg
+        if cond.shape[-1] != mcfg.cond_dim + 1:
+            raise ValueError(
+                f"prompt tokens carry cond_dim+1={mcfg.cond_dim + 1} "
+                f"channels (features + validity mask), got {cond.shape[-1]}")
+        if not 1 <= cond.shape[1] <= mcfg.cond_seq_len:
+            raise ValueError(
+                f"prompt bucket {cond.shape[1]} is outside "
+                f"[1, cond_seq_len={mcfg.cond_seq_len}]")
+        if getattr(self.stepper, "wants_ctx", False):
+            pipefuse_lib.refuse_prompt(cond, "the staged pipefuse stepper")
+        return cond.to(device=self.device, dtype=torch.float32)
 
     def _check_clip(self, x_T, cfg_scale) -> None:
         """A video lane's submit checks, with the reference's messages."""
@@ -786,7 +830,8 @@ class DiffusionServingEngine:
             req = self.queue.pop(0)
             slot = next(s for s in range(self.slots) if s not in self.active)
             self._x[slot] = req.x_T[0]
-            self._cond[slot] = req.cond[0]
+            if not self._prompt_mode:    # prompt tokens stay on the request
+                self._cond[slot] = req.cond[0]
             self._scales[slot] = req.cfg_scale if req.guided else 0.0
             req.fine_step = 0
             req.admit_round = report.index
@@ -891,32 +936,37 @@ class DiffusionServingEngine:
                        if r.fine_step >= M_w)
         report.warmup_lanes, report.adaptive_lanes = warm, adapt
 
-        for guided, lanes in self._by_guided(warm):
+        for guided, bucket, lanes in self._by_guided(warm):
             idx = self._index(lanes)
             fine = torch.tensor([self.active[s].fine_step for s in lanes])
             t_from, t_to = self._ts[fine], self._ts[fine + 1]
+            n0 = self._forwards()
             if guided:
                 xs, k2s, v2s = self.stepper.warmup_step_guided(
-                    self._x[idx], t_from, t_to, self._conds(idx),
+                    self._x[idx], t_from, t_to, self._conds(idx, lanes),
                     self._scales[idx])
                 self._x[idx] = xs
                 self._put(self._gk, 2, idx, k2s)
                 self._put(self._gv, 2, idx, v2s)
             else:
                 xs, ks, vs = self.stepper.warmup_step(
-                    self._x[idx], t_from, t_to, self._conds(idx))
+                    self._x[idx], t_from, t_to, self._conds(idx, lanes))
                 self._scatter(idx, xs, ks, vs)
+            self.bucket_dispatches[(guided, bucket)] += self._forwards() - n0
             for s in lanes:
                 self.active[s].fine_step += 1
-            _, cost = self._phase_cost(len(lanes), warm=True, guided=guided)
+            _, cost = self._phase_cost(len(lanes), warm=True, guided=guided,
+                                       cond_tokens=bucket)
             report.modeled_s += cost
 
         if adapt:
             placement = None
             wants_ctx = getattr(self.stepper, "wants_ctx", False)
             for group, (read_factor, trail_kind, fill, seq_hops,
-                        guided) in self._groups(adapt):
+                        guided, bucket) in self._groups(adapt):
                 idx = self._index(group)
+                conds = self._conds(idx, group)
+                n0 = self._forwards()
                 fine = np.asarray([self.active[s].fine_step for s in group])
                 merge = trail_kind == "full"
                 axis = 2 if guided else 1          # the slot axis of the K/V
@@ -940,8 +990,8 @@ class DiffusionServingEngine:
                                                              False))
                 if guided:           # branch-stacked per-lane CFG state
                     xs, ks, vs = self.stepper.interval_guided(
-                        self._x[idx], fine, self._conds(idx),
-                        self._scales[idx], bk, bv, merge=merge)
+                        self._x[idx], fine, conds, self._scales[idx], bk, bv,
+                        merge=merge)
                 elif wants_ctx:
                     if fill:         # pipe refill: contexts <- published
                         self._put(self._ctx_k, 1, idx, bk)
@@ -949,14 +999,15 @@ class DiffusionServingEngine:
                     ck, cv = (self._take(c, 1, idx, False)
                               for c in (self._ctx_k, self._ctx_v))
                     xs, ks, vs, ck, cv = self.stepper.interval_ctx(
-                        self._x[idx], fine, self._conds(idx), bk, bv, ck, cv,
+                        self._x[idx], fine, conds, bk, bv, ck, cv,
                         merge=merge)
                     self._put(self._ctx_k, 1, idx, ck)
                     self._put(self._ctx_v, 1, idx, cv)
                 else:
                     xs, ks, vs = self.stepper.interval(
-                        self._x[idx], fine, self._conds(idx), bk, bv,
-                        merge=merge)
+                        self._x[idx], fine, conds, bk, bv, merge=merge)
+                self.bucket_dispatches[(guided, bucket)] += \
+                    self._forwards() - n0
                 self._x[idx] = xs
                 if merge:
                     self._put(state[0], axis, idx, ks)
@@ -965,7 +1016,7 @@ class DiffusionServingEngine:
                     self.active[s].fine_step += R
                 placement, cost = self._phase_cost(
                     len(group), warm=False, kind=trail_kind, fill=fill,
-                    guided=guided, seq_hops=seq_hops)
+                    guided=guided, seq_hops=seq_hops, cond_tokens=bucket)
                 report.modeled_s += cost
                 report.exchange_kinds.append(trail_kind)
             report.placement = placement
@@ -1087,54 +1138,74 @@ class DiffusionServingEngine:
         else:
             buf[key] = value
 
-    def _conds(self, idx: LaneIndex) -> torch.Tensor:
-        """Lane-stacked class conditioning of a lane group, [G]."""
-        return self._cond[idx]
+    def _conds(self, idx: LaneIndex, lanes: Sequence[int]) -> torch.Tensor:
+        """Lane-stacked conditioning of a lane group: class ids [G], or the
+        requests' prompt tokens [G, L, cond_dim+1] (the group key pins one
+        bucket L, so the stack is rectangular)."""
+        if not self._prompt_mode:
+            return self._cond[idx]
+        return torch.cat([self.active[s].cond for s in lanes])
+
+    def _forwards(self) -> int:
+        """Denoiser dispatches so far, of every kind."""
+        return sum(n for k, n in self.dispatches.items()
+                   if not k.endswith("_lanes"))
+
+    def _lane_bucket(self, slot: int) -> int:
+        """The lane's prompt bucket (0 for a class lane): tokens of
+        different buckets cannot share a stacked dispatch, so the bucket
+        joins every lane-group key."""
+        return self.active[slot].cond.shape[1] if self._prompt_mode else 0
 
     def _scatter(self, idx: LaneIndex, xs, ks, vs) -> None:
         self._x[idx] = xs
         self._put(self._pub_k, 1, idx, ks)
         self._put(self._pub_v, 1, idx, vs)
 
-    def _by_guided(self, lanes: List[int]) -> List[Tuple[bool, List[int]]]:
-        """Split a lane list into (guided?, lanes) batches, plain first —
-        CFG and non-CFG lanes run different dispatch shapes. (The
-        reference also keys on the prompt bucket, which item 13 brings.)"""
-        keyed: Dict[bool, List[int]] = {}
+    def _by_guided(self, lanes: List[int]
+                   ) -> List[Tuple[bool, int, List[int]]]:
+        """Split a lane list into (guided?, bucket, lanes) batches, plain
+        first — CFG and non-CFG lanes run different dispatch shapes, and
+        prompt lanes of different buckets different cond shapes."""
+        keyed: Dict[Tuple[bool, int], List[int]] = {}
         for s in lanes:
-            keyed.setdefault(self.active[s].guided, []).append(s)
-        return [(g, keyed[g]) for g in sorted(keyed)]
+            keyed.setdefault((self.active[s].guided,
+                              self._lane_bucket(s)), []).append(s)
+        return [(g, b, keyed[(g, b)]) for g, b in sorted(keyed)]
 
     def _groups(self, lanes: List[int]
-                ) -> List[Tuple[List[int], Tuple[float, str, bool, int, bool]]]:
+                ) -> List[Tuple[List[int],
+                                Tuple[float, str, bool, int, bool, int]]]:
         """Batchable lane groups + their (read_factor, trail_kind, fill,
-        seq_hops, guided) info. The batching steppers group every lane whose
-        boundary behavior, stage-chain fill, seq-shard ring identity and
-        guidance state match (under "sync" with no CFG lanes and no seq
-        sharding that is ONE group); the cohort-only (spmd) stepper groups
-        by fine step, which pins the interval info (it serves no guided
-        lane). (The reference also keys on the prompt bucket, which item 13
-        brings.)"""
+        seq_hops, guided, bucket) info. The batching steppers group every
+        lane whose boundary behavior, stage-chain fill, seq-shard ring
+        identity, guidance state and prompt bucket match (under "sync" with
+        no CFG lanes, no seq sharding and one bucket that is ONE group); the
+        cohort-only (spmd) stepper groups by fine step and bucket, which
+        pins the interval info (it serves no guided lane)."""
         if not self.stepper.cohort_only:
-            keyed: Dict[Tuple[float, str, bool, int, bool], List[int]] = {}
+            keyed: Dict[Tuple[float, str, bool, int, bool, int],
+                        List[int]] = {}
             for s in lanes:
                 keyed.setdefault(self._lane_info(s), []).append(s)
             return [(keyed[k], k) for k in sorted(keyed)]
-        cohorts: Dict[int, List[int]] = {}
+        cohorts: Dict[Tuple[int, int], List[int]] = {}
         for s in lanes:
-            cohorts.setdefault(self.active[s].fine_step, []).append(s)
+            key = (self.active[s].fine_step, self._lane_bucket(s))
+            cohorts.setdefault(key, []).append(s)
         return [(cohorts[k], self._lane_info(cohorts[k][0]))
                 for k in sorted(cohorts)]
 
-    def _lane_info(self, slot: int) -> Tuple[float, str, bool, int, bool]:
+    def _lane_info(self, slot: int
+                   ) -> Tuple[float, str, bool, int, bool, int]:
         info = self._interval_info[self.active[slot].fine_step]
-        return info + (self.active[slot].guided,)
+        return info + (self.active[slot].guided, self._lane_bucket(slot))
 
     # ---------------- modeled cost & placement ----------------
 
     def _phase_cost(self, group: int, warm: bool, kind: str = "full",
                     fill: bool = False, guided: bool = False,
-                    seq_hops: int = 0
+                    seq_hops: int = 0, cond_tokens: int = 0
                     ) -> Tuple[Tuple[Tuple[int, int], ...], float]:
         """Placement + modeled seconds for one batched phase of a round.
 
@@ -1151,22 +1222,25 @@ class DiffusionServingEngine:
         GROUP of ``seq.n_shards`` devices (placement entries map workers to
         groups, speed = group aggregate) and overlap ``seq_hops`` ring K/V
         hops per substep with compute, exactly as in
-        ``simulate._simulate_seq``. (The reference also prices a prompt
-        lane's cross-attention read, which item 13 brings.)
+        ``simulate._simulate_seq``. Prompt lanes add the cross-attention
+        read ``t_xattn * cond_tokens`` a row a branch, as ``simulate_trace``
+        prices it.
         """
         if self.stages is not None and len(self.stages) > 1:
-            return self._staged_phase_cost(group, warm, kind, fill)
+            return self._staged_phase_cost(group, warm, kind, fill,
+                                           cond_tokens)
         if guided and self._guide_pairs is not None:
-            return self._split_phase_cost(group, warm, kind)
+            return self._split_phase_cost(group, warm, kind, cond_tokens)
         plan, cm = self.plan, self.cm
         temporal = plan.temporal
         branch = 2 if guided else 1
+        t_row_eff = cm.t_row + cm.t_xattn * cond_tokens
         workers = [i for i in temporal.active if plan.patches[i] > 0]
         loads = {}
         for i in workers:
             sub = 1 if warm else temporal.lcm // temporal.ratios[i]
             loads[i] = sub * (cm.t_fixed
-                              + cm.t_row * plan.patches[i] * group * branch)
+                              + t_row_eff * plan.patches[i] * group * branch)
         by_load = sorted(workers, key=lambda i: (-loads[i], i))
         speeds = self.measured_speeds
         if self._seq_groups is not None:
@@ -1205,7 +1279,8 @@ class DiffusionServingEngine:
         comm = comm_bytes / cm.link_bw + cm.link_latency
         return placement, max(compute, async_t, ring_t) + comm
 
-    def _split_phase_cost(self, group: int, warm: bool, kind: str = "full"
+    def _split_phase_cost(self, group: int, warm: bool, kind: str = "full",
+                          cond_tokens: int = 0
                           ) -> Tuple[Tuple[Tuple[int, int], ...], float]:
         """Split-guidance group placement + modeled seconds (DESIGN.md
         §12/§14): logical worker i runs BOTH branches concurrently on its
@@ -1230,7 +1305,8 @@ class DiffusionServingEngine:
             rows = plan.patches[i]
             pair_v = min(speeds[g.cond_devices[i]],
                          speeds[g.uncond_devices[i]])
-            step_t = cm.t_fixed + cm.t_row * rows * group
+            step_t = cm.t_fixed + (cm.t_row + cm.t_xattn * cond_tokens) \
+                * rows * group
             compute = max(compute, sub * step_t / max(pair_v, 1e-9))
             eps_bytes += 2 * sub * rows * row_bytes * group
             hops = max(hops, sub)
@@ -1253,7 +1329,7 @@ class DiffusionServingEngine:
         return placement, max(compute, async_t) + comm + eps_t
 
     def _staged_phase_cost(self, group: int, warm: bool, kind: str,
-                           fill: bool
+                           fill: bool, cond_tokens: int = 0
                            ) -> Tuple[Tuple[Tuple[int, int], ...], float]:
         """Stage-chain placement + modeled seconds (DESIGN.md §11): stage d
         (chain order) runs on the d-th fastest device; micro-batches stream
@@ -1261,10 +1337,13 @@ class DiffusionServingEngine:
         with point-to-point handoffs, a fill bubble on refill rounds and a
         latent handoff on draining boundaries (the same
         :mod:`repro_torch.core.simulate` helpers the trace replay prices).
-        Placement entries are (stage, device). (The reference also folds a
-        prompt lane's cross-attention read into the row rate, which item 13
-        brings.)"""
+        Placement entries are (stage, device). A prompt bucket folds the
+        cross-attention read into the row rate, as
+        ``simulate._simulate_staged`` does."""
         plan, cm = self.plan, self.cm
+        if cond_tokens:
+            cm = dataclasses.replace(
+                cm, t_row=cm.t_row + cm.t_xattn * cond_tokens)
         temporal = plan.temporal
         S = len(self.stages)
         speeds = self.measured_speeds
@@ -1311,6 +1390,9 @@ class DiffusionServingEngine:
                         for k, n in kops.launch_counts().items()
                         if n != base.get(k, 0)},
             "dispatches": dict(self.dispatches),
+            "dispatches_by_bucket": {
+                f"{'guided' if g else 'plain'}/{b}": n
+                for (g, b), n in sorted(self.bucket_dispatches.items())},
             "modeled_makespan_s": self.modeled_clock_s,
             "wall_s": wall,
             "throughput_modeled_rps": (len(done) / self.modeled_clock_s

@@ -15,7 +15,7 @@ reference's, so an entry written by either package is a hit in the other:
 the *cluster signature* rounds profiled speeds to ``speed_decimals``; the
 *model* component is a content hash of the DiTConfig (whose repr is the
 reference's, field for field); the *workload* component is every
-planner-visible knob, the prompt bucket included at its value in this port
+planner-visible knob, the prompt bucket (``cond_bucket``) included
 (:meth:`repro_torch.core.pipeline.StadiPipeline._workload_key`).
 
 ``StadiPipeline.plan()`` consults the cache before any planner search when

@@ -1098,3 +1098,139 @@ def test_video_frame_zero_is_bitwise_the_image_on_the_card(cuda, cfg_scale):
     launches = vid[cuda].kernel_stats["launches"]
     assert launches["stale_kv_attention"] == cfg.n_layers * evals
     assert launches.get("cfg_epilogue", 0) == (evals if cfg_scale else 0)
+
+
+# ----------------------------------------------------------------------
+# prompt conditioning: the frozen text encoder and the prompt read
+# ----------------------------------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["tiny-dit", "sdxl-dit"])
+def test_text_encoder_on_card_matches_cpu(cuda, arch):
+    """The frozen tower is drawn on the CPU and moved, so the card and the
+    CPU hold the same weights; their tokens agree within fp32 rounding, and
+    the padding is zero in every channel on both."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import text_encoder
+
+    cfg = get_config(arch).text_conditioned(cond_seq_len=32)
+    prompts = ["a red fox in the deep snow", "whale song"]
+    a = text_encoder.encode(prompts, cfg, device="cpu")
+    b = text_encoder.encode(prompts, cfg, device=cuda)
+    assert b.device.type == "cuda" and b.shape == a.shape == (2, 8, cfg.cond_dim + 1)
+    assert (b.cpu() - a).abs().max().item() < 1e-4
+    assert torch.equal(b[1, 2:].cpu(), torch.zeros_like(a[1, 2:]))
+
+
+@pytest.mark.cuda
+def test_null_prompt_read_is_exactly_zero_in_bf16(cuda):
+    """sdxl-dit width in bf16: one block's cross-attention read of the
+    all-zero null sequence adds exactly 0.0 (every key masked: the -1e30
+    fill gives uniform weights over zero values), where a -inf fill gives
+    NaN."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import text_encoder
+    from repro_torch.models.diffusion import dit
+
+    cfg = get_config("sdxl-dit").replace(n_layers=1).text_conditioned(32)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    params = dit.nondegenerate_params(dit.init_params(gen, cfg), gen)
+    blk = {k: v[0] for k, v in params["blocks"].items()}
+    h = torch.randn(2, 256, cfg.d_model, device=cuda,
+                    generator=gen).to(torch.bfloat16)
+    null = text_encoder.null_cond(2, 8, cfg, device=cuda)
+    mask = (null[..., -1] > 0.5)[:, None, None, :]
+    kv = dit._prompt_kv(params["blocks"]["xkv"], null[..., :-1], h.dtype)[0]
+    assert torch.equal(dit._prompt_read(blk, h, kv, mask, cfg.n_heads), h)
+    logits = torch.zeros(2, cfg.n_heads, 256, 8, device=cuda)
+    assert torch.isnan(torch.softmax(logits.masked_fill(~mask, float("-inf")),
+                                     -1)).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cfg_scale", [0.0, 4.0])
+def test_prompt_generate_on_card_matches_cpu(cuda, cfg_scale):
+    """tiny-dit.reduced().text_conditioned(8) in fp32 on a prompt: the
+    card's image (K1, K3) within 1e-3 of the CPU's, K1 once a layer of
+    every eval (the prompt read launches none)."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import sampler
+    from repro_torch.core.pipeline import StadiConfig, StadiPipeline
+    from repro_torch.models import text_encoder
+    from repro_torch.models.diffusion import dit
+
+    cfg = get_config("tiny-dit").reduced().text_conditioned(cond_seq_len=8)
+    gen = torch.Generator(device="cpu").manual_seed(0)
+    params = dit.nondegenerate_params(dit.init_params(gen, cfg), gen)
+    x_T = torch.randn(1, cfg.latent_size, cfg.latent_size, cfg.channels,
+                      generator=gen)
+    tok = text_encoder.encode(["a red fox"], cfg, device="cpu")
+    config = StadiConfig.from_occupancies([0.0, 0.5], m_base=8, m_warmup=2,
+                                          cfg_scale=cfg_scale)
+    res = {d: StadiPipeline(cfg, params, sampler.linear_schedule(1000), config,
+                            device=d).generate(x_T, tok) for d in ("cpu", cuda)}
+    got, want = res[cuda].image.cpu(), res["cpu"].image
+    assert ((got - want).norm() / want.norm()).item() < 1e-3
+    evals = sum(1 if e.synchronous else sum(e.substeps)
+                for e in res[cuda].trace.events)
+    assert res[cuda].kernel_stats["launches"]["stale_kv_attention"] == \
+        cfg.n_layers * evals
+
+
+#: six prompt requests on 4 slots: (cfg_scale, round submitted before,
+#: prompt) of buckets 8, 8, 4, 32, 4, 32 (chip_smoke.py's PROMPT_TRAFFIC)
+PROMPT_LANES = [
+    (None, 0, "a red fox in the deep snow"),
+    (None, 0, "an old lighthouse on a rocky shore"),
+    (3.0, 0, "fox at dusk"),
+    (None, 0, " ".join(["word"] * 21)),
+    (5.0, 3, "whale song"),
+    (None, 3, " ".join(["night"] * 20)),
+]
+
+
+@pytest.mark.cuda
+def test_prompt_lanes_bitwise_their_lone_generate_on_card(cuda):
+    """sdxl-dit at full width and two blocks, bf16: six prompt requests of
+    buckets 8, 8, 4, 32, 4, 32 (two guided) on 4 slots, each image bitwise a
+    lone generate of its request (chip_smoke's diffusion_serve_prompt at
+    reduced depth), K1 and K3 once a layer of each dispatch and once a
+    guided dispatch."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import sampler
+    from repro_torch.core.pipeline import StadiConfig, StadiPipeline
+    from repro_torch.models import text_encoder
+    from repro_torch.models.diffusion import dit
+    from repro_torch.serving import DiffusionServingEngine
+
+    cfg = get_config("sdxl-dit").replace(n_layers=2).text_conditioned(32)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    params = dit.nondegenerate_params(dit.init_params(gen, cfg), gen)
+    sched = sampler.linear_schedule(1000)
+    config = StadiConfig.from_occupancies([0.0, 0.5], m_base=8, m_warmup=2)
+    engine = DiffusionServingEngine(StadiPipeline(cfg, params, sched, config,
+                                                  device=cuda), slots=4)
+    subs, r = [], 0
+    ops.reset_launch_counts()
+    while engine.queue or engine.active or len(subs) < len(PROMPT_LANES):
+        for scale, at, prompt in PROMPT_LANES:
+            if at == r:
+                x = torch.randn(1, cfg.latent_size, cfg.latent_size,
+                                cfg.channels, generator=gen,
+                                device=cuda).to(torch.bfloat16)
+                tok = text_encoder.encode([prompt], cfg, device=cuda)
+                subs.append((engine.submit(x, tok, cfg_scale=scale), x, tok,
+                             scale))
+        engine.step()
+        r += 1
+    assert [tok.shape[1] for _, _, tok, _ in subs] == [8, 8, 4, 32, 4, 32]
+    d = engine.stats()["dispatches"]
+    assert ops.launch_counts() == {
+        "stale_kv_attention": cfg.n_layers * (d["plain"] + d["guided"]),
+        "cfg_epilogue": d["guided"]}
+    assert set(engine.stats()["dispatches_by_bucket"]) == {
+        "plain/8", "plain/32", "guided/4"}
+    for req, x, tok, scale in subs:
+        lone = StadiPipeline(cfg, params, sched, dataclasses.replace(
+            config, cfg_scale=scale or 0.0), device=cuda).generate(x, tok)
+        assert torch.equal(req.image, lone.image), req.uid

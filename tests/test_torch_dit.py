@@ -118,13 +118,33 @@ def test_building_blocks_parity():
 
 
 def test_block_stack_refuses_later_slices(model):
-    _, _, tcfg, tparams, *_ = model
+    jcfg, _, tcfg, tparams, *_ = model
     h = torch.zeros(1, 8, tcfg.d_model)
     c = torch.zeros(1, tcfg.d_model)
-    for kw in ({"enable": torch.ones(2, dtype=torch.bool)},
-               {"prompt_ctx": (h, None)}):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tdit.block_stack(tparams["blocks"], tcfg, h, c, 0, **kw)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tdit.block_stack(tparams["blocks"], tcfg, h, c, 0,
+                         enable=torch.ones(2, dtype=torch.bool))
+    # prompt_ctx is ported (the prompt slice): the cross-attention read is
+    # held to the reference's on its text-conditioned weights, the second
+    # row's prompt partly masked
+    jtcfg = jcfg.text_conditioned(cond_seq_len=8)
+    jtp = jdit.nondegenerate_params(jdit.init_params(jax.random.PRNGKey(0),
+                                                     jtcfg))
+    ttp = bridge.params_from_jax(jax.tree_util.tree_map(np.asarray, jtp),
+                                 device="cpu")
+    rng = np.random.default_rng(5)
+    hx = rng.standard_normal((2, 8, tcfg.d_model)).astype(np.float32)
+    cx = rng.standard_normal((2, tcfg.d_model)).astype(np.float32)
+    ck = rng.standard_normal((2, 4, jtcfg.cond_dim)).astype(np.float32)
+    cmask = np.array([[1, 1, 1, 1], [1, 1, 0, 0]], bool)[:, None, None, :]
+    want, _ = jdit.block_stack(jtp["blocks"], jtcfg, jnp.asarray(hx),
+                               jnp.asarray(cx), 0,
+                               prompt_ctx=(jnp.asarray(ck),
+                                           jnp.asarray(cmask)))
+    got, _ = tdit.block_stack(ttp["blocks"], DiTConfig(**dataclasses.asdict(
+        jtcfg)), torch.from_numpy(hx), torch.from_numpy(cx), 0,
+        prompt_ctx=(torch.from_numpy(ck), torch.from_numpy(cmask)))
+    np.testing.assert_allclose(_np(got), _np(want), **BAR)
     # attend_fn is ported (the sequence-parallel slice): it receives the
     # blended context, a copy, and what it returns is the attention
     L, H = tcfg.n_layers, tcfg.n_heads

@@ -279,8 +279,12 @@ def test_guidance_conds_and_forward_cfg_match_reference(setup):
     got = tdit.forward_cfg(tparams, tcfg, torch.from_numpy(x_T), 37,
                            torch.from_numpy(cond), 4.0)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **FWD_BAR)
-    with pytest.raises(NotImplementedError, match="prompt"):
-        tdit.guidance_conds(torch.zeros(2, 4, 5))
+    # prompt tokens (the prompt slice): the null branch is the all-zero
+    # sequence, as the reference's
+    tok = np.random.default_rng(3).standard_normal((2, 4, 5)).astype(np.float32)
+    np.testing.assert_array_equal(
+        tdit.guidance_conds(torch.from_numpy(tok)).numpy(),
+        np.asarray(jdit.guidance_conds(jnp.asarray(tok))))
 
 
 @pytest.mark.parametrize("batch", [1, 2])

@@ -496,17 +496,20 @@ def test_model_api_and_serve_entry_point():
                         max_new=4, device="cpu")
     assert sorted(len(r.out_tokens) for r in done) == [4, 4, 4]
     assert all(0 <= t < tcfg.vocab for r in done for t in r.out_tokens)
-    # diffusion serving is ported, its video lanes too (one clip a
-    # request); the prompt slice's flags name their item
+    # diffusion serving is ported, its video lanes (one clip a request)
+    # and its prompt lanes too
     (clip,) = tserve.main(["--diffusion", "--num-frames", "2", "--requests",
                            "1", "--slots", "1", "--m-base", "4",
                            "--m-warmup", "2", "--device", "cpu"])
     assert clip.image.shape[:2] == (1, 2) and clip.done
-    with pytest.raises(NotImplementedError, match="queue 1 item 13"):
-        tserve.main(["--diffusion", "--cond-tokens", "4", "--device",
-                     "cpu"])
-    with pytest.raises(NotImplementedError, match="queue 1 item 13"):
-        tserve.main(["--diffusion", "--prompt", "a red fox"])
+    lanes = ["--requests", "2", "--slots", "2", "--m-base", "4",
+             "--m-warmup", "2", "--device", "cpu"]
+    done = tserve.main(["--diffusion", "--cond-tokens", "4"] + lanes)
+    assert [tuple(r.cond.shape) for r in done] == [(1, 4, 65)] * 2
+    assert all(r.done and bool(torch.isfinite(r.image).all()) for r in done)
+    done = tserve.main(["--diffusion", "--prompt", "a red fox"] + lanes)
+    assert [r.cond.shape[1] for r in done] == [4, 4]      # 4 words: bucket 4
+    assert all(r.done and bool(torch.isfinite(r.image).all()) for r in done)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             tserve.main(["--requests", "1"])

@@ -58,3 +58,13 @@ def test_serving_modules_are_guarded(module):
     assert module in _modules()
     path = REPO / "src" / (module.replace(".", "/") + ".py")
     assert "repro.serving." + module.rsplit(".", 1)[1] in path.read_text()
+
+
+def test_text_encoder_is_guarded():
+    """The prompt slice's new module is among those the guards above import
+    and scan, names the reference module it ports, and holds no jax."""
+    module = "repro_torch.models.text_encoder"
+    assert module in _modules()
+    text = (PORT / "models" / "text_encoder.py").read_text()
+    assert "repro.models.text_encoder" in text
+    assert "jax" not in text.replace("jax.random", "")

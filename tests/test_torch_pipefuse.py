@@ -724,7 +724,6 @@ def test_cli_stage_chain_forms_on_cpu():
                        "--slots", "2"])
     assert len(done) == 3 and all(bool(torch.isfinite(r.image).all())
                                   for r in done)
-    assert "--num-stages" not in serve._LATER_FLAGS
 
 
 def _print_readings():

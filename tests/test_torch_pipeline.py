@@ -186,10 +186,11 @@ def test_entry_points_refuse_without_device_and_later_slices(setup):
                             device="cpu")
     tpipe.StadiPipeline(tcfg, tparams, sched, dataclasses.replace(
         conf, num_frames=2, planner="stadi_video"), device="cpu")
-    # the prompt slice is not: a text-conditioned model refuses
-    with pytest.raises(NotImplementedError, match="item 13"):
-        tpipe.StadiPipeline(dataclasses.replace(tcfg, cross_attn=True),
-                            tparams, sched, conf, device="cpu")
+    # the prompt slice is ported: a text-conditioned model builds, and its
+    # planner prices the model's largest prompt bucket, as the reference's
+    text = tpipe.StadiPipeline(tcfg.text_conditioned(cond_seq_len=8),
+                               tparams, sched, conf, device="cpu")
+    assert text._plan_knobs().cond_bucket == 8
     # the pipefuse slice is ported: stages need a staged backend, as in the
     # reference, and stadi_pipefuse builds
     with pytest.raises(ValueError, match="staged backend"):

@@ -59,16 +59,22 @@ def _config(speeds, pkg=tpipe, hetero=thetero, **kw):
     return pkg.StadiConfig(cluster=cluster, **kw)
 
 
-def _pipe(setup, tmp_path, speeds=(1.0, 0.5), cfg=None, **kw):
+def _pipe(setup, tmp_path, speeds=(1.0, 0.5), cfg=None, text=0, **kw):
+    """The port's pipeline; ``text`` > 0 plans the text-conditioned model
+    of that cond_seq_len (planning reads no weights)."""
     _, _, tcfg, tparams = setup
+    if text:
+        cfg = tcfg.text_conditioned(cond_seq_len=text)
     config = _config(list(speeds), **{"m_base": 8, "m_warmup": 2, **kw},
                      plan_cache_dir=str(tmp_path))
     return tpipe.StadiPipeline(cfg or tcfg, tparams, tsam.linear_schedule(100),
                                config, device="cpu")
 
 
-def _jax_pipe(setup, tmp_path, speeds=(1.0, 0.5), **kw):
+def _jax_pipe(setup, tmp_path, speeds=(1.0, 0.5), text=0, **kw):
     jcfg, jparams, _, _ = setup
+    if text:
+        jcfg = jcfg.text_conditioned(cond_seq_len=text)
     if "cost_model" in kw and kw["cost_model"] is not None:
         kw["cost_model"] = JCostModel(**dataclasses.asdict(kw["cost_model"]))
     config = _config(list(speeds), jpipe, jhetero, m_base=8, m_warmup=2,
@@ -324,6 +330,12 @@ WORKLOADS = [
     dict(speeds=(1.0, 1.0, 0.5, 0.5), planner="stadi_video", num_frames=4,
          cost_model=CostModel(t_fixed=1e-5, t_row=1e-5, t_ctx=5e-3)),
     dict(speeds=(1.0, 0.5), num_frames=3, cfg_scale=2.0),
+    # text-conditioned: the bucket derived from cond_seq_len, and a pinned
+    # serving bucket priced by t_xattn
+    dict(text=8),
+    dict(speeds=(1.0, 1.0, 0.5, 0.5), text=32, cond_bucket=8, cfg_scale=2.0,
+         planner="stadi_guidance",
+         cost_model=CostModel(t_fixed=5e-3, t_row=5.5e-4, t_xattn=2e-5)),
 ]
 
 

@@ -244,7 +244,8 @@ def test_stepper_registry_and_validation(setup):
     with pytest.raises(ValueError):               # one request = one image
         engine.submit(torch.zeros(2, cfg.latent_size, cfg.latent_size,
                                   cfg.channels), 0)
-    with pytest.raises(ValueError, match="item 13"):
+    # prompt tokens need a text-conditioned model (the prompt slice)
+    with pytest.raises(ValueError, match="text-conditioned"):
         engine.submit(torch.zeros(cfg.latent_size, cfg.latent_size,
                                   cfg.channels), torch.zeros(1, 4, 65))
 
