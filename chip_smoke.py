@@ -9,13 +9,16 @@ interleaved) through ``StadiPipeline.generate`` and the multi-rank paths
 attention) on gloo ranks that share the card, the displaced stage chain
 (pipefuse, its serving lanes and spmd_pipefuse), the multi-rank serving
 lanes (the spmd stepper), the frame axis (4-frame videos: emulated,
-guided, the stadi_video plan, spmd_frames and the video serving lanes) and
+guided, the stadi_video plan, spmd_frames and the video serving lanes),
 prompt conditioning (the frozen text encoder and the DiT's prompt
 cross-attention: the main path, guided, a guided video, the prompt-bucket
-serving lanes and spmd on a prompt), and checks card-vs-CPU outputs.
+serving lanes and spmd on a prompt), the tensor-parallel baseline (on
+gloo ranks sharing the card, and under --nccl on 2 and 4 cards) and the
+training wing (the tiny-dit trainer, its checkpoint, an sdxl-dit training
+step through K1 under autograd), and checks card-vs-CPU outputs.
 
     python3 chip_smoke.py
-    python3 chip_smoke.py --nccl     # only phases 11, 19 and 22, over NCCL
+    python3 chip_smoke.py --nccl     # only phases 11, 19, 22 and 25, over NCCL
 
 Phases (any failure raises, so the script exits non-zero):
   1. the card: name and power limit (nvidia-smi), TF32 off for fp32 products
@@ -200,9 +203,37 @@ Phases (any failure raises, so the script exits non-zero):
      (``diffusion_serve_prompt``: launches from the dispatches, dispatches
      by guidance and bucket, each image bitwise its lone generate, drain
      seconds).
+ 24. K1 at this slice's layouts: all-fresh over each tensor-parallel
+     rank's heads of sdxl-dit ([1, 4096, 16/W, 72], W 2 and 4) and over the
+     tiny-dit training batch ([32, 256, 6, 32]), fp32 and bf16, with the
+     bars and planted faults of phase 3, timed against the bound and SDPA
+     (``k1_layout_check``); the K1 Function's gradients (its backward the
+     plain version's autograd) against autograd of the plain version
+     (``k1_autograd_check``).
+ 25. the tensor-parallel baseline on sdxl-dit (bf16, full width): the
+     simulator's cost model fitted to the card by
+     ``hetero.profile_step_time``; one ``tp_forward`` on 2 gloo ranks
+     sharing the card (within 1e-2 of the single-card forward, equal on
+     both ranks, 28 K1 and 56 all-reduces a rank, the all-reduce seconds a
+     rank) and a 4-step DDIM sample through it (within 1e-2 of the
+     single-card sample) (``tp_check``); under --nccl a 16-step sample on 2
+     and on 4 cards, its makespan beside spmd's on the same idle cards and
+     beside ``simulate_tensor_parallel``'s prediction (``tp_nccl``).
+ 26. the training wing: the tiny-dit trainer, 200 steps at batch 32 in fp32
+     (the loss falls, 4 K1 a step, s/step; ``train_check``), its
+     checkpoint round trip (bitwise; the restored weights' emulated image
+     bitwise the trained weights'), one sdxl-dit training step at batch 2
+     in bf16 (gradients through the K1 Function within 2e-3 norm-relative
+     of the plain version's, step time, peak memory;
+     ``train_sdxl_check``), and K1 refusing a grad-requiring CUDA operand
+     outside its Function.
+ 27. card against CPU in fp32: tiny-dit.reduced()'s loss gradients at one
+     training step's draws, and the tiny-unet forward and gradients, within
+     1e-4 (``train_cross_device``).
  Phases 13 to 15 run after phase 8, before the sdxl-dit paths; phase 16
  after phase 10, 17 after 7, 18 after 16, 19 after 11, 20 after 17, 21
- after 18, 23 after 21 and 22 after 11.
+ after 18, 23 after 21, 22 after 11, 24 after 20, 25 and 26 after 19, 27
+ after 12.
 Every path is driven with the launch counters set to 0 just before it and
 read just after (on every rank for the multi-rank paths). The
 second-to-last line is the kernels' JSON record, the last line the device
@@ -971,14 +1002,15 @@ def _expected_launches(result, n_layers):
     return expected
 
 
-def profile_generate(pipe, x_T, cond, wall_s, label, top=12):
-    """One generate under torch.profiler: device time by kernel and the
-    device idle share (1 - busy / the unprofiled wall time: the profiler
-    slows the host, not the kernels)."""
+def profile_summary(fn, wall_s, top=12):
+    """``fn()`` once under torch.profiler: device time by kernel, the
+    device idle share (1 - busy / ``wall_s``, the unprofiled wall time: the
+    profiler slows the host, not the kernels), and the device time of K1,
+    K3 and the NCCL kernels."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        pipe.generate(x_T, cond)
+        fn()
         torch.cuda.synchronize()
     kernels = []
     for ev in prof.key_averages():
@@ -988,15 +1020,22 @@ def profile_generate(pipe, x_T, cond, wall_s, label, top=12):
             kernels.append((ev.key, dev_us, ev.count))
     kernels.sort(key=lambda k: -k[1])
     busy_s = sum(us for _, us, _ in kernels) * 1e-6
-    k1_s = sum(us for name, us, _ in kernels if "stale_kv_attention" in name) * 1e-6
-    k3_s = sum(us for name, us, _ in kernels if "cfg_epilogue" in name) * 1e-6
-    print(f"{label}_profile", json.dumps({
-        "wall_s": wall_s, "device_busy_s": busy_s,
-        "device_idle_share": max(0.0, 1.0 - busy_s / wall_s),
-        "k1_device_s": k1_s, "k1_share_of_busy": k1_s / busy_s if busy_s else None,
-        "k3_device_s": k3_s, "k3_share_of_busy": k3_s / busy_s if busy_s else None,
-        "top_kernels": [{"name": n[:120], "device_s": us * 1e-6, "calls": c}
-                        for n, us, c in kernels[:top]]}), flush=True)
+    named_s = lambda part: sum(us for name, us, _ in kernels
+                               if part in name) * 1e-6
+    k1_s, k3_s = named_s("stale_kv_attention"), named_s("cfg_epilogue")
+    return {"wall_s": wall_s, "device_busy_s": busy_s,
+            "device_idle_share": max(0.0, 1.0 - busy_s / wall_s),
+            "k1_device_s": k1_s, "k1_share_of_busy": k1_s / busy_s if busy_s else None,
+            "k3_device_s": k3_s, "k3_share_of_busy": k3_s / busy_s if busy_s else None,
+            "nccl_device_s": named_s("nccl"),
+            "top_kernels": [{"name": n[:120], "device_s": us * 1e-6, "calls": c}
+                            for n, us, c in kernels[:top]]}
+
+
+def profile_generate(pipe, x_T, cond, wall_s, label, top=12):
+    """One generate under torch.profiler (:func:`profile_summary`)."""
+    print(f"{label}_profile", json.dumps(profile_summary(
+        lambda: pipe.generate(x_T, cond), wall_s, top)), flush=True)
 
 
 def sdxl_setup(dev):
@@ -2853,6 +2892,525 @@ def phase_hymba_cross_device(dev):
     return rel
 
 
+# ----------------------------------------------------------------------
+# the tensor-parallel baseline and the diffusion training wing
+# ----------------------------------------------------------------------
+
+#: K1's tensor-parallel rank layouts (all-fresh, sdxl-dit's 16 heads over
+#: W ranks) and its training layout (tiny-dit, batch 32, 6 heads of 32)
+TP_WORLDS = (2, 4)
+K1_TRAIN_LAYOUT = (32, 256, 6, 32)
+TP_T = 500                   # the timestep of the single TP forward
+TP_SAMPLE_STEPS = 4          # DDIM steps of the TP sample on gloo ranks
+TP_NCCL_STEPS = 16           # and on NCCL cards (the main path's m_base)
+TRAIN_STEPS, TRAIN_BATCH, TRAIN_LR = 200, 32, 2e-3
+#: the link the TP prediction prices: NVLink 4 on an H100 SXM, 450 GB/s a
+#: direction (the data sheet's 900 GB/s both ways), 10 us a collective
+NVLINK_BW, NVLINK_LATENCY = 450e9, 10e-6
+
+
+def k1_layout_line(ops, ref, layers, dev, peaks, B, N, H, hd, dtype, gen,
+                   label, timed):
+    """K1 all-fresh (the context the patch itself, as TP and training call
+    it) against its plain version with the bars and planted faults of
+    phase 3; with ``timed``, times of the kernel, the plain version and
+    SDPA over the same q/k/v, and the bound."""
+    F = torch.nn.functional
+    q, k, v, _, _ = k1_inputs(N, N, dtype, dev, gen, B, H, hd)
+    out = ops.stale_kv_attention(q, k, v, k, v, tok_start=0)
+    want = ref.stale_kv_attention_ref(q, k, v, k, v, 0)
+    err, rel, ok = k1_reading(out, want, dtype)
+    faults = {name: k1_reading(out, bad, dtype)
+              for name, bad in k1_planted_faults(layers, ref, q, k, v, k, v,
+                                                 0).items()}
+    line = {"kernel": "stale_kv_attention", "layout": label, "batch": B,
+            "N": N, "Nl": N, "heads": H, "hd": hd, "dtype": str(dtype),
+            "max_abs_err": err, "norm_rel_err": rel, "ok": ok,
+            "planted_faults": {name: {"norm_rel_err": r, "rejected": not passed}
+                               for name, (_, r, passed) in faults.items()}}
+    if timed:
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        bound_ms, bound_by = k1_bound_ms(B, H, N, N, hd, dtype, peaks)
+        line.update(
+            ms=time_ms(lambda: ops.stale_kv_attention(q, k, v, k, v,
+                                                      tok_start=0)),
+            plain_ms=time_ms(lambda: ref.stale_kv_attention_ref(
+                q, k, v, k, v, 0), reps=3),
+            library_ms=time_ms(lambda: F.scaled_dot_product_attention(
+                qt, kt, vt)),
+            bound_ms=bound_ms, bound_by=bound_by)
+    print("k1_layout_check", json.dumps(line), flush=True)
+    check(ok, f"K1 disagrees with its plain version: {line}")
+    check(all(not passed for _, _, passed in faults.values()),
+          f"the K1 bar lets a planted fault through: {line}")
+    return line
+
+
+def phase_k1_tp_train(ops, ref, layers, dev, peaks):
+    """K1 at the layouts of this slice: each TP rank's heads of sdxl-dit
+    ([1, 4096, 16/W, 72], W 2 and 4) and the tiny-dit training batch ([32,
+    256, 6, 32]), fp32 and bf16, timed at the path's dtype (TP bf16,
+    training fp32). Then the K1 Function's gradients (its backward the
+    plain version's autograd) against autograd through the plain version,
+    at the training layout in fp32 and a TP layout in bf16, with the bars
+    of phase 3 on each operand's gradient. Returns {"tp": [lines],
+    "train": line}."""
+    gen = torch.Generator(device="cpu").manual_seed(SEED + 7)
+    out = {"tp": []}
+    for world in TP_WORLDS:
+        for dtype in (torch.float32, torch.bfloat16):
+            line = k1_layout_line(ops, ref, layers, dev, peaks, 1, 4096,
+                                  16 // world, 72, dtype, gen, f"tp{world}",
+                                  dtype == torch.bfloat16)
+            if dtype == torch.bfloat16:
+                out["tp"].append(line)
+    B, N, H, hd = K1_TRAIN_LAYOUT
+    for dtype in (torch.bfloat16, torch.float32):
+        out["train"] = k1_layout_line(ops, ref, layers, dev, peaks, B, N, H, hd,
+                                      dtype, gen, "train",
+                                      dtype == torch.float32)
+    for (B, N, H, hd), dtype in ((K1_TRAIN_LAYOUT, torch.float32),
+                                 ((1, 4096, 8, 72), torch.bfloat16)):
+        q, k, v, _, _ = k1_inputs(N, N, dtype, dev, gen, B, H, hd)
+        w = torch.randn(q.shape, generator=gen).to(dtype).to(dev)
+        grads = []
+        for fn in (lambda *a: ops.stale_kv_attention_autograd(*a, tok_start=0),
+                   lambda *a: ref.stale_kv_attention_ref(*a, 0)):
+            leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+            o = fn(leaves[0], leaves[1], leaves[2], leaves[1], leaves[2])
+            grads.append(torch.autograd.grad((o.float() * w.float()).sum(),
+                                             leaves))
+        readings = [k1_reading(g, h, dtype) for g, h in zip(*grads)]
+        line = {"kernel": "stale_kv_attention", "autograd": True,
+                "layout": [B, N, H, hd], "dtype": str(dtype),
+                "grad_norm_rel_err": {n: r[1] for n, r in zip("qkv", readings)},
+                "ok": all(r[2] for r in readings)}
+        print("k1_autograd_check", json.dumps(line), flush=True)
+        check(line["ok"], f"the K1 Function's gradients disagree with the "
+              f"plain version's: {line}")
+    return out
+
+
+def tp_rank(ctx, sample_steps):
+    """One rank of the TP phase: sdxl-dit from SEED, this rank's shard; a
+    warm-up forward, one counted forward at TP_T, one more with every
+    all-reduce timed between card synchronisations, then a
+    ``sample_steps``-step DDIM sample through tp_forward, counted and
+    timed, then one forward profiled and the sample timed once more.
+    Returns eps, image, seconds, launches, all-reduce seconds and the
+    profile."""
+    from repro_torch.core import sampler
+    from repro_torch.core import tensor_parallel as tp
+    from repro_torch.kernels import ops
+
+    cfg, params, x_T, cond = sdxl_setup(ctx.device)
+    shard = tp.shard_params(params, cfg, ctx.rank, ctx.world)
+    del params
+    fwd = lambda x, t: tp.tp_forward(shard, cfg, x, t, cond)
+    sync = lambda: torch.cuda.synchronize(ctx.device)
+    fwd(x_T, TP_T)
+    sync()
+    torch.cuda.reset_peak_memory_stats(ctx.device)
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    eps = fwd(x_T, TP_T)
+    sync()
+    seconds = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    reduce, spent = tp._all_reduce, []
+
+    def timed(partial, group):
+        sync()
+        t1 = time.perf_counter()
+        out = reduce(partial, group)
+        sync()
+        spent.append(time.perf_counter() - t1)
+        return out
+    tp._all_reduce = timed
+    try:
+        t0 = time.perf_counter()
+        fwd(x_T, TP_T)
+        sync()
+        timed_s = time.perf_counter() - t0
+    finally:
+        tp._all_reduce = reduce
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    img = sampler.ddim_sample(fwd, sampler.linear_schedule(1000), x_T,
+                              sample_steps)
+    sync()
+    sample_s = time.perf_counter() - t0
+    sample_launches = ops.launch_counts()
+    # profiled after every timing; the sample timed once more after the
+    # profile says whether a finished profiler session slows later launches
+    prof = profile_summary(lambda: fwd(x_T, TP_T), seconds)
+    t0 = time.perf_counter()
+    sampler.ddim_sample(fwd, sampler.linear_schedule(1000), x_T, sample_steps)
+    sync()
+    return {"eps": eps.float().cpu().numpy(), "seconds": seconds,
+            "profile": prof,
+            "sample_after_profile_s": time.perf_counter() - t0,
+            "launches": launches, "timed_wall_s": timed_s,
+            "all_reduce_s": sum(spent), "all_reduces": len(spent),
+            "image": img.float().cpu().numpy(), "sample_s": sample_s,
+            "sample_launches": sample_launches,
+            "peak_gib": torch.cuda.max_memory_allocated(ctx.device) / 2**30}
+
+
+def tp_cost_model(dev):
+    """The simulator's CostModel fitted to this card: profile_step_time of
+    the single-card sdxl-dit forward over the whole latent (64 token rows)
+    and over its top half (32), the link at NVLINK_BW / NVLINK_LATENCY.
+    Returns (the model, the two step times, the single-card reference
+    (cfg, params, x_T, cond))."""
+    from repro_torch.core import hetero, simulate
+    from repro_torch.models.diffusion import dit
+
+    cfg, params, x_T, cond = sdxl_setup(dev)
+    times = [hetero.profile_step_time(
+        lambda: dit.forward(params, cfg, x_T[:, :rows * cfg.patch_size],
+                            TP_T, cond), warmup=3, iters=20)
+             for rows in (32, 64)]
+    cm = simulate.fit_cost_model([32, 64], times, link_bw=NVLINK_BW,
+                                 link_latency=NVLINK_LATENCY)
+    return cm, times, (cfg, params, x_T, cond)
+
+
+def tp_predictions(cm, cfg, world, steps):
+    """simulate_tensor_parallel (two all-reduces of [1, N, D] bf16 a block)
+    and uniform_pp_latency (the latent's bytes a step) on ``world`` idle
+    cards."""
+    from repro_torch.core import simulate
+
+    act = 2 * cfg.n_tokens * cfg.d_model * 2
+    latent = cfg.latent_size ** 2 * cfg.channels * 2
+    speeds = [1.0] * world
+    return (simulate.simulate_tensor_parallel(
+                steps, world, cfg.n_layers, cfg.tokens_per_side, speeds, cm, act),
+            simulate.uniform_pp_latency(steps, cfg.tokens_per_side, speeds, cm,
+                                        latent))
+
+
+def phase_tp(ops, dev, dist_backend="gloo"):
+    """The TP baseline on sdxl-dit (bf16, full width). gloo: 2 ranks sharing
+    the card, one tp_forward (within 1e-2 of the single-card dit.forward,
+    equal on both ranks, 28 K1 a rank, the all-reduce seconds a rank) and a
+    TP_SAMPLE_STEPS-step DDIM sample (within 1e-2 of the single-card
+    sample). NCCL (one card a rank): a TP_NCCL_STEPS-step sample on 2 and
+    on 4 cards, its makespan beside spmd's on the same idle cards (the
+    main path's planner on a uniform cluster) and beside the simulator's
+    prediction. Returns {label: per-rank results}."""
+    from repro_torch.core import sampler
+    from repro_torch.core.pipeline import StadiConfig
+    from repro_torch.launch import ranks
+    from repro_torch.models.diffusion import dit
+
+    cm, times, (cfg, params, x_T, cond) = tp_cost_model(dev)
+    print(f"tp cost model: single-card forward {times[1] * 1e3:.2f} ms (64 "
+          f"token rows), {times[0] * 1e3:.2f} ms (32 rows) by "
+          f"hetero.profile_step_time -> t_fixed {cm.t_fixed:.3e} s, t_row "
+          f"{cm.t_row:.3e} s, link {NVLINK_BW:.3g} B/s + {NVLINK_LATENCY:.0e} s",
+          flush=True)
+    worlds = TP_WORLDS if dist_backend == "nccl" else (2,)
+    steps = TP_NCCL_STEPS if dist_backend == "nccl" else TP_SAMPLE_STEPS
+    sched = sampler.linear_schedule(1000)
+    eps_one = dit.forward(params, cfg, x_T, TP_T, cond).float().cpu().numpy()
+    img_one = sampler.ddim_sample(lambda x, t: dit.forward(params, cfg, x, t, cond),
+                                  sched, x_T, steps).float().cpu().numpy()
+    del params
+    torch.cuda.empty_cache()
+    results = {}
+    for world in worlds:
+        t0 = time.perf_counter()
+        outs = ranks.spawn(tp_rank, world, device_type="cuda",
+                           dist_backend=dist_backend, args=(steps,),
+                           timeout=600)
+        spawn_s = time.perf_counter() - t0
+        rel = lambda a, b: float(np.linalg.norm(a - b) / np.linalg.norm(b))
+        tp_pred, pp_pred = tp_predictions(cm, cfg, world, steps)
+        line = {"ranks": world, "transport": dist_backend,
+                "shared_card": dist_backend == "gloo", "t": TP_T,
+                "forward_s_per_rank": [o["seconds"] for o in outs],
+                "all_reduce_s_per_rank": [o["all_reduce_s"] for o in outs],
+                "all_reduces_per_forward": outs[0]["all_reduces"],
+                "timed_forward_wall_s": [o["timed_wall_s"] for o in outs],
+                "launches_per_rank": [o["launches"] for o in outs],
+                "eps_rel_err_vs_single_card": [rel(o["eps"], eps_one) for o in outs],
+                "eps_max_abs_err": [float(np.abs(o["eps"] - eps_one).max())
+                                    for o in outs],
+                "sample_steps": steps,
+                "sample_s_per_rank": [o["sample_s"] for o in outs],
+                "sample_makespan_s": max(o["sample_s"] for o in outs),
+                "sample_after_profile_s_per_rank": [
+                    o["sample_after_profile_s"] for o in outs],
+                "sample_launches_per_rank": [o["sample_launches"] for o in outs],
+                "image_rel_err_vs_single_card": [rel(o["image"], img_one)
+                                                 for o in outs],
+                "predicted_tp_s": tp_pred, "predicted_pp_s": pp_pred,
+                "peak_gib_per_rank": [o["peak_gib"] for o in outs],
+                "spawn_s": spawn_s, "bar": 1e-2}
+        if dist_backend == "nccl":
+            uniform = StadiConfig.from_occupancies(
+                [0.0] * world, m_base=TP_NCCL_STEPS, m_warmup=4,
+                planner="stadi", backend="spmd", exchange="sync")
+            spmd_outs = ranks.spawn(spmd_rank, world, device_type="cuda",
+                                    dist_backend="nccl",
+                                    args=([("spmd_uniform", "sdxl", uniform)],),
+                                    timeout=300)
+            line["spmd_makespan_s"] = max(o["spmd_uniform"]["seconds"]
+                                          for o in spmd_outs)
+            line["spmd_patches"] = spmd_outs[0]["spmd_uniform"]["patches"]
+        label = "tp_nccl" if dist_backend == "nccl" else "tp_check"
+        print(label, json.dumps(line), flush=True)
+        print(f"{label}_profile", json.dumps({"ranks": world, "rank": 0,
+                                              **outs[0]["profile"]}), flush=True)
+        n_layers = cfg.n_layers
+        for r, o in enumerate(outs):
+            check(o["launches"] == {"stale_kv_attention": n_layers},
+                  f"TP rank {r}: launches {o['launches']}, want {n_layers} K1")
+            check(o["sample_launches"] == {"stale_kv_attention": n_layers * steps},
+                  f"TP rank {r}: sample launches {o['sample_launches']}")
+            check(o["all_reduces"] == 2 * n_layers,
+                  f"TP rank {r}: {o['all_reduces']} all-reduces a forward")
+            check(np.isfinite(o["eps"]).all() and np.isfinite(o["image"]).all(),
+                  f"TP rank {r}: non-finite output")
+            check(np.array_equal(o["eps"], outs[0]["eps"])
+                  and np.array_equal(o["image"], outs[0]["image"]),
+                  f"TP rank {r} returned another output than rank 0")
+        check(max(line["eps_rel_err_vs_single_card"]) < 1e-2,
+              f"TP eps vs the single-card forward: {line}")
+        check(max(line["image_rel_err_vs_single_card"]) < 1e-2,
+              f"TP sample vs the single-card sample: {line}")
+        results[f"tp{world}" if dist_backend == "nccl" else "tp_check"] = outs
+    return results
+
+
+def grads_of(loss, tree):
+    """(loss, gradients of every leaf of ``tree``, in its leaf order) with
+    the tree's leaves made to require grad."""
+    from repro_torch import tree as tree_lib
+
+    p = tree_lib.tree_map(lambda a: a.detach().requires_grad_(), tree)
+    value = loss(p)
+    return value.detach(), torch.autograd.grad(value, tree_lib.leaves(p))
+
+
+def phase_train(ops, ref, dev):
+    """The training wing on the card: the tiny-dit trainer (TRAIN_STEPS
+    steps, batch TRAIN_BATCH, fp32; the loss falls, K1 once a block a
+    step, s/step), its checkpoint round trip (bitwise, and the restored
+    weights' emulated main-path image bitwise the trained weights'),
+    one sdxl-dit training step at batch 2 in bf16 (gradients through the K1
+    Function within 2e-3 norm-relative of the plain version's, peak memory,
+    step time), and a K1 call on a CUDA operand that requires grad outside
+    the Function refused. Returns the launches of the trainer's run."""
+    import tempfile
+
+    from repro_torch import tree as tree_lib
+    from repro_torch.checkpoint import restore_checkpoint, save_checkpoint
+    from repro_torch.configs import get_config
+    from repro_torch.core import hetero, sampler
+    from repro_torch.core.pipeline import StadiConfig, StadiPipeline
+    from repro_torch.data import SyntheticImages
+    from repro_torch.launch import train_tiny_diffusion as trainer
+    from repro_torch.optim import adamw
+
+    cfg = get_config("tiny-dit")
+    ops.reset_launch_counts()
+    res = trainer.train(cfg, TRAIN_STEPS, TRAIN_BATCH, TRAIN_LR, SEED, dev,
+                        log=None)
+    launches = ops.launch_counts()
+    losses = res.losses
+    first, last = statistics.mean(losses[:20]), statistics.mean(losses[-20:])
+    sched = sampler.linear_schedule(1000)
+    opt_cfg = adamw.AdamWConfig(lr=TRAIN_LR, weight_decay=trainer.WEIGHT_DECAY)
+    gen = torch.Generator(dev).manual_seed(SEED + 9)
+    imgs, cls = next(SyntheticImages(
+        size=cfg.latent_size, channels=cfg.channels, n_classes=cfg.n_classes,
+        seed=SEED).batches(TRAIN_BATCH, seed=SEED + 2))
+    x0, cls = torch.from_numpy(imgs).to(dev), torch.from_numpy(cls).to(dev)
+    state = {"p": res.params, "o": res.opt_state}
+
+    def one_step():
+        state["p"], state["o"], _ = trainer.train_step(
+            state["p"], state["o"], x0, cls, gen, cfg, sched, opt_cfg,
+            TRAIN_STEPS + 40)
+    warm_step_s = hetero.profile_step_time(one_step, warmup=2, iters=20)
+    line = {"model": "tiny-dit", "steps": TRAIN_STEPS, "batch": TRAIN_BATCH,
+            "dtype": "float32", "loss_first": losses[0], "loss_last": losses[-1],
+            "loss_mean_first20": first, "loss_mean_last20": last,
+            "s_per_step": res.seconds / TRAIN_STEPS,
+            "warm_s_per_step": warm_step_s, "launches": launches,
+            "k1_per_step": launches.get("stale_kv_attention", 0) / TRAIN_STEPS}
+    check(launches == {"stale_kv_attention": TRAIN_STEPS * cfg.n_layers},
+          f"trainer launches {launches}, want K1 {cfg.n_layers} a step")
+    check(all(math.isfinite(v) for v in losses), "trainer: non-finite loss")
+    check(last < first and losses[-1] < losses[0],
+          f"trainer: the loss did not fall: {line}")
+    with tempfile.TemporaryDirectory() as ckpt_dir:
+        save_checkpoint(ckpt_dir, TRAIN_STEPS, {"params": res.params})
+        back = restore_checkpoint(ckpt_dir, {"params": res.params})["params"]
+    check(all(torch.equal(a, b) for a, b in zip(tree_lib.leaves(back),
+                                                 tree_lib.leaves(res.params))),
+          "the restored checkpoint is not bitwise the trained params")
+    config = StadiConfig.from_occupancies([0.0, 0.5], m_base=16, m_warmup=4)
+    x_T = torch.randn(1, cfg.latent_size, cfg.latent_size, cfg.channels,
+                      generator=torch.Generator().manual_seed(SEED + 3))
+    images = [StadiPipeline(cfg, p, sched, config, device=dev).generate(
+        x_T, torch.tensor([3])).image for p in (res.params, back)]
+    line["checkpoint_image_bitwise"] = bool(torch.equal(*images))
+    check(line["checkpoint_image_bitwise"] and bool(torch.isfinite(images[0]).all()),
+          "the restored params generate another image")
+    print("train_check", json.dumps(line), flush=True)
+    del res, back
+    sdxl_train_step(ops, ref, dev)
+    q = torch.zeros(1, 64, 2, 32, device=dev, requires_grad=True)
+    try:
+        ops.stale_kv_attention(q, q, q, q, q, tok_start=0)
+    except RuntimeError as e:
+        check("no backward" in str(e), f"unexpected refusal: {e}")
+        print(f"train_check K1 on a grad-requiring CUDA operand outside the "
+              f"Function: refused ({str(e)[:60]}...)", flush=True)
+    else:
+        raise RuntimeError("chip_smoke: K1 took a grad-requiring operand "
+                           "outside its Function")
+    # profiled last, after every timing of this phase
+    print("train_profile", json.dumps(profile_summary(one_step, warm_step_s)),
+          flush=True)
+    return launches
+
+
+def sdxl_train_step(ops, ref, dev):
+    """One sdxl-dit training step at batch 2 in bf16 (warm-up step first):
+    its time and peak memory, K1 28 a step; then the loss's gradients with
+    the all-fresh read through the K1 Function and through the plain
+    version, norm-relative over all leaves < 2e-3."""
+    from repro_torch import tree as tree_lib
+    from repro_torch.core import sampler
+    from repro_torch.launch import train_tiny_diffusion as trainer
+    from repro_torch.models.diffusion import dit
+    from repro_torch.optim import adamw
+
+    cfg, params, _, _ = sdxl_setup(dev)
+    gen = torch.Generator().manual_seed(SEED + 11)
+    x0 = torch.randn(2, cfg.latent_size, cfg.latent_size, cfg.channels,
+                     generator=gen).to(torch.bfloat16).to(dev)
+    cls = torch.tensor([1, 7], device=dev)
+    draws = (torch.randint(1, 1001, (2,), generator=gen).to(dev),
+             torch.randn(x0.shape, generator=gen).to(dev))
+    sched = sampler.linear_schedule(1000)
+    opt_cfg = adamw.AdamWConfig(lr=TRAIN_LR, weight_decay=trainer.WEIGHT_DECAY)
+    state = adamw.adamw_init(params)
+    p1, state, _ = trainer.train_step(params, state, x0, cls, None, cfg, sched,
+                                      opt_cfg, 10, draws=draws)
+    del p1
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    p2, state, loss = trainer.train_step(params, state, x0, cls, None, cfg,
+                                         sched, opt_cfg, 10, draws=draws)
+    torch.cuda.synchronize()
+    step_s = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    del p2, state
+    loss_fn = lambda p: sampler.diffusion_loss_at(
+        lambda x, t: dit.forward(p, cfg, x, t, cls), sched, x0, *draws)
+    _, g_fn = grads_of(loss_fn, params)
+    routed = ops.stale_kv_attention_autograd
+    ops.stale_kv_attention_autograd = (
+        lambda q, kf, vf, ks, vs, *, tok_start:
+        ref.stale_kv_attention_ref(q, kf, vf, ks, vs, tok_start))
+    try:
+        _, g_plain = grads_of(loss_fn, params)
+    finally:
+        ops.stale_kv_attention_autograd = routed
+    diff = math.sqrt(sum(float((a.float() - b.float()).square().sum())
+                         for a, b in zip(g_fn, g_plain)))
+    norm = math.sqrt(sum(float(b.float().square().sum()) for b in g_plain))
+    names = [n for n, _ in _named_leaves(params)]
+    per_leaf = {n: float((a.float() - b.float()).norm() / max(b.float().norm(), 1e-30))
+                for n, a, b in zip(names, g_fn, g_plain)}
+    line = {"model": "sdxl-dit", "batch": 2, "dtype": "bfloat16",
+            "loss": float(loss), "step_s": step_s, "peak_gib": peak,
+            "launches": launches, "grad_norm_rel_err": diff / norm,
+            "worst_leaf": max(per_leaf, key=per_leaf.get),
+            "worst_leaf_norm_rel_err": max(per_leaf.values()), "bar": 2e-3}
+    print("train_sdxl_check", json.dumps(line), flush=True)
+    check(launches == {"stale_kv_attention": cfg.n_layers},
+          f"sdxl training step launches {launches}")
+    check(math.isfinite(line["loss"]) and all(
+        bool(torch.isfinite(g).all()) for g in g_fn), "sdxl step: non-finite")
+    check(line["grad_norm_rel_err"] < 2e-3,
+          f"gradients through the K1 Function vs the plain version: {line}")
+
+
+def _named_leaves(tree, prefix=""):
+    """(dotted name, leaf) of a dict tree, in its leaf order."""
+    for k in sorted(tree):
+        if isinstance(tree[k], dict):
+            yield from _named_leaves(tree[k], f"{prefix}{k}.")
+        else:
+            yield f"{prefix}{k}", tree[k]
+
+
+def phase_train_cross_device(dev):
+    """Card against CPU, fp32: the diffusion loss's gradients of
+    tiny-dit.reduced() at fixed draws (one training step's), and the
+    tiny-unet forward and the gradients of a mean-square loss; outputs and
+    every leaf's gradient within 1e-4 (relative to the leaf's largest)."""
+    from repro_torch import tree as tree_lib
+    from repro_torch.configs.diffusion import UNetConfig
+    from repro_torch.core import sampler
+    from repro_torch.models.diffusion import dit, unet
+
+    cfg, params, _, _ = tiny_setup()
+    gen = torch.Generator().manual_seed(SEED + 5)
+    x0 = torch.rand(4, cfg.latent_size, cfg.latent_size, cfg.channels,
+                    generator=gen) * 2 - 1
+    cls = torch.tensor([1, 5, 9, 14])
+    t = torch.randint(1, 1001, (4,), generator=gen)
+    eps = torch.randn(x0.shape, generator=gen)
+    ucfg = UNetConfig()
+    uparams = unet.init_params(gen, ucfg)
+    uparams = tree_lib.tree_map(lambda a: 0.05 * torch.randn(
+        a.shape, generator=gen) if not bool(a.any()) else a, uparams)
+    xu = torch.randn(2, ucfg.image_size, ucfg.image_size, ucfg.channels,
+                     generator=gen)
+    target = torch.randn(xu.shape, generator=gen)
+    tu, cu = torch.tensor([37.0, 610.0]), torch.tensor([3, 11])
+    sched = sampler.linear_schedule(1000)
+
+    def run(d):
+        to = lambda tree: tree_lib.tree_map(lambda a: a.to(d), tree)
+        dit_loss = lambda p: sampler.diffusion_loss_at(
+            lambda x, tt: dit.forward(p, cfg, x, tt, cls.to(d)), sched,
+            x0.to(d), t.to(d), eps.to(d))
+        out = {}
+        out["dit_loss"], out["dit_grads"] = grads_of(dit_loss, to(params))
+        with torch.no_grad():
+            out["unet_out"] = unet.forward(to(uparams), ucfg, xu.to(d),
+                                           tu.to(d), cu.to(d))
+        unet_loss = lambda p: torch.mean(torch.square(
+            unet.forward(p, ucfg, xu.to(d), tu.to(d), cu.to(d)) - target.to(d)))
+        out["unet_loss"], out["unet_grads"] = grads_of(unet_loss, to(uparams))
+        return {k: ([g.cpu() for g in v] if isinstance(v, tuple) else v.cpu())
+                for k, v in out.items()}
+    cpu, card = run("cpu"), run(dev)
+    rel = lambda gs, hs: max(float((g - h).abs().max() / max(h.abs().max(), 1e-30))
+                             for g, h in zip(gs, hs))
+    line = {"dit_loss_abs_err": abs(float(card["dit_loss"] - cpu["dit_loss"])),
+            "dit_grad_rel_err": rel(card["dit_grads"], cpu["dit_grads"]),
+            "unet_out_abs_err": float((card["unet_out"] - cpu["unet_out"]).abs().max()),
+            "unet_loss_abs_err": abs(float(card["unet_loss"] - cpu["unet_loss"])),
+            "unet_grad_rel_err": rel(card["unet_grads"], cpu["unet_grads"]),
+            "bar": 1e-4}
+    print("train_cross_device", json.dumps(line), flush=True)
+    check(max(v for k, v in line.items() if k != "bar") < 1e-4,
+          f"training on the card differs from the CPU: {line}")
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2882,11 +3440,14 @@ def main():
         spmd = phase_spmd(dev, dist_backend="nccl")
         _, chain_s = phase_chain_ranks(dev, dist_backend="nccl")
         video = phase_spmd_frames(dev, dist_backend="nccl")
+        tp = phase_tp(ops, dev, dist_backend="nccl")
         print(json.dumps({"nccl_makespan_s": {
             **{label: max(o["seconds"] for o in outs)
                for label, outs in spmd.items()},
             **{label: max(per_rank) for label, per_rank in chain_s.items()},
-            "spmd_frames": max(o["timed_wall_s"] for o in video)}}),
+            "spmd_frames": max(o["timed_wall_s"] for o in video),
+            **{label: max(o["sample_s"] for o in outs)
+               for label, outs in tp.items()}}}),
             flush=True)
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
@@ -2910,6 +3471,7 @@ def main():
     k1_lanes = phase(phase_k1_lanes, ops, ref, layers, dev, peaks)
     k2_cohort = phase(phase_k2_cohorts, ops, ref, dev, peaks)
     k1_ctx, k2_ctx = phase(phase_ctx2n, ops, ref, layers, dev, peaks)
+    k1_tp_train = phase(phase_k1_tp_train, ops, ref, layers, dev, peaks)
     k4_timed = phase(phase_k4, ops, ref, dev, peaks)
     k4 = k4_timed[0]
     k6_timed = phase(phase_k6, ops, ref, dev, peaks)
@@ -2927,7 +3489,10 @@ def main():
     spmd = phase(phase_spmd, dev)
     spmd["spmd_frames"] = phase(phase_spmd_frames, dev)
     launches.update(phase(phase_chain_ranks, dev)[0])
+    spmd.update(phase(phase_tp, ops, dev))
+    launches["train_check"] = phase(phase_train, ops, ref, dev)
     phase(phase_cross_device, dev)
+    phase(phase_train_cross_device, dev)
     for label, outs in spmd.items():      # launches summed over the ranks
         launches[label] = {}
         for o in outs:
@@ -2954,6 +3519,19 @@ def main():
          "ctx2n": [{k: line[k] for k in (
              "batch", "N", "Nl", "tok_start", "ms", "plain_ms", "library_ms",
              "bound_ms", "max_abs_err")} for line in k1_ctx],
+         "tp_layouts": [{k: line[k] for k in (
+             "heads", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
+             "max_abs_err")} for line in k1_tp_train["tp"]],
+         "train_layout": {k: k1_tp_train["train"][k] for k in (
+             "batch", "N", "heads", "hd", "dtype", "ms", "plain_ms",
+             "library_ms", "bound_ms", "bound_by", "max_abs_err")},
+         "tp_launches_per_rank_per_step": [
+             o["launches"].get("stale_kv_attention", 0)
+             for o in spmd["tp_check"]],
+         "train_launches_per_step": launches["train_check"].get(
+             "stale_kv_attention", 0) // TRAIN_STEPS,
+         "backward": "autograd of the plain version (no backward kernel, "
+                     "as in the reference)",
          "wrapper_host_us": k1["wrapper_host_us"]},
         {**entry("cfg_epilogue", "src/repro_torch/kernels/csrc/cfg_epilogue.cu",
                  "src/repro/kernels/cfg_epilogue.py:34", k3, "diffusion_serve"),

@@ -188,6 +188,11 @@ def chain_broadcast(x, src: int):
     return x
 
 
+def ring_all_reduce_bytes(n: int, nbytes: int) -> float:
+    """Analytic bytes-on-wire per rank for ring all-reduce (simulator)."""
+    return 2.0 * (n - 1) / n * nbytes
+
+
 def ring_hop_rows(segments: Sequence[int]) -> int:
     """Modeled wire rows per rank for ONE ring hop of sequence-parallel
     attention (DESIGN.md §13): every rank forwards one K/V segment to its

@@ -1,12 +1,16 @@
 """Heterogeneity modeling: device profiles, effective speeds, occupancy
 simulation (paper §V-A "Occupancy Simulation"), depth partitioning and
 online re-profiling (DESIGN.md §7.1) — the port's copy of
-``repro.core.hetero`` (pure Python).
+``repro.core.hetero`` (pure Python but for :func:`profile_step_time`, whose
+clock waits for the card).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Optional, Sequence
+import time
+from typing import Callable, List, Optional, Sequence
+
+import torch
 
 from repro_torch.core.schedule import effective_speed
 
@@ -86,6 +90,29 @@ def stage_partition(n_blocks: int, speeds: Sequence[float]) -> List[int]:
 # ----------------------------------------------------------------------
 # profiling
 # ----------------------------------------------------------------------
+
+def profile_step_time(step_fn: Callable[[], None], warmup: int = 1,
+                      iters: int = 3) -> float:
+    """Wall-clock seconds of a single-step callable (used to calibrate the
+    simulator's :class:`~repro_torch.core.simulate.CostModel`).
+
+    On the card a call returns once its kernels are queued, so a clock read
+    right after it times the host alone. The step's device is learned from
+    the process: a step that ran on a CUDA device initialised CUDA (during
+    the warm-up at the latest), so when ``torch.cuda.is_initialized()`` is
+    true after the warm-up, the current CUDA device is synchronized before
+    each clock read; a CPU-only process reads the clock as it is."""
+    for _ in range(warmup):
+        step_fn()
+    sync = (torch.cuda.synchronize if torch.cuda.is_initialized()
+            else lambda: None)
+    sync()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        step_fn()
+    sync()
+    return (time.perf_counter() - t0) / iters
+
 
 class OnlineProfiler:
     """Beyond-paper: EWMA re-estimation of v_i from measured per-interval

@@ -70,6 +70,7 @@ from __future__ import annotations
 import dataclasses
 import hashlib
 import inspect
+import warnings
 from typing import Callable, Dict, List, Optional, Protocol, Sequence, Tuple
 
 import torch
@@ -658,6 +659,36 @@ def _resolve_guidance(plan: ExecutionPlan, config: StadiConfig):
     if config.cfg_scale <= 0.0:
         raise ValueError(f"guidance={config.guidance!r} needs cfg_scale > 0")
     return GuidancePlan("fused", config.cfg_scale)
+
+
+def _deprecated(old: str, new: str) -> None:
+    warnings.warn(f"{old} is deprecated; {new}", DeprecationWarning,
+                  stacklevel=3)
+
+
+def plan_stages(plan: ExecutionPlan, model_cfg, config: StadiConfig
+                ) -> Optional[List[int]]:
+    """Deprecated: ``StadiPipeline.plan()`` populates ``plan.stages``."""
+    _deprecated("plan_stages()",
+                "StadiPipeline.plan() returns a fully-populated plan — "
+                "read plan.stages")
+    return _resolve_stages(plan, model_cfg, config)
+
+
+def plan_seq(plan: ExecutionPlan, model_cfg, config: StadiConfig):
+    """Deprecated: ``StadiPipeline.plan()`` populates ``plan.seq``."""
+    _deprecated("plan_seq()",
+                "StadiPipeline.plan() returns a fully-populated plan — "
+                "read plan.seq")
+    return _resolve_seq(plan, model_cfg, config)
+
+
+def plan_guidance(plan: ExecutionPlan, config: StadiConfig):
+    """Deprecated: ``StadiPipeline.plan()`` populates ``plan.guidance``."""
+    _deprecated("plan_guidance()",
+                "StadiPipeline.plan() returns a fully-populated plan — "
+                "read plan.guidance")
+    return _resolve_guidance(plan, config)
 
 
 def _check_frame_knobs(config: StadiConfig, guided: bool) -> None:

@@ -1,6 +1,7 @@
 """Diffusion samplers of the port: the VP noise schedules, DDIM /
-DPM-Solver-1 (paper Lemma 1) and the classifier-free-guidance combiners.
-Reference: ``repro.core.sampler``.
+DPM-Solver-1 (paper Lemma 1), ancestral DDPM, the classifier-free-guidance
+combiners and the eps-matching training loss. Reference:
+``repro.core.sampler``.
 
 alpha_t = sqrt(alpha_bar_t), sigma_t = sqrt(1 - alpha_bar_t),
 lambda_t = log(alpha_t / sigma_t). The schedule lives on the CPU in float32;
@@ -11,7 +12,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Callable
+from typing import Callable, Optional, Sequence
 
 import torch
 
@@ -59,8 +60,10 @@ def cosine_schedule(T: int = 1000, s: float = 8e-3) -> NoiseSchedule:
     return NoiseSchedule(T, alpha_bar, betas)
 
 
-def ddim_timesteps(T: int, M: int) -> torch.Tensor:
+def ddim_timesteps(T: int, M: int, warmup_offset: int = 0) -> torch.Tensor:
     """M+1 decreasing int32 timesteps t_0=T .. t_M=0 (paper Lemma 1 grid).
+    ``warmup_offset`` is the reference's unused argument, kept so that
+    calls written for it run unchanged.
 
     Equal, entry for entry, to the reference's
     ``jnp.round(jnp.linspace(T, 0, M + 1))``: that grid lands on exact .5
@@ -120,6 +123,21 @@ def ddim_step(sched: NoiseSchedule, x, eps, t_from, t_to):
     return out.to(x.dtype)
 
 
+def ddpm_step(sched: NoiseSchedule, x, eps, t, noise):
+    """Ancestral DDPM step t -> t-1 (stochastic), in float32 and cast back
+    to x's dtype. ``t`` is an int (a 0-d tensor too); as in the reference,
+    the noise is added only while ``t > 1``: the last step (t = 1) returns
+    the mean."""
+    t = int(t)
+    beta = sched.betas[t]
+    ab = sched.alpha_bar[t]
+    alpha = 1.0 - beta
+    coef = float(beta / torch.sqrt(1 - ab))
+    mean = (x.float() - coef * eps.float()) / float(torch.sqrt(alpha))
+    out = mean + float(torch.sqrt(beta)) * noise.float() if t > 1 else mean
+    return out.to(x.dtype)
+
+
 def ddim_sample(eps_fn: Callable, sched: NoiseSchedule, x_T, M: int):
     """eps_fn(x, t) -> eps with t a Python int. Returns x_0."""
     ts = ddim_timesteps(sched.T, M).tolist()
@@ -127,3 +145,49 @@ def ddim_sample(eps_fn: Callable, sched: NoiseSchedule, x_T, M: int):
     for m in range(M):
         x = ddim_step(sched, x, eps_fn(x, ts[m]), ts[m], ts[m + 1])
     return x
+
+
+def ddpm_sample(eps_fn: Callable, sched: NoiseSchedule, x_T,
+                gen: torch.Generator, noise: Optional[Sequence] = None):
+    """Ancestral sampling over all T steps, t = T .. 1; eps_fn(x, t) -> eps
+    with t a Python int. Each step's noise is a float32 normal draw of x's
+    shape from ``gen`` (on gen's device), or ``noise[i]`` for the i-th step
+    when ``noise`` is given (the reference's own draws, for parity)."""
+    x = x_T
+    for i, t in enumerate(range(sched.T, 0, -1)):
+        eps = eps_fn(x, t)
+        z = (noise[i] if noise is not None else
+             torch.randn(x.shape, generator=gen, dtype=torch.float32,
+                         device=gen.device))
+        x = ddpm_step(sched, x, eps, t, z.to(x.device))
+    return x
+
+
+# ----------------------------------------------------------------------
+# diffusion training objective (eps-prediction)
+# ----------------------------------------------------------------------
+
+def diffusion_loss(eps_fn: Callable, sched: NoiseSchedule, x0,
+                   gen: torch.Generator):
+    """Standard eps-matching loss E_t,eps ||eps_theta(x_t, t) - eps||^2: a
+    timestep a batch row uniform in [1, T] and eps ~ N(0, 1) of x0's shape,
+    both drawn from ``gen`` on its device, then :func:`diffusion_loss_at`."""
+    B = x0.shape[0]
+    t = torch.randint(1, sched.T + 1, (B,), generator=gen, device=gen.device)
+    eps = torch.randn(x0.shape, generator=gen, dtype=torch.float32,
+                      device=gen.device)
+    return diffusion_loss_at(eps_fn, sched, x0, t.to(x0.device),
+                             eps.to(x0.device))
+
+
+def diffusion_loss_at(eps_fn: Callable, sched: NoiseSchedule, x0, t, eps):
+    """The loss at given draws: t [B] integer timesteps, eps float32 of
+    x0's shape; x_t = sqrt(ab_t) x0 + sqrt(1 - ab_t) eps in float32, fed to
+    ``eps_fn(x_t in x0's dtype, t)``, and the mean square error of its
+    prediction against eps in float32."""
+    B = x0.shape[0]
+    ab = sched.alpha_bar.to(x0.device)[t.to(x0.device, torch.int64)]
+    ab = ab.reshape((B,) + (1,) * (x0.ndim - 1))
+    xt = torch.sqrt(ab) * x0 + torch.sqrt(1 - ab) * eps
+    pred = eps_fn(xt.to(x0.dtype), t)
+    return torch.mean(torch.square(pred.float() - eps))

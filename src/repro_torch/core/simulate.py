@@ -467,3 +467,29 @@ def simulate_trace(trace: ExecutionTrace, speeds: Sequence[float],
         async_bytes = max(kv_row * ev.patches[i] for i in parts)
         total += max(compute, async_bytes / cm.link_bw) + comm
     return total
+
+
+def simulate_tensor_parallel(n_steps: int, n_devices: int, n_layers: int,
+                             full_rows: int, speeds: Sequence[float],
+                             cm: CostModel, act_bytes_per_layer: int) -> float:
+    """Baseline TP (paper §V-A; :mod:`repro_torch.core.tensor_parallel`):
+    every layer's work split 1/N across devices with a synchronous
+    all-reduce per layer => straggler-bound per layer. The float operations
+    are the reference's, in its order, so the two agree exactly."""
+    per_layer_compute = max(
+        cm.step_time(full_rows, v) / (n_layers * n_devices) for v in speeds)
+    # ring all-reduce ~ 2*(N-1)/N * bytes / bw
+    ar = 2 * (n_devices - 1) / n_devices * act_bytes_per_layer / cm.link_bw \
+        + cm.link_latency
+    per_step = n_layers * (per_layer_compute + ar) + cm.t_fixed / min(speeds)
+    return n_steps * per_step
+
+
+def uniform_pp_latency(n_steps: int, rows_total: int, speeds: Sequence[float],
+                       cm: CostModel, latent_bytes: int) -> float:
+    """Closed-form patch-parallelism latency (equal patches, equal steps)."""
+    n = len(speeds)
+    rows = rows_total / n
+    per_step = max(cm.step_time(rows, v) for v in speeds)
+    comm = latent_bytes / cm.link_bw + cm.link_latency
+    return n_steps * (per_step + comm)

@@ -130,14 +130,29 @@ def load_library() -> Library:
 # kernel K1: stale-KV patch attention (and the checks K2 and K5 share)
 # ----------------------------------------------------------------------
 
+def _refuse_untracked_grad(kernel: str, tensors) -> None:
+    """A kernel launched through ctypes returns a tensor autograd knows
+    nothing of: a gradient asked of its operands would come back missing
+    (None, or zero through the rest of the graph), silently. So an operand
+    that requires grad while grad mode is on is refused; K1 differentiates
+    through :func:`stale_kv_attention_autograd`, whose forward runs the
+    kernel with grad mode off."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"the {kernel} kernel has no backward: an operand requires grad "
+            "and autograd would drop its gradient (use "
+            "ops.stale_kv_attention_autograd for K1, or torch.no_grad())")
+
+
 def _check_cuda_operands(kernel: str, tensors,
                          head_dims=skv.SUPPORTED_HEAD_DIMS) -> None:
     """What the CUDA attention bodies take: one CUDA device, float32 or
     bfloat16 for all, a head dim in ``head_dims``, a contiguous head dim,
-    and for bf16 16-byte rows."""
+    and for bf16 16-byte rows; and no operand that needs a gradient."""
     q = tensors[0]
     if q.device.type != "cuda":
         raise ValueError(f"no {kernel} kernel for {q.device}")
+    _refuse_untracked_grad(kernel, tensors)
     if len({t.dtype for t in tensors}) != 1 or q.dtype not in (torch.float32,
                                                                torch.bfloat16):
         raise ValueError("operands must all be float32 or all bfloat16, got "
@@ -218,6 +233,47 @@ def stale_kv_attention(q, k_fresh, v_fresh, k_stale, v_stale, *,
         raise RuntimeError(f"stale_kv_attention launch failed: CUDA error {err}")
     _launches["stale_kv_attention"] += 1
     return out
+
+
+class _StaleKVAttention(torch.autograd.Function):
+    """K1 under autograd. The forward is :func:`stale_kv_attention` (the
+    CUDA kernel on the card, the plain version on the CPU), run with grad
+    mode off. The backward recomputes the attention through the plain
+    version (:func:`repro_torch.kernels.ref.stale_kv_attention_ref`) under
+    ``enable_grad`` and differentiates that: the JAX package has no
+    backward kernel either, and trains through XLA's autodiff of its plain
+    attend. Only q, K and V are saved, never the [B, H, Nl, N] scores."""
+
+    @staticmethod
+    def forward(ctx, q, k_fresh, v_fresh, k_stale, v_stale, tok_start):
+        ctx.save_for_backward(q, k_fresh, v_fresh, k_stale, v_stale)
+        ctx.tok_start = tok_start
+        return stale_kv_attention(q, k_fresh, v_fresh, k_stale, v_stale,
+                                  tok_start=tok_start)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        need = ctx.needs_input_grad[:5]
+        with torch.enable_grad():
+            inputs = [t.detach().requires_grad_(n)
+                      for t, n in zip(ctx.saved_tensors, need)]
+            out = ref.stale_kv_attention_ref(*inputs, ctx.tok_start)
+            wanted = [t for t, n in zip(inputs, need) if n]
+            grads = iter(torch.autograd.grad(out, wanted, grad_out,
+                                             allow_unused=True))
+        return (*(next(grads) if n else None for n in need), None)
+
+
+def stale_kv_attention_autograd(q, k_fresh, v_fresh, k_stale, v_stale, *,
+                                tok_start: int):
+    """K1 where a gradient may be asked for: through
+    :class:`_StaleKVAttention` when grad mode is on and an operand requires
+    grad, else :func:`stale_kv_attention` itself (one launch either way;
+    only the backward is the plain version's)."""
+    args = (q, k_fresh, v_fresh, k_stale, v_stale)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in args):
+        return _StaleKVAttention.apply(*args, tok_start)
+    return stale_kv_attention(*args, tok_start=tok_start)
 
 
 # ----------------------------------------------------------------------
@@ -384,6 +440,7 @@ def cfg_epilogue(eps_c, eps_u, scale, *, with_delta: bool = True):
         return (comb, d) if with_delta else comb
     if dev.type != "cuda":
         raise ValueError(f"no cfg_epilogue kernel for {dev}")
+    _refuse_untracked_grad("cfg_epilogue", (eps_c, eps_u))
     if dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"eps must be float32 or bfloat16, got {dtype}")
     if not (eps_c.is_contiguous() and eps_u.is_contiguous()):
@@ -506,6 +563,7 @@ def ssm_scan(x, dt, b_t, c_t, a, d_skip, *, h0=None, final_state: bool = False):
         return (y, h) if final_state else y
     if x.device.type != "cuda":
         raise ValueError(f"no ssm_scan kernel for {x.device}")
+    _refuse_untracked_grad("ssm_scan", tensors)
     # decode calls this 32 times a token at S = 1, where the host's time per
     # call is the cost: the checks read each attribute once
     dtype = x.dtype

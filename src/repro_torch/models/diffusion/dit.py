@@ -13,7 +13,10 @@ of ``lax.scan``. Every attention — the buffered patch read and the
 full-image warm-up read alike — goes through
 :func:`repro_torch.kernels.ops.stale_kv_attention`, which runs the
 hand-written CUDA kernel for CUDA tensors and its plain version for CPU
-tensors. With ``valid_tokens`` set (the multi-rank executors' slab padded
+tensors. The all-fresh read (``buffers`` None: the full-image forward a
+training step differentiates) goes through
+:func:`repro_torch.kernels.ops.stale_kv_attention_autograd`, K1 under an
+autograd Function whose backward is the plain version's. With ``valid_tokens`` set (the multi-rank executors' slab padded
 to the largest patch), the buffered read goes through
 :func:`repro_torch.kernels.ops.stale_kv_attention_padded` (kernel K2)
 instead. Dtypes follow JAX's promotion rule: a product of activations and
@@ -335,8 +338,9 @@ def block_stack(blocks, cfg: DiTConfig, h, c, tok_start: int,
         qkv = _linear(xn, bp["qkv"]).reshape(B, Nl, 3, H, hd)
         q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
         if buffers is None:
-            # all-fresh layout: the context is the patch itself
-            att = kops.stale_kv_attention(q, k, v, k, v, tok_start=0)
+            # all-fresh layout: the context is the patch itself; the one
+            # read a training step differentiates (K1 under autograd)
+            att = kops.stale_kv_attention_autograd(q, k, v, k, v, tok_start=0)
         elif attend_fn is not None:
             att = attend_fn(q, *_blended_context(
                 k, v, buffers[0][i], buffers[1][i], tok_start, valid_tokens,

@@ -1,8 +1,11 @@
 """Card-only tests of the port's CUDA kernels (marker ``cuda``): each kernel
 against its plain PyTorch version at the shapes ``chip_smoke.py`` checks,
 the guided path on the card against the CPU, ``run_spmd`` on two gloo
-ranks and ``run_spmd_seq`` on four that share the card against the CPU, and
-Hymba's prefill and decode (K6, K7) on the card against the CPU. They skip
+ranks and ``run_spmd_seq`` on four that share the card against the CPU,
+Hymba's prefill and decode (K6, K7) on the card against the CPU, the K1
+autograd Function's gradients against the plain version's and its refusal
+of a grad operand outside it, and a tensor-parallel step on two gloo ranks
+sharing the card. They skip
 on a machine without a CUDA device. No JAX here: the machine with the card
 has none. Run them there with
 ``PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py``."""
@@ -1234,3 +1237,110 @@ def test_prompt_lanes_bitwise_their_lone_generate_on_card(cuda):
         lone = StadiPipeline(cfg, params, sched, dataclasses.replace(
             config, cfg_scale=scale or 0.0), device=cuda).generate(x, tok)
         assert torch.equal(req.image, lone.image), req.uid
+
+
+# ----------------------------------------------------------------------
+# K1 under autograd (the training wing) and the tensor-parallel baseline
+# ----------------------------------------------------------------------
+
+def _tiny_train_setup(dtype, device):
+    """tiny-dit.reduced() nondegenerate weights in ``dtype``, a batch of 4
+    with its draws, all from seeds on the CPU, moved to ``device``."""
+    from repro_torch import tree as tree_lib
+    from repro_torch.configs import get_config
+    from repro_torch.models.diffusion import dit
+
+    name = {torch.float32: "float32", torch.bfloat16: "bfloat16"}[dtype]
+    cfg = get_config("tiny-dit").reduced().replace(param_dtype=name, dtype=name)
+    gen = torch.Generator().manual_seed(0)
+    params = dit.nondegenerate_params(dit.init_params(gen, cfg), gen)
+    x0 = torch.rand(4, 16, 16, 3, generator=gen) * 2 - 1
+    t = torch.randint(1, 1001, (4,), generator=gen)
+    eps = torch.randn(x0.shape, generator=gen)
+    to = lambda a: a.to(device)
+    return (cfg, tree_lib.tree_map(to, params), to(x0.to(dtype)),
+            to(torch.tensor([1, 5, 9, 14])), to(t), to(eps))
+
+
+def _loss_grads(cfg, params, x0, cls, t, eps):
+    from repro_torch import tree as tree_lib
+    from repro_torch.core import sampler
+    from repro_torch.models.diffusion import dit
+
+    p = tree_lib.tree_map(lambda a: a.detach().requires_grad_(), params)
+    loss = sampler.diffusion_loss_at(
+        lambda x, tt: dit.forward(p, cfg, x, tt, cls),
+        sampler.linear_schedule(1000), x0, t, eps)
+    return torch.autograd.grad(loss, tree_lib.leaves(p))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k1_function_gradients_match_plain_version(cuda, dtype, monkeypatch):
+    """The loss's gradients through dit.forward with the all-fresh read in
+    the K1 Function (forward: the kernel, K1 once a block) against the same
+    forward through K1's plain version, norm-relative over all leaves
+    within the dtype's norm bar."""
+    args = _tiny_train_setup(dtype, cuda)
+    ops.reset_launch_counts()
+    got = _loss_grads(*args)
+    assert ops.launch_counts() == {"stale_kv_attention": args[0].n_layers}
+    monkeypatch.setattr(ops, "stale_kv_attention_autograd",
+                        lambda q, kf, vf, ks, vs, *, tok_start:
+                        ref.stale_kv_attention_ref(q, kf, vf, ks, vs, tok_start))
+    want = _loss_grads(*args)
+    diff = sum(float((a.float() - b.float()).square().sum())
+               for a, b in zip(got, want)) ** 0.5
+    norm = sum(float(b.float().square().sum()) for b in want) ** 0.5
+    assert diff / norm <= NORM_BARS[dtype], diff / norm
+    assert all(bool(torch.isfinite(g).all()) for g in got)
+
+
+@pytest.mark.cuda
+def test_k1_refuses_a_grad_operand_outside_its_function(cuda):
+    q = torch.zeros(1, 64, 2, 32, device=cuda, requires_grad=True)
+    with pytest.raises(RuntimeError, match="no backward"):
+        ops.stale_kv_attention(q, q, q, q, q, tok_start=0)
+    with torch.no_grad():
+        ops.stale_kv_attention(q, q, q, q, q, tok_start=0)
+    out = ops.stale_kv_attention_autograd(q, q, q, q, q, tok_start=0)
+    assert out.grad_fn is not None
+
+
+def _tp_rank(ctx, x, cond):
+    from repro_torch import tree as tree_lib
+    from repro_torch.configs import get_config
+    from repro_torch.core import tensor_parallel as tp
+    from repro_torch.models.diffusion import dit
+
+    cfg = get_config("tiny-dit").reduced()
+    gen = torch.Generator().manual_seed(0)
+    params = dit.nondegenerate_params(dit.init_params(gen, cfg), gen)
+    shard = tree_lib.tree_map(lambda a: a.to(ctx.device), tp.shard_params(
+        params, cfg, ctx.rank, ctx.world))
+    ops.reset_launch_counts()
+    eps = tp.tp_forward(shard, cfg, x.to(ctx.device), 50, cond.to(ctx.device))
+    return eps.cpu(), ops.launch_counts()
+
+
+@pytest.mark.cuda
+def test_tp_step_on_two_gloo_ranks_matches_single_card(cuda):
+    """tp_forward of tiny-dit.reduced() (fp32) on 2 gloo ranks sharing the
+    card: K1 once a block a rank over its 2 heads, equal on both ranks,
+    within 1e-5 of the single-card forward."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import ranks
+    from repro_torch.models.diffusion import dit
+
+    x = torch.randn(2, 16, 16, 3, generator=torch.Generator().manual_seed(1))
+    cond = torch.tensor([1, 2])
+    out = ranks.spawn(_tp_rank, 2, device_type="cuda", dist_backend="gloo",
+                      args=(x, cond), timeout=600)
+    cfg = get_config("tiny-dit").reduced()
+    gen = torch.Generator().manual_seed(0)
+    params = dit.nondegenerate_params(dit.init_params(gen, cfg), gen)
+    want = dit.forward(params, cfg, x, 50, cond)
+    for eps, launches in out:
+        assert launches == {"stale_kv_attention": cfg.n_layers}
+        assert torch.equal(eps, out[0][0])
+        torch.testing.assert_close(eps, want, rtol=0.0, atol=1e-5)
