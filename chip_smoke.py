@@ -1,7 +1,8 @@
 """Smoke run of the PyTorch/CUDA port on one GPU: builds the hand-written
 kernels from this checkout, holds each against its plain PyTorch version at
 the shapes of the paths it drives, drives the LLM serving path (Hymba-1.5B
-at full width through the ServingEngine), the diffusion serving path
+at full width through the ServingEngine, gemma-2b and olmoe-1b-7b the
+same way: the dense and MoE decoders), the diffusion serving path
 (sdxl-dit through the DiffusionServingEngine's emulated lanes), the main
 path (STADI on sdxl-dit at full width), the guided paths (classifier-free guidance, fused and
 interleaved) through ``StadiPipeline.generate`` and the multi-rank paths
@@ -121,9 +122,36 @@ Phases (any failure raises, so the script exits non-zero):
      two runs with the same tokens, K6 32 and K7 32 x 16 launches per
      request; time to first token, decode ms per token, tokens per second
      (the ``hymba_serve`` line), and the first request served alone, timed
-     and then profiled (``hymba_serve_profile``).
+     and then profiled (``hymba_serve_profile``). The first request's
+     first 4 decoded tokens' logits (its prompt fills the ring 1.875 times,
+     so the kept positions sit rolled by 896) against ``hymba.forward`` over
+     the prompt and the tokens fed (no cache), in bf16 (reported) and in
+     fp32 on the same draws (under 1e-4 norm-relative; the reference's
+     in-order ring layout, planted, above it) (``hymba_ring_check``).
      Then hymba-1.5b.reduced() fp32 with GQA 4/2, card against CPU: logits
      within 1e-4 relative, the same tokens.
+ 28. K6 at the dense decoders' head dims (S = T = 2048, causal): gemma-2b
+     (q [1, 2048, 8, 256], k/v [1, 2048, 1, 256]), olmoe-1b-7b (16/16 of
+     128) and internvl2-76b (64/8 of 128, its 1024 vision tokens as the
+     prefix), fp32 and bf16, K1's bars; each bar must reject the planted
+     faults (keys shifted one place, the last 64 head-dim columns zeroed,
+     the first 64 keys hidden, KV head (h + 1) % K where K > 1). bf16
+     times beside the bound and SDPA (is_causal, enable_gqa)
+     (``k6_check`` lines with a ``model``).
+ 29. gemma-2b served at full width and depth in bf16 (18 layers, d_model
+     2048, MQA at head dim 256, vocab 256000; 2.51 B params), random
+     weights from a seed: 4 requests of 2048 tokens on 4 slots, 16 new
+     tokens each, full cache, as phase 15 (``gemma_serve``, 18 K6 a
+     request, ``gemma_serve_profile``). olmoe-1b-7b (16 layers, 64 experts
+     top 8, 6.9 B params) in bf16: one 2048-token prompt and 16 new tokens
+     (``olmoe_check``: TTFT, ms a token, peak memory, 16 K6, and the
+     prompt's routing layer by layer: (token, expert) pairs dropped by
+     capacity, the experts' loads, the router inputs' mean cosine).
+ 30. card against CPU in fp32: gemma-2b, olmoe-1b-7b and internvl2-76b
+     reduced (head dim 64; the VLM with a 24-key window past its pinned
+     ring) through prefill and 4 decode steps, and gemma-2b at full width
+     with 2 layers (head dim 256: K6's fp32 body inside a model) through a
+     256-token prefill: logits within 1e-4 relative, the same tokens.
  16. the diffusion serving path: sdxl-dit at full width in bf16 on the main
      path's emulated plan, 6 requests on 4 slots through
      DiffusionServingEngine (SERVE_TRAFFIC: two guided requests at round
@@ -233,7 +261,7 @@ Phases (any failure raises, so the script exits non-zero):
  Phases 13 to 15 run after phase 8, before the sdxl-dit paths; phase 16
  after phase 10, 17 after 7, 18 after 16, 19 after 11, 20 after 17, 21
  after 18, 23 after 21, 22 after 11, 24 after 20, 25 and 26 after 19, 27
- after 12.
+ after 12, 28 after 13, 29 and 30 after 15.
 Every path is driven with the launch counters set to 0 just before it and
 read just after (on every rank for the multi-rank paths). The
 second-to-last line is the kernels' JSON record, the last line the device
@@ -283,6 +311,31 @@ def peaks_for(name):
         if key in name:
             return peaks
     raise RuntimeError(f"no published peaks for {name!r}; add them to PEAKS")
+
+
+def ptxas_entries(log, part):
+    """Registers, stack and spills ptxas reported for each kernel entry
+    whose mangled name holds ``part`` (the build's ``-Xptxas -v`` log)."""
+    import re
+
+    out, entry, frame = [], None, (0, 0, 0)
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            entry = m.group(1) if part in m.group(1) else None
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m:
+            frame = tuple(map(int, m.groups()))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and entry:
+            tmpl = re.search(r"ILi(\d+)", entry)     # <name>ILi<HD>E...
+            name = part + entry[:tmpl.start() if tmpl else None].rsplit(part, 1)[1]
+            out.append({"kernel": f"{name}<{tmpl.group(1)}>" if tmpl else name,
+                        "registers": int(m.group(1)), "stack_frame": frame[0],
+                        "spill_stores": frame[1], "spill_loads": frame[2]})
+            entry, frame = None, (0, 0, 0)
+    return out
 
 
 def time_ms(fn, reps=10, batches=3):
@@ -2544,15 +2597,16 @@ def k6_planted_faults(ref, q, k, v, causal, window, prefix):
                 window=window, prefix_len=prefix)}
 
 
-def k6_bound_ms(ref, causal, window, prefix, dtype, peaks):
+def k6_bound_ms(ref, causal, window, prefix, dtype, peaks, H=K6_H, K=K6_K,
+                hd=K6_HD):
     """Least time for K6's work: 4 * hd operations per visible (q, k) pair
     and head (the mask's pairs, counted) at the input type's peak, or the
     bytes of q, k, v and the output once each at the memory rate."""
     pairs = int(ref.flash_mask(K6_S, K6_S, causal=causal, window=window,
                                prefix_len=prefix).sum())
-    flops = 4 * K6_HD * pairs * K6_H
+    flops = 4 * hd * pairs * H
     elem = torch.tensor([], dtype=dtype).element_size()
-    nbytes = elem * K6_S * K6_HD * (2 * K6_H + 2 * K6_K)
+    nbytes = elem * K6_S * hd * (2 * H + 2 * K)
     ops_ms = flops / (peaks[0] if dtype == torch.bfloat16 else peaks[1]) * 1e3
     bytes_ms = nbytes / peaks[2] * 1e3
     return (max(ops_ms, bytes_ms), "operations" if ops_ms >= bytes_ms else "bytes",
@@ -2732,27 +2786,33 @@ def phase_k7(ops, ref, dev, peaks):
 HYMBA_REQUESTS, HYMBA_PROMPT, HYMBA_NEW = 4, 1920, 16
 
 
-def hymba_engine(dev):
-    """The full-width bf16 engine and its requests' prompts, through the
-    entry points a user calls (get_config, build_model, Model.init,
-    ServingEngine)."""
+def llm_engine(arch, dev, n_requests, prompt_len, new_tokens, seed=SEED,
+               dtype="bfloat16"):
+    """A full-width engine of ``arch`` in ``dtype`` (``n_requests`` slots)
+    and its requests' prompts, through the entry points a user calls
+    (get_config, build_model, Model.init, ServingEngine); weights from
+    ``seed``."""
     from repro_torch.configs import get_config
     from repro_torch.models import build_model
     from repro_torch.serving import ServingEngine
 
-    cfg = get_config("hymba-1.5b").replace(dtype="bfloat16",
-                                           param_dtype="bfloat16")
+    cfg = get_config(arch).replace(dtype=dtype, param_dtype=dtype)
     model = build_model(cfg)
-    params = model.init(torch.Generator(device=dev).manual_seed(SEED))
-    engine_args = dict(slots=HYMBA_REQUESTS, max_len=HYMBA_PROMPT + HYMBA_NEW + 8,
+    params = model.init(torch.Generator(device=dev).manual_seed(seed))
+    engine_args = dict(slots=n_requests, max_len=prompt_len + new_tokens + 8,
                        window=cfg.sliding_window)
-    rng = np.random.default_rng(SEED)
-    prompts = [rng.integers(0, cfg.vocab, HYMBA_PROMPT).astype(np.int32)
-               for _ in range(HYMBA_REQUESTS)]
+    rng = np.random.default_rng(seed)
+    prompts = [rng.integers(0, cfg.vocab, prompt_len).astype(np.int32)
+               for _ in range(n_requests)]
     return cfg, lambda: ServingEngine(model, params, **engine_args), prompts
 
 
-def hymba_serve_once(make_engine, prompts):
+def hymba_engine(dev):
+    """Hymba-1.5B's full-width bf16 engine and its requests' prompts."""
+    return llm_engine("hymba-1.5b", dev, HYMBA_REQUESTS, HYMBA_PROMPT, HYMBA_NEW)
+
+
+def hymba_serve_once(make_engine, prompts, new_tokens=HYMBA_NEW):
     """Submit every request, run to completion; (requests by uid, start and
     end on the host clock, after a card synchronisation)."""
     from repro_torch.serving import Request
@@ -2761,62 +2821,131 @@ def hymba_serve_once(make_engine, prompts):
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for uid, prompt in enumerate(prompts):
-        engine.submit(Request(uid=uid, prompt=prompt, max_new_tokens=HYMBA_NEW))
+        engine.submit(Request(uid=uid, prompt=prompt, max_new_tokens=new_tokens))
     done = engine.run_to_completion()
     torch.cuda.synchronize()
     return {r.uid: r for r in done}, t0, time.perf_counter()
 
 
-def phase_hymba(ops, dev):
-    """The LLM serving path at full width: a warm-up run, a run with the
-    launch counters set to 0 just before it and read just after (K6 once
-    per layer of each prefill, K7 once per layer of each prefill and decode
-    step), the two runs' tokens equal, then the first request alone,
-    timed and profiled. Returns the counted run's launches."""
-    cfg, make_engine, prompts = hymba_engine(dev)
-    print(f"hymba-1.5b: {cfg.n_layers} layers, d_model {cfg.d_model}, heads "
-          f"{cfg.n_heads}/{cfg.n_kv_heads} of {cfg.hd}, vocab {cfg.vocab}, "
-          f"{cfg.dtype}, window {cfg.sliding_window}, meta "
-          f"{cfg.n_meta_tokens}; {HYMBA_REQUESTS} requests of "
-          f"{HYMBA_PROMPT} tokens on {HYMBA_REQUESTS} slots, {HYMBA_NEW} new "
-          "tokens each", flush=True)
+def serve_llm(ops, label, cfg, make_engine, prompts, new_tokens, expected):
+    """An LLM serving path at full width: a warm-up run, a run with the
+    launch counters set to 0 just before it and read just after (checked
+    against ``expected``), the two runs' tokens equal and in the vocab,
+    then the first request alone, timed and profiled. Returns the counted
+    run's launches."""
+    n = len(prompts)
+    print(f"{cfg.arch_id}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+          f"heads {cfg.n_heads}/{cfg.n_kv_heads} of {cfg.hd}, vocab "
+          f"{cfg.vocab}, {cfg.dtype}, window {cfg.sliding_window}, meta "
+          f"{cfg.n_meta_tokens}; {n} requests of {len(prompts[0])} tokens on "
+          f"{n} slots, {new_tokens} new tokens each", flush=True)
     t0 = time.perf_counter()
-    first, _, _ = hymba_serve_once(make_engine, prompts)
+    first, _, _ = hymba_serve_once(make_engine, prompts, new_tokens)
     first_s = time.perf_counter() - t0
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
-    done, t0, t1 = hymba_serve_once(make_engine, prompts)
+    done, t0, t1 = hymba_serve_once(make_engine, prompts, new_tokens)
     launches = ops.launch_counts()
-    expected = {"flash_attention": HYMBA_REQUESTS * cfg.n_layers,
-                "ssm_scan": HYMBA_REQUESTS * cfg.n_layers * HYMBA_NEW}
     tokens = {uid: r.out_tokens for uid, r in done.items()}
     n_tok = sum(map(len, tokens.values()))
     ttft = [done[uid].first_token_s - t0 for uid in sorted(done)]
     decode_s = t1 - max(r.first_token_s for r in done.values())
-    line = {"path": "hymba_serve", "requests": HYMBA_REQUESTS,
-            "prompt_tokens": HYMBA_PROMPT, "new_tokens": HYMBA_NEW,
-            "wall_s": t1 - t0, "first_run_s": first_s,
+    line = {"path": label, "requests": n, "prompt_tokens": len(prompts[0]),
+            "new_tokens": new_tokens, "wall_s": t1 - t0, "first_run_s": first_s,
             "ttft_ms": [x * 1e3 for x in ttft],
             "ttft_ms_note": "from submitting all requests; the engine "
                             "prefills them one after another",
-            "decode_ms_per_token": decode_s / (n_tok - HYMBA_REQUESTS) * 1e3,
+            "decode_ms_per_token": decode_s / (n_tok - n) * 1e3,
             "tokens_per_s": n_tok / (t1 - t0),
             "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
             "launches": launches, "expected_launches": expected,
             "tokens": tokens}
-    print("hymba_serve", json.dumps(line), flush=True)
-    check(sorted(done) == list(range(HYMBA_REQUESTS)), "hymba: requests lost")
-    check(all(len(t) == HYMBA_NEW and all(0 <= x < cfg.vocab for x in t)
-              for t in tokens.values()), f"hymba: tokens {tokens}")
+    print(label, json.dumps(line), flush=True)
+    check(sorted(done) == list(range(n)), f"{label}: requests lost")
+    check(all(len(t) == new_tokens and all(0 <= x < cfg.vocab for x in t)
+              for t in tokens.values()), f"{label}: tokens {tokens}")
     check(tokens == {uid: r.out_tokens for uid, r in first.items()},
-          "hymba: two runs gave different tokens")
-    check(launches == expected, f"hymba: launches {launches}, the config "
+          f"{label}: two runs gave different tokens")
+    check(launches == expected, f"{label}: launches {launches}, the config "
           f"needs {expected}")
-    profile_hymba(make_engine, prompts[:1])
+    profile_llm(make_engine, prompts[:1], f"{label}_profile", new_tokens)
     return launches
 
 
-def profile_hymba(make_engine, prompts, top=12):
+def phase_hymba(ops, dev):
+    """Hymba-1.5B served at full width (K6 once per layer of each prefill,
+    K7 once per layer of each prefill and decode step), then the ring
+    check. Returns the counted run's launches."""
+    cfg, make_engine, prompts = hymba_engine(dev)
+    expected = {"flash_attention": HYMBA_REQUESTS * cfg.n_layers,
+                "ssm_scan": HYMBA_REQUESTS * cfg.n_layers * HYMBA_NEW}
+    launches = serve_llm(ops, "hymba_serve", cfg, make_engine, prompts,
+                         HYMBA_NEW, expected)
+    hymba_ring_check(make_engine, prompts[0], dev)
+    return launches
+
+
+RING_STEPS = 4                      # decode steps the ring check follows
+
+
+def ring_readings(make_engine, prompt, dev):
+    """Serve ``prompt`` on a fresh engine and decode RING_STEPS greedy
+    tokens from the repaired cache and, planted, from the reference's
+    layout (the kept positions in order); hold each step's logits to
+    ``hymba.forward`` over the prompt and the tokens fed so far (the
+    windowed forward, no cache). Returns (norm-relative errors served,
+    planted, the ring's roll)."""
+    from repro_torch.models import hymba
+
+    engine = make_engine()
+    model, params, cfg = engine.model, engine.params, engine.model.cfg
+    W, M = cfg.sliding_window, cfg.n_meta_tokens
+    tokens = torch.as_tensor(prompt[None], device=dev).long()
+    cache = model.init_cache(1, 0, window=W, device=dev)
+    logits, cache = model.prefill(params, {"tokens": tokens}, cache, window=W)
+    shift = tokens.shape[1] % W          # (M + S - M) % W
+    in_order = {**cache, "k": cache["k"].clone(), "v": cache["v"].clone()}
+    for name in ("k", "v"):
+        in_order[name][:, :, M:] = cache[name][:, :, M:].roll(-shift, dims=2)
+    feed, served, planted = [logits.argmax(-1)], [], []
+    for _ in range(RING_STEPS):
+        out, cache = model.decode_step(params, cache, feed[-1], window=W)
+        bad, in_order = model.decode_step(params, in_order, feed[-1], window=W)
+        served.append(out[0].float())
+        planted.append(bad[0].float())
+        feed.append(out.argmax(-1))
+    seq = torch.cat([tokens] + [t[:, None] for t in feed[:RING_STEPS]], 1)
+    want = hymba.forward(params, cfg, seq, window=W)[0][0, -RING_STEPS:].float()
+    rel = lambda got: [((g - w).norm() / w.norm()).item() for g, w in zip(got, want)]
+    return rel(served), rel(planted), shift
+
+
+def hymba_ring_check(make_engine, prompt, dev):
+    """hymba_serve's first request after the ring repair: 128 meta + 1920
+    prompt tokens against 128 + 1024 slots leave (2048 - 128) % 1024 = 896,
+    so the ring must hold the kept positions rolled. RING_STEPS decoded
+    tokens' logits against the windowed forward on the card, in bf16 (the
+    served model; reported: bf16 decode is some 1.6e-2 off its own forward,
+    as far as the in-order layout) and in fp32 with the same draws (held:
+    under 1e-4 norm-relative, and the reference's in-order layout, planted,
+    above it)."""
+    bf16 = ring_readings(make_engine, prompt, dev)
+    _, make_fp32, prompts = llm_engine("hymba-1.5b", dev, 1, len(prompt),
+                                       HYMBA_NEW, dtype="float32")
+    check(np.array_equal(prompts[0], prompt), "hymba: ring prompt differs")
+    fp32 = ring_readings(make_fp32, prompt, dev)
+    line = {"path": "hymba_serve", "prompt_tokens": len(prompt),
+            "ring_shift": fp32[2], "steps": RING_STEPS, "fp32_bar": 1e-4,
+            "fp32_norm_rel_err": fp32[0], "fp32_planted_in_order": fp32[1],
+            "bf16_norm_rel_err": bf16[0], "bf16_planted_in_order": bf16[1]}
+    print("hymba_ring_check", json.dumps(line), flush=True)
+    check(max(fp32[0]) < 1e-4, f"hymba: decode misses the windowed forward: {line}")
+    check(min(fp32[1]) > 1e-4, f"hymba: the ring check lets the in-order "
+          f"layout through: {line}")
+    return line
+
+
+def profile_llm(make_engine, prompts, label, new_tokens, top=12):
     """``prompts`` served once unprofiled and once under torch.profiler:
     device time by kernel and the device idle share (1 - busy / the
     unprofiled wall time). The engine runs each request's prefill and
@@ -2826,10 +2955,10 @@ def profile_hymba(make_engine, prompts, top=12):
     script's time. Only the device is traced, for the same reason."""
     from torch.profiler import ProfilerActivity, profile
 
-    _, t0, t1 = hymba_serve_once(make_engine, prompts)
+    _, t0, t1 = hymba_serve_once(make_engine, prompts, new_tokens)
     wall_s = t1 - t0
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        hymba_serve_once(make_engine, prompts)
+        hymba_serve_once(make_engine, prompts, new_tokens)
     kernels = []
     for ev in prof.key_averages():
         dev_us = getattr(ev, "self_device_time_total",
@@ -2840,7 +2969,7 @@ def profile_hymba(make_engine, prompts, top=12):
     busy_s = sum(us for _, us, _ in kernels) * 1e-6
     by = {name: sum(us for key, us, _ in kernels if name in key) * 1e-6
           for name in ("flash_attention", "ssm_scan")}
-    print("hymba_serve_profile", json.dumps({
+    print(label, json.dumps({
         "requests": len(prompts), "wall_s": wall_s, "device_busy_s": busy_s,
         "device_kernels": sum(c for _, _, c in kernels),
         "device_idle_share": max(0.0, 1.0 - busy_s / wall_s),
@@ -2890,6 +3019,227 @@ def phase_hymba_cross_device(dev):
           f"relative error {rel:.3e} (bar 1e-4), same tokens {same}", flush=True)
     check(rel < 1e-4 and same, f"hymba: card differs from the CPU: {rel}, {same}")
     return rel
+
+
+# ----------------------------------------------------------------------
+# the dense, MoE and VLM decoders (lm.py, moe.py) and K6 at their head dims
+# ----------------------------------------------------------------------
+
+# K6 at the decoders' full attention shapes, S = T = 2048, causal: (label,
+# query heads, KV heads, head dim, prefix_len). gemma-2b is MQA at hd 256;
+# olmoe-1b-7b MHA at hd 128; internvl2-76b GQA 64/8 at hd 128 with its
+# 1024 vision tokens as the prefix (self_attention passes them; without a
+# window they change no mask)
+K6_DECODERS = [("gemma-2b", 8, 1, 256, 0), ("olmoe-1b-7b", 16, 16, 128, 0),
+               ("internvl2-76b", 64, 8, 128, 1024)]
+GEMMA_REQUESTS, GEMMA_PROMPT, GEMMA_NEW = 4, 2048, 16
+OLMOE_PROMPT, OLMOE_NEW = 2048, 16
+
+
+def k6_decoder_faults(ref, layers, q, k, v, prefix):
+    """K6's output under planted faults, from plain versions: query head h
+    reading KV head (h + 1) % K (where K > 1), the keys shifted one place,
+    the output's last 64 head-dim columns zeroed (a head-dim box lost) and
+    the first 64 keys hidden."""
+    K, hd = k.shape[2], q.shape[3]
+    kw = dict(causal=True, prefix_len=prefix)
+    want = ref.flash_attention_ref(q, k, v, **kw)
+    faults = {"keys shifted one place": ref.flash_attention_ref(
+                  q, k.roll(1, dims=1), v.roll(1, dims=1), **kw),
+              "last 64 columns zeroed": torch.cat(
+                  [want[..., :hd - 64], torch.zeros_like(want[..., hd - 64:])], -1)}
+    if K > 1:
+        wrong = [(h + 1) % K for h in range(K)]
+        faults["kv head (h + 1) % K"] = ref.flash_attention_ref(
+            q, k[:, :, wrong], v[:, :, wrong], **kw)
+    S = q.shape[1]
+    mask = ref.flash_mask(S, S, causal=True, device=q.device)
+    mask[:, :TILE] = False
+    faults["first 64 keys hidden"] = layers.attend(
+        q.float(), k.float(), v.float(), mask=mask[None, None]).to(q.dtype)
+    return faults
+
+
+def phase_k6_decoders(ops, ref, layers, dev, peaks):
+    """K6 against its plain version at the decoders' shapes (head dims 128
+    and 256), fp32 and bf16, with planted faults (K1's bars); bf16 times
+    with the bound and SDPA (is_causal, enable_gqa). Returns the timed
+    readings by label."""
+    gen = torch.Generator(device="cpu").manual_seed(SEED + 23)
+    timed = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        for label, H, K, hd, prefix in K6_DECODERS:
+            q = (QK_STD * torch.randn(1, K6_S, H, hd, generator=gen)).to(dtype).to(dev)
+            k = (QK_STD * torch.randn(1, K6_S, K, hd, generator=gen)).to(dtype).to(dev)
+            v = torch.randn(1, K6_S, K, hd, generator=gen).to(dtype).to(dev)
+            kw = dict(causal=True, window=0, prefix_len=prefix)
+            out = ops.flash_attention(q, k, v, **kw)
+            want = ref.flash_attention_ref(q, k, v, **kw)
+            line = {"kernel": "flash_attention", "model": label,
+                    "dtype": str(dtype), "q": list(q.shape), "kv": list(k.shape),
+                    **kw, "bar": BARS[dtype], "norm_bar": NORM_BARS[dtype]}
+            if dtype == torch.bfloat16:
+                bound_ms, bound_by, pairs = k6_bound_ms(
+                    ref, True, 0, prefix, dtype, peaks, H=H, K=K, hd=hd)
+                line.update(
+                    ms=time_ms(lambda: ops.flash_attention(q, k, v, **kw)),
+                    plain_ms=time_ms(lambda: ref.flash_attention_ref(q, k, v, **kw),
+                                     reps=3),
+                    library_ms=time_ms(k6_library_call(ref, q, k, v, True, 0, prefix)),
+                    visible_pairs_per_head=pairs, bound_ms=bound_ms,
+                    bound_by=bound_by)
+            check_with_faults("k6_check", out, want,
+                              k6_decoder_faults(ref, layers, q, k, v, prefix),
+                              dtype, line)
+            if dtype == torch.bfloat16:
+                timed[label] = line
+            del q, k, v, out, want
+    return timed
+
+
+def phase_gemma(ops, dev):
+    """gemma-2b served at full width and depth (18 layers, d_model 2048, 8
+    query heads and 1 KV head of 256, vocab 256000, tied embeddings, logit
+    softcap 30), bf16, random weights from SEED: 4 requests of 2048-token
+    prompts on 4 slots, 16 new tokens each, full cache; K6 once per layer
+    of each prefill. Returns the counted run's launches."""
+    cfg, make_engine, prompts = llm_engine("gemma-2b", dev, GEMMA_REQUESTS,
+                                           GEMMA_PROMPT, GEMMA_NEW)
+    print(f"gemma-2b: {cfg.param_count() / 1e9:.3f} B params", flush=True)
+    return serve_llm(ops, "gemma_serve", cfg, make_engine, prompts, GEMMA_NEW,
+                     {"flash_attention": GEMMA_REQUESTS * cfg.n_layers})
+
+
+def moe_routing(model, params, tokens):
+    """The prefill's routing, layer by layer, through the model's own
+    pieces (its attention, ``moe.route`` and ``moe.moe_ffn``): for each
+    MoE layer the (token, expert) pairs dropped by capacity, each expert's
+    pairs before the capacity cut, and the mean cosine similarity between
+    the positions' router inputs (near 1 when the hidden states have
+    collapsed onto one direction, so every token picks the same experts)."""
+    from repro_torch.models import layers, lm, moe
+    from repro_torch.models.hymba import _layer
+
+    cfg = model.cfg
+    x = lm._embed(params, cfg, tokens)
+    out = []
+    for i in range(cfg.n_layers):
+        p = _layer(params["blocks"], i)
+        h, _ = layers.self_attention(
+            p["attn"], layers.rms_norm(x, p["ln1"], cfg.norm_eps), cfg)
+        x = x + h
+        xn = layers.rms_norm(x, p["ln2"], cfg.norm_eps)
+        _, _, idx, _, keep = moe.route(p["moe"], xn, cfg)
+        u = torch.nn.functional.normalize(xn[0].float(), dim=-1)
+        S = u.shape[0]
+        cos = (float(u.sum(0).square().sum()) - S) / (S * (S - 1))
+        load = torch.bincount(idx.reshape(-1), minlength=cfg.n_experts)
+        out.append({"dropped": int((~keep).sum()), "pairs": keep.numel(),
+                    "load": load.tolist(), "mean_cos": cos})
+        x = x + moe.moe_ffn(p["moe"], xn, cfg)[0]
+    return out
+
+
+def phase_olmoe(ops, dev):
+    """olmoe-1b-7b at full width and depth (16 layers, 64 experts top-8,
+    16 heads of 128, bf16, random weights from SEED): one 2048-token prompt
+    and 16 new tokens through the engine, timed after a warm-up; K6 once
+    per layer; then the prompt's routing, layer by layer (``moe_routing``:
+    pairs past their expert's capacity are dropped, as in the reference;
+    the experts' loads and how alike the router's inputs are). Returns the
+    counted run's launches."""
+    from repro_torch.models import moe
+
+    cfg, make_engine, prompts = llm_engine("olmoe-1b-7b", dev, 1, OLMOE_PROMPT,
+                                           OLMOE_NEW)
+    print(f"olmoe-1b-7b: {cfg.param_count() / 1e9:.3f} B params, "
+          f"{cfg.active_param_count() / 1e9:.3f} B active", flush=True)
+    first, _, _ = hymba_serve_once(make_engine, prompts, OLMOE_NEW)
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    done, t0, t1 = hymba_serve_once(make_engine, prompts, OLMOE_NEW)
+    launches = ops.launch_counts()
+    req = done[0]
+    engine = make_engine()
+    with torch.no_grad():
+        routed = moe_routing(engine.model, engine.params,
+                             torch.as_tensor(prompts[0][None], device=dev).long())
+    expected = {"flash_attention": cfg.n_layers}
+    line = {"path": "olmoe_check", "prompt_tokens": OLMOE_PROMPT,
+            "new_tokens": OLMOE_NEW, "ttft_ms": (req.first_token_s - t0) * 1e3,
+            "decode_ms_per_token": (t1 - req.first_token_s) / (OLMOE_NEW - 1) * 1e3,
+            "tokens_per_s": OLMOE_NEW / (t1 - t0), "wall_s": t1 - t0,
+            "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+            "capacity_per_expert": moe._capacity(OLMOE_PROMPT, cfg),
+            "prefill_pairs_dropped": sum(r["dropped"] for r in routed),
+            "prefill_pairs": sum(r["pairs"] for r in routed),
+            "dropped_by_layer": [r["dropped"] for r in routed],
+            "experts_used_by_layer": [sum(n > 0 for n in r["load"]) for r in routed],
+            "max_load_by_layer": [max(r["load"]) for r in routed],
+            "router_input_mean_cos_by_layer": [r["mean_cos"] for r in routed],
+            "load_layer_0": routed[0]["load"], "load_last_layer": routed[-1]["load"],
+            "launches": launches, "expected_launches": expected,
+            "tokens": req.out_tokens}
+    print("olmoe_check", json.dumps(line), flush=True)
+    check(len(req.out_tokens) == OLMOE_NEW
+          and all(0 <= x < cfg.vocab for x in req.out_tokens),
+          f"olmoe: tokens {req.out_tokens}")
+    check(req.out_tokens == first[0].out_tokens, "olmoe: two runs differ")
+    check(len(routed) == cfg.n_layers, f"olmoe: {len(routed)} MoE layers counted")
+    check(launches == expected, f"olmoe: launches {launches}, the config "
+          f"needs {expected}")
+    return launches
+
+
+def phase_lm_cross_device(dev):
+    """The decoders in fp32 on the card (K6's fp32 body) against the CPU
+    (its plain version): gemma-2b, olmoe-1b-7b and internvl2-76b reduced
+    (head dim 64; the VLM with a 24-token window past its pinned ring)
+    through prefill and 4 decode steps, and gemma-2b at full width with 2
+    layers (head dim 256) through one 256-token prefill: logits within
+    1e-4 relative, the same tokens."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+
+    def to(tree, d):
+        return {k: to(v, d) if isinstance(v, dict) else v.to(d)
+                for k, v in tree.items()}
+
+    cases = [("gemma-2b", True, 0, 40, 4), ("olmoe-1b-7b", True, 0, 40, 4),
+             ("internvl2-76b", True, 24, 40, 4), ("gemma-2b", False, 0, 256, 0)]
+    out = {}
+    for arch, reduced, window, S, steps in cases:
+        cfg = get_config(arch)
+        cfg = (cfg.reduced() if reduced else cfg.replace(n_layers=2)).replace(
+            dtype="float32", param_dtype="float32")
+        model = build_model(cfg)
+        params = model.init(torch.Generator().manual_seed(SEED))
+        batch = model.make_batch(torch.Generator().manual_seed(SEED + 1), 1, S)
+        feed = torch.randint(0, cfg.vocab, (steps,),
+                             generator=torch.Generator().manual_seed(SEED + 2))
+        logits = {}
+        for d in ("cpu", dev):
+            p = to(params, d)
+            cache = model.init_cache(1, S + cfg.n_vision_tokens + steps + 1,
+                                     window=window, device=d)
+            o, cache = model.prefill(p, to(batch, d), cache, window=window)
+            seq = [o.cpu()]
+            for i in range(steps):
+                o, cache = model.decode_step(p, cache, feed[i:i + 1].to(d),
+                                             window=window)
+                seq.append(o.cpu())
+            logits[d] = torch.cat(seq)
+            del p, cache
+        want, got = logits["cpu"], logits[dev]
+        rel = ((got - want).norm() / want.norm()).item()
+        same = torch.equal(got.argmax(-1), want.argmax(-1))
+        label = f"{arch}{'.reduced' if reduced else ' (2 layers, hd ' + str(cfg.hd) + ')'}"
+        print(f"cross_device {label} fp32 window {window}: card vs CPU logits "
+              f"relative error {rel:.3e} (bar 1e-4), same tokens {same}",
+              flush=True)
+        check(rel < 1e-4 and same, f"{label}: card differs from the CPU: {rel}, {same}")
+        out[label] = rel
+    return out
 
 
 # ----------------------------------------------------------------------
@@ -3434,6 +3784,8 @@ def main():
 
     lib = ops.load_library()
     print(f"build: {lib.path.name} in {lib.build_seconds:.1f} s", flush=True)
+    k6_ptxas = ptxas_entries(lib.ptxas_log, "flash_attention")
+    print("ptxas_k6", json.dumps(k6_ptxas), flush=True)
     if sys.argv[1:] == ["--nccl"]:
         # the multi-rank paths alone, over NCCL with one card per rank
         check(torch.cuda.device_count() >= 4, "--nccl needs 4 cards")
@@ -3475,11 +3827,17 @@ def main():
     k4_timed = phase(phase_k4, ops, ref, dev, peaks)
     k4 = k4_timed[0]
     k6_timed = phase(phase_k6, ops, ref, dev, peaks)
+    k6_decoders = phase(phase_k6_decoders, ops, ref, layers, dev, peaks)
     k7_timed = phase(phase_k7, ops, ref, dev, peaks)
     hymba_launches = phase(phase_hymba, ops, dev)
     phase(phase_hymba_cross_device, dev)
+    gemma_launches = phase(phase_gemma, ops, dev)
+    olmoe_launches = phase(phase_olmoe, ops, dev)
+    phase(phase_lm_cross_device, dev)
     launches = phase(phase_paths, ops, dev)
     launches["hymba_serve"] = hymba_launches
+    launches["gemma_serve"] = gemma_launches
+    launches["olmoe_check"] = olmoe_launches
     launches["diffusion_serve"] = phase(phase_diffusion_serve, ops, dev)
     launches.update(phase(phase_pipefuse, ops, dev))
     launches["diffusion_serve_pipefuse"] = phase(
@@ -3574,7 +3932,12 @@ def main():
                  "hymba_serve"),
          "timed_masks": [{k: line[k] for k in (
              "causal", "window", "prefix_len", "ms", "plain_ms", "library_ms",
-             "bound_ms", "visible_pairs_per_head")} for line in k6_timed]},
+             "bound_ms", "visible_pairs_per_head")} for line in k6_timed],
+         "decoder_shapes": {label: {k: line[k] for k in (
+             "q", "kv", "prefix_len", "max_abs_err", "ms", "plain_ms",
+             "library_ms", "bound_ms", "bound_by")}
+            for label, line in k6_decoders.items()},
+         "ptxas": k6_ptxas},
         {**entry("ssm_scan", "src/repro_torch/kernels/csrc/ssm_scan.cu",
                  "src/repro/kernels/ssm_scan.py:55", k7_timed[0], "hymba_serve"),
          "library_call": k7_timed[0]["library_call"],

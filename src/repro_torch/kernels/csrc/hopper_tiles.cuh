@@ -130,6 +130,11 @@ __device__ __forceinline__ void fence_regs(float (&r)[N]) {
 #pragma unroll
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
 }
+template <int M, int N>
+__device__ __forceinline__ void fence_regs(float (&r)[M][N]) {
+#pragma unroll
+  for (int i = 0; i < M; ++i) fence_regs(r[i]);
+}
 template <int N>
 __device__ __forceinline__ void fence_regs(uint32_t (&r)[N][4]) {
 #pragma unroll
@@ -159,6 +164,35 @@ __device__ __forceinline__ void wgmma_m64n128k16_ss(float (&d)[64], uint64_t des
         "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "l"(desc_a), "l"(desc_b), "r"(int(accumulate)));
+}
+
+// d (+)= A (smem, K-major) * B (smem; K-major), m64n64k16, bf16 in, fp32 accumulate;
+// accumulate = false overwrites d.
+__device__ __forceinline__ void wgmma_m64n64k16_ss(float (&d)[32], uint64_t desc_a, uint64_t desc_b,
+                                                  bool accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(desc_a), "l"(desc_b), "r"(int(accumulate)));
+}
+
+// S (+)= Q K^T for a key tile of N rows (both operands K-major in shared
+// memory).
+template <int N>
+__device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t desc_a, uint64_t desc_b,
+                                         bool accumulate) {
+  if constexpr (N == 128) wgmma_m64n128k16_ss(d, desc_a, desc_b, accumulate);
+  else {
+    static_assert(N == 64, "wgmma_ss is instantiated for N = 64 and 128");
+    wgmma_m64n64k16_ss(d, desc_a, desc_b, accumulate);
+  }
 }
 
 // d += A (registers: the 16x16 bf16 fragment of each warp) * B (smem,
@@ -278,13 +312,17 @@ EncodeTiledFn encode_tiled() {
 // --- the attention pipeline ------------------------------------------------
 //
 // One block owns kBQ query rows of one (batch row, head) and walks key tiles
-// of kBK rows. Warpgroup 0 is the producer: one thread keeps a ring of
-// kStages K/V stages full with 4-D TMA loads; each stage has a full barrier
+// of HeadTiles<HD>::BK rows (kBK, or 64 at head dims above 128). A head
+// dim is split into boxes of 64 columns (128-byte swizzle) and at most one
+// tail box of 16 (hd 72 and 80). Warpgroup 0 is the producer: one thread
+// keeps a ring of HeadTiles<HD>::kStages K/V stages full with 4-D TMA
+// loads; each stage has a full barrier
 // (the producer's expect_tx arrival plus the bytes) and an empty barrier
 // (one arrival per consumer warp). setmaxnreg gives the producer 40
 // registers and each consumer 232. Warpgroups 1 and 2 each own 64 of the
 // query rows (the Q tile stays in shared memory): S = Q K^T runs as
-// wgmma.m64n128k16 with both operands K-major in shared memory; P V takes P
+// wgmma.m64n{BK}k16 over each box's k16 slices, both operands K-major in
+// shared memory; P V (one wgmma.m64n64k16 a box and k16 slice) takes P
 // from registers (the S accumulator's layout is the A fragment's) and V
 // from shared memory as an MN-major B operand, P as two bf16 terms (its
 // rounding and the remainder), so P V keeps P to about 16 bits as an fp32
@@ -300,7 +338,7 @@ EncodeTiledFn encode_tiled() {
 //   const CUtensorMap* k_map(const Cursor&) const;   K and V maps of the
 //   const CUtensorMap* v_map(const Cursor&) const;   tile (2 boxes each)
 //   int row(const Cursor&) const;      the tile's first key row in the map
-//   void mask(float (&s)[kBK / 2], const Cursor&, int row_lo, int row_hi,
+//   void mask(float (&s)[BK / 2], const Cursor&, int row_lo, int row_hi,
 //             int lane) const;         raw score -> kMaskedScore where the
 //                                      key is hidden from the row
 // Scores keep their raw value, the running max is kept on raw scores, and
@@ -310,34 +348,43 @@ EncodeTiledFn encode_tiled() {
 // nothing that counts.
 
 constexpr int kBQ = 128;          // query rows per block: 2 consumer warpgroups x 64
-constexpr int kBK = 128;          // keys per tile
-constexpr int kStages = 3;        // K/V tiles in flight
+constexpr int kBK = 128;          // keys per tile up to head dim 128
 constexpr int kThreads = 384;     // producer warpgroup + 2 consumer warpgroups
 constexpr int kConsumerWarps = 8;
+constexpr int kMaxSmemBytes = 232448;  // dynamic shared memory a block may have
 
-// Column split of a head dim onto swizzled boxes.
+// Column split of a head dim onto swizzled boxes, the key tile and the
+// ring's depth. Registers of a consumer thread: HD / 2 fp32 of O, BK / 2 of
+// S and BK / 4 of P's two bf16 terms; at HD 256 a 128-key tile would not
+// fit the 232 that setmaxnreg gives, so the tile has 64 keys there, and
+// Q (64 KB) plus two 64 KB stages fill the shared memory.
 template <int HD>
 struct HeadTiles {
   static constexpr int HDP = (HD + 15) / 16 * 16;  // padded to the wgmma depth
-  static constexpr int W0 = HD >= 64 ? 64 : HDP;   // columns in box 0
-  static constexpr int W1 = HDP - W0;              // columns in box 1 (0 or 16)
+  static constexpr int W0 = HD >= 64 ? 64 : HDP;   // columns of each full box
+  static constexpr int NB = HD >= 64 ? HDP / 64 : 1;  // full boxes
+  static constexpr int W1 = HDP - NB * W0;         // columns in the tail box (0 or 16)
   static constexpr int RB0 = 2 * W0, RB1 = 2 * W1; // bytes a row: the swizzle width
-  static_assert(W0 == 64 || W0 == 32, "box 0 must fill a 128- or 64-byte swizzle row");
-  static_assert(W1 == 0 || W1 == 16, "box 1 must be empty or one 32-byte row");
-  static constexpr int kTile0 = kBK * RB0, kTile1 = kBK * RB1;  // bytes of one box
-  static constexpr int kQBytes = kBQ * (RB0 + RB1);
-  static constexpr int kStageBytes = 2 * (kTile0 + kTile1);     // K and V
+  static_assert(W0 == 64 || W0 == 32, "a full box must fill a 128- or 64-byte swizzle row");
+  static_assert(W1 == 0 || W1 == 16, "the tail box must be empty or one 32-byte row");
+  static constexpr int BK = HD > 128 ? 64 : kBK;   // keys per tile
+  static constexpr int kStages = HD > 128 ? 2 : 3; // K/V tiles in flight
+  static constexpr int kQBox = kBQ * RB0;          // bytes of one Q box
+  static constexpr int kTile0 = BK * RB0, kTile1 = BK * RB1;  // bytes of one K or V box
+  static constexpr int kQBytes = kBQ * (NB * RB0 + RB1);
+  static constexpr int kStageBytes = 2 * (NB * kTile0 + kTile1);  // K and V
   static constexpr int kBarOffset = kQBytes + kStages * kStageBytes;
   static constexpr int kSmemBytes = kBarOffset + 8 * (2 * kStages + 1) + 1024;  // + alignment
+  static_assert(kSmemBytes <= kMaxSmemBytes, "the pipeline does not fit shared memory");
 };
 
 // Map of a bf16 [B, S, H, hd] view (hd contiguous, element strides `st`)
-// read in boxes of `width` columns x kBK rows of one head and batch row,
+// read in boxes of `width` columns x `rows` rows of one head and batch row,
 // under the swizzle of a `width`-column row. A dimension of extent 1 gets
 // a dense stride (its coordinate is always 0, whatever the view's stride).
 // Rows outside [0, S) land in shared memory as zeros.
 bool encode_map(CUtensorMap* map, const void* ptr, Strides st, int B, int S, int H, int hd,
-                int width) {
+                int width, int rows) {
   const EncodeTiledFn encode = encode_tiled();
   if (encode == nullptr) return false;
   const cuuint64_t dims[4] = {(cuuint64_t)hd, (cuuint64_t)H, (cuuint64_t)S, (cuuint64_t)B};
@@ -348,7 +395,7 @@ bool encode_map(CUtensorMap* map, const void* ptr, Strides st, int B, int S, int
     strides[i] = dims[i + 1] == 1 ? dense : 2 * (cuuint64_t)elem[i];
     dense = strides[i] * dims[i + 1];
   }
-  const cuuint32_t box[4] = {(cuuint32_t)width, 1, (cuuint32_t)kBK, 1};
+  const cuuint32_t box[4] = {(cuuint32_t)width, 1, (cuuint32_t)rows, 1};
   const cuuint32_t unit[4] = {1, 1, 1, 1};
   const CUtensorMapSwizzle swizzle = width == 64   ? CU_TENSOR_MAP_SWIZZLE_128B
                                      : width == 32 ? CU_TENSOR_MAP_SWIZZLE_64B
@@ -359,12 +406,15 @@ bool encode_map(CUtensorMap* map, const void* ptr, Strides st, int B, int S, int
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-// Both boxes of a head dim's map (the second only when HeadTiles<HD>::W1 > 0).
+// The maps of a head dim read in boxes of `rows` rows: maps[0] reads every
+// full box (at column offsets 0, W0, ...), maps[1] the tail box (only when
+// HeadTiles<HD>::W1 > 0). Q is read in kBQ rows, K and V in BK.
 template <int HD>
-bool encode_maps(CUtensorMap (&maps)[2], const void* ptr, Strides st, int B, int S, int H) {
+bool encode_maps(CUtensorMap (&maps)[2], const void* ptr, Strides st, int B, int S, int H,
+                 int rows = HeadTiles<HD>::BK) {
   using T = HeadTiles<HD>;
-  return encode_map(&maps[0], ptr, st, B, S, H, HD, T::W0) &&
-         (T::W1 == 0 || encode_map(&maps[1], ptr, st, B, S, H, HD, T::W1));
+  return encode_map(&maps[0], ptr, st, B, S, H, HD, T::W0, rows) &&
+         (T::W1 == 0 || encode_map(&maps[1], ptr, st, B, S, H, HD, T::W1, rows));
 }
 
 // Natural-log LSE of a row from its running max m (log2 domain) and sum l
@@ -387,15 +437,15 @@ __device__ __forceinline__ void attention_block(const CUtensorMap* q_maps, const
                                                 float scale_log2) {
   using T = HeadTiles<HD>;
   using Cursor = decltype(walk.begin());
-  constexpr int W0 = T::W0, W1 = T::W1, RB0 = T::RB0, RB1 = T::RB1;
+  constexpr int W0 = T::W0, W1 = T::W1, NB = T::NB, RB0 = T::RB0, RB1 = T::RB1;
+  constexpr int BK = T::BK, kStages = T::kStages;
   extern __shared__ uint8_t smem_raw[];
   // 128-byte swizzled boxes need 1024-byte aligned addresses
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
-  const uint32_t q0s = base, q1s = base + kBQ * RB0;
-  auto k0s = [&](int st) { return base + T::kQBytes + st * T::kStageBytes; };
-  auto k1s = [&](int st) { return k0s(st) + T::kTile0; };
-  auto v0s = [&](int st) { return k1s(st) + T::kTile1; };
-  auto v1s = [&](int st) { return v0s(st) + T::kTile0; };
+  auto qbox = [&](int j) { return base + j * T::kQBox; };  // j == NB: the tail box
+  // stage st: K's full boxes, K's tail box, V's full boxes, V's tail box
+  auto kbox = [&](int st, int j) { return base + T::kQBytes + st * T::kStageBytes + j * T::kTile0; };
+  auto vbox = [&](int st, int j) { return kbox(st, NB) + T::kTile1 + j * T::kTile0; };
   const uint32_t bars = base + T::kBarOffset;
   auto full_bar = [&](int st) { return bars + 8 * st; };
   auto empty_bar = [&](int st) { return bars + 8 * (kStages + st); };
@@ -417,8 +467,9 @@ __device__ __forceinline__ void attention_block(const CUtensorMap* q_maps, const
     regs_release<40>();
     if (threadIdx.x == 0) {
       mbar_arrive_expect_tx(q_bar, T::kQBytes);
-      tma_load_4d(q0s, &q_maps[0], q_bar, 0, h, q0, b);
-      if constexpr (W1 > 0) tma_load_4d(q1s, &q_maps[1], q_bar, W0, h, q0, b);
+#pragma unroll
+      for (int j = 0; j < NB; ++j) tma_load_4d(qbox(j), &q_maps[0], q_bar, j * W0, h, q0, b);
+      if constexpr (W1 > 0) tma_load_4d(qbox(NB), &q_maps[1], q_bar, NB * W0, h, q0, b);
       int st = 0, phase = 0;
       Cursor cur = walk.begin();
       for (int t = 0; t < n_tiles; ++t, walk.next(cur)) {
@@ -427,11 +478,14 @@ __device__ __forceinline__ void attention_block(const CUtensorMap* q_maps, const
         const int c = walk.row(cur);
         mbar_wait(empty_bar(st), phase ^ 1);
         mbar_arrive_expect_tx(full_bar(st), T::kStageBytes);
-        tma_load_4d(k0s(st), km, full_bar(st), 0, kv_head, c, b);
-        tma_load_4d(v0s(st), vm, full_bar(st), 0, kv_head, c, b);
+#pragma unroll
+        for (int j = 0; j < NB; ++j) {
+          tma_load_4d(kbox(st, j), km, full_bar(st), j * W0, kv_head, c, b);
+          tma_load_4d(vbox(st, j), vm, full_bar(st), j * W0, kv_head, c, b);
+        }
         if constexpr (W1 > 0) {
-          tma_load_4d(k1s(st), km + 1, full_bar(st), W0, kv_head, c, b);
-          tma_load_4d(v1s(st), vm + 1, full_bar(st), W0, kv_head, c, b);
+          tma_load_4d(kbox(st, NB), km + 1, full_bar(st), NB * W0, kv_head, c, b);
+          tma_load_4d(vbox(st, NB), vm + 1, full_bar(st), NB * W0, kv_head, c, b);
         }
         if (++st == kStages) st = 0, phase ^= 1;
       }
@@ -443,44 +497,51 @@ __device__ __forceinline__ void attention_block(const CUtensorMap* q_maps, const
     const int wg = ct / 128;  // which consumer warpgroup
     const int warp = (ct % 128) / 32;
     const int lane = ct % 32;
-    const uint32_t qa0 = q0s + wg * 64 * RB0, qa1 = q1s + wg * 64 * RB1;
+    // this warpgroup's 64 rows of Q box j (j == NB: the tail box)
+    auto qa = [&](int j) { return qbox(j) + wg * 64 * (j < NB ? RB0 : RB1); };
     const int row_lo = q0 + wg * 64 + warp * 16 + lane / 4;  // rows of s[i], i % 4 < 2
     const int row_hi = row_lo + 8;                            // ... and i % 4 >= 2
 
-    float o0[W0 / 2];
+    float o0[NB][W0 / 2];  // O's columns of each full box
     float o1[W1 > 0 ? W1 / 2 : 1];
 #pragma unroll
-    for (int i = 0; i < W0 / 2; ++i) o0[i] = 0.f;
+    for (int j = 0; j < NB; ++j)
+#pragma unroll
+      for (int i = 0; i < W0 / 2; ++i) o0[j][i] = 0.f;
 #pragma unroll
     for (int i = 0; i < (W1 > 0 ? W1 / 2 : 1); ++i) o1[i] = 0.f;
     float m_lo = kMaskedScore, m_hi = kMaskedScore;  // raw max of rows row_lo, row_hi
     float l_lo = 0.f, l_hi = 0.f;                    // this thread's partial sums
 
-    // Q K^T of the stage's key tile into s (64 rows x 128 keys; K-major
-    // operands in shared memory)
-    auto issue_qk = [&](float (&s)[kBK / 2], int st) {
+    // Q K^T of the stage's key tile into s (64 rows x BK keys; K-major
+    // operands in shared memory), box by box
+    auto issue_qk = [&](float (&s)[BK / 2], int st) {
 #pragma unroll
-      for (int kk = 0; kk < W0 / 16; ++kk)
-        wgmma_m64n128k16_ss(s, wgmma_desc(qa0 + 32 * kk, 16, 8 * RB0, RB0),
-                            wgmma_desc(k0s(st) + 32 * kk, 16, 8 * RB0, RB0), kk > 0);
+      for (int j = 0; j < NB; ++j)
+#pragma unroll
+        for (int kk = 0; kk < W0 / 16; ++kk)
+          wgmma_ss<BK>(s, wgmma_desc(qa(j) + 32 * kk, 16, 8 * RB0, RB0),
+                       wgmma_desc(kbox(st, j) + 32 * kk, 16, 8 * RB0, RB0), j > 0 || kk > 0);
       if constexpr (W1 > 0)
-        wgmma_m64n128k16_ss(s, wgmma_desc(qa1, 16, 8 * RB1, RB1),
-                            wgmma_desc(k1s(st), 16, 8 * RB1, RB1), true);
+        wgmma_ss<BK>(s, wgmma_desc(qa(NB), 16, 8 * RB1, RB1),
+                     wgmma_desc(kbox(st, NB), 16, 8 * RB1, RB1), true);
     };
     // O += P V over the stage's value tile. The accumulators of keys
     // 16kk .. 16kk+15 are exactly the A fragment of k-step kk. V is
     // MN-major: the descriptor's stride steps between 8-key groups; its
     // leading offset (between column groups) is unused at these widths.
-    auto issue_pv = [&](const uint32_t (&pa)[kBK / 16][4], const uint32_t (&pr)[kBK / 16][4],
+    auto issue_pv = [&](const uint32_t (&pa)[BK / 16][4], const uint32_t (&pr)[BK / 16][4],
                         int st) {
 #pragma unroll
       for (int t = 0; t < 2; ++t)
 #pragma unroll
-        for (int kk = 0; kk < kBK / 16; ++kk) {
+        for (int kk = 0; kk < BK / 16; ++kk) {
           const uint32_t(&a)[4] = t == 0 ? pa[kk] : pr[kk];
-          wgmma_rs<W0>(o0, a, wgmma_desc(v0s(st) + kk * 16 * RB0, 8 * RB0, 8 * RB0, RB0));
+#pragma unroll
+          for (int j = 0; j < NB; ++j)
+            wgmma_rs<W0>(o0[j], a, wgmma_desc(vbox(st, j) + kk * 16 * RB0, 8 * RB0, 8 * RB0, RB0));
           if constexpr (W1 > 0)
-            wgmma_rs<W1>(o1, a, wgmma_desc(v1s(st) + kk * 16 * RB1, 8 * RB1, 8 * RB1, RB1));
+            wgmma_rs<W1>(o1, a, wgmma_desc(vbox(st, NB) + kk * 16 * RB1, 8 * RB1, 8 * RB1, RB1));
         }
     };
     // Online softmax over one tile of raw scores, in place: the walk masks
@@ -488,12 +549,12 @@ __device__ __forceinline__ void attention_block(const CUtensorMap* q_maps, const
     // m (raw) and l move on, and alpha is the factor O must still be scaled
     // by. s[4j + e]: key 8j + 2(lane%4) + e%2 of row row_lo (e < 2) or
     // row_hi (e >= 2); a row's scores live in one lane quad.
-    auto softmax = [&](float (&s)[kBK / 2], const Cursor& cur, float& alpha_lo,
+    auto softmax = [&](float (&s)[BK / 2], const Cursor& cur, float& alpha_lo,
                        float& alpha_hi) {
       walk.mask(s, cur, row_lo, row_hi, lane);
       float mx_lo = m_lo, mx_hi = m_hi;
 #pragma unroll
-      for (int i = 0; i < kBK / 2; i += 4) {
+      for (int i = 0; i < BK / 2; i += 4) {
         mx_lo = fmaxf(mx_lo, fmaxf(s[i], s[i + 1]));
         mx_hi = fmaxf(mx_hi, fmaxf(s[i + 2], s[i + 3]));
       }
@@ -508,7 +569,7 @@ __device__ __forceinline__ void attention_block(const CUtensorMap* q_maps, const
       const float off_hi = mx_hi == kMaskedScore ? 0.f : mx_hi * scale_log2;
       float sum_lo = 0.f, sum_hi = 0.f;
 #pragma unroll
-      for (int i = 0; i < kBK / 2; i += 4) {
+      for (int i = 0; i < BK / 2; i += 4) {
         s[i] = fast_exp2(fmaf(s[i], scale_log2, -off_lo));
         s[i + 1] = fast_exp2(fmaf(s[i + 1], scale_log2, -off_lo));
         s[i + 2] = fast_exp2(fmaf(s[i + 2], scale_log2, -off_hi));
@@ -523,16 +584,18 @@ __device__ __forceinline__ void attention_block(const CUtensorMap* q_maps, const
     };
     auto rescale = [&](float alpha_lo, float alpha_hi) {
 #pragma unroll
-      for (int i = 0; i < W0 / 2; ++i) o0[i] *= (i % 4) < 2 ? alpha_lo : alpha_hi;
+      for (int j = 0; j < NB; ++j)
+#pragma unroll
+        for (int i = 0; i < W0 / 2; ++i) o0[j][i] *= (i % 4) < 2 ? alpha_lo : alpha_hi;
       if constexpr (W1 > 0) {
 #pragma unroll
         for (int i = 0; i < W1 / 2; ++i) o1[i] *= (i % 4) < 2 ? alpha_lo : alpha_hi;
       }
     };
-    auto to_bf16 = [&](const float (&s)[kBK / 2], uint32_t (&pa)[kBK / 16][4],
-                       uint32_t (&pr)[kBK / 16][4]) {
+    auto to_bf16 = [&](const float (&s)[BK / 2], uint32_t (&pa)[BK / 16][4],
+                       uint32_t (&pr)[BK / 16][4]) {
 #pragma unroll
-      for (int kk = 0; kk < kBK / 16; ++kk)
+      for (int kk = 0; kk < BK / 16; ++kk)
 #pragma unroll
         for (int j = 0; j < 4; ++j)
           split_bf16(s[8 * kk + 2 * j], s[8 * kk + 2 * j + 1], pa[kk][j], pr[kk][j]);
@@ -548,13 +611,13 @@ __device__ __forceinline__ void attention_block(const CUtensorMap* q_maps, const
     // 1 and 2, warpgroup 0 first), so one's turn runs on the tensor cores
     // while the other computes its softmax. Within a turn P V completes
     // before Q K^T is issued, so the P fragments and the scores are never
-    // live at once (168 registers are left for the accumulators).
+    // live at once.
     mbar_wait(q_bar, 0);
     if (n_tiles > 0) {
       const int my_turn = 1 + wg, other_turn = 2 - wg;
       if (wg == 1) named_bar_arrive(1, 256);  // warpgroup 0 issues first
-      float s[kBK / 2];
-      uint32_t pa[kBK / 16][4], pr[kBK / 16][4];
+      float s[BK / 2];
+      uint32_t pa[BK / 16][4], pr[BK / 16][4];
       float alpha_lo, alpha_hi;
       Cursor cur = walk.begin();
       int st = 0, phase = 0, prev = 0;  // this tile's stage, and that of tile t - 1
@@ -620,19 +683,22 @@ __device__ __forceinline__ void attention_block(const CUtensorMap* q_maps, const
     __nv_bfloat16* out_lo = out + b * so.b + (int64_t)row_lo * so.s + h * so.h;
     __nv_bfloat16* out_hi = out_lo + 8 * so.s;
 #pragma unroll
-    for (int i = 0; i < W0 / 2; i += 4) {
-      const int col = 2 * i + 2 * (lane % 4);  // 8 * (i / 4) + 2 * (lane % 4)
-      if (col >= HD) continue;
-      if (row_lo < n_rows)
-        *reinterpret_cast<uint32_t*>(out_lo + col) = pack_bf16(o0[i] * inv_lo, o0[i + 1] * inv_lo);
-      if (row_hi < n_rows)
-        *reinterpret_cast<uint32_t*>(out_hi + col) =
-            pack_bf16(o0[i + 2] * inv_hi, o0[i + 3] * inv_hi);
-    }
+    for (int j = 0; j < NB; ++j)
+#pragma unroll
+      for (int i = 0; i < W0 / 2; i += 4) {
+        const int col = j * W0 + 2 * i + 2 * (lane % 4);  // + 8 * (i / 4) + 2 * (lane % 4)
+        if (col >= HD) continue;
+        if (row_lo < n_rows)
+          *reinterpret_cast<uint32_t*>(out_lo + col) =
+              pack_bf16(o0[j][i] * inv_lo, o0[j][i + 1] * inv_lo);
+        if (row_hi < n_rows)
+          *reinterpret_cast<uint32_t*>(out_hi + col) =
+              pack_bf16(o0[j][i + 2] * inv_hi, o0[j][i + 3] * inv_hi);
+      }
     if constexpr (W1 > 0) {
 #pragma unroll
       for (int i = 0; i < W1 / 2; i += 4) {
-        const int col = W0 + 2 * i + 2 * (lane % 4);
+        const int col = NB * W0 + 2 * i + 2 * (lane % 4);
         if (col >= HD) continue;
         if (row_lo < n_rows)
           *reinterpret_cast<uint32_t*>(out_lo + col) =

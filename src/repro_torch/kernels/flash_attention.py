@@ -8,7 +8,8 @@ head h reads KV head h // (H/K)), takes the ``prefix_len`` always-visible
 leading keys of Hymba's meta tokens as a launch argument, and bounds its
 key loop by T, so nothing is repeated or padded. bf16 inputs run the TMA +
 ``wgmma`` pipeline that K1 shares (``csrc/hopper_tiles.cuh``) over the key
-tiles :func:`tile_classes` describes; float32 inputs a CUDA-core FMA body.
+tiles :func:`tile_classes` describes (:func:`key_tile` keys a tile: 128,
+or 64 at head dim 256); float32 inputs a CUDA-core FMA body.
 
 This module only marshals arguments; :func:`repro_torch.kernels.ops.
 flash_attention` is the public wrapper that validates inputs, picks the
@@ -21,15 +22,25 @@ from typing import List
 
 import torch
 
-#: head dims the CUDA source instantiates (Hymba-1.5B and its reduced form)
-SUPPORTED_HEAD_DIMS = (64,)
+#: head dims the CUDA source instantiates: 64 (Hymba-1.5B and every reduced
+#: LM), 128 (yi-9b, minitron-8b, llama3-405b, internvl2-76b, olmoe-1b-7b,
+#: deepseek-moe-16b) and 256 (gemma-2b)
+SUPPORTED_HEAD_DIMS = (64, 128, 256)
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
-#: query rows of a block and keys of a tile in the bf16 body (``kBQ`` and
-#: ``kBK`` in ``csrc/hopper_tiles.cuh``; checked at bind time)
+#: query rows of a block and keys of a tile up to head dim 128 in the bf16
+#: body (``kBQ`` and ``kBK`` in ``csrc/hopper_tiles.cuh``; checked at bind
+#: time)
 QUERY_TILE = KEY_TILE = 128
 SKIPPED, FULL, MASKED = 0, 1, 2
+
+
+def key_tile(hd: int) -> int:
+    """Keys of a bf16 tile at head dim ``hd`` (``HeadTiles<HD>::BK``): 64
+    above head dim 128, where a 128-key tile's scores would not fit a
+    consumer thread's registers beside the output."""
+    return 64 if hd > 128 else KEY_TILE
 
 
 def tile_walk(T: int, causal: bool, window: int, prefix_len: int, q0: int,
@@ -79,14 +90,16 @@ def tile_classes(S: int, T: int, causal: bool, window: int = 0,
 
 def bind(lib: ctypes.CDLL) -> None:
     """Declare the C signatures of the entry points, and check that the
-    library's tiles are the ones :func:`tile_classes` computes for."""
-    lib.flash_attention_tile.argtypes = [ctypes.c_int]
+    library's tiles at each head dim are the ones :func:`tile_classes`
+    computes for."""
+    lib.flash_attention_tile.argtypes = [ctypes.c_int, ctypes.c_int]
     lib.flash_attention_tile.restype = ctypes.c_int
-    tiles = (lib.flash_attention_tile(0), lib.flash_attention_tile(1))
-    if tiles != (QUERY_TILE, KEY_TILE):
-        raise RuntimeError(f"the library's K6 tiles {tiles} are not "
-                           f"({QUERY_TILE}, {KEY_TILE})")
-    lib.flash_attention_tile_class.argtypes = [ctypes.c_int] * 7
+    for hd in SUPPORTED_HEAD_DIMS:
+        tiles = (lib.flash_attention_tile(hd, 0), lib.flash_attention_tile(hd, 1))
+        if tiles != (QUERY_TILE, key_tile(hd)):
+            raise RuntimeError(f"the library's K6 tiles {tiles} at head dim "
+                               f"{hd} are not ({QUERY_TILE}, {key_tile(hd)})")
+    lib.flash_attention_tile_class.argtypes = [ctypes.c_int] * 8
     lib.flash_attention_tile_class.restype = ctypes.c_int
     lib.flash_attention_launch.argtypes = (
         [ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 4

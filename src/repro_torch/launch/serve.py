@@ -6,6 +6,7 @@ DiffusionServingEngine` (``--diffusion``), on the GPU unless ``--device
 cpu`` is given. Weights are random (seeded), as in the reference's; the
 model is the ``reduced()`` form, as there.
 
+  PYTHONPATH=src python -m repro_torch.launch.serve --device cpu
   PYTHONPATH=src python -m repro_torch.launch.serve --arch hymba-1.5b \\
       --requests 8 --device cpu
   PYTHONPATH=src python -m repro_torch.launch.serve --diffusion \\
@@ -255,9 +256,11 @@ def main(argv=None):
     # no abbreviations: "--prompt" and "--prompt-len" are two flags
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0],
                                  allow_abbrev=False)
-    ap.add_argument("--arch", default="hymba-1.5b",
-                    help="the port serves hymba-1.5b (the reference's "
-                         "default, gemma-2b, comes with queue 1 item 15b)")
+    ap.add_argument("--arch", default="gemma-2b",
+                    help="an LM of the dense, moe or hybrid family (its "
+                         "reduced form; xlstm-125m and seamless-m4t-medium "
+                         "come with queue 1 item 15c), or a DiT with "
+                         "--diffusion")
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--slots", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=16)

@@ -11,8 +11,11 @@ decode attention over the meta-pinned ring cache is the plain ``attend``,
 as in the reference. Parameters keep the reference's stacked ``[L, ...]``
 leaves; the reference's ``jax.lax.scan`` over layers is a Python loop. The
 reference's ``lm._constrain`` (a JAX sharding constraint, a no-op at
-``act_shard=""``) has no counterpart. ``loss_fn`` comes with the training
-slice (ROADMAP.md queue 1 item 15b).
+``act_shard=""``) has no counterpart. ``loss_fn`` comes with LM training
+(ROADMAP.md queue 1 item 15d). A prompt longer than the ring leaves its
+kept positions where decode reads them (``layers.ring_kv``), which the
+reference does only when the prompt fills the ring a whole number of times
+(ROADMAP.md queue 3).
 """
 from __future__ import annotations
 
@@ -133,7 +136,8 @@ def prefill(params, cfg, tokens, cache, *, window: int = 0):
     """Run the prompt; returns (logits of its last position [B, V], the
     filled cache). A prompt that fits is written into the cache's K/V in
     place; one longer than the ring keeps the meta tokens and its last
-    ``T - M`` positions."""
+    ``T - M`` positions, position p at ring slot ``M + (p - M) % (T - M)``
+    as decode expects it."""
     logits, (k, v), ssm = forward(params, cfg, tokens, return_kv=True,
                                   window=window or cfg.sliding_window,
                                   logits_last_only=True)
@@ -141,43 +145,12 @@ def prefill(params, cfg, tokens, cache, *, window: int = 0):
     T = cache["k"].shape[2]
     S_tot = k.shape[2]
     if S_tot > T:                                     # ring: meta + last (T-M)
-        k = torch.cat([k[:, :, :M], k[:, :, -(T - M):]], dim=2)
-        v = torch.cat([v[:, :, :M], v[:, :, -(T - M):]], dim=2)
-        cache = {**cache, "k": k.to(cache["k"].dtype), "v": v.to(cache["v"].dtype)}
+        cache = {**cache, "k": layers.ring_kv(k, T, M).to(cache["k"].dtype),
+                 "v": layers.ring_kv(v, T, M).to(cache["v"].dtype)}
     else:                                             # written in place
         cache["k"][:, :, :S_tot] = k
         cache["v"][:, :, :S_tot] = v
     return logits[:, -1], {**cache, "ssm": ssm, "pos": S_tot}
-
-
-def _decode_attn(p, x, cfg, ck, cv, pos: int, window: int):
-    """Meta-pinned ring decode attention; pos counts meta+generated tokens.
-    Writes this token's K/V into the layer's cache views ``ck``/``cv`` in
-    place."""
-    B = x.shape[0]
-    M = cfg.n_meta_tokens
-    T = ck.shape[1]
-    q = (x @ p["wq"]).reshape(B, 1, cfg.n_heads, cfg.hd)
-    k = (x @ p["wk"]).reshape(B, 1, cfg.n_kv_heads, cfg.hd)
-    v = (x @ p["wv"]).reshape(B, 1, cfg.n_kv_heads, cfg.hd)
-    posv = torch.full((B, 1), pos, dtype=torch.int32, device=x.device)
-    q = layers.apply_rope(q, posv, cfg.rope_theta)
-    k = layers.apply_rope(k, posv, cfg.rope_theta)
-    if not window and pos >= T:
-        raise ValueError(
-            f"full-cache decode at position {pos} is past the cache's {T} "
-            "slots; the reference (repro.models.hymba._decode_attn's "
-            "dynamic_update_slice_in_dim) silently clamps the write to slot "
-            f"{T - 1}. Size init_cache's max_len for prompt + new tokens, or "
-            "decode with a window")
-    slot = (M + (pos - M) % window) if window else pos
-    ck[:, slot] = k[:, 0].to(ck.dtype)
-    cv[:, slot] = v[:, 0].to(cv.dtype)
-    kj = torch.arange(T, device=x.device)
-    n_written = min(pos - M + 1, (window if window else T) - (0 if window else M))
-    valid = ((kj < M) | ((kj - M) < n_written))[None, None, None, :]
-    out = layers.attend(q, ck, cv, mask=valid)
-    return out.reshape(B, 1, -1) @ p["wo"]
 
 
 def decode_step(params, cfg, cache, token, *, window: int = 0):
@@ -190,8 +163,10 @@ def decode_step(params, cfg, cache, token, *, window: int = 0):
     for i in range(cfg.n_layers):
         p = _layer(params["blocks"], i)
         xn = layers.rms_norm(x, p["ln1"], cfg.norm_eps)
-        a = _decode_attn(p["attn"], xn, cfg, cache["k"][i], cache["v"][i], pos,
-                         window)
+        # the meta-pinned ring: the meta tokens are the pinned prefix
+        a = layers.decode_attention(p["attn"], xn, cfg, cache["k"][i],
+                                    cache["v"][i], pos, window=window,
+                                    prefix_len=cfg.n_meta_tokens)
         m, st = mamba_lib.mamba_forward(p["mamba"], xn, cfg,
                                         _layer(cache["ssm"], i))
         x = _fuse(p, x, a, m, cfg)

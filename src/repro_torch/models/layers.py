@@ -3,7 +3,9 @@
 ``torch.Generator``, RMS norm, rotary embeddings, the reference attention
 and its masks, the attention block of the language models (whose
 full-sequence attention runs kernel K6 through
-``repro_torch.kernels.ops.flash_attention``), the gated MLPs and the
+``repro_torch.kernels.ops.flash_attention``), their single-token decode
+attention over a full or ring cache (plain torch, as in the reference) and
+the placement of a prefill's K/V in that ring, the gated MLPs and the
 timestep embedding. The reference's ``models/attention.py``
 (``chunked_attend``, its CPU stand-in for the flash kernel) has no
 counterpart here: K6 and its plain version take both ``attn_impl`` values,
@@ -153,6 +155,63 @@ def self_attention(p, x, cfg, *, positions=None, window: int = 0,
     out = ops.flash_attention(q, k, v, causal=True, window=window,
                               prefix_len=prefix_len)
     return out.reshape(B, S, -1) @ p["wo"], (k, v)
+
+
+def decode_attention(p, x, cfg, cache_k, cache_v, pos: int, *, window: int = 0,
+                     prefix_len: int = 0):
+    """Single-token decode. x: [B,1,D]; cache_[kv]: one layer's [B,T,K,hd]
+    cache views; ``pos`` (a Python int) the token's position.
+
+    Full cache (window 0): the token's K/V go to slot ``pos`` and keys up
+    to ``pos`` are visible; a position past the cache raises (the
+    reference's ``dynamic_update_slice`` would clamp the write to the last
+    slot). Ring cache (window > 0): ``prefix_len`` pinned slots (a VLM's
+    vision tokens; 0 for the text decoders, where the ring is the
+    reference's ``pos % window``) and ``T - prefix_len`` ring slots, the
+    token at ``prefix_len + (pos - prefix_len) % window``; the pinned slots
+    and the ring slots written so far are visible. K/V are written into the
+    views in place; returns out [B,1,D]."""
+    B = x.shape[0]
+    T = cache_k.shape[1]
+    q = (x @ p["wq"]).reshape(B, 1, cfg.n_heads, cfg.hd)
+    k = (x @ p["wk"]).reshape(B, 1, cfg.n_kv_heads, cfg.hd)
+    v = (x @ p["wv"]).reshape(B, 1, cfg.n_kv_heads, cfg.hd)
+    posv = torch.full((B, 1), pos, dtype=torch.int32, device=x.device)
+    q = apply_rope(q, posv, cfg.rope_theta)
+    k = apply_rope(k, posv, cfg.rope_theta)
+    if window:
+        slot = prefix_len + (pos - prefix_len) % window
+        n_valid = prefix_len + min(pos - prefix_len + 1, window)
+    elif pos >= T:
+        raise ValueError(
+            f"full-cache decode at position {pos} is past the cache's {T} "
+            "slots; the reference (repro.models.layers.decode_attention's "
+            "dynamic_update_slice_in_dim) silently clamps the write to slot "
+            f"{T - 1}. Size init_cache's max_len for prompt + new tokens, or "
+            "decode with a window")
+    else:
+        slot, n_valid = pos, pos + 1
+    cache_k[:, slot] = k[:, 0].to(cache_k.dtype)
+    cache_v[:, slot] = v[:, 0].to(cache_v.dtype)
+    valid = (torch.arange(T, device=x.device) < n_valid)[None, None, None, :]
+    out = attend(q, cache_k, cache_v, mask=valid)
+    return out.reshape(B, 1, -1) @ p["wo"]
+
+
+def ring_kv(kv, T: int, prefix_len: int = 0):
+    """The ``T`` cache slots of a prefill's stacked K or V ``[L, B, S, K,
+    hd]`` when ``S >= T``: the ``prefix_len`` pinned positions in their
+    slots, then the last ``T - prefix_len`` positions where decode reads
+    and writes them, position p at slot ``prefix_len + (p - prefix_len) %
+    (T - prefix_len)`` (:func:`decode_attention`; Hymba's meta-pinned ring).
+    The reference keeps them in order in slots ``prefix_len..T-1``, which
+    is that layout only when ``(S - prefix_len) % (T - prefix_len) == 0``:
+    otherwise its first decode step overwrites a key still inside the
+    window and keeps one that left it (ROADMAP.md queue 3)."""
+    S = kv.shape[2]
+    ring = T - prefix_len
+    tail = kv[:, :, S - ring:].roll((S - prefix_len) % ring, dims=2)
+    return torch.cat([kv[:, :, :prefix_len], tail], dim=2)
 
 
 # ----------------------------------------------------------------------

@@ -2,7 +2,9 @@
 against its plain PyTorch version at the shapes ``chip_smoke.py`` checks,
 the guided path on the card against the CPU, ``run_spmd`` on two gloo
 ranks and ``run_spmd_seq`` on four that share the card against the CPU,
-Hymba's prefill and decode (K6, K7) on the card against the CPU, the K1
+Hymba's prefill and decode (K6, K7) on the card against the CPU, K6 at
+the dense decoders' head dims (128, 256) and gemma-2b reduced on the card
+against the CPU, the K1
 autograd Function's gradients against the plain version's and its refusal
 of a grad operand outside it, and a tensor-parallel step on two gloo ranks
 sharing the card. They skip
@@ -746,15 +748,18 @@ def test_k6_tile_classes_match_library(cuda):
     tests hold to the mask."""
     from repro_torch.kernels import flash_attention as fa
     lib = ops.load_library().lib
-    for S, T in [(2048, 2048), (200, 200), (96, 160), (160, 96), (129, 257)]:
-        for causal, window, prefix in [(True, 1024, 128), (True, 0, 0),
-                                       (True, 100, 200), (False, 40, 0),
-                                       (True, 64, 130)]:
-            want = fa.tile_classes(S, T, causal, window, prefix)
-            got = [[lib.flash_attention_tile_class(S, T, int(causal), window,
-                                                   prefix, qt, kt)
-                    for kt in range(len(row))] for qt, row in enumerate(want)]
-            assert got == want, (S, T, causal, window, prefix)
+    for hd in fa.SUPPORTED_HEAD_DIMS:
+        for S, T in [(2048, 2048), (200, 200), (96, 160), (160, 96), (129, 257)]:
+            for causal, window, prefix in [(True, 1024, 128), (True, 0, 0),
+                                           (True, 100, 200), (False, 40, 0),
+                                           (True, 64, 130)]:
+                want = fa.tile_classes(S, T, causal, window, prefix,
+                                       k_tile=fa.key_tile(hd))
+                got = [[lib.flash_attention_tile_class(hd, S, T, int(causal),
+                                                       window, prefix, qt, kt)
+                        for kt in range(len(row))] for qt, row in enumerate(want)]
+                assert got == want, (hd, S, T, causal, window, prefix)
+    assert lib.flash_attention_tile_class(96, 64, 64, 1, 0, 0, 0, 0) == -1
 
 
 def _k7_inputs(S, device, B=1, Di=1600, N=16, seed=9):
@@ -858,6 +863,15 @@ def test_k6_k7_wrappers_refuse(cuda):
     with pytest.raises(ValueError, match="head dim 32 not instantiated"):
         ops.flash_attention(q[..., :32].contiguous(), k[..., :32].contiguous(),
                             v[..., :32].contiguous())
+    ops.reset_launch_counts()
+    for hd in (96, 192):
+        for dtype in (torch.float32, torch.bfloat16):
+            g = torch.Generator().manual_seed(hd)
+            q, k, v = (torch.randn(1, 64, 2, hd, generator=g).to(dtype).to(cuda)
+                       for _ in range(3))
+            with pytest.raises(ValueError, match=f"head dim {hd} not instantiated"):
+                ops.flash_attention(q, k, v)
+    assert ops.launch_counts() == {}
     with pytest.raises(ValueError, match="float32 or all bfloat16"):
         ops.flash_attention(q.half(), k.half(), v.half())
     x, dt, b, c, a, d, h0 = _k7_inputs(8, cuda, Di=32)
@@ -895,6 +909,114 @@ def test_hymba_serving_on_card_matches_cpu(cuda):
         for tok in (3, 14, 15, 92, 65, 35):
             out, cache = model.decode_step(p, cache, torch.tensor([tok], device=dev),
                                            window=cfg.sliding_window)
+            seq.append(out.cpu())
+        logits[str(dev)] = torch.stack(seq)
+    want, got = logits["cpu"], logits[str(cuda)]
+    assert ((got - want).norm() / want.norm()).item() < 1e-4
+    assert torch.equal(got.argmax(-1), want.argmax(-1))
+
+
+# q/k/v of K6 at the dense decoders' full attention shapes (S = T = 2048,
+# causal): gemma-2b (8 query heads, MQA, hd 256), olmoe-1b-7b (16/16, hd
+# 128) and internvl2-76b (64/8, hd 128) with its 1024 vision tokens as the
+# prefix of a 1024-key window (the VLM's mask when served with a window)
+K6_DECODER_SHAPES = [(8, 1, 256, 0, 0), (16, 16, 128, 0, 0),
+                     (64, 8, 128, 1024, 1024)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("H,K,hd,window,prefix", K6_DECODER_SHAPES)
+def test_k6_at_decoder_head_dims(cuda, H, K, hd, window, prefix, dtype):
+    """K6 against its plain version at head dims 128 and 256, K1's bars
+    (a peaked softmax), and each planted fault rejected."""
+    g = torch.Generator(device="cpu").manual_seed(hd + H)
+    q = (QK_STD * torch.randn(1, 2048, H, hd, generator=g)).to(dtype).to(cuda)
+    k = (QK_STD * torch.randn(1, 2048, K, hd, generator=g)).to(dtype).to(cuda)
+    v = torch.randn(1, 2048, K, hd, generator=g).to(dtype).to(cuda)
+    ops.reset_launch_counts()
+    out = ops.flash_attention(q, k, v, causal=True, window=window,
+                              prefix_len=prefix)
+    assert ops.launch_counts() == {"flash_attention": 1}
+    want = ref.flash_attention_ref(q, k, v, causal=True, window=window,
+                                   prefix_len=prefix)
+    torch.cuda.synchronize()
+    assert out.shape == q.shape and out.dtype == dtype
+    _assert_within_bars(out, want, dtype)
+    faults = _k6_faults(q, k, v, True, window, prefix)
+    faults["last 64 columns dropped"] = torch.cat(
+        [want[..., :hd - 64], torch.zeros_like(want[..., hd - 64:])], -1)
+    faults["keys shifted one place"] = ref.flash_attention_ref(
+        q, k.roll(1, dims=1), v.roll(1, dims=1), causal=True, window=window,
+        prefix_len=prefix)
+    if K > 1:
+        wrong = [(h + 1) % K for h in range(K)]
+        faults["kv head (h + 1) % K"] = ref.flash_attention_ref(
+            q, k[:, :, wrong], v[:, :, wrong], causal=True, window=window,
+            prefix_len=prefix)
+    hidden = ref.flash_mask(2048, 2048, causal=True, window=window,
+                            prefix_len=prefix, device=cuda)
+    hidden[:, :TILE] = False
+    faults["first 64 keys hidden"] = layers.attend(
+        q.float(), k.float(), v.float(), mask=hidden[None, None]).to(dtype)
+    # a fault that computes the same function at this shape (KV head h % K
+    # under MQA or MHA, a wider window that no row reaches) shows nothing
+    moved = {name: bad for name, bad in faults.items()
+             if ((bad.float() - want.float()).norm() / want.float().norm()) > 1e-6}
+    assert len(moved) >= 3, sorted(moved)
+    for name, bad in moved.items():
+        assert not _within_bars(out, bad, dtype), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hd", [128, 256])
+def test_k6_decoder_head_dims_ragged(cuda, hd, dtype):
+    """Lengths aligned to no tile (of 128 keys, or 64 at hd 256), S != T, a
+    window edge inside a tile and a prefix reaching past one."""
+    g = torch.Generator(device="cpu").manual_seed(hd)
+    for S, T, causal, window, prefix in [(200, 200, True, 48, 8),
+                                         (96, 160, False, 40, 0),
+                                         (300, 300, True, 100, 200),
+                                         (520, 520, True, 300, 16)]:
+        q = (QK_STD * torch.randn(2, S, 4, hd, generator=g)).to(dtype).to(cuda)
+        k = (QK_STD * torch.randn(2, T, 2, hd, generator=g)).to(dtype).to(cuda)
+        v = torch.randn(2, T, 2, hd, generator=g).to(dtype).to(cuda)
+        out = ops.flash_attention(q, k, v, causal=causal, window=window,
+                                  prefix_len=prefix)
+        want = ref.flash_attention_ref(q, k, v, causal=causal, window=window,
+                                       prefix_len=prefix)
+        _assert_within_bars(out, want, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch,window", [("gemma-2b", 0), ("olmoe-1b-7b", 0),
+                                         ("internvl2-76b", 24)])
+def test_decoders_on_card_match_cpu(cuda, arch, window):
+    """The reduced decoders in fp32 through prefill and 4 decode steps (the
+    VLM past its pinned ring): the card's logits (K6) against the CPU's (the
+    plain version), relative 1e-4, and the same tokens."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+
+    cfg = get_config(arch).reduced().replace(dtype="float32",
+                                             param_dtype="float32")
+    model = build_model(cfg)
+    params = model.init(torch.Generator().manual_seed(0))
+    batch = model.make_batch(torch.Generator().manual_seed(1), 1, 40)
+
+    def to(tree, dev):
+        return {k: to(v, dev) if isinstance(v, dict) else v.to(dev)
+                for k, v in tree.items()}
+    logits = {}
+    for dev in ("cpu", cuda):
+        p = to(params, dev)
+        cache = model.init_cache(1, 64, window=window, device=dev)
+        out, cache = model.prefill(p, to(batch, dev), cache, window=window)
+        seq = [out.cpu()]
+        for tok in (3, 14, 15, 92):
+            out, cache = model.decode_step(p, cache, torch.tensor([tok], device=dev),
+                                           window=window)
             seq.append(out.cpu())
         logits[str(dev)] = torch.stack(seq)
     want, got = logits["cpu"], logits[str(cuda)]

@@ -7,7 +7,9 @@ only in the tiles that need it; ``flash_attention.tile_classes`` is the
 Python mirror of that classification (skipped, full, masked). These tests
 hold it exactly to ``ref.flash_mask``: every visible (row, key) pair lies in
 a visited tile, and no full tile holds a hidden pair (keys past T count as
-hidden), over a grid of lengths, masks and prefixes that includes Hymba's.
+hidden), over a grid of lengths, masks and prefixes that includes Hymba's,
+at the 128-key tiles of head dims up to 128 and the 64-key tiles of head
+dim 256 (gemma-2b).
 
 K7 runs the Mamba recurrence as a scan over time: chunks of 128 steps, 32
 lanes of 4 steps each, the lanes' composites combined by a shuffle scan and
@@ -57,13 +59,12 @@ def _blocks(mask, bq, bk, fill):
     return padded.reshape(n_qt, bq, n_kt, bk).transpose(1, 2)
 
 
-@pytest.mark.parametrize("S,T", LENGTHS)
-@pytest.mark.parametrize("causal,window,prefix", MASKS)
-def test_k6_tile_classes_match_the_mask(S, T, causal, window, prefix):
+def _check_tile_classes(S, T, causal, window, prefix, bk):
     mask = ref.flash_mask(S, T, causal=causal, window=window,
                           prefix_len=prefix)
-    classes = torch.tensor(fa.tile_classes(S, T, causal, window, prefix))
-    bq, bk = fa.QUERY_TILE, fa.KEY_TILE
+    classes = torch.tensor(fa.tile_classes(S, T, causal, window, prefix,
+                                           k_tile=bk))
+    bq = fa.QUERY_TILE
     assert classes.shape == (-(-S // bq), -(-T // bk))
     # rows past S pad as "no pair"; keys past T as hidden
     any_visible = _blocks(mask, bq, bk, False).flatten(2).any(-1)
@@ -82,17 +83,48 @@ def test_k6_tile_classes_match_the_mask(S, T, causal, window, prefix):
     assert torch.equal(got, mask)
 
 
+def _check_walk_order(S, T, causal, window, prefix, bk):
+    bq = fa.QUERY_TILE
+    for qt, row in enumerate(fa.tile_classes(S, T, causal, window, prefix,
+                                             k_tile=bk)):
+        q0 = qt * bq
+        walk = fa.tile_walk(T, causal, window, prefix, q0, min(q0 + bq, S), bk)
+        assert walk == sorted(set(walk))
+        assert walk == [kt for kt, c in enumerate(row) if c != fa.SKIPPED]
+
+
+@pytest.mark.parametrize("S,T", LENGTHS)
+@pytest.mark.parametrize("causal,window,prefix", MASKS)
+def test_k6_tile_classes_match_the_mask(S, T, causal, window, prefix):
+    _check_tile_classes(S, T, causal, window, prefix, fa.KEY_TILE)
+
+
+@pytest.mark.parametrize("S,T", LENGTHS)
+@pytest.mark.parametrize("causal,window,prefix", MASKS)
+def test_k6_tile_classes_match_the_mask_at_hd_256(S, T, causal, window, prefix):
+    """Head dim 256's 64-key tiles (two to a query tile's 128 rows)."""
+    assert fa.key_tile(256) == 64 and fa.key_tile(128) == fa.KEY_TILE
+    _check_tile_classes(S, T, causal, window, prefix, fa.key_tile(256))
+
+
 @pytest.mark.parametrize("S,T", LENGTHS)
 @pytest.mark.parametrize("causal,window,prefix", MASKS)
 def test_k6_tile_walk_order(S, T, causal, window, prefix):
     """Each query tile visits its prefix tiles, then its window's tiles in
-    ascending order, each once, and nothing else."""
-    bq = fa.QUERY_TILE
-    for qt, row in enumerate(fa.tile_classes(S, T, causal, window, prefix)):
-        q0 = qt * bq
-        walk = fa.tile_walk(T, causal, window, prefix, q0, min(q0 + bq, S))
-        assert walk == sorted(set(walk))
-        assert walk == [kt for kt, c in enumerate(row) if c != fa.SKIPPED]
+    ascending order, each once, and nothing else (at both key tiles)."""
+    for bk in (fa.KEY_TILE, fa.key_tile(256)):
+        _check_walk_order(S, T, causal, window, prefix, bk)
+
+
+def test_k6_gemma_walk_is_the_reckoned_one():
+    """gemma-2b's causal prefill (S = T = 2048) at 64-key tiles: query tile
+    i visits 2i + 2 tiles (272 a head), and only the two that cross its
+    diagonal take the mask."""
+    classes = fa.tile_classes(2048, 2048, True, 0, 0, k_tile=fa.key_tile(256))
+    visited = [sum(c != fa.SKIPPED for c in row) for row in classes]
+    masked = [sum(c == fa.MASKED for c in row) for row in classes]
+    assert visited == [2 * i + 2 for i in range(16)] and sum(visited) == 272
+    assert masked == [2] * 16
 
 
 def test_k6_hymba_walk_is_the_reckoned_one():
