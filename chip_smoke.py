@@ -2,7 +2,10 @@
 kernels from this checkout, holds each against its plain PyTorch version at
 the shapes of the paths it drives, drives the LLM serving path (Hymba-1.5B
 at full width through the ServingEngine, gemma-2b and olmoe-1b-7b the
-same way: the dense and MoE decoders), the diffusion serving path
+same way: the dense and MoE decoders; xlstm-125m the same way, and
+seamless-m4t-medium, the enc-dec LM, through the model API), LM training
+(launch/train.py, and hymba-1.5b at full width through K6 and K7 under
+autograd), the diffusion serving path
 (sdxl-dit through the DiffusionServingEngine's emulated lanes), the main
 path (STADI on sdxl-dit at full width), the guided paths (classifier-free guidance, fused and
 interleaved) through ``StadiPipeline.generate`` and the multi-rank paths
@@ -108,7 +111,8 @@ Phases (any failure raises, so the script exits non-zero):
      plain version and scaled_dot_product_attention (enable_gqa; is_causal
      or the boolean mask).
  14. K7 (the selective scan) against its plain version at Hymba's Mamba
-     shapes (x/dt [1, 2048, 1600] and [1, 1, 1600], N 16, fp32), from zero
+     shapes (x/dt [1, 2048, 1600], [1, 1, 1600] and the training step's
+     [1, 640, 1600], N 16, fp32), from zero
      and from a nonzero h0, 5e-5 on y and the final state; each bar must
      reject five planted faults (h0 ignored, the state reset at a 64-step
      tile, the D x skip dropped, and at the scan body's first 128-step
@@ -258,10 +262,59 @@ Phases (any failure raises, so the script exits non-zero):
  27. card against CPU in fp32: tiny-dit.reduced()'s loss gradients at one
      training step's draws, and the tiny-unet forward and gradients, within
      1e-4 (``train_cross_device``).
+ 31. K6 in its non-causal form at seamless-m4t-medium's shapes (batch 4,
+     16 heads of 64): the encoder's [4, 1024, 16, 64] over itself, the
+     cross read's [4, 256, 16, 64] and the decode's [4, 1, 16, 64] (one
+     live row of a 128-row query tile) over [4, 1024, 16, 64], and a
+     ragged 250 rows over 1000 keys, fp32 and bf16, K1's bars; each bar
+     must reject three planted faults (a 64-key tile skipped, the causal
+     mask applied, the last 128-key tile dropped). bf16 device times
+     (CUDA-graph replay) beside the bound and SDPA without a mask
+     (``k6_noncausal_check``).
+ 32. seamless-m4t-medium at full width and depth in bf16 (12 + 12 layers,
+     d_model 1024, vocab 256206; 0.978 B params), random weights from a
+     seed, through the model API (the slot engine refuses enc-dec requests,
+     as the reference's does): 4 requests in one batch of 1024 stub frames
+     and 256 target tokens, 16 new tokens each, full cache; K6 36 at
+     prefill and 12 a decode step, two runs with the same tokens; TTFT,
+     ms a step, peak memory, a device profile (``seamless_serve``).
+     xlstm-125m at full width in bf16 served as phase 15: 4 requests of
+     512 tokens, 16 new each, no kernel (``xlstm_serve``).
+ 33. LM training: ``launch/train.py`` with the reference's defaults
+     (gemma-2b reduced, 50 steps; 2 K6 a step), the loss falls; 3 steps of
+     hymba-1.5b at full width in bf16, batch 1, 512 tokens (640 rows with
+     the meta tokens), K6 and K7 32 times each a forward under autograd:
+     seconds a step split into the forward (the loss stamps its end), the
+     backward and the update (timed alone), peak memory, a finite loss;
+     one forward under the device profiler (idle share, top kernels;
+     ``lm_train_check``).
+ 34. card against CPU in fp32: xlstm-125m reduced at 4 blocks (its sLSTM
+     block at 3) and seamless-m4t-medium reduced (K6's fp32 body,
+     non-causal) through prefill and 4 decode steps, logits within 1e-4
+     relative, the same tokens; hymba-1.5b reduced (GQA 4/2): the loss and
+     every gradient leaf through the K6 and K7 Functions within 1e-4
+     norm-relative of the CPU's (``train_cross_device``).
+ 35. K6 at the LM paths' shapes no other phase holds, fp32 and bf16, K1's
+     bars, each bar rejecting five planted faults (the keys shifted one
+     place, KV head (h + 1) % K, the causal mask dropped, a key block
+     hidden, half the head dim zeroed): Hymba's training step (q [1, 640,
+     25, 64] over k/v [1, 640, 5, 64], window 1024, prefix 128),
+     seamless's decoder self-attention ([4, 256, 16, 64], causal) and the
+     gemma-2b reduced trainer ([4, 64, 4, 64] over [4, 64, 1, 64], fp32
+     on its path); at each path dtype device times (CUDA-graph replay)
+     beside the bound and SDPA (``k6_path_check``).
+ 36. one training step's gradients through the K6 and K7 Functions at
+     Hymba's training shapes (K6 bf16 and fp32, K7 fp32) against autograd
+     of the plain versions within the norm bar, a loss nonlinear in the
+     output; planted faults in the backward (K6's causal mask dropped, K7's
+     D x skip dropped or state reset at a tile) must miss it; one
+     Function's forward and backward timed and profiled: a layer's share
+     of the training step (``train_grads_check``).
  Phases 13 to 15 run after phase 8, before the sdxl-dit paths; phase 16
  after phase 10, 17 after 7, 18 after 16, 19 after 11, 20 after 17, 21
  after 18, 23 after 21, 22 after 11, 24 after 20, 25 and 26 after 19, 27
- after 12, 28 after 13, 29 and 30 after 15.
+ after 12, 28 after 13, 29 and 30 after 15, 31, 35, 36 and 32 to 34
+ after 30.
 Every path is driven with the launch counters set to 0 just before it and
 read just after (on every rank for the multi-rank paths). The
 second-to-last line is the kernels' JSON record, the last line the device
@@ -2598,15 +2651,15 @@ def k6_planted_faults(ref, q, k, v, causal, window, prefix):
 
 
 def k6_bound_ms(ref, causal, window, prefix, dtype, peaks, H=K6_H, K=K6_K,
-                hd=K6_HD):
+                hd=K6_HD, S=K6_S, B=1):
     """Least time for K6's work: 4 * hd operations per visible (q, k) pair
     and head (the mask's pairs, counted) at the input type's peak, or the
     bytes of q, k, v and the output once each at the memory rate."""
-    pairs = int(ref.flash_mask(K6_S, K6_S, causal=causal, window=window,
+    pairs = int(ref.flash_mask(S, S, causal=causal, window=window,
                                prefix_len=prefix).sum())
-    flops = 4 * hd * pairs * H
+    flops = 4 * hd * pairs * H * B
     elem = torch.tensor([], dtype=dtype).element_size()
-    nbytes = elem * K6_S * hd * (2 * H + 2 * K)
+    nbytes = elem * B * S * hd * (2 * H + 2 * K)
     ops_ms = flops / (peaks[0] if dtype == torch.bfloat16 else peaks[1]) * 1e3
     bytes_ms = nbytes / peaks[2] * 1e3
     return (max(ops_ms, bytes_ms), "operations" if ops_ms >= bytes_ms else "bytes",
@@ -2622,7 +2675,8 @@ def k6_library_call(ref, q, k, v, causal, window, prefix):
     if window == 0:
         return lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal,
                                                       enable_gqa=True)
-    mask = ref.flash_mask(K6_S, K6_S, causal=causal, window=window,
+    S = q.shape[1]
+    mask = ref.flash_mask(S, S, causal=causal, window=window,
                           prefix_len=prefix, device=q.device)
     return lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
                                                   enable_gqa=True)
@@ -2667,8 +2721,9 @@ def phase_k6(ops, ref, dev, peaks):
 
 
 # K7 at Hymba-1.5B's Mamba branch: d_inner 1600, N 16, fp32; S 2048 at
-# prefill, 1 at decode
+# prefill, 1 at decode, 640 in the training step (128 meta + 512 tokens)
 K7_DI, K7_N, K7_TILE = 1600, 16, 64
+K7_LENGTHS = (2048, 1, 640)
 
 
 def k7_inputs(S, dev, gen):
@@ -2722,14 +2777,15 @@ def k7_bound_ms(S, peaks):
 
 
 def phase_k7(ops, ref, dev, peaks):
-    """K7 against its plain version at Hymba's prefill (S 2048) and decode
-    (S 1) shapes, from zero and from a nonzero state, fp32 5e-5 on y and the
-    final state, with planted faults; times with h0 and the final state, as
-    mamba_forward calls it. Returns the timed readings, prefill first."""
+    """K7 against its plain version at Hymba's prefill (S 2048), decode
+    (S 1) and training-step (S 640) shapes, from zero and from a nonzero
+    state, fp32 5e-5 on y and the final state, with planted faults; times
+    with h0 and the final state, as mamba_forward calls it. Returns the
+    timed readings in K7_LENGTHS' order."""
     gen = torch.Generator(device="cpu").manual_seed(SEED + 8)
     timed, rejected = [], set()
     f32 = torch.float32
-    for S in (2048, 1):
+    for S in K7_LENGTHS:
         for with_h0 in (False, True):
             x, dt, b, c, a, d, h0 = k7_inputs(S, dev, gen)
             h0 = h0 if with_h0 else None
@@ -2945,20 +3001,15 @@ def hymba_ring_check(make_engine, prompt, dev):
     return line
 
 
-def profile_llm(make_engine, prompts, label, new_tokens, top=12):
-    """``prompts`` served once unprofiled and once under torch.profiler:
-    device time by kernel and the device idle share (1 - busy / the
-    unprofiled wall time). The engine runs each request's prefill and
-    decode steps at batch 1 whatever its slots, so one request is the
-    path's work per request; the whole 4-request run launches a few
-    hundred thousand kernels, more than the profiler reads back in the
-    script's time. Only the device is traced, for the same reason."""
+def device_profile(fn, wall_s, top=12):
+    """``fn()`` under torch.profiler, tracing the device only: device time
+    by kernel, the kernels counted, the device idle share (1 - busy /
+    ``wall_s``, the unprofiled wall time) and K6's and K7's device time."""
     from torch.profiler import ProfilerActivity, profile
 
-    _, t0, t1 = hymba_serve_once(make_engine, prompts, new_tokens)
-    wall_s = t1 - t0
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        hymba_serve_once(make_engine, prompts, new_tokens)
+        fn()
+        torch.cuda.synchronize()
     kernels = []
     for ev in prof.key_averages():
         dev_us = getattr(ev, "self_device_time_total",
@@ -2969,15 +3020,28 @@ def profile_llm(make_engine, prompts, label, new_tokens, top=12):
     busy_s = sum(us for _, us, _ in kernels) * 1e-6
     by = {name: sum(us for key, us, _ in kernels if name in key) * 1e-6
           for name in ("flash_attention", "ssm_scan")}
-    print(label, json.dumps({
-        "requests": len(prompts), "wall_s": wall_s, "device_busy_s": busy_s,
+    return {
+        "wall_s": wall_s, "device_busy_s": busy_s,
         "device_kernels": sum(c for _, _, c in kernels),
         "device_idle_share": max(0.0, 1.0 - busy_s / wall_s),
         "k6_device_s": by["flash_attention"], "k7_device_s": by["ssm_scan"],
         "k6_share_of_busy": by["flash_attention"] / busy_s if busy_s else None,
         "k7_share_of_busy": by["ssm_scan"] / busy_s if busy_s else None,
         "top_kernels": [{"name": n[:120], "device_s": us * 1e-6, "calls": c}
-                        for n, us, c in kernels[:top]]}), flush=True)
+                        for n, us, c in kernels[:top]]}
+
+
+def profile_llm(make_engine, prompts, label, new_tokens, top=12):
+    """``prompts`` served once unprofiled and once under torch.profiler
+    (:func:`device_profile`). The engine runs each request's prefill and
+    decode steps at batch 1 whatever its slots, so one request is the
+    path's work per request; the whole 4-request run launches a few
+    hundred thousand kernels, more than the profiler reads back in the
+    script's time. Only the device is traced, for the same reason."""
+    _, t0, t1 = hymba_serve_once(make_engine, prompts, new_tokens)
+    line = {"requests": len(prompts), **device_profile(
+        lambda: hymba_serve_once(make_engine, prompts, new_tokens), t1 - t0, top)}
+    print(label, json.dumps(line), flush=True)
 
 
 def phase_hymba_cross_device(dev):
@@ -3239,6 +3303,544 @@ def phase_lm_cross_device(dev):
               flush=True)
         check(rel < 1e-4 and same, f"{label}: card differs from the CPU: {rel}, {same}")
         out[label] = rel
+    return out
+
+
+# ----------------------------------------------------------------------
+# the xLSTM and enc-dec LMs, K6's non-causal form, LM training
+# ----------------------------------------------------------------------
+
+#: K6's non-causal form at seamless-m4t-medium's shapes (batch 4, 16 heads
+#: of 64): the encoder's 1024 frames over themselves, the decoder's 256
+#: target rows and the decode's one row over the 1024 memory keys, and a
+#: ragged 250 rows over 1000 keys; (label, S, T)
+K6_NONCAUSAL = [("encoder", 1024, 1024), ("cross", 256, 1024),
+                ("cross_decode", 1, 1024), ("ragged", 250, 1000)]
+K6_NC_B, K6_NC_H, K6_NC_HD = 4, 16, 64
+SEAMLESS_BATCH, SEAMLESS_SRC, SEAMLESS_NEW = 4, 1024, 16
+XLSTM_REQUESTS, XLSTM_PROMPT, XLSTM_NEW = 4, 512, 16
+HYMBA_TRAIN_SEQ, HYMBA_TRAIN_STEPS = 512, 3
+
+
+def k6_noncausal_faults(ref, layers, q, k, v):
+    """K6's non-causal output under planted faults, from plain versions: a
+    64-key tile skipped (keys 64..127 hidden), the causal mask applied, the
+    tail tile dropped (the keys of the last 128-key tile, a partial one
+    when T is ragged)."""
+    S, T = q.shape[1], k.shape[1]
+
+    def hidden(lo, hi):
+        mask = torch.ones(S, T, dtype=torch.bool, device=q.device)
+        mask[:, lo:hi] = False
+        return layers.attend(q.float(), k.float(), v.float(),
+                             mask=mask[None, None]).to(q.dtype)
+
+    return {"key tile skipped": hidden(TILE, 2 * TILE),
+            "causal mask applied": ref.flash_attention_ref(q, k, v, causal=True),
+            "tail tile dropped": hidden((T - 1) // 128 * 128, T)}
+
+
+def k6_noncausal_bound_ms(B, S, T, H, K, hd, dtype, peaks):
+    """Least time for K6's non-causal work: 4 * hd operations per (q, k)
+    pair and head (every pair is visible) at the input type's peak, or the
+    bytes of q, k, v and the output once each at the memory rate."""
+    flops = 4 * hd * S * T * H * B
+    elem = torch.tensor([], dtype=dtype).element_size()
+    nbytes = elem * B * hd * (2 * S * H + 2 * T * K)
+    ops_ms = flops / (peaks[0] if dtype == torch.bfloat16 else peaks[1]) * 1e3
+    bytes_ms = nbytes / peaks[2] * 1e3
+    return max(ops_ms, bytes_ms), "operations" if ops_ms >= bytes_ms else "bytes"
+
+
+def phase_k6_noncausal(ops, ref, layers, dev, peaks):
+    """K6 without the causal mask against its plain version at the enc-dec
+    LM's shapes (S != T, S = 1, ragged), fp32 and bf16, with K1's bars and
+    three planted faults; bf16 device times (CUDA-graph replay: at these
+    sizes 10 eager launches time the wrapper's host work, ``eager_ms``)
+    beside the bound and SDPA without a mask. Returns the timed readings
+    by label."""
+    gen = torch.Generator(device="cpu").manual_seed(SEED + 24)
+    B, H, hd = K6_NC_B, K6_NC_H, K6_NC_HD
+    timed, rejected = {}, set()
+    for dtype in (torch.float32, torch.bfloat16):
+        for label, S, T in K6_NONCAUSAL:
+            q = (QK_STD * torch.randn(B, S, H, hd, generator=gen)).to(dtype).to(dev)
+            k = (QK_STD * torch.randn(B, T, H, hd, generator=gen)).to(dtype).to(dev)
+            v = torch.randn(B, T, H, hd, generator=gen).to(dtype).to(dev)
+            out = ops.flash_attention(q, k, v, causal=False)
+            want = ref.flash_attention_ref(q, k, v, causal=False)
+            line = {"kernel": "flash_attention", "shape": label, "dtype": str(dtype),
+                    "q": list(q.shape), "kv": list(k.shape), "causal": False,
+                    "bar": BARS[dtype], "norm_bar": NORM_BARS[dtype]}
+            if dtype == torch.bfloat16:
+                bound_ms, bound_by = k6_noncausal_bound_ms(B, S, T, H, H, hd,
+                                                           dtype, peaks)
+                qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+                kernel = lambda: ops.flash_attention(q, k, v, causal=False)
+                library = lambda: torch.nn.functional.scaled_dot_product_attention(
+                    qt, kt, vt)
+                line.update(
+                    ms=time_graph_ms(kernel), library_ms=time_graph_ms(library),
+                    eager_ms=time_ms(kernel),
+                    plain_ms=time_ms(lambda: ref.flash_attention_ref(
+                        q, k, v, causal=False), reps=3),
+                    bound_ms=bound_ms, bound_by=bound_by)
+            faults = check_with_faults("k6_noncausal_check", out, want,
+                                       k6_noncausal_faults(ref, layers, q, k, v),
+                                       dtype, line)
+            rejected |= {n for n, f in faults.items() if f.get("rejected")}
+            if dtype == torch.bfloat16:
+                timed[label] = line
+            del q, k, v, out, want
+    check(len(rejected) == 3, f"K6 non-causal: not every planted fault was "
+          f"shown rejected: {sorted(rejected)}")
+    return timed
+
+
+#: K6 at the LM paths' shapes the phases above leave out, with the dtype
+#: each runs at on its path: Hymba's training step (batch 1, 128 meta + 512
+#: tokens = 640 rows, 25 query heads over 5 KV heads, window 1024, prefix
+#: 128), seamless's decoder self-attention at prefill (batch 4, 256 target
+#: rows, 16 heads, causal) and the gemma-2b reduced trainer (batch 4, seq
+#: 64, 4 query heads over 1 KV head; fp32 on its path); (label, B, S, H, K,
+#: window, prefix, path dtype)
+K6_PATH_SHAPES = [("hymba_train", 1, 640, 25, 5, 1024, 128, torch.bfloat16),
+                  ("seamless_self", 4, 256, 16, 16, 0, 0, torch.bfloat16),
+                  ("gemma_train", 4, 64, 4, 1, 0, 0, torch.float32)]
+
+
+def k6_path_faults(ref, layers, q, k, v, kw):
+    """K6's output under planted faults that change the function at every
+    path shape, from plain versions: the keys shifted one place, query head
+    h reading KV head (h + 1) % K (where K > 1), the causal mask dropped, a
+    block of keys hidden (keys 64..127, or the second half of a 64-key
+    sequence) and the last half of the head dim zeroed."""
+    S, T, K, hd = q.shape[1], k.shape[1], k.shape[2], q.shape[3]
+    want = ref.flash_attention_ref(q, k, v, **kw)
+    lo = TILE if T > 2 * TILE else T // 2
+    mask = ref.flash_mask(S, T, **kw, device=q.device)
+    mask[:, lo:lo + TILE] = False
+    faults = {"keys shifted one place": ref.flash_attention_ref(
+                  q, k.roll(1, dims=1), v.roll(1, dims=1), **kw),
+              "causal mask dropped": ref.flash_attention_ref(q, k, v, causal=False),
+              "key block hidden": layers.attend(
+                  q.float(), k.float(), v.float(), mask=mask[None, None]).to(q.dtype),
+              "last half of hd zeroed": torch.cat(
+                  [want[..., :hd // 2], torch.zeros_like(want[..., hd // 2:])], -1)}
+    if K > 1:
+        wrong = [(h + 1) % K for h in range(K)]
+        faults["kv head (h + 1) % K"] = ref.flash_attention_ref(
+            q, k[:, :, wrong], v[:, :, wrong], **kw)
+    return faults
+
+
+def phase_k6_paths(ops, ref, layers, dev, peaks):
+    """K6 against its plain version at K6_PATH_SHAPES, fp32 and bf16, with
+    K1's bars and planted faults; at each shape's path dtype the device
+    time (CUDA-graph replay; ``eager_ms`` beside it), the plain version's,
+    the bound and SDPA (enable_gqa; is_causal, or the window + prefix
+    mask). Returns the timed readings by label."""
+    gen = torch.Generator(device="cpu").manual_seed(SEED + 25)
+    timed, rejected = {}, set()
+    for dtype in (torch.float32, torch.bfloat16):
+        for label, B, S, H, K, window, prefix, path_dtype in K6_PATH_SHAPES:
+            q = (QK_STD * torch.randn(B, S, H, 64, generator=gen)).to(dtype).to(dev)
+            k = (QK_STD * torch.randn(B, S, K, 64, generator=gen)).to(dtype).to(dev)
+            v = torch.randn(B, S, K, 64, generator=gen).to(dtype).to(dev)
+            kw = dict(causal=True, window=window, prefix_len=prefix)
+            out = ops.flash_attention(q, k, v, **kw)
+            want = ref.flash_attention_ref(q, k, v, **kw)
+            line = {"kernel": "flash_attention", "shape": label, "dtype": str(dtype),
+                    "path_dtype": str(path_dtype), "q": list(q.shape),
+                    "kv": list(k.shape), **kw, "bar": BARS[dtype],
+                    "norm_bar": NORM_BARS[dtype]}
+            if dtype == path_dtype:
+                kernel = lambda: ops.flash_attention(q, k, v, **kw)
+                bound_ms, bound_by, pairs = k6_bound_ms(
+                    ref, True, window, prefix, dtype, peaks, H=H, K=K, hd=64,
+                    S=S, B=B)
+                library = k6_library_call(ref, q, k, v, True, window, prefix)
+                line.update(
+                    ms=time_graph_ms(kernel), library_ms=time_graph_ms(library),
+                    eager_ms=time_ms(kernel),
+                    plain_ms=time_ms(lambda: ref.flash_attention_ref(q, k, v, **kw),
+                                     reps=3),
+                    visible_pairs_per_head=pairs, bound_ms=bound_ms,
+                    bound_by=bound_by)
+            faults = check_with_faults("k6_path_check", out, want,
+                                       k6_path_faults(ref, layers, q, k, v, kw),
+                                       dtype, line)
+            rejected |= {n for n, f in faults.items() if f.get("rejected")}
+            if dtype == path_dtype:
+                timed[label] = line
+            del q, k, v, out, want
+    check(len(rejected) == 5, f"K6 path shapes: not every planted fault was "
+          f"shown rejected: {sorted(rejected)}")
+    return timed
+
+
+def wall_ms(fn):
+    """Synchronized wall time of one call of ``fn`` in milliseconds."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3
+
+
+def plain_grad_rel_errs(got, fn, leaves, loss, whole=False):
+    """Norm-relative error of each gradient in ``got`` against autograd of
+    ``loss(fn(*leaves))`` over fresh copies of ``leaves``; with ``whole``,
+    one error over all the gradients together (a planted fault may leave
+    one operand without a gradient)."""
+    ins = [t.clone().requires_grad_() for t in leaves]
+    want = torch.autograd.grad(loss(fn(*ins)), ins)
+    pairs = [(g.float().flatten(), w.float().flatten()) for g, w in zip(got, want)]
+    if whole:
+        pairs = [tuple(torch.cat(side) for side in zip(*pairs))]
+    return [((g - w).norm() / w.norm()).item() for g, w in pairs]
+
+
+def phase_train_grads(ops, ref, dev):
+    """One training step's gradients through the K6 and K7 Functions at
+    Hymba-1.5B's training shapes (K6: q [1, 640, 25, 64] over k/v
+    [1, 640, 5, 64], window 1024, prefix 128, bf16 as on the path and fp32;
+    K7: x/dt [1, 640, 1600], B_t/C_t [1, 640, 16] fp32, h0 zeros, the loss
+    reading y) against autograd of the plain versions, within the dtype's
+    norm bar (fp32 5e-5, bf16 2e-3). The loss is nonlinear in the output,
+    so the gradient the backward starts from comes from the kernel's
+    forward. Planted faults (the causal mask dropped in K6's backward; the
+    D x skip dropped and the state reset at a 64-step tile in K7's) must
+    miss the bar. One launch a forward. The synchronized wall time of one
+    forward and backward through each Function (``fwd_bwd_ms``), and the
+    same under the device profiler (idle share, top kernels), is one
+    layer's share of the training step. Returns the gradient errors."""
+    gen = torch.Generator(device="cpu").manual_seed(SEED + 26)
+    out = {}
+    _, B, S, H, K, window, prefix, _ = K6_PATH_SHAPES[0]
+    kw = dict(causal=True, window=window, prefix_len=prefix)
+    for dtype in (torch.bfloat16, torch.float32):
+        leaves = [(std * torch.randn(B, S, n, 64, generator=gen)).to(dtype).to(dev)
+                  for std, n in ((QK_STD, H), (QK_STD, K), (1.0, K))]
+        w = torch.randn(B, S, H, 64, generator=gen).to(dev)
+        loss = lambda o: (o.float() * w).sum() + 0.5 * o.float().square().sum()
+        ins = [t.clone().requires_grad_() for t in leaves]
+        ops.reset_launch_counts()
+        got = torch.autograd.grad(loss(ops.flash_attention(*ins, **kw)), ins)
+        launches = ops.launch_counts()
+        step = lambda: torch.autograd.grad(loss(ops.flash_attention(*ins, **kw)),
+                                           ins)
+        fwd_bwd_ms = wall_ms(step)
+        rels = plain_grad_rel_errs(
+            got, lambda *t: ref.flash_attention_ref(*t, **kw), leaves, loss)
+        fault = plain_grad_rel_errs(
+            got, lambda *t: ref.flash_attention_ref(*t, causal=False), leaves,
+            loss, whole=True)
+        line = {"kernel": "flash_attention", "dtype": str(dtype),
+                "q": list(leaves[0].shape), "kv": list(leaves[1].shape), **kw,
+                "grad_norm_rel_errs": rels, "norm_bar": NORM_BARS[dtype],
+                "launches": launches, "fwd_bwd_ms": fwd_bwd_ms,
+                "fwd_bwd_profile": device_profile(step, fwd_bwd_ms / 1e3),
+                "planted_faults": {"causal mask dropped": max(fault)}}
+        print("train_grads_check", json.dumps(line), flush=True)
+        check(launches == {"flash_attention": 1}, f"K6 Function launches: {line}")
+        check(max(rels) <= NORM_BARS[dtype], f"K6 Function gradients: {line}")
+        check(max(fault) > NORM_BARS[dtype], f"K6 gradient bar: {line}")
+        out[f"k6_{dtype}"] = max(rels)
+    x, dt, b, c, a, d, _ = k7_inputs(S, dev, gen)
+    h0 = torch.zeros(1, K7_DI, K7_N, device=dev)
+    wy = torch.randn(1, S, K7_DI, generator=gen).to(dev)
+    loss = lambda y: (y * wy).sum() + 0.5 * y.square().sum()
+    leaves = [x, dt, b, c, a, d]
+    ins = [t.clone().requires_grad_() for t in leaves]
+    ops.reset_launch_counts()
+    y, _ = ops.ssm_scan(*ins, h0=h0, final_state=True)
+    got = torch.autograd.grad(loss(y), ins)
+    launches = ops.launch_counts()
+    step = lambda: torch.autograd.grad(
+        loss(ops.ssm_scan(*ins, h0=h0, final_state=True)[0]), ins)
+    fwd_bwd_ms = wall_ms(step)
+    plain = lambda *t: ref.ssm_scan_ref(*t, h0)[0]
+
+    def reset_at_tile(x, dt, b, c, a, d):
+        cut = lambda lo, hi: [t[:, lo:hi] for t in (x, dt, b, c)]
+        return torch.cat([ref.ssm_scan_ref(*cut(0, K7_TILE), a, d, h0)[0],
+                          ref.ssm_scan_ref(*cut(K7_TILE, None), a, d)[0]], 1)
+
+    rels = plain_grad_rel_errs(got, plain, leaves, loss)
+    faults = {"d x dropped": plain_grad_rel_errs(
+                  got, lambda x, dt, b, c, a, d: plain(x, dt, b, c, a, 0 * d),
+                  leaves, loss, whole=True)[0],
+              "state reset at a tile": plain_grad_rel_errs(
+                  got, reset_at_tile, leaves, loss, whole=True)[0]}
+    line = {"kernel": "ssm_scan", "dtype": "torch.float32", "x": list(x.shape),
+            "bc": list(b.shape), "grad_norm_rel_errs": rels,
+            "norm_bar": NORM_BARS[torch.float32], "launches": launches,
+            "fwd_bwd_ms": fwd_bwd_ms,
+            "fwd_bwd_profile": device_profile(step, fwd_bwd_ms / 1e3),
+            "planted_faults": faults}
+    print("train_grads_check", json.dumps(line), flush=True)
+    check(launches == {"ssm_scan": 1}, f"K7 Function launches: {line}")
+    check(max(rels) <= NORM_BARS[torch.float32], f"K7 Function gradients: {line}")
+    check(min(faults.values()) > NORM_BARS[torch.float32], f"K7 gradient bar: {line}")
+    out["k7_torch.float32"] = max(rels)
+    return out
+
+
+def phase_seamless(ops, dev):
+    """seamless-m4t-medium at full width and depth (12 encoder + 12 decoder
+    layers, d_model 1024, 16 heads of 64, vocab 256206), bf16, random
+    weights from SEED, through the API a user calls (``build_model``,
+    ``Model.init``, ``make_batch``, ``init_cache``, ``prefill``,
+    ``decode_step``; the slot engine refuses enc-dec requests, as the
+    reference's does): 4 requests in one batch of 1024 stub frames and 256
+    target tokens each, 16 new tokens each, greedy, full cache. K6 runs 36
+    times at prefill (12 encoder, 12 causal self, 12 cross) and 12 a decode
+    step (the cross read at one query row). Returns the counted run's
+    launches."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+
+    cfg = get_config("seamless-m4t-medium").replace(dtype="bfloat16",
+                                                     param_dtype="bfloat16")
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device=dev).manual_seed(SEED))
+    batch = model.make_batch(torch.Generator(device=dev).manual_seed(SEED + 1),
+                             SEAMLESS_BATCH, SEAMLESS_SRC)
+    tgt = batch["tgt_tokens"].shape[1]
+    print(f"seamless-m4t-medium: {cfg.param_count() / 1e9:.3f} B params, "
+          f"{cfg.n_enc_layers} + {cfg.n_layers} layers, d_model {cfg.d_model}; "
+          f"{SEAMLESS_BATCH} requests of {SEAMLESS_SRC} frames and {tgt} target "
+          f"tokens, {SEAMLESS_NEW} new each", flush=True)
+
+    def run(counts=None):
+        cache = model.init_cache(SEAMLESS_BATCH, tgt + SEAMLESS_NEW,
+                                 src_len=SEAMLESS_SRC, device=dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = model.prefill(params, batch, cache)
+        tokens = [logits.argmax(-1).tolist()]
+        t1 = time.perf_counter()
+        if counts is not None:
+            counts["prefill"] = ops.launch_counts()
+        finite = bool(torch.isfinite(logits).all())
+        for _ in range(SEAMLESS_NEW - 1):
+            tok = torch.tensor(tokens[-1], device=dev)
+            logits, cache = model.decode_step(params, cache, tok)
+            tokens.append(logits.argmax(-1).tolist())
+        finite &= bool(torch.isfinite(logits).all())
+        t2 = time.perf_counter()
+        return [list(col) for col in zip(*tokens)], t0, t1, t2, finite
+
+    first = run()[0]
+    torch.cuda.reset_peak_memory_stats()
+    counts = {}
+    ops.reset_launch_counts()
+    tokens, t0, t1, t2, finite = run(counts)
+    launches = ops.launch_counts()
+    expected_prefill = {"flash_attention": cfg.n_enc_layers + 2 * cfg.n_layers}
+    expected = {"flash_attention": expected_prefill["flash_attention"]
+                + cfg.n_layers * (SEAMLESS_NEW - 1)}
+    n_tok = SEAMLESS_BATCH * SEAMLESS_NEW
+    line = {"path": "seamless_serve", "requests": SEAMLESS_BATCH,
+            "source_frames": SEAMLESS_SRC, "target_tokens": tgt,
+            "new_tokens": SEAMLESS_NEW, "wall_s": t2 - t0,
+            "ttft_ms": (t1 - t0) * 1e3,
+            "ttft_ms_note": "the batch's prefill: encode, the cross K/V and "
+                            "the 256-token target, until the first tokens "
+                            "are read back",
+            "decode_ms_per_token": (t2 - t1) / (SEAMLESS_NEW - 1) * 1e3,
+            "decode_ms_per_token_note": "one decode step of the batch (4 tokens)",
+            "tokens_per_s": n_tok / (t2 - t0),
+            "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+            "launches": launches, "expected_launches": expected,
+            "prefill_launches": counts["prefill"],
+            "expected_prefill_launches": expected_prefill,
+            "params_b": cfg.param_count() / 1e9, "tokens": tokens}
+    line["profile"] = device_profile(run, t2 - t0)
+    print("seamless_serve", json.dumps(line), flush=True)
+    check(finite, "seamless: logits not finite")
+    check(all(len(t) == SEAMLESS_NEW and all(0 <= x < cfg.vocab for x in t)
+              for t in tokens), f"seamless: tokens {tokens}")
+    check(tokens == first, "seamless: two runs gave different tokens")
+    check(counts["prefill"] == expected_prefill and launches == expected,
+          f"seamless: launches {counts['prefill']} / {launches}, the code "
+          f"needs {expected_prefill} / {expected}")
+    return launches
+
+
+def phase_xlstm(ops, dev):
+    """xlstm-125m at full width and depth (12 blocks: 9 mLSTM, 3 sLSTM;
+    d_model 768, vocab 50304), bf16 weights, its recurrences in fp32,
+    random weights from SEED, through the ServingEngine: 4 requests of 512
+    tokens on 4 slots, 16 new tokens each, as phase 15. It runs no kernel
+    (the reference's recurrences are plain too). Returns the counted run's
+    launches."""
+    cfg, make_engine, prompts = llm_engine("xlstm-125m", dev, XLSTM_REQUESTS,
+                                           XLSTM_PROMPT, XLSTM_NEW)
+    print(f"xlstm-125m: {cfg.param_count() / 1e9:.3f} B params", flush=True)
+    return serve_llm(ops, "xlstm_serve", cfg, make_engine, prompts, XLSTM_NEW, {})
+
+
+def phase_lm_train(ops, dev):
+    """LM training on the card: ``launch/train.py`` with the reference's
+    defaults (gemma-2b reduced, fp32, 50 steps, batch 4, seq 64; K6 once a
+    layer of each forward, fp32 body), whose loss must fall; then
+    hymba-1.5b at full width in bf16 (1.31 B params), batch 1, 512 tokens
+    behind its 128 meta tokens, 3 AdamW steps through K6 and K7 under
+    autograd (32 of each a forward; the backward differentiates the plain
+    versions): seconds a step split into the forward, the backward and
+    the update, peak memory, a finite loss; then one forward under the
+    device profiler (idle share, top kernels; the backward's million
+    small kernels take minutes under the profiler, so phase_train_grads
+    profiles one layer's share). Returns the launches of each run."""
+    from repro_torch import tree as tree_lib
+    from repro_torch.configs import get_config
+    from repro_torch.data import TokenStream
+    from repro_torch.launch import train as train_lib
+    from repro_torch.models import build_model
+    from repro_torch.optim import adamw
+
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    _, losses = train_lib.train("gemma-2b", device=dev)
+    gemma_s = time.perf_counter() - t0
+    gemma_launches = ops.launch_counts()
+    cfg_g = get_config("gemma-2b").reduced()
+    gemma = {"arch": "gemma-2b.reduced", "dtype": cfg_g.dtype, "steps": len(losses),
+             "batch": 4, "seq": 64, "seconds": gemma_s,
+             "s_per_step": gemma_s / len(losses), "loss_first": losses[0],
+             "loss_last": losses[-1], "launches": gemma_launches,
+             "expected_launches": {"flash_attention": len(losses) * cfg_g.n_layers}}
+
+    cfg = get_config("hymba-1.5b").replace(dtype="bfloat16", param_dtype="bfloat16")
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device=dev).manual_seed(SEED))
+    opt_state = adamw.adamw_init(params)
+    step = train_lib.make_train_step(model, adamw.AdamWConfig(lr=1e-4),
+                                     HYMBA_TRAIN_STEPS)
+    stream = TokenStream(cfg.vocab, HYMBA_TRAIN_SEQ, 1, seed=SEED)
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    # where a step's time goes: the model's loss stamps the forward's end
+    # (synchronized), so each step splits into the forward and the rest (the
+    # backward and the update); the update is timed alone after the run
+    stamps, loss_fn = [], model.loss
+
+    def stamped_loss(p, batch):
+        out = loss_fn(p, batch)
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+        return out
+
+    model.loss = stamped_loss
+    seconds, forward_s, hymba_losses = [], [], []
+    for _ in range(HYMBA_TRAIN_STEPS):
+        raw = next(stream)
+        batch = {k: torch.from_numpy(raw[k]).long().to(dev) for k in ("tokens", "labels")}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt_state, loss = step(params, opt_state, batch)
+        hymba_losses.append(loss.item())
+        seconds.append(time.perf_counter() - t0)
+        forward_s.append(stamps[-1] - t0)
+    hymba_launches = ops.launch_counts()
+    model.loss = loss_fn
+    rows = cfg.n_meta_tokens + HYMBA_TRAIN_SEQ
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    zeros = tree_lib.tree_map(torch.zeros_like, params)
+    update_s = wall_ms(lambda: adamw.adamw_update(
+        params, zeros, opt_state, adamw.AdamWConfig(lr=1e-4), 1.0)) / 1e3
+    del zeros
+    split = {"forward_s": forward_s, "update_s": update_s,
+             "backward_s": [t - f - update_s for t, f in zip(seconds, forward_s)],
+             "backward_note": "step - forward - the update timed alone"}
+    p = tree_lib.tree_map(lambda t: t.detach().requires_grad_(), params)
+    split["forward_profile"] = device_profile(lambda: model.loss(p, batch),
+                                              statistics.median(forward_s))
+    del p
+    expected = {"flash_attention": HYMBA_TRAIN_STEPS * cfg.n_layers,
+                "ssm_scan": HYMBA_TRAIN_STEPS * cfg.n_layers}
+    hymba = {"arch": "hymba-1.5b", "dtype": "bfloat16", "params_b":
+             cfg.param_count() / 1e9, "batch": 1, "tokens": HYMBA_TRAIN_SEQ,
+             "rows": rows, "k6_shape": [[1, rows, cfg.n_heads, cfg.hd],
+                                        [1, rows, cfg.n_kv_heads, cfg.hd]],
+             "k7_shape": [1, rows, cfg.d_model], "steps": HYMBA_TRAIN_STEPS,
+             "s_per_step": seconds, "losses": hymba_losses,
+             "peak_gib": peak_gib,
+             "launches": hymba_launches, "expected_launches": expected,
+             "backward": "autograd of the plain versions (no backward kernel, "
+                         "as in the reference)", "step_split": split}
+    print("lm_train_check", json.dumps({"gemma": gemma, "hymba": hymba}),
+          flush=True)
+    check(losses[-1] < losses[0], f"gemma-2b training: loss {losses[0]} -> {losses[-1]}")
+    check(gemma_launches == gemma["expected_launches"],
+          f"gemma-2b training: launches {gemma_launches}")
+    check(all(math.isfinite(x) for x in hymba_losses), f"hymba training: {hymba_losses}")
+    check(hymba_launches == expected, f"hymba training: launches {hymba_launches}, "
+          f"the config needs {expected}")
+    return {"lm_train_gemma": gemma_launches, "lm_train_hymba": hymba_launches}
+
+
+def phase_new_lm_cross_device(dev):
+    """The xLSTM (reduced, 4 blocks: the sLSTM at 3) and the enc-dec LM
+    (reduced: K6's fp32 body in its non-causal form) in fp32 on the card
+    against the CPU through prefill and 4 decode steps: logits within 1e-4
+    relative, the same tokens. Then hymba-1.5b reduced in fp32 (GQA 4/2):
+    the loss and every gradient leaf through the K6 and K7 Functions on the
+    card against the CPU's (the plain versions), within 1e-4
+    norm-relative."""
+    from repro_torch import tree as tree_lib
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+
+    def to(tree, d):
+        return tree_lib.tree_map(lambda t: t.to(d), tree)
+
+    f32 = dict(dtype="float32", param_dtype="float32")
+    out = {}
+    for arch, cfg in (("xlstm-125m", get_config("xlstm-125m").reduced().replace(
+                          n_layers=4, **f32)),
+                      ("seamless-m4t-medium",
+                       get_config("seamless-m4t-medium").reduced().replace(**f32))):
+        model = build_model(cfg)
+        params = model.init(torch.Generator().manual_seed(SEED))
+        batch = model.make_batch(torch.Generator().manual_seed(SEED + 1), 2, 64)
+        feed = torch.randint(0, cfg.vocab, (4, 2),
+                             generator=torch.Generator().manual_seed(SEED + 2))
+        logits = {}
+        for d in ("cpu", dev):
+            p = to(params, d)
+            cache = model.init_cache(2, 40, src_len=64, device=d)
+            o, cache = model.prefill(p, to(batch, d), cache)
+            seq = [o.cpu()]
+            for i in range(4):
+                o, cache = model.decode_step(p, cache, feed[i].to(d))
+                seq.append(o.cpu())
+            logits[d] = torch.cat(seq)
+        want, got = logits["cpu"], logits[dev]
+        rel = ((got - want).norm() / want.norm()).item()
+        same = torch.equal(got.argmax(-1), want.argmax(-1))
+        print(f"cross_device {arch}.reduced fp32: card vs CPU logits relative "
+              f"error {rel:.3e} (bar 1e-4), same tokens {same}", flush=True)
+        check(rel < 1e-4 and same, f"{arch}: card differs from the CPU: {rel}, {same}")
+        out[arch] = rel
+
+    cfg = get_config("hymba-1.5b").reduced().replace(n_kv_heads=2, **f32)
+    model = build_model(cfg)
+    params = model.init(torch.Generator().manual_seed(SEED))
+    batch = model.make_batch(torch.Generator().manual_seed(SEED + 3), 2, 96)
+    res = {d: grads_of(lambda p: model.loss(p, to(batch, d)), to(params, d))
+           for d in ("cpu", dev)}
+    loss_rel = abs(res[dev][0].item() - res["cpu"][0].item()) / abs(res["cpu"][0].item())
+    rels = [((g.cpu().double() - w.double()).norm() / w.double().norm()).item()
+            for g, w in zip(res[dev][1], res["cpu"][1])]
+    line = {"check": "hymba_train_cross_device", "loss_rel_err": loss_rel,
+            "max_grad_norm_rel_err": max(rels), "leaves": len(rels), "bar": 1e-4}
+    print("train_cross_device", json.dumps(line), flush=True)
+    check(loss_rel < 1e-4 and max(rels) < 1e-4,
+          f"hymba gradients: card differs from the CPU: {line}")
+    out["hymba_grads"] = max(rels)
     return out
 
 
@@ -3834,10 +4436,20 @@ def main():
     gemma_launches = phase(phase_gemma, ops, dev)
     olmoe_launches = phase(phase_olmoe, ops, dev)
     phase(phase_lm_cross_device, dev)
+    k6_noncausal = phase(phase_k6_noncausal, ops, ref, layers, dev, peaks)
+    k6_paths = phase(phase_k6_paths, ops, ref, layers, dev, peaks)
+    train_grads = phase(phase_train_grads, ops, ref, dev)
+    seamless_launches = phase(phase_seamless, ops, dev)
+    xlstm_launches = phase(phase_xlstm, ops, dev)
+    train_launches = phase(phase_lm_train, ops, dev)
+    phase(phase_new_lm_cross_device, dev)
     launches = phase(phase_paths, ops, dev)
     launches["hymba_serve"] = hymba_launches
     launches["gemma_serve"] = gemma_launches
     launches["olmoe_check"] = olmoe_launches
+    launches["seamless_serve"] = seamless_launches
+    launches["xlstm_serve"] = xlstm_launches
+    launches.update(train_launches)
     launches["diffusion_serve"] = phase(phase_diffusion_serve, ops, dev)
     launches.update(phase(phase_pipefuse, ops, dev))
     launches["diffusion_serve_pipefuse"] = phase(
@@ -3937,13 +4549,30 @@ def main():
              "q", "kv", "prefix_len", "max_abs_err", "ms", "plain_ms",
              "library_ms", "bound_ms", "bound_by")}
             for label, line in k6_decoders.items()},
+         "noncausal_shapes": {label: {k: line[k] for k in (
+             "q", "kv", "max_abs_err", "ms", "eager_ms", "plain_ms",
+             "library_ms", "bound_ms", "bound_by")}
+            for label, line in k6_noncausal.items()},
+         "path_shapes": {label: {k: line[k] for k in (
+             "q", "kv", "dtype", "max_abs_err", "ms", "eager_ms", "plain_ms",
+             "library_ms", "bound_ms", "bound_by")}
+            for label, line in k6_paths.items()},
+         "train_grad_norm_rel_err": {k: v for k, v in train_grads.items()
+                                     if k.startswith("k6")},
+         "backward": "autograd of the plain version (ops.flash_attention "
+                     "routes a grad operand through its Function; no "
+                     "backward kernel, as in the reference)",
          "ptxas": k6_ptxas},
         {**entry("ssm_scan", "src/repro_torch/kernels/csrc/ssm_scan.cu",
                  "src/repro/kernels/ssm_scan.py:55", k7_timed[0], "hymba_serve"),
          "library_call": k7_timed[0]["library_call"],
          "timed_lengths": [{k: line[k] for k in (
              "S", "ms", "plain_ms", "bound_ms")} for line in k7_timed],
-         "decode_eager_ms": k7_timed[1]["eager_ms"]},
+         "decode_eager_ms": k7_timed[1]["eager_ms"],
+         "train_grad_norm_rel_err": train_grads["k7_torch.float32"],
+         "backward": "autograd of the plain version (ops.ssm_scan routes a "
+                     "grad operand through its Function; no backward "
+                     "kernel, as in the reference)"},
     ]}
     print(json.dumps(record), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -136,12 +136,13 @@ def _refuse_untracked_grad(kernel: str, tensors) -> None:
     (None, or zero through the rest of the graph), silently. So an operand
     that requires grad while grad mode is on is refused; K1 differentiates
     through :func:`stale_kv_attention_autograd`, whose forward runs the
-    kernel with grad mode off."""
+    kernel with grad mode off (K6 and K7 route a grad operand through their
+    Functions themselves)."""
     if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
         raise RuntimeError(
             f"the {kernel} kernel has no backward: an operand requires grad "
             "and autograd would drop its gradient (use "
-            "ops.stale_kv_attention_autograd for K1, or torch.no_grad())")
+            "stale_kv_attention_autograd for K1, or torch.no_grad())")
 
 
 def _check_cuda_operands(kernel: str, tensors,
@@ -253,15 +254,30 @@ class _StaleKVAttention(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, grad_out):
-        need = ctx.needs_input_grad[:5]
-        with torch.enable_grad():
-            inputs = [t.detach().requires_grad_(n)
-                      for t, n in zip(ctx.saved_tensors, need)]
-            out = ref.stale_kv_attention_ref(*inputs, ctx.tok_start)
-            wanted = [t for t, n in zip(inputs, need) if n]
-            grads = iter(torch.autograd.grad(out, wanted, grad_out,
-                                             allow_unused=True))
-        return (*(next(grads) if n else None for n in need), None)
+        return (*_plain_grads(ctx, lambda *t: ref.stale_kv_attention_ref(
+            *t, ctx.tok_start), (grad_out,)), None)
+
+
+def _plain_grads(ctx, plain, grad_outputs):
+    """The gradients of ``plain(*saved inputs)`` for the inputs a Function
+    was asked for (None for the others), its outputs weighted by
+    ``grad_outputs`` (an output whose gradient is None is left out): the
+    backward of the kernels' Functions, which differentiate the plain
+    version as the JAX package differentiates its plain attention and scan
+    (it has no backward kernel)."""
+    need = ctx.needs_input_grad[:len(ctx.saved_tensors)]
+    with torch.enable_grad():
+        inputs = [None if t is None else t.detach().requires_grad_(n)
+                  for t, n in zip(ctx.saved_tensors, need)]
+        outs = plain(*inputs)
+        outs = outs if isinstance(outs, tuple) else (outs,)
+        pairs = [(o, g) for o, g in zip(outs, grad_outputs) if g is not None]
+        wanted = [t for t, n in zip(inputs, need) if n]
+        grads = iter(torch.autograd.grad([o for o, _ in pairs], wanted,
+                                         [g for _, g in pairs],
+                                         allow_unused=True)
+                     if pairs and wanted else [None] * len(wanted))
+    return [next(grads) if n else None for n in need]
 
 
 def stale_kv_attention_autograd(q, k_fresh, v_fresh, k_stale, v_stale, *,
@@ -492,8 +508,19 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     (Hymba's meta tokens) stay visible outside the window. Returns
     [B, S, H, hd] in q's dtype; softmax scale hd ** -0.5. A mask that
     leaves some query row no key is refused (the reference's kernel and its
-    oracle disagree there)."""
+    oracle disagree there). When grad mode is on and q, k or v requires
+    grad, the call goes through :class:`_FlashAttention` (one launch; its
+    backward is the plain version's)."""
     window, prefix_len = int(window), int(prefix_len)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return _FlashAttention.apply(q, k, v, causal, window, prefix_len)
+    return _flash_attention(q, k, v, causal, window, prefix_len)
+
+
+def _flash_attention(q, k, v, causal, window, prefix_len):
+    """:func:`flash_attention` outside autograd: the checks, then the plain
+    version on the CPU or one kernel launch on the card."""
     B, S, H, hd = q.shape
     T, K = k.shape[1], k.shape[2]
     if k.shape != (B, T, K, hd) or v.shape != k.shape or K == 0 or H % K:
@@ -524,6 +551,26 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     return out
 
 
+class _FlashAttention(torch.autograd.Function):
+    """K6 under autograd, as :class:`_StaleKVAttention` is K1's: the forward
+    is :func:`_flash_attention` (one launch on the card, the plain version
+    on the CPU) with grad mode off; the backward recomputes
+    :func:`repro_torch.kernels.ref.flash_attention_ref` under
+    ``enable_grad`` and differentiates it (the JAX package trains through
+    XLA's autodiff of its plain ``attend``). Only q, K and V are saved."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, prefix_len):
+        ctx.save_for_backward(q, k, v)
+        ctx.mask = dict(causal=causal, window=window, prefix_len=prefix_len)
+        return _flash_attention(q, k, v, causal, window, prefix_len)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        return (*_plain_grads(ctx, lambda *t: ref.flash_attention_ref(
+            *t, **ctx.mask), (grad_out,)), None, None, None)
+
+
 # ----------------------------------------------------------------------
 # kernel K7: the selective-SSM (Mamba) scan
 # ----------------------------------------------------------------------
@@ -543,7 +590,19 @@ def ssm_scan(x, dt, b_t, c_t, a, d_skip, *, h0=None, final_state: bool = False):
     in x's dtype, or (y, the final state [B, Di, N] float32) when
     ``final_state``. On the card x, dt, b_t and c_t share one dtype
     (float32 or bfloat16) and may have any strides with a contiguous last
-    axis; a, d_skip and h0 are float32."""
+    axis; a, d_skip and h0 are float32. When grad mode is on and an
+    operand requires grad, the call goes through :class:`_SSMScan` (one
+    launch; its backward is the plain version's)."""
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad
+            for t in (x, dt, b_t, c_t, a, d_skip, h0)):
+        return _SSMScan.apply(x, dt, b_t, c_t, a, d_skip, h0, final_state)
+    return _ssm_scan(x, dt, b_t, c_t, a, d_skip, h0, final_state)
+
+
+def _ssm_scan(x, dt, b_t, c_t, a, d_skip, h0, final_state):
+    """:func:`ssm_scan` outside autograd: the checks, then the plain
+    version on the CPU or one kernel launch on the card."""
     B, S, Di = x.shape
     N = b_t.shape[-1]
     if (dt.shape != x.shape or b_t.shape != (B, S, N) or c_t.shape != b_t.shape
@@ -563,7 +622,6 @@ def ssm_scan(x, dt, b_t, c_t, a, d_skip, *, h0=None, final_state: bool = False):
         return (y, h) if final_state else y
     if x.device.type != "cuda":
         raise ValueError(f"no ssm_scan kernel for {x.device}")
-    _refuse_untracked_grad("ssm_scan", tensors)
     # decode calls this 32 times a token at S = 1, where the host's time per
     # call is the cost: the checks read each attribute once
     dtype = x.dtype
@@ -597,3 +655,22 @@ def ssm_scan(x, dt, b_t, c_t, a, d_skip, *, h0=None, final_state: bool = False):
         raise RuntimeError(f"ssm_scan launch failed: CUDA error {err}")
     _launches["ssm_scan"] += 1
     return (y, h) if final_state else y
+
+
+class _SSMScan(torch.autograd.Function):
+    """K7 under autograd: the forward is :func:`_ssm_scan` (one launch on
+    the card) with grad mode off, returning y, or (y, the final state) with
+    ``final_state``; the backward recomputes
+    :func:`repro_torch.kernels.ref.ssm_scan_ref` under ``enable_grad`` and
+    differentiates it for the outputs given a gradient (either may have
+    none), ``h0`` included. Only the inputs are saved."""
+
+    @staticmethod
+    def forward(ctx, x, dt, b_t, c_t, a, d_skip, h0, final_state):
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(x, dt, b_t, c_t, a, d_skip, h0)
+        return _ssm_scan(x, dt, b_t, c_t, a, d_skip, h0, final_state)
+
+    @staticmethod
+    def backward(ctx, grad_y, grad_h=None):
+        return (*_plain_grads(ctx, ref.ssm_scan_ref, (grad_y, grad_h)), None)

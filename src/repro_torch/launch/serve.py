@@ -9,6 +9,8 @@ model is the ``reduced()`` form, as there.
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu
   PYTHONPATH=src python -m repro_torch.launch.serve --arch hymba-1.5b \\
       --requests 8 --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch xlstm-125m \\
+      --device cpu
   PYTHONPATH=src python -m repro_torch.launch.serve --diffusion \\
       --arch tiny-dit --occupancies 0.0,0.6 --requests 8 --slots 4 \\
       --slo-ms 200 --cfg-scale 4.0 --device cpu
@@ -257,10 +259,9 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0],
                                  allow_abbrev=False)
     ap.add_argument("--arch", default="gemma-2b",
-                    help="an LM of the dense, moe or hybrid family (its "
-                         "reduced form; xlstm-125m and seamless-m4t-medium "
-                         "come with queue 1 item 15c), or a DiT with "
-                         "--diffusion")
+                    help="an LM (its reduced form; seamless-m4t-medium, "
+                         "the enc-dec, is refused by the engine, as in the "
+                         "reference), or a DiT with --diffusion")
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--slots", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=16)

@@ -11,11 +11,11 @@ decode attention over the meta-pinned ring cache is the plain ``attend``,
 as in the reference. Parameters keep the reference's stacked ``[L, ...]``
 leaves; the reference's ``jax.lax.scan`` over layers is a Python loop. The
 reference's ``lm._constrain`` (a JAX sharding constraint, a no-op at
-``act_shard=""``) has no counterpart. ``loss_fn`` comes with LM training
-(ROADMAP.md queue 1 item 15d). A prompt longer than the ring leaves its
-kept positions where decode reads them (``layers.ring_kv``), which the
-reference does only when the prompt fills the ring a whole number of times
-(ROADMAP.md queue 3).
+``act_shard=""``) has no counterpart. ``loss_fn`` trains through K6 and
+K7 under autograd (their backward the plain versions'). A prompt longer
+than the ring leaves its kept positions where decode reads them
+(``layers.ring_kv``), which the reference does only when the prompt fills
+the ring a whole number of times (ROADMAP.md queue 3).
 """
 from __future__ import annotations
 
@@ -113,6 +113,12 @@ def forward(params, cfg, tokens, ssm_states=None, *, window: int = None,
     kvs = ((torch.stack([k for k, _ in kvs]), torch.stack([v for _, v in kvs]))
            if return_kv else None)
     return x @ params["head"].to(x.dtype), kvs, _stack(states)
+
+
+def loss_fn(params, cfg, batch):
+    """batch: tokens [B,S], labels [B,S]: the next-token cross entropy."""
+    logits, _, _ = forward(params, cfg, batch["tokens"])
+    return layers.cross_entropy(logits[:, :-1], batch["labels"][:, 1:])
 
 
 # ----------------------------------------------------------------------

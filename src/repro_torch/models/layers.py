@@ -5,8 +5,10 @@ and its masks, the attention block of the language models (whose
 full-sequence attention runs kernel K6 through
 ``repro_torch.kernels.ops.flash_attention``), their single-token decode
 attention over a full or ring cache (plain torch, as in the reference) and
-the placement of a prefill's K/V in that ring, the gated MLPs and the
-timestep embedding. The reference's ``models/attention.py``
+the placement of a prefill's K/V in that ring, the enc-dec LM's
+bidirectional and cross attention (K6 in its non-causal form), the gated
+MLPs, the layer norm, the timestep embedding and the LM loss
+(``cross_entropy``). The reference's ``models/attention.py``
 (``chunked_attend``, its CPU stand-in for the flash kernel) has no
 counterpart here: K6 and its plain version take both ``attn_impl`` values,
 and the tests use ``chunked_attend`` as an oracle."""
@@ -50,6 +52,16 @@ def rms_norm(x, weight, eps: float = 1e-5):
     x32 = x.float()
     var = x32.square().mean(dim=-1, keepdim=True)
     out = x32 * torch.rsqrt(var + eps) * (1.0 + weight.float())
+    return out.to(x.dtype)
+
+
+def layer_norm(x, weight, bias, eps: float = 1e-5):
+    """Layer norm over the last axis (population variance), computed in
+    float32 and cast back to x's dtype."""
+    x32 = x.float()
+    mu = x32.mean(dim=-1, keepdim=True)
+    var = x32.var(dim=-1, unbiased=False, keepdim=True)
+    out = (x32 - mu) * torch.rsqrt(var + eps) * weight + bias
     return out.to(x.dtype)
 
 
@@ -147,7 +159,8 @@ def self_attention(p, x, cfg, *, positions=None, window: int = 0,
     (all keys up to q when ``window`` is 0), and so are the ``prefix_len``
     leading positions (meta tokens) at or before q, outside the window: the
     mask of the reference's naive path and of its ``chunked_attend``.
-    Returns (out [B, S, D], (k, v) [B, S, K, hd])."""
+    Returns (out [B, S, D], (k, v) [B, S, K, hd]). Under autograd K6's
+    backward is the plain version's."""
     B, S, _ = x.shape
     if positions is None:
         positions = torch.arange(S, device=x.device)[None, :]
@@ -155,6 +168,29 @@ def self_attention(p, x, cfg, *, positions=None, window: int = 0,
     out = ops.flash_attention(q, k, v, causal=True, window=window,
                               prefix_len=prefix_len)
     return out.reshape(B, S, -1) @ p["wo"], (k, v)
+
+
+def bidirectional_attention(p, x, cfg, positions=None):
+    """Full-sequence attention without a mask (the enc-dec encoder): rope on
+    q and k, then K6 in its non-causal form over the S keys. Returns
+    [B, S, D]."""
+    B, S, _ = x.shape
+    if positions is None:
+        positions = torch.arange(S, device=x.device)[None, :]
+    q, k, v = attention_qkv(p, x, cfg, positions)
+    out = ops.flash_attention(q, k, v, causal=False)
+    return out.reshape(B, S, -1) @ p["wo"]
+
+
+def cross_attention(p, x, memory_kv, cfg):
+    """x: [B,S,D] queries (no rope) over ``memory_kv`` = (k, v) [B,T,K,hd]
+    precomputed from the encoder's output: K6 in its non-causal form at any
+    S, the decode's S = 1 included. Returns [B, S, D]."""
+    B, S, _ = x.shape
+    q = (x @ p["wq"]).reshape(B, S, cfg.n_heads, cfg.hd)
+    k, v = memory_kv
+    out = ops.flash_attention(q, k, v, causal=False)
+    return out.reshape(B, S, -1) @ p["wo"]
 
 
 def decode_attention(p, x, cfg, cache_k, cache_v, pos: int, *, window: int = 0,
@@ -255,3 +291,16 @@ def sinusoidal_embedding(t, dim: int, max_period: float = 10_000.0):
                       / half)
     args = t[:, None].float() * freqs[None]
     return torch.cat([torch.cos(args), torch.sin(args)], dim=-1)
+
+
+def cross_entropy(logits, labels, ignore_id: int = -1):
+    """logits [B,S,V] of any float dtype; labels [B,S] integer. The mean
+    negative log-likelihood in float32 over the labels that are not
+    ``ignore_id``. The gold logit is gathered (the reference contracts a
+    one-hot with the logits so that GSPMD keeps the vocab sharded; the
+    two agree to rounding)."""
+    logits = logits.float()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = logits.gather(-1, labels.clamp_min(0).long()[..., None])[..., 0]
+    mask = (labels != ignore_id).float()
+    return torch.sum((logz - gold) * mask) / torch.clamp(mask.sum(), min=1.0)

@@ -9,7 +9,8 @@ kernel K6 (``layers.self_attention``; a VLM's vision tokens are its
 ``prefix_len``), every decode attention the plain ``layers.
 decode_attention``, as in the reference. The reference's ``_constrain``
 (a JAX sharding constraint, a no-op without a mesh) has no counterpart.
-``loss_fn`` comes with LM training (ROADMAP.md queue 1 item 15d).
+``loss_fn`` is the training objective; under autograd K6's backward is
+the plain version's.
 
 Serving differs from the reference in two ways (ROADMAP.md queue 3): a
 prompt longer than a ring cache leaves its kept positions where decode
@@ -121,6 +122,18 @@ def forward(params, cfg, tokens, *, vision_embeds=None, window: int = 0,
     kvs = ((torch.stack([k for k, _ in kvs]), torch.stack([v for _, v in kvs]))
            if return_kv else None)
     return _logits(params, cfg, x), aux, kvs
+
+
+def loss_fn(params, cfg, batch):
+    """batch: tokens [B,S], labels [B,S] (+ vision_embeds for a VLM): the
+    next-token cross entropy over the text positions, plus
+    ``router_aux_coef`` times the MoE's load-balance loss."""
+    ve = batch.get("vision_embeds")
+    logits, aux, _ = forward(params, cfg, batch["tokens"], vision_embeds=ve)
+    if ve is not None:
+        logits = logits[:, ve.shape[1]:]   # loss on text positions only
+    ce = layers.cross_entropy(logits[:, :-1], batch["labels"][:, 1:])
+    return ce + cfg.router_aux_coef * aux if cfg.n_experts else ce
 
 
 # ----------------------------------------------------------------------

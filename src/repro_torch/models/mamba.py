@@ -88,7 +88,8 @@ def ssm_scan_ref(xc, B_t, C_t, delta, A, D_skip, h0):
 
 def mamba_forward(p, xb, cfg, state):
     """xb: [B,S,D] (pre-normed) -> (y [B,S,D], new state); the scan is K7,
-    started from the state's ``h`` and returning the final one."""
+    started from the state's ``h`` and returning the final one (under
+    autograd its backward is the plain version's)."""
     xc, z, B_t, C_t, delta, A, new_conv = _proj(p, xb, cfg, state["conv"])
     y, h = ops.ssm_scan(xc, delta, B_t, C_t, A, p["D_skip"], h0=state["h"],
                         final_state=True)

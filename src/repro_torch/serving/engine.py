@@ -3,7 +3,9 @@ lite; reference: ``repro.serving.engine``): requests occupy slots; finished
 slots are refilled from the queue each scheduling round. Each admitted
 request is prefilled alone (batch 1) and each active slot decodes one token
 per round, its next token the argmax of its logits. The reference's
-``jax.jit`` of the decode step is a plain call here.
+``jax.jit`` of the decode step is a plain call here. Enc-dec requests are
+refused at admission, as the reference refuses them (an engine request
+carries no source frames).
 
 The engine runs on the device of the model's weights. Each request records
 on the host clock (``time.perf_counter``) when its first token was known
@@ -57,6 +59,12 @@ class ServingEngine:
                                           device=self.device)
             batch = {"tokens": torch.as_tensor(req.prompt[None], dtype=torch.long,
                                                device=self.device)}
+            if self.model.family == "encdec":
+                raise NotImplementedError(
+                    "enc-dec serving is not a slot-engine path: drive "
+                    "api.Model directly (init_cache(B, max_len, src_len=...), "
+                    "prefill(params, {'src_embeds', 'tgt_tokens'}, cache), "
+                    "decode_step)")
             logits, cache = self.model.prefill(self.params, batch, cache,
                                                window=self.window)
             req.out_tokens.append(int(torch.argmax(logits[0])))

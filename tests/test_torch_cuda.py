@@ -4,10 +4,11 @@ the guided path on the card against the CPU, ``run_spmd`` on two gloo
 ranks and ``run_spmd_seq`` on four that share the card against the CPU,
 Hymba's prefill and decode (K6, K7) on the card against the CPU, K6 at
 the dense decoders' head dims (128, 256) and gemma-2b reduced on the card
-against the CPU, the K1
+against the CPU, K6's non-causal form at the enc-dec LM's shapes, the K1
 autograd Function's gradients against the plain version's and its refusal
-of a grad operand outside it, and a tensor-parallel step on two gloo ranks
-sharing the card. They skip
+of a grad operand outside it, the K6 and K7 Functions' gradients against
+the plain versions', and a tensor-parallel step on two gloo ranks sharing
+the card. They skip
 on a machine without a CUDA device. No JAX here: the machine with the card
 has none. Run them there with
 ``PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py``."""
@@ -1466,3 +1467,71 @@ def test_tp_step_on_two_gloo_ranks_matches_single_card(cuda):
         assert launches == {"stale_kv_attention": cfg.n_layers}
         assert torch.equal(eps, out[0][0])
         torch.testing.assert_close(eps, want, rtol=0.0, atol=1e-5)
+
+
+# the enc-dec LM's K6 shapes, cut to batch 1 and 4 heads of 64: (S, T) of
+# the encoder, the cross read, the decode's one row, a ragged pair
+K6_NONCAUSAL_CASES = [(1024, 1024), (256, 1024), (1, 1024), (250, 1000)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("S,T", K6_NONCAUSAL_CASES)
+def test_k6_noncausal_matches_plain(cuda, S, T, dtype):
+    """K6 without the causal mask (S != T, the decode's S = 1 in a 128-row
+    query tile, ragged S and T) against its plain version."""
+    g = torch.Generator(device="cpu").manual_seed(S + T)
+    q = (QK_STD * torch.randn(1, S, 4, 64, generator=g)).to(dtype).to(cuda)
+    k = (QK_STD * torch.randn(1, T, 4, 64, generator=g)).to(dtype).to(cuda)
+    v = torch.randn(1, T, 4, 64, generator=g).to(dtype).to(cuda)
+    out = ops.flash_attention(q, k, v, causal=False)
+    assert _within_bars(out, ref.flash_attention_ref(q, k, v, causal=False), dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k6_and_k7_functions_match_plain_gradients(cuda, dtype):
+    """K6 and K7 under autograd on the card (``ops.flash_attention`` and
+    ``ops.ssm_scan`` route a grad operand through their Functions): one
+    launch a forward, and the gradients of every operand (K7's h0
+    included, the loss reading y and the final state) within the dtype's
+    norm bar of autograd of the plain versions; under ``no_grad`` the same
+    calls launch outside the Functions."""
+    g = torch.Generator(device="cpu").manual_seed(7)
+    qkv = [(QK_STD * torch.randn(1, S, H, 64, generator=g)).to(dtype).to(cuda)
+           for S, H in ((200, 4), (300, 2), (300, 2))]
+    w = torch.randn(1, 200, 4, 64, generator=g).to(cuda)
+    got, want = [], []
+    for fn, sink in ((ops.flash_attention, got),
+                     (ref.flash_attention_ref, want)):
+        ins = [t.clone().requires_grad_() for t in qkv]
+        ops.reset_launch_counts()
+        out = fn(*ins, causal=False)
+        if sink is got:
+            assert ops.launch_counts() == {"flash_attention": 1}
+        sink.extend(torch.autograd.grad((out.float() * w).sum(), ins))
+    B, S, Di, N = 1, 300, 96, 16
+    scan = [torch.randn(B, S, Di, generator=g),
+            torch.nn.functional.softplus(torch.randn(B, S, Di, generator=g) - 2),
+            torch.randn(B, S, N, generator=g), torch.randn(B, S, N, generator=g),
+            -torch.rand(Di, N, generator=g) - 0.1, torch.rand(Di, generator=g),
+            torch.randn(B, Di, N, generator=g)]
+    scan = [t.to(cuda) for t in scan]
+    for autograd, sink in ((True, got), (False, want)):
+        ins = [t.clone().requires_grad_() for t in scan]
+        ops.reset_launch_counts()
+        y, h = (ops.ssm_scan(*ins[:6], h0=ins[6], final_state=True)
+                if autograd else ref.ssm_scan_ref(*ins))
+        if autograd:
+            assert ops.launch_counts() == {"ssm_scan": 1}
+        sink.extend(torch.autograd.grad(y.sum() + h.square().sum(), ins))
+    for a, b in zip(got, want):
+        rel = float((a.float() - b.float()).norm() / b.float().norm())
+        assert rel <= max(NORM_BARS[dtype], 5e-5), rel
+    ops.reset_launch_counts()
+    with torch.no_grad():
+        out = ops.flash_attention(*[t.clone().requires_grad_() for t in qkv],
+                                  causal=False)
+        y = ops.ssm_scan(*[t.clone().requires_grad_() for t in scan[:6]])
+    assert out.grad_fn is None and y.grad_fn is None
+    assert ops.launch_counts() == {"flash_attention": 1, "ssm_scan": 1}

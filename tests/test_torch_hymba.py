@@ -101,8 +101,9 @@ def test_config_field_for_field():
             assert getattr(jcfg, prop) == getattr(tcfg, prop)
         assert jcfg.param_count() == tcfg.param_count()
         assert jcfg.active_param_count() == tcfg.active_param_count()
-    with pytest.raises(KeyError, match="queue 1 item 15c"):
-        get_config("xlstm-125m")
+    # the xLSTM and enc-dec configs are ported too (tests/test_torch_xlstm.py,
+    # test_torch_encdec.py hold them field for field)
+    assert get_config("xlstm-125m").family == jax_get_config("xlstm-125m").family == "ssm"
     with pytest.raises(KeyError, match="unknown arch"):
         get_config("no-such-model")
 
@@ -575,11 +576,23 @@ def test_model_api_and_serve_entry_point():
     m = build_model(tcfg)
     batch = m.make_batch(torch.Generator().manual_seed(0), 2, 9)
     assert batch["tokens"].shape == (2, 9) and int(batch["tokens"].max()) < tcfg.vocab
-    with pytest.raises(NotImplementedError, match="training"):
-        m.loss({}, batch)
-    for family in ("ssm", "encdec"):
-        with pytest.raises(NotImplementedError, match="queue 1 item 15c"):
-            build_model(tcfg.replace(family=family))
+    # training: the API's loss is hymba.loss_fn, next-token cross entropy
+    # over the forward's logits (through the K6 and K7 Functions)
+    params = m.init(torch.Generator().manual_seed(0))
+    loss = m.loss(params, batch)
+    logits = m.forward_logits(params, batch)
+    want = torch.nn.functional.cross_entropy(
+        logits[:, :-1].reshape(-1, tcfg.vocab), batch["labels"][:, 1:].reshape(-1))
+    torch.testing.assert_close(loss, want, rtol=1e-6, atol=1e-6)
+    p = {k: v.requires_grad_() if k == "meta" else v for k, v in params.items()}
+    (g,) = torch.autograd.grad(m.loss(p, batch), [p["meta"]])
+    assert float(g.abs().sum()) > 0           # the meta tokens are trained
+    # the ssm and encdec families are built (an xLSTM's blocks are a list,
+    # an enc-dec's params have an encoder stack)
+    gen = torch.Generator().manual_seed(0)
+    assert isinstance(build_model(tcfg.replace(family="ssm")).init(gen)["blocks"], list)
+    assert "enc_blocks" in build_model(tcfg.replace(family="encdec",
+                                                    n_enc_layers=1)).init(gen)
     done = tserve.serve("hymba-1.5b", n_requests=3, slots=2, prompt_len=12,
                         max_new=4, device="cpu")
     assert sorted(len(r.out_tokens) for r in done) == [4, 4, 4]

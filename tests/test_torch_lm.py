@@ -134,12 +134,19 @@ def test_config_field_for_field(arch):
 
 @pytest.mark.parametrize("arch", ["xlstm-125m", "seamless-m4t-medium"])
 def test_later_configs_and_families_are_refused(arch):
-    with pytest.raises(KeyError, match="queue 1 item 15c"):
-        get_config(arch)
-    tcfg = _model("yi-9b")[1]
-    family = jax_get_config(arch).family
-    with pytest.raises(NotImplementedError, match="queue 1 item 15c"):
-        build_model(tcfg.replace(family=family))
+    """Once refused (queue 1 item 15c), now ported: the config field for
+    field and the family's model built, initialized and run on a batch
+    (tests/test_torch_xlstm.py and test_torch_encdec.py hold them to the
+    reference)."""
+    jcfg, tcfg = jax_get_config(arch), get_config(arch)
+    assert dataclasses.asdict(jcfg) == dataclasses.asdict(tcfg)
+    cfg = tcfg.reduced().replace(dtype="float32", param_dtype="float32")
+    m = build_model(cfg)
+    assert m.family == jcfg.family
+    params = m.init(torch.Generator().manual_seed(0))
+    batch = m.make_batch(torch.Generator().manual_seed(1), 1, 16)
+    logits = m.forward_logits(params, batch)
+    assert logits.shape[-1] == cfg.vocab and bool(torch.isfinite(logits).all())
 
 
 @pytest.mark.parametrize("arch", list(FAMILIES))
@@ -453,15 +460,19 @@ def test_serving_engine_matches_reference():
 
 
 def test_model_api_and_serve_entry_point():
-    """The API's families, its refusals (training: item 15d), the VLM's
-    batch, and ``serve`` on the CPU serving gemma-2b reduced by default."""
+    """The API's families, the VLM's batch and loss (its text positions),
+    and ``serve`` on the CPU serving gemma-2b reduced by default."""
     _, tcfg, _, _ = _model("internvl2-76b")
     m = build_model(tcfg)
     batch = m.make_batch(torch.Generator().manual_seed(0), 2, 9)
     assert batch["tokens"].shape == (2, 9)
     assert batch["vision_embeds"].shape == (2, tcfg.n_vision_tokens, tcfg.d_model)
-    with pytest.raises(NotImplementedError, match="queue 1 item 15d"):
-        m.loss({}, batch)
+    # training (item 15d): the loss over the text positions only
+    params = m.init(torch.Generator().manual_seed(0))
+    logits = m.forward_logits(params, batch)[:, tcfg.n_vision_tokens:]
+    want = torch.nn.functional.cross_entropy(
+        logits[:, :-1].reshape(-1, tcfg.vocab), batch["labels"][:, 1:].reshape(-1))
+    torch.testing.assert_close(m.loss(params, batch), want, rtol=1e-6, atol=1e-6)
     assert m.init_cache(1, 40, window=8)["k"].shape[2] == tcfg.n_vision_tokens + 8
     assert m.init_cache(1, 40)["k"].shape[2] == 40
     with pytest.raises(ValueError, match="pins 16 vision tokens"):
