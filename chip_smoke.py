@@ -19,7 +19,9 @@ cross-attention: the main path, guided, a guided video, the prompt-bucket
 serving lanes and spmd on a prompt), the tensor-parallel baseline (on
 gloo ranks sharing the card, and under --nccl on 2 and 4 cards) and the
 training wing (the tiny-dit trainer, its checkpoint, an sdxl-dit training
-step through K1 under autograd), and checks card-vs-CPU outputs.
+step through K1 under autograd), checks card-vs-CPU outputs, and drives
+the launch tooling (the whole-step roofline beside measured steps, the
+dry-run over fake 256- and 512-rank meshes, the quickstart example).
 
     python3 chip_smoke.py
     python3 chip_smoke.py --nccl     # only phases 11, 19, 22 and 25, over NCCL
@@ -310,11 +312,25 @@ Phases (any failure raises, so the script exits non-zero):
      D x skip dropped or state reset at a tile) must miss it; one
      Function's forward and backward timed and profiled: a layer's share
      of the training step (``train_grads_check``).
+ 37. the whole-step roofline: the analytic H100 bound of the port
+     (``launch/roofline.py``, priced with flash attention, as the card
+     runs K6) beside the measured seconds of gemma-2b's prefill of one
+     2048-token prompt, its decode of one token at 2048 context and the
+     hymba-1.5b training step of phase 32 (batch 1, 640 rows): compute
+     and memory seconds, the dominant term, the ratio measured / bound,
+     the card's name and power limit (``roofline_check``).
+ 38. the dry-run (``launch/dryrun.py``) on the host in a subprocess that
+     sees no card: gemma-2b x decode_32k and olmoe-1b-7b x train_4k on the
+     256- and 512-rank fake meshes: each report's roofline terms (the H100
+     constants), collective counts and seconds, or the error of a
+     configuration this torch's DTensor refuses; gemma-2b x decode_32k on
+     16x16 must be ok (``dryrun_check``).
+ 39. ``examples/quickstart_torch.py`` on the card (``examples_check``).
  Phases 13 to 15 run after phase 8, before the sdxl-dit paths; phase 16
  after phase 10, 17 after 7, 18 after 16, 19 after 11, 20 after 17, 21
  after 18, 23 after 21, 22 after 11, 24 after 20, 25 and 26 after 19, 27
  after 12, 28 after 13, 29 and 30 after 15, 31, 35, 36 and 32 to 34
- after 30.
+ after 30; 37 to 39 run last.
 Every path is driven with the launch counters set to 0 just before it and
 read just after (on every rank for the multi-rank paths). The
 second-to-last line is the kernels' JSON record, the last line the device
@@ -3182,13 +3198,12 @@ def moe_routing(model, params, tokens):
     the positions' router inputs (near 1 when the hidden states have
     collapsed onto one direction, so every token picks the same experts)."""
     from repro_torch.models import layers, lm, moe
-    from repro_torch.models.hymba import _layer
+    from repro_torch.models.hymba import _layers
 
     cfg = model.cfg
     x = lm._embed(params, cfg, tokens)
     out = []
-    for i in range(cfg.n_layers):
-        p = _layer(params["blocks"], i)
+    for p in _layers(params["blocks"]):
         h, _ = layers.self_attention(
             p["attn"], layers.rms_norm(x, p["ln1"], cfg.norm_eps), cfg)
         x = x + h
@@ -3693,7 +3708,8 @@ def phase_lm_train(ops, dev):
     the update, peak memory, a finite loss; then one forward under the
     device profiler (idle share, top kernels; the backward's million
     small kernels take minutes under the profiler, so phase_train_grads
-    profiles one layer's share). Returns the launches of each run."""
+    profiles one layer's share). Returns (the launches of each run,
+    hymba's seconds a step)."""
     from repro_torch import tree as tree_lib
     from repro_torch.configs import get_config
     from repro_torch.data import TokenStream
@@ -3779,7 +3795,176 @@ def phase_lm_train(ops, dev):
     check(all(math.isfinite(x) for x in hymba_losses), f"hymba training: {hymba_losses}")
     check(hymba_launches == expected, f"hymba training: launches {hymba_launches}, "
           f"the config needs {expected}")
-    return {"lm_train_gemma": gemma_launches, "lm_train_hymba": hymba_launches}
+    return ({"lm_train_gemma": gemma_launches, "lm_train_hymba": hymba_launches},
+            seconds)
+
+
+ROOFLINE_PROMPT, ROOFLINE_DECODE_STEPS = 2048, 8
+
+
+def roofline_line(label, arch, shape, measured_s, smi):
+    """The analytic H100 roofline of one step (launch/roofline.py, flash:
+    the card runs K6) beside its measured seconds: the ratio of the
+    measured time to the roofline's dominant term. The roofline's bytes
+    are the reference's model, which counts each GEMM weight twice (in the
+    GEMM and again as streamed weights); ``*_weights_once`` drop the
+    second count, the tighter memory bound."""
+    from repro_torch.launch import analytic, roofline
+
+    r = roofline.build(arch, shape, "one_card", 1, {}, {}, flash=True)
+    bound_s = max(r.compute_s, r.memory_s)
+    once = r.bytes_per_device - analytic.streamed_weight_bytes(arch, shape)
+    once_s = max(r.compute_s, once / roofline.HBM_BW)
+    line = {"step": label, "arch": arch, "shape": dataclasses.asdict(shape),
+            "compute_s": r.compute_s, "memory_s": r.memory_s,
+            "dominant": r.dominant, "measured_s": measured_s,
+            "ratio": measured_s / bound_s, "flops": r.flops_per_device,
+            "bytes": r.bytes_per_device, "bytes_double_count_weights": True,
+            "bytes_weights_once": once,
+            "memory_s_weights_once": once / roofline.HBM_BW,
+            "ratio_weights_once": measured_s / once_s, "card": smi}
+    print("roofline_check", json.dumps(line), flush=True)
+    check(math.isfinite(measured_s) and measured_s > 0 and bound_s > 0,
+          f"roofline_check {label}: {line}")
+    return line
+
+
+def phase_roofline(ops, dev, smi, hymba_step_s):
+    """The port's whole-step bound on the H100: the analytic roofline of
+    gemma-2b's prefill of one 2048-token prompt (gemma_serve's prompt, K6
+    at head dim 256), of its decode of one token at 2048 context and of
+    lm_train_check's hymba-1.5b step (batch 1, 512 tokens behind 128 meta
+    tokens: 640 rows), each beside the measured seconds of that step at
+    full width in bf16 (the median of 3 prefills, of 8 decode steps, of
+    lm_train_check's 3 steps). Weights from SEED."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.shapes import ShapeSpec
+    from repro_torch.models import build_model
+
+    cfg = get_config("gemma-2b").replace(dtype="bfloat16", param_dtype="bfloat16")
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device=dev).manual_seed(SEED))
+    tokens = torch.randint(0, cfg.vocab, (1, ROOFLINE_PROMPT), device=dev,
+                           generator=torch.Generator(device=dev).manual_seed(SEED))
+    max_len = ROOFLINE_PROMPT + ROOFLINE_DECODE_STEPS + 8
+    with torch.no_grad():
+        prefill_ms = []
+        for _ in range(4):                              # the first warms up
+            cache = model.init_cache(1, max_len, device=dev)
+            prefill_ms.append(wall_ms(lambda: model.prefill(
+                params, {"tokens": tokens}, cache)))
+        logits, cache = model.prefill(params, {"tokens": tokens}, cache)
+        token = logits.argmax(-1)
+        decode_ms = []
+        for _ in range(ROOFLINE_DECODE_STEPS + 1):      # the first warms up
+            t0 = time.perf_counter()
+            logits, cache = model.decode_step(params, cache, token)
+            token = logits.argmax(-1)
+            torch.cuda.synchronize()
+            decode_ms.append((time.perf_counter() - t0) * 1e3)
+    check(bool(torch.isfinite(logits.float()).all()), "roofline_check: decode logits")
+    del params, cache
+    torch.cuda.empty_cache()
+    lines = [
+        roofline_line("gemma_prefill", "gemma-2b",
+                      ShapeSpec("gemma_prefill", "prefill", ROOFLINE_PROMPT, 1),
+                      statistics.median(prefill_ms[1:]) / 1e3, smi),
+        roofline_line("gemma_decode", "gemma-2b",
+                      ShapeSpec("gemma_decode", "decode", ROOFLINE_PROMPT, 1),
+                      statistics.median(decode_ms[1:]) / 1e3, smi),
+        roofline_line("hymba_train", "hymba-1.5b",
+                      ShapeSpec("hymba_train", "train", HYMBA_TRAIN_SEQ, 1),
+                      statistics.median(hymba_step_s), smi),
+    ]
+    return lines
+
+
+DRYRUN_LIMIT_S = 120   # a configuration's trace, then written as failed
+
+
+def phase_dryrun(smi):
+    """The dry-run (repro_torch.launch.dryrun) on this machine's host, a
+    subprocess a configuration that sees no card: gemma-2b x decode_32k
+    and olmoe-1b-7b x train_4k on the 256- and 512-rank fake meshes.
+    Prints each report (roofline terms, collective counts, seconds; or the
+    error of a configuration DTensor refused or whose trace took over
+    DRYRUN_LIMIT_S, as the CLI writes it). Fails when the CLI dies without
+    its report (each is deleted before its run, so a report is this run's),
+    when its exit code and the report's ``ok`` disagree, when gemma-2b x
+    decode_32k on 16x16 (the proof that the
+    fake backend and DTensor on meta run here) is not ok, or when an ok
+    report's roofline does not use the H100 constants."""
+    repo = os.path.dirname(os.path.abspath(__file__))
+    env = {**os.environ, "PYTHONPATH": os.path.join(repo, "src"),
+           "CUDA_VISIBLE_DEVICES": ""}
+    out = []
+    for arch, shape, mesh in (("gemma-2b", "decode_32k", "pod16x16"),
+                              ("gemma-2b", "decode_32k", "pod2x16x16"),
+                              ("olmoe-1b-7b", "train_4k", "pod16x16"),
+                              ("olmoe-1b-7b", "train_4k", "pod2x16x16")):
+        path = os.path.join(repo, "results", "dryrun_torch",
+                            f"{arch}__{shape}__{mesh}.json")
+        if os.path.exists(path):        # a report left by an earlier run
+            os.remove(path)
+        t0 = time.perf_counter()
+        r = subprocess.run([sys.executable, "-m", "repro_torch.launch.dryrun",
+                            "--arch", arch, "--shape", shape, "--timeout",
+                            str(DRYRUN_LIMIT_S)]
+                           + (["--multi-pod"] if mesh == "pod2x16x16" else []),
+                           capture_output=True, text=True, env=env, cwd=repo,
+                           timeout=600)
+        seconds = time.perf_counter() - t0
+        died = (f"dryrun {arch} x {shape} x {mesh}: rc {r.returncode}\n"
+                f"{r.stdout[-2000:]}\n{r.stderr[-3000:]}")
+        check(r.returncode in (0, 1) and os.path.exists(path),
+              died + "\n(no report written)")
+        with open(path) as f:
+            rep = json.load(f)
+        check((r.returncode == 0) == rep["ok"], died + f"\nreport ok: {rep['ok']}")
+        line = {"arch": arch, "shape": shape, "mesh": mesh, "ok": rep["ok"],
+                "process_s": seconds, "torch": torch.__version__,
+                "host_of": smi}
+        if rep["ok"]:
+            roof = rep["roofline"]
+            line.update({"chips": rep["chips"], "setup_s": rep["lower_s"],
+                         "trace_s": rep["compile_s"],
+                         **{k: roof[k] for k in (
+                             "compute_s", "memory_s", "collective_s",
+                             "dominant", "raw_hlo_flops")},
+                         "collective_counts": rep["collective_counts"],
+                         "collective_bytes": rep["collective_bytes"],
+                         "memory_analysis": rep["memory_analysis"]})
+            check(math.isclose(roof["compute_s"] * 989e12, roof["flops_per_device"])
+                  and math.isclose(roof["memory_s"] * 3.35e12,
+                                   roof["bytes_per_device"])
+                  and math.isclose(roof["collective_s"] * 50e9,
+                                   roof["collective_bytes_per_device"]),
+                  f"dryrun {arch} x {shape} x {mesh}: roofline {roof}")
+        else:
+            line.update({"seconds": rep.get("seconds"), "error": rep["error"][:600]})
+        print("dryrun_check", json.dumps(line), flush=True)
+        out.append(line)
+    proof = out[0]
+    check(proof["ok"] and proof["chips"] == 256,
+          f"dryrun gemma-2b x decode_32k x pod16x16 is not ok: {proof}")
+    return out
+
+
+def phase_examples():
+    """examples/quickstart_torch.py on the card (its default device), in a
+    subprocess: exit 0, its 'ok' line, its seconds."""
+    repo = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, os.path.join(repo, "examples",
+                                                     "quickstart_torch.py")],
+                       capture_output=True, text=True, cwd=repo, timeout=600)
+    line = {"example": "quickstart_torch.py", "rc": r.returncode,
+            "seconds": time.perf_counter() - t0,
+            "stdout_tail": r.stdout.strip().splitlines()[-4:]}
+    print("examples_check", json.dumps(line), flush=True)
+    check(r.returncode == 0 and r.stdout.strip().endswith("ok"),
+          f"quickstart_torch.py on the card: {r.stdout[-2000:]}\n{r.stderr[-3000:]}")
+    return line
 
 
 def phase_new_lm_cross_device(dev):
@@ -4441,7 +4626,7 @@ def main():
     train_grads = phase(phase_train_grads, ops, ref, dev)
     seamless_launches = phase(phase_seamless, ops, dev)
     xlstm_launches = phase(phase_xlstm, ops, dev)
-    train_launches = phase(phase_lm_train, ops, dev)
+    train_launches, hymba_step_s = phase(phase_lm_train, ops, dev)
     phase(phase_new_lm_cross_device, dev)
     launches = phase(phase_paths, ops, dev)
     launches["hymba_serve"] = hymba_launches
@@ -4463,6 +4648,9 @@ def main():
     launches["train_check"] = phase(phase_train, ops, ref, dev)
     phase(phase_cross_device, dev)
     phase(phase_train_cross_device, dev)
+    phase(phase_roofline, ops, dev, smi, hymba_step_s)
+    phase(phase_dryrun, smi)
+    phase(phase_examples)
     for label, outs in spmd.items():      # launches summed over the ranks
         launches[label] = {}
         for o in outs:

@@ -8,7 +8,8 @@ they pick the naive or the chunked attention. In the port they change
 nothing: the DEVICE picks the path, as with ``DiTConfig.use_pallas_attention``
 (CUDA tensors run the hand-written kernel K6, CPU tensors its plain version;
 ``repro_torch.kernels.ops.flash_attention``). ``act_shard`` is a JAX
-sharding constraint in the reference and is not read by the port.
+sharding constraint in the reference; the port reads it only when its
+residual stream is a DTensor (``layers.constrain_residual``).
 """
 from __future__ import annotations
 
@@ -70,8 +71,8 @@ class ArchConfig:
     dtype: str = "float32"
     attn_impl: str = "naive"         # naive | chunked: read by the reference
     attn_chunk: int = 512            # only (see the module docstring)
-    act_shard: str = ""              # "" | batch | seqpar: a JAX sharding
-                                     # constraint; not read by the port
+    act_shard: str = ""              # "" | batch | seqpar: the residual
+                                     # stream's sharding (DTensor runs)
 
     # ------------------------------------------------------------------
     @property

@@ -3,7 +3,11 @@ the per-kernel launch counters (reference: ``repro.kernels.ops``).
 
 Every wrapper takes the plain PyTorch version (:mod:`repro_torch.kernels.
 ref`) for CPU tensors and launches its hand-written CUDA kernel for CUDA
-tensors, or raises; there is no fallback from one to the other.
+tensors, or raises; there is no fallback from one to the other. K6 and K7
+also take DTensors, shard by shard over batch and heads or channels
+(``repro_torch.sharding.shardwise``): each shard goes through the wrapper,
+except ``meta`` shards (the dry-run's trace of shapes, where nothing runs),
+which go through the plain version.
 
 The CUDA sources under ``csrc/`` are compiled by ``nvcc`` at first use, one
 ``nvcc`` per source, all started together, and linked into one shared
@@ -37,6 +41,7 @@ from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import ref
 from repro_torch.kernels import ssm_scan as ss
 from repro_torch.kernels import stale_kv_attention as skv
+from repro_torch.sharding.shardwise import is_dtensor, shardwise
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parent / "build"
@@ -512,6 +517,8 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     grad, the call goes through :class:`_FlashAttention` (one launch; its
     backward is the plain version's)."""
     window, prefix_len = int(window), int(prefix_len)
+    if is_dtensor(q):
+        return _flash_attention_sharded(q, k, v, causal, window, prefix_len)
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
         return _FlashAttention.apply(q, k, v, causal, window, prefix_len)
@@ -549,6 +556,28 @@ def _flash_attention(q, k, v, causal, window, prefix_len):
         raise RuntimeError(f"flash_attention launch failed: CUDA error {err}")
     _launches["flash_attention"] += 1
     return out
+
+
+def _flash_attention_sharded(q, k, v, causal, window, prefix_len):
+    """:func:`flash_attention` of DTensors, shard by shard over batch and
+    heads (:func:`repro_torch.sharding.shardwise.shardwise`). Where the
+    query heads are split over a mesh dim that does not divide the KV
+    heads, K and V are broadcast to the query heads first (GQA's
+    ``repeat_kv``), so that each shard holds the KV heads its query heads
+    read."""
+    from torch.distributed.tensor import Shard
+
+    H, K = q.shape[2], k.shape[2]
+    mesh = q.device_mesh
+    if K != H and any(isinstance(p, Shard) and p.dim == 2 and K % mesh.size(m)
+                      for m, p in enumerate(q.placements)):
+        k = k.repeat_interleave(H // K, dim=2)
+        v = v.repeat_interleave(H // K, dim=2)
+    d = (0, 2)
+    return shardwise(lambda q, k, v: (
+        ref.flash_attention_ref if q.is_meta else flash_attention)(
+            q, k, v, causal=causal, window=window, prefix_len=prefix_len),
+        (q, k, v), (d, d, d), (d,))
 
 
 class _FlashAttention(torch.autograd.Function):
@@ -593,6 +622,14 @@ def ssm_scan(x, dt, b_t, c_t, a, d_skip, *, h0=None, final_state: bool = False):
     axis; a, d_skip and h0 are float32. When grad mode is on and an
     operand requires grad, the call goes through :class:`_SSMScan` (one
     launch; its backward is the plain version's)."""
+    if is_dtensor(x):
+        # per batch row and channel: b_t / c_t whole, a / d_skip / h0 by channel
+        bc, ch = (0, 2), (None, 0)
+        return shardwise(
+            lambda *t: _ssm_scan_shard(*t, final_state=final_state),
+            (x, dt, b_t, c_t, a, d_skip, h0),
+            (bc, bc, (0, None), (0, None), ch, ch, (0, 1)),
+            (bc, (0, 1)) if final_state else (bc,))
     if torch.is_grad_enabled() and any(
             t is not None and t.requires_grad
             for t in (x, dt, b_t, c_t, a, d_skip, h0)):
@@ -654,6 +691,15 @@ def _ssm_scan(x, dt, b_t, c_t, a, d_skip, h0, final_state):
     if err != 0:
         raise RuntimeError(f"ssm_scan launch failed: CUDA error {err}")
     _launches["ssm_scan"] += 1
+    return (y, h) if final_state else y
+
+
+def _ssm_scan_shard(x, dt, b_t, c_t, a, d_skip, h0, *, final_state):
+    """One shard of a DTensor :func:`ssm_scan`: the wrapper, or on ``meta``
+    shards the plain version."""
+    if not x.is_meta:
+        return ssm_scan(x, dt, b_t, c_t, a, d_skip, h0=h0, final_state=final_state)
+    y, h = ref.ssm_scan_ref(x, dt, b_t, c_t, a, d_skip, h0)
     return (y, h) if final_state else y
 
 

@@ -11,9 +11,10 @@ and an enc-dec model's source frames are drawn from a ``torch.Generator``.
 K6 and K7 run in the forward under autograd; their backward
 differentiates the plain versions, as the reference differentiates its
 plain attention and scan. The reference's device mesh
-and ``sharding/specs.py`` place nothing on one device; they come with the
-launch tooling (ROADMAP.md queue 1 item 16). Runs on the GPU unless
-``--device cpu`` is given.
+and sharding rules (``launch/mesh.py``, ``sharding/specs.py``) place
+nothing on one device, so the trainer does without them; the dry-run
+(``launch/dryrun.py``) runs the same step on a fake production mesh. Runs
+on the GPU unless ``--device cpu`` is given.
 
   PYTHONPATH=src python -m repro_torch.launch.train
   PYTHONPATH=src python -m repro_torch.launch.train --arch hymba-1.5b \\

@@ -22,7 +22,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.models import layers
-from repro_torch.models.hymba import _layer, _stack
+from repro_torch.models.hymba import _layers, _stack
 
 
 def tgt_len_for(src_len: int) -> int:
@@ -61,8 +61,8 @@ def init_params(gen: torch.Generator, cfg):
 def encode(params, cfg, src_embeds):
     """src_embeds [B,Ss,D] (stub frontend output) -> memory [B,Ss,D]."""
     x = src_embeds.to(getattr(torch, cfg.dtype))
-    for i in range(cfg.n_enc_layers):
-        p = _layer(params["enc_blocks"], i)
+    for p in _layers(params["enc_blocks"]):
+        x = layers.constrain_residual(x, cfg)
         x = x + layers.bidirectional_attention(
             p["attn"], layers.rms_norm(x, p["ln1"], cfg.norm_eps), cfg)
         x = x + layers.mlp(p["mlp"], layers.rms_norm(x, p["ln2"], cfg.norm_eps),
@@ -75,14 +75,15 @@ def cross_kv(params, cfg, memory):
     (k, v) [L,B,Ss,K,hd]."""
     B, Ss, _ = memory.shape
     ks, vs = [], []
-    for i in range(cfg.n_layers):
-        p = _layer(params["dec_blocks"], i)["xattn"]
+    for blk in _layers(params["dec_blocks"]):
+        p = blk["xattn"]
         ks.append((memory @ p["wk"]).reshape(B, Ss, cfg.n_kv_heads, cfg.hd))
         vs.append((memory @ p["wv"]).reshape(B, Ss, cfg.n_kv_heads, cfg.hd))
     return torch.stack(ks), torch.stack(vs)
 
 
 def _dec_block(p, x, cfg, mem_kv, *, window: int = 0):
+    x = layers.constrain_residual(x, cfg)
     h, kv = layers.self_attention(p["attn"], layers.rms_norm(x, p["ln1"], cfg.norm_eps),
                                   cfg, window=window)
     x = x + h
@@ -106,9 +107,8 @@ def decode_forward(params, cfg, tgt_tokens, memory, *, window: int = 0,
     mk, mv = cross_kv(params, cfg, memory)
     x = params["embed"][tgt_tokens].to(getattr(torch, cfg.dtype))
     kvs = []
-    for i in range(cfg.n_layers):
-        x, kv = _dec_block(_layer(params["dec_blocks"], i), x, cfg,
-                           (mk[i], mv[i]), window=window)
+    for i, p in enumerate(_layers(params["dec_blocks"])):
+        x, kv = _dec_block(p, x, cfg, (mk[i], mv[i]), window=window)
         if return_kv:
             kvs.append(kv)
     if logits_last_only:
@@ -176,8 +176,7 @@ def decode_step(params, cfg, cache, token, *, window: int = 0):
     replaced."""
     x = params["embed"][token[:, None]].to(getattr(torch, cfg.dtype))
     pos = cache["pos"]
-    for i in range(cfg.n_layers):
-        p = _layer(params["dec_blocks"], i)
+    for i, p in enumerate(_layers(params["dec_blocks"])):
         x = x + layers.decode_attention(
             p["attn"], layers.rms_norm(x, p["ln1"], cfg.norm_eps), cfg,
             cache["k"][i], cache["v"][i], pos, window=window)

@@ -10,8 +10,8 @@ The prefill's attention is kernel K6 (``layers.self_attention`` with
 decode attention over the meta-pinned ring cache is the plain ``attend``,
 as in the reference. Parameters keep the reference's stacked ``[L, ...]``
 leaves; the reference's ``jax.lax.scan`` over layers is a Python loop. The
-reference's ``lm._constrain`` (a JAX sharding constraint, a no-op at
-``act_shard=""``) has no counterpart. ``loss_fn`` trains through K6 and
+reference's ``lm._constrain`` is ``layers.constrain_residual`` (DTensor
+runs with ``act_shard`` set only). ``loss_fn`` trains through K6 and
 K7 under autograd (their backward the plain versions'). A prompt longer
 than the ring leaves its kept positions where decode reads them
 (``layers.ring_kv``), which the reference does only when the prompt fills
@@ -24,10 +24,16 @@ import torch
 from repro_torch.models import layers, mamba as mamba_lib
 
 
-def _layer(tree, i: int):
-    """Layer ``i`` of a stacked ``[L, ...]`` tree (views, no copies)."""
-    return {k: _layer(v, i) if isinstance(v, dict) else v[i]
-            for k, v in tree.items()}
+def _layers(tree):
+    """The per-layer trees of a stacked ``[L, ...]`` tree (views), from one
+    ``unbind`` of each leaf. Under autograd a leaf's gradient is then one
+    stack of its L layer gradients, where indexing each leaf layer by layer
+    writes a whole-stack gradient for every layer: L times the stack's
+    bytes in the backward."""
+    parts = {k: _layers(v) if isinstance(v, dict) else v.unbind(0)
+             for k, v in tree.items()}
+    n = len(next(iter(parts.values())))
+    return [{k: v[i] for k, v in parts.items()} for i in range(n)]
 
 
 def _stack(trees):
@@ -76,6 +82,7 @@ def _fuse(p, x, attn_out, ssm_out, cfg):
 
 
 def _block(p, x, cfg, ssm_state, *, window: int):
+    x = layers.constrain_residual(x, cfg)
     xn = layers.rms_norm(x, p["ln1"], cfg.norm_eps)
     attn_out, kv = layers.self_attention(p["attn"], xn, cfg, window=window,
                                          prefix_len=cfg.n_meta_tokens)
@@ -102,9 +109,8 @@ def forward(params, cfg, tokens, ssm_states=None, *, window: int = None,
     x = torch.cat([meta, x], dim=1)
 
     kvs, states = [], []
-    for i in range(cfg.n_layers):
-        x, kv, st = _block(_layer(params["blocks"], i), x, cfg,
-                           _layer(ssm_states, i), window=window)
+    for p, st0 in zip(_layers(params["blocks"]), _layers(ssm_states)):
+        x, kv, st = _block(p, x, cfg, st0, window=window)
         if return_kv:
             kvs.append(kv)
         states.append(st)
@@ -166,15 +172,14 @@ def decode_step(params, cfg, cache, token, *, window: int = 0):
     x = params["embed"][token[:, None]].to(getattr(torch, cfg.dtype))
     pos = cache["pos"]
     states = []
-    for i in range(cfg.n_layers):
-        p = _layer(params["blocks"], i)
+    for i, (p, st0) in enumerate(zip(_layers(params["blocks"]),
+                                     _layers(cache["ssm"]))):
         xn = layers.rms_norm(x, p["ln1"], cfg.norm_eps)
         # the meta-pinned ring: the meta tokens are the pinned prefix
         a = layers.decode_attention(p["attn"], xn, cfg, cache["k"][i],
                                     cache["v"][i], pos, window=window,
                                     prefix_len=cfg.n_meta_tokens)
-        m, st = mamba_lib.mamba_forward(p["mamba"], xn, cfg,
-                                        _layer(cache["ssm"], i))
+        m, st = mamba_lib.mamba_forward(p["mamba"], xn, cfg, st0)
         x = _fuse(p, x, a, m, cfg)
         states.append(st)
     x = layers.rms_norm(x, params["ln_f"], cfg.norm_eps)

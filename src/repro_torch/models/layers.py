@@ -20,11 +20,25 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import ops
+from repro_torch.sharding.shardwise import is_dtensor
 
 
 # ----------------------------------------------------------------------
 # init helpers
 # ----------------------------------------------------------------------
+
+class MetaGenerator(torch.Generator):
+    """A CPU generator whose ``device`` reads ``meta``. Every init of the
+    port makes its leaves on its generator's device, so
+    ``model.init(MetaGenerator())`` builds the parameter tree's shapes and
+    dtypes without allocating it (the counterpart of
+    ``jax.eval_shape(model.init, key)``): meta kernels take a CPU generator
+    and draw nothing."""
+
+    @property
+    def device(self):
+        return torch.device("meta")
+
 
 def dense_init(gen: torch.Generator, shape, dtype, scale: Optional[float] = None):
     """Truncated-normal fan-in init (LeCun-style), drawn on the generator's
@@ -250,6 +264,23 @@ def ring_kv(kv, T: int, prefix_len: int = 0):
     return torch.cat([kv[:, :, :prefix_len], tail], dim=2)
 
 
+def constrain_residual(x, cfg):
+    """The reference's ``lm._constrain`` (``cfg.act_shard``, a JAX sharding
+    constraint on the residual stream [B, S, D] at each block's entry):
+    given a DTensor, ``batch`` redistributes it to batch over 'data' and
+    ``seqpar`` to batch over 'data' and sequence over 'model', every other
+    mesh dim replicated. Plain tensors, and an empty ``act_shard``, pass
+    through."""
+    if not cfg.act_shard or not is_dtensor(x):
+        return x
+    from torch.distributed.tensor import Replicate, Shard
+
+    want = {"data": Shard(0),
+            "model": Shard(1) if cfg.act_shard == "seqpar" else Replicate()}
+    return x.redistribute(x.device_mesh, [want.get(n, Replicate())
+                                          for n in x.device_mesh.mesh_dim_names])
+
+
 # ----------------------------------------------------------------------
 # MLPs
 # ----------------------------------------------------------------------
@@ -298,9 +329,15 @@ def cross_entropy(logits, labels, ignore_id: int = -1):
     negative log-likelihood in float32 over the labels that are not
     ``ignore_id``. The gold logit is gathered (the reference contracts a
     one-hot with the logits so that GSPMD keeps the vocab sharded; the
-    two agree to rounding)."""
+    two agree to rounding). DTensor logits (the dry-run) take the
+    reference's one-hot contraction: DTensor's gather over a sharded vocab
+    leaves a masked partial sum that ``meta`` shards cannot reduce."""
     logits = logits.float()
     logz = torch.logsumexp(logits, dim=-1)
-    gold = logits.gather(-1, labels.clamp_min(0).long()[..., None])[..., 0]
+    if is_dtensor(logits):
+        vocab = torch.arange(logits.shape[-1], device=labels.device)
+        gold = torch.sum(logits * (vocab == labels[..., None]), dim=-1)
+    else:
+        gold = logits.gather(-1, labels.clamp_min(0).long()[..., None])[..., 0]
     mask = (labels != ignore_id).float()
     return torch.sum((logz - gold) * mask) / torch.clamp(mask.sum(), min=1.0)

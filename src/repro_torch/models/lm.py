@@ -8,7 +8,9 @@ Parameters keep the reference's stacked ``[L, ...]`` leaves; its
 kernel K6 (``layers.self_attention``; a VLM's vision tokens are its
 ``prefix_len``), every decode attention the plain ``layers.
 decode_attention``, as in the reference. The reference's ``_constrain``
-(a JAX sharding constraint, a no-op without a mesh) has no counterpart.
+(a JAX sharding constraint, a no-op without a mesh) is
+``layers.constrain_residual``: a redistribution of a DTensor residual
+stream at each block's entry when ``cfg.act_shard`` is set.
 ``loss_fn`` is the training objective; under autograd K6's backward is
 the plain version's.
 
@@ -26,7 +28,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.models import layers, moe as moe_lib
-from repro_torch.models.hymba import _layer, _stack
+from repro_torch.models.hymba import _layers, _stack
 
 
 # ----------------------------------------------------------------------
@@ -93,6 +95,7 @@ def _ffn(p, xn, cfg):
 
 
 def _block(p, x, cfg, *, window: int, prefix_len: int):
+    x = layers.constrain_residual(x, cfg)
     h, kv = layers.self_attention(
         p["attn"], layers.rms_norm(x, p["ln1"], cfg.norm_eps), cfg,
         window=window, prefix_len=prefix_len)
@@ -111,8 +114,8 @@ def forward(params, cfg, tokens, *, vision_embeds=None, window: int = 0,
     x = _embed(params, cfg, tokens, vision_embeds)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     kvs = []
-    for i in range(cfg.n_layers):
-        x, kv, a = _block(_layer(params["blocks"], i), x, cfg, window=window,
+    for p in _layers(params["blocks"]):
+        x, kv, a = _block(p, x, cfg, window=window,
                           prefix_len=prefix_len)
         aux = aux + a
         if return_kv:
@@ -190,8 +193,7 @@ def decode_step(params, cfg, cache, token, *, window: int = 0):
     in place (the reference returns new arrays); ``pos`` is replaced."""
     x = _embed(params, cfg, token[:, None])
     pos = cache["pos"]
-    for i in range(cfg.n_layers):
-        p = _layer(params["blocks"], i)
+    for i, p in enumerate(_layers(params["blocks"])):
         h = layers.decode_attention(
             p["attn"], layers.rms_norm(x, p["ln1"], cfg.norm_eps), cfg,
             cache["k"][i], cache["v"][i], pos, window=window,

@@ -73,14 +73,14 @@ def moe_ffn(p, x, cfg):
     C = _capacity(S, cfg)
     probs, gate, idx, pos, keep = route(p, x, cfg)
 
-    # dispatch: kept pairs into their (expert, place) cells; empty cells 0
-    cell = (torch.arange(B, device=x.device)[:, None, None] * (E * C)
-            + idx * C + pos)[keep]                              # [n_kept]
-    token = (torch.arange(B, device=x.device)[:, None, None] * S
-             + torch.arange(S, device=x.device)[None, :, None]).expand(B, S, K)[keep]
-    xe = x.new_zeros(B * E * C, D)
-    xe[cell] = x.reshape(B * S, D)[token]
-    xe = xe.reshape(B, E, C, D)
+    # dispatch: each row's kept pairs into their (expert, place) cells, its
+    # dropped pairs into one spare cell past them (then cut off); empty
+    # cells 0. The shapes do not depend on the routing, so a trace of
+    # shapes (the dry-run's meta tensors) runs it too.
+    cell = torch.where(keep, idx * C + pos, E * C).reshape(B, S * K, 1)
+    src = x[:, :, None].expand(B, S, K, D).reshape(B, S * K, D)
+    xe = x.new_zeros(B, E * C + 1, D).scatter(1, cell.expand(B, S * K, D), src)
+    xe = xe[:, :E * C].reshape(B, E, C, D)
     w = p["experts"]
     h = (torch.nn.functional.silu(torch.einsum("becd,edf->becf", xe, w["w_gate"]))
          * torch.einsum("becd,edf->becf", xe, w["w_up"]))
@@ -96,7 +96,7 @@ def moe_ffn(p, x, cfg):
         y = y + layers.mlp(p["shared"], x, cfg.activation)
 
     # load-balance auxiliary loss (Switch-style): E * sum_e f_e * p_e
-    routed = torch.zeros(B, S, E, device=x.device).scatter_add_(
+    routed = torch.zeros(B, S, E, device=x.device).scatter_add(
         2, idx, keep.float())
     frac_tokens = routed.reshape(B * S, E).mean(0)
     frac_probs = probs.reshape(B * S, E).mean(0)

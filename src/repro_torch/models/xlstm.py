@@ -9,6 +9,9 @@ kernel, so the xLSTM brings no kernel. (The reference's docstring places a
 chunkwise mLSTM in ``kernels/ssm_scan.py``; that kernel computes the Mamba
 recurrence.)
 
+Given DTensors (the dry-run), each recurrence runs on each rank's batch
+and head shards (``repro_torch.sharding.shardwise``).
+
 Blocks are heterogeneous (every ``slstm_every``-th is sLSTM), so the
 parameters hold a list of per-block dicts and the state a list of
 per-block states, as in the reference.
@@ -22,6 +25,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models import layers
+from repro_torch.sharding.shardwise import shardwise
 
 
 def _d_inner(cfg) -> int:
@@ -149,14 +153,22 @@ def mlstm_forward(p, x, cfg, state):
     B, S, _ = x.shape
     xb = layers.rms_norm(x, p["ln"], cfg.norm_eps)
     q, k, v, logi, logf, z, new_conv = _mlstm_proj(p, xb, cfg, state["conv"])
-    C, n, m = state["C"], state["n"], state["m"]
+    bh = (0, 2)                                        # [B, S, H, ...]
+    hs, C, n, m = shardwise(
+        _mlstm_scan, (q, k, v, logi, logf, state["C"], state["n"], state["m"]),
+        (bh,) * 5 + ((0, 1),) * 3, (bh,) + ((0, 1),) * 3)
+    h = hs.reshape(B, S, -1).to(x.dtype) * F.silu(z)
+    return x + h @ p["w_down"], {"C": C, "n": n, "m": m, "conv": new_conv}
+
+
+def _mlstm_scan(q, k, v, logi, logf, C, n, m):
+    """The recurrence over the S steps: (h [B,S,H,dh], C, n, m)."""
     hs = []
-    for t in range(S):
+    for t in range(q.shape[1]):
         C, n, m, h = _mlstm_cell_step(C, n, m, q[:, t], k[:, t], v[:, t],
                                       logi[:, t], logf[:, t])
         hs.append(h)
-    h = torch.stack(hs, dim=1).reshape(B, S, -1).to(x.dtype) * F.silu(z)
-    return x + h @ p["w_down"], {"C": C, "n": n, "m": m, "conv": new_conv}
+    return torch.stack(hs, dim=1), C, n, m
 
 
 # ----------------------------------------------------------------------
@@ -171,10 +183,10 @@ def slstm_init_state(cfg, batch: int, device=None):
     return {"c": z, "n": z, "h": z, "m": torch.full((batch, H, dh), -1e30, **f32)}
 
 
-def _slstm_step(p, state, gx):
-    """gx: [B,H,4*dh] f32, the step's input gates regrouped per head.
-    Returns (new state, h [B,H,dh])."""
-    gh = torch.einsum("bhd,hde->bhe", state["h"], p["r_h"].float())   # [B,H,4dh]
+def _slstm_step(r_h, state, gx):
+    """gx: [B,H,4*dh] f32, the step's input gates regrouped per head; r_h
+    [H,dh,4*dh] f32. Returns (new state, h [B,H,dh])."""
+    gh = torch.einsum("bhd,hde->bhe", state["h"], r_h)   # [B,H,4dh]
     zg, ig, fg, og = (gx + gh).chunk(4, dim=-1)        # each [B,H,dh]
     z = torch.tanh(zg)
     o = torch.sigmoid(og)
@@ -200,12 +212,24 @@ def slstm_forward(p, x, cfg, state):
     gx = xb @ p["w_x"] + p["b"].to(xb.dtype)           # [B,S,4D]
     # w_x packs gates as [z|i|f|o] each D wide = H*dh; regroup per head
     gx = gx.float().reshape(B, S, 4, H, dh).transpose(2, 3).reshape(B, S, H, 4 * dh)
+    keys = ("c", "n", "h", "m")
+    bh, st = (0, 2), (0, 1)
+    hs, *new = shardwise(
+        _slstm_scan, (gx, p["r_h"].float()) + tuple(state[k] for k in keys),
+        (bh, (None, 0)) + (st,) * 4, (bh,) + (st,) * 4)
+    hs = hs.reshape(B, S, D).to(x.dtype)               # [B,S,D]
+    return x + hs @ p["w_down"], dict(zip(keys, new))
+
+
+def _slstm_scan(gx, r_h, c, n, h, m):
+    """The recurrence over the S steps: (h [B,S,H,dh], c, n, h, m)."""
+    state = {"c": c, "n": n, "h": h, "m": m}
     hs = []
-    for t in range(S):
-        state, h = _slstm_step(p, state, gx[:, t])
-        hs.append(h.reshape(B, D))
-    hs = torch.stack(hs, dim=1).to(x.dtype)            # [B,S,D]
-    return x + hs @ p["w_down"], state
+    for t in range(gx.shape[1]):
+        state, h = _slstm_step(r_h, state, gx[:, t])
+        hs.append(h)
+    return (torch.stack(hs, dim=1), state["c"], state["n"], state["h"],
+            state["m"])
 
 
 # ----------------------------------------------------------------------

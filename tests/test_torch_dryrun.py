@@ -1,0 +1,265 @@
+"""The port's dry-run (``repro_torch.launch.dryrun``) on small fake meshes.
+The fake process group is global to a process, so each test runs its
+traces in a subprocess: the report's keys are the reference report's, the
+argument bytes are the local shards' bytes, the depth probe's
+extrapolation equals a full-depth trace exactly, a row-parallel ``w_down``
+costs one reduction of the residual stream, and the perf variants' spec
+overrides give the reference's specs."""
+import json
+import os
+import pathlib
+import subprocess
+import sys
+import textwrap
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+REPO = pathlib.Path(__file__).resolve().parent.parent
+
+# DTensor's sharding propagation before torch 2.13 refuses steps that 2.13
+# traces (torch 2.11 refuses each of these, and the dry-run then writes the
+# configuration's report as ok: false with DTensor's error).
+_TORCH = tuple(int(x) for x in torch.__version__.split("+")[0].split(".")[:2])
+_NO_SHARD_TO_PARTIAL = pytest.mark.skipif(
+    _TORCH < (2, 13), reason="DTensor before torch 2.13 cannot redistribute "
+    "Shard to Partial: a tied embedding's two gradients (the lookup's "
+    "partial sum and the unembedding's shard) do not add")
+_NO_SHARDED_FLATTEN = pytest.mark.skipif(
+    _TORCH < (2, 13), reason="DTensor before torch 2.13 cannot flatten a "
+    "sharded sequence dim into the batch (a matmul's or the MoE dispatch's "
+    "reshape of [B, S, ...] with S split)")
+
+_PRELUDE = """
+import json, torch
+from torch.distributed.device_mesh import init_device_mesh
+from repro_torch.launch import dryrun, shapes
+from repro_torch.launch.shapes import ShapeSpec
+torch.set_num_threads(1)
+def fake_mesh(shape, names=("data", "model")):
+    n = 1
+    for s in shape:
+        n *= s
+    dryrun.start_fake_world(n)
+    return init_device_mesh("cuda", shape, mesh_dim_names=names)
+def tally_dict(t):
+    return {"flops": t.flops, "bytes": t.bytes, "out_bytes": t.out_bytes,
+            "view_copies": t.view_copies, "coll": t.records()}
+"""
+
+
+def _run(body: str, timeout=240):
+    code = _PRELUDE + textwrap.dedent(body)
+    env = {**os.environ, "PYTHONPATH": str(REPO / "src")}
+    r = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                       text=True, timeout=timeout, env=env)
+    assert r.returncode == 0, r.stdout[-3000:] + r.stderr[-4000:]
+    line = [ln for ln in r.stdout.splitlines() if ln.startswith("JSON")][-1]
+    return json.loads(line[4:])
+
+
+def _keys(d):
+    return {k: sorted(v) if isinstance(v, dict) else None for k, v in d.items()}
+
+
+@_NO_SHARD_TO_PARTIAL
+def test_report_keys_and_argument_bytes():
+    """A reduced gemma-2b train step on a (2, 4) fake mesh: the report has
+    the keys of the reference's report (every nested dict too), and
+    ``argument_size_in_bytes`` is the sum of the local shards' bytes,
+    worked out from the specs alone."""
+    out = _run("""
+        from repro_torch import tree as tree_lib
+        from repro_torch.sharding import specs as sh
+        mesh = fake_mesh((2, 4))
+        cfg = shapes._dryrun_cfg("gemma-2b").reduced()
+        spec = ShapeSpec("train_tiny", "train", 32, 4)
+        rep = dryrun.make_report("gemma-2b", spec, mesh, "test2x4", cfg,
+                                 verbose=False)
+        fn, args, _ = shapes.build_lowerable("gemma-2b", spec.name, cfg=cfg,
+                                             shape=spec)
+        sizes = {"data": 2, "model": 4}
+        params, opt, batch = args
+        ps = sh.param_specs(params, sizes, cfg)
+        trees = [(params, ps), (opt["mu"], ps), (opt["nu"], ps),
+                 (batch, sh.batch_specs(batch, sizes))]
+        want = 4                                   # the step count, int32
+        for t, s in trees:
+            flat_t, flat_s = [], []
+            def walk(a, b):
+                if isinstance(a, dict):
+                    for k in a: walk(a[k], b[k])
+                else:
+                    flat_t.append(a); flat_s.append(b)
+            walk(t, s)
+            for leaf, spec_ in zip(flat_t, flat_s):
+                n = 1
+                for d in sh.local_shape(leaf.shape, spec_, sizes):
+                    n *= d
+                want += n * leaf.element_size()
+        print("JSON" + json.dumps({"report": rep, "want": want}))
+    """)
+    rep = out["report"]
+    ref = json.loads((REPO / "results" / "dryrun" /
+                      "xlstm-125m__decode_32k__pod16x16.json").read_text())
+    assert _keys(rep) == _keys(ref)
+    assert rep["ok"] is True and rep["chips"] == 8
+    assert rep["memory_analysis"]["argument_size_in_bytes"] == out["want"]
+    assert rep["memory_analysis"]["output_size_in_bytes"] > 0
+    assert rep["cost_analysis"]["flops"] > 0
+    assert rep["collective_counts"]["all-reduce"] > 0
+    roof = rep["roofline"]
+    assert roof["collective_s"] == roof["collective_bytes_per_device"] / 50e9
+    assert roof["compute_s"] == roof["flops_per_device"] / 989e12
+
+
+@pytest.mark.parametrize("arch,shape_kind,full", [
+    ("yi-9b", "train", {"n_layers": 4}),
+    pytest.param("olmoe-1b-7b", "train", {"n_layers": 4},
+                 marks=_NO_SHARDED_FLATTEN),
+    ("hymba-1.5b", "prefill", {"n_layers": 4}),
+    ("seamless-m4t-medium", "prefill", {"n_enc_layers": 4, "n_layers": 4}),
+    ("xlstm-125m", "prefill", {"n_layers": 8}),
+])
+def test_depth_probe_equals_full_trace(arch, shape_kind, full):
+    """The probes' extrapolation equals the full-depth trace: FLOPs,
+    output bytes and the collectives' counts and bytes per kind and mesh
+    dim exactly; the bytes accessed within 1% (DTensor's own local helpers
+    in a redistribution, such as an ``arange`` or a ``cat``, do not scale
+    with depth)."""
+    out = _run(f"""
+        mesh = fake_mesh((2, 4))
+        cfg = shapes._dryrun_cfg({arch!r}).reduced().replace(**{full!r})
+        spec = ShapeSpec("tiny", {shape_kind!r}, 32, 4)
+        probe = dryrun.probe_step({arch!r}, spec, mesh, cfg)
+        whole = dryrun.trace_step({arch!r}, spec, mesh, cfg)
+        depths = [p.n_layers + p.n_enc_layers for _, p in
+                  dryrun.depth_probes(cfg)]
+        print("JSON" + json.dumps({{"probe": tally_dict(probe),
+                                   "whole": tally_dict(whole),
+                                   "depths": depths}}))
+    """)
+    probe, whole = out["probe"], out["whole"]
+    for key in ("flops", "out_bytes", "view_copies", "coll"):
+        assert probe[key] == whole[key], key
+    assert probe["bytes"] == pytest.approx(whole["bytes"], rel=1e-2)
+    assert whole["coll"]
+    assert max(out["depths"]) < sum(full.values())
+
+
+def test_row_parallel_w_down_reduces_the_residual_once():
+    """The MLP block of a reduced yi-9b in fp32 on a (1, 4) mesh, x
+    replicated: w_gate / w_up split d_ff over 'model' and w_down is
+    row-parallel, so the block's output is a partial sum, which the norm
+    that reads it needs whole. Exactly one collective moves the [B, S, D]
+    partial sum, with its byte count: DTensor reduce-scatters it and runs
+    the norm on the scattered part (GSPMD all-reduces it); the only other
+    collective gathers the norm's per-row statistic."""
+    out = _run("""
+        from torch.distributed.tensor.experimental import implicit_replication
+        from repro_torch.models import layers
+        from repro_torch.sharding import specs as sh
+        mesh = fake_mesh((1, 4))
+        cfg = shapes._dryrun_cfg("yi-9b").reduced().replace(
+            param_dtype="float32", dtype="float32")
+        B, S, D = 4, 32, cfg.d_model
+        p = sh.distribute(layers.init_mlp(layers.MetaGenerator(), cfg),
+                          sh.param_specs({"mlp": layers.init_mlp(
+                              layers.MetaGenerator(), cfg)}, mesh, cfg)["mlp"],
+                          mesh)
+        x = sh.distribute(torch.empty(B, S, D, device="meta"), (None,) * 3, mesh)
+        ln = sh.distribute(torch.empty(D, device="meta"), (None,), mesh)
+        tally = dryrun.Tally()
+        dims = {mesh.get_group(i).group_name: n
+                for i, n in enumerate(mesh.mesh_dim_names)}
+        with dryrun._step_trace_mode(tally, dims), implicit_replication():
+            y = layers.rms_norm(x + layers.mlp(p, x), ln)
+        print("JSON" + json.dumps({"coll": tally.records(),
+                                   "bsd": B * S * D * 4,
+                                   "w_down": list(map(str, p["w_down"].placements))}))
+    """)
+    big = [r for r in out["coll"] if r["bytes"] == out["bsd"]]
+    assert big in ([{"kind": "reduce-scatter", "mesh_dim": "model", "count": 1,
+                     "bytes": out["bsd"]}],
+                   [{"kind": "all-reduce", "mesh_dim": "model", "count": 1,
+                     "bytes": out["bsd"]}])
+    rest = [r for r in out["coll"] if r["bytes"] != out["bsd"]]
+    assert all(r["kind"] == "all-gather" and r["bytes"] <= out["bsd"] // 256
+               for r in rest), rest
+    assert out["w_down"] == ["S(1)", "S(0)"]
+
+
+def test_perf_overrides_give_the_reference_specs():
+    """embed_dp and cache_nosplit as overrides passed in give the specs the
+    reference's mutate-and-restore gives, on both production meshes."""
+    jax = pytest.importorskip("jax")
+    from jax.sharding import AbstractMesh
+
+    from repro.configs import get_config as jget
+    from repro.models import build_model as jbuild
+    from repro.sharding import specs as jsh
+    from repro_torch.launch import perf, shapes
+    from repro_torch.models import build_model, layers
+    from repro_torch.sharding import specs as sh
+
+    sys.path.insert(0, str(REPO / "tests"))
+    from test_torch_sharding_specs import SIZES, _abstract, _jax_flat, _torch_flat
+
+    for arch in ("gemma-2b", "hymba-1.5b"):
+        jcfg = jget(arch).replace(param_dtype="bfloat16", dtype="bfloat16")
+        jparams = jax.eval_shape(jbuild(jcfg).init, jax.random.PRNGKey(0))
+        tcfg = shapes._dryrun_cfg(arch)
+        tparams = build_model(tcfg).init(layers.MetaGenerator())
+        jc = jax.eval_shape(lambda: jbuild(jcfg).init_cache(128, 32768))
+        tc = build_model(tcfg).init_cache(128, 32768, device="meta")
+        _, kw = perf.variant_overrides(arch, "decode_32k",
+                                       {"embed_dp", "cache_nosplit"}, tcfg)
+        for sizes in SIZES.values():
+            am = _abstract(sizes)
+            old = dict(jsh._RULES)
+            jsh._RULES["embed"] = (None, "data")
+            jsh._RULES["head"] = ("data", None)
+            try:
+                want = _jax_flat(jparams, jsh.param_specs(jparams, am, jcfg))
+            finally:
+                jsh._RULES.clear()
+                jsh._RULES.update(old)
+            got = _torch_flat(tparams, sh.param_specs(tparams, sizes, tcfg,
+                                                      rules=kw["rules"]))
+            assert got == want
+            assert jsh._RULES["embed"] == ("model", "data")
+            ba = jsh.batch_axes(am)
+
+            def nosplit(shape):
+                if len(shape) == 5:
+                    return (None, ba if jsh._div(shape[1], am, ba) else None,
+                            None, None, None)
+                return (None,) * len(shape)
+            want_c = {k: nosplit(v[0]) for k, v in _jax_flat(
+                jc, jsh.cache_specs(jc, am)).items()}
+            got_c = {k: v[1] for k, v in _torch_flat(
+                tc, sh.cache_specs(tc, sizes, split=kw["cache_split"])).items()}
+            assert got_c == want_c
+
+
+@_NO_SHARDED_FLATTEN
+def test_actseq_redistributes_the_residual_stream():
+    """actseq on a reduced gemma-2b prefill: the residual stream is split
+    over 'model' on its sequence dim at each block, which adds collectives
+    the baseline does not have."""
+    out = _run("""
+        from repro_torch.launch import perf
+        mesh = fake_mesh((2, 4))
+        spec = ShapeSpec("prefill_32k", "prefill", 32, 4)
+        res = {}
+        for v in ("", "actseq"):
+            cfg, kw = perf.variant_overrides("gemma-2b", "prefill_32k",
+                                             set(filter(None, [v])),
+                                             shapes._dryrun_cfg("gemma-2b").reduced())
+            res[v or "base"] = tally_dict(dryrun.trace_step(
+                "gemma-2b", spec, mesh, cfg, **kw))
+        print("JSON" + json.dumps(res))
+    """)
+    assert out["actseq"]["coll"] != out["base"]["coll"]
+    assert out["actseq"]["flops"] <= out["base"]["flops"]

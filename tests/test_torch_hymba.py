@@ -304,7 +304,7 @@ def test_mlp_activations():
 def test_self_attention(model, window, prefix):
     jcfg, tcfg, jp, tp = model
     x = np.random.default_rng(6).standard_normal((1, 90, 256)).astype(np.float32)
-    out, (k, v) = layers.self_attention(hymba._layer(tp["blocks"], 0)["attn"],
+    out, (k, v) = layers.self_attention(hymba._layers(tp["blocks"])[0]["attn"],
                                         torch.from_numpy(x), tcfg,
                                         window=window, prefix_len=prefix)
     jpa = jax.tree_util.tree_map(lambda a: a[0], jp["blocks"]["attn"])
@@ -323,7 +323,7 @@ def test_mamba_proj_and_forward(model):
     state = {"h": 0.5 * rng.standard_normal((2, 256, 16)).astype(np.float32),
              "conv": rng.standard_normal((2, 3, 256)).astype(np.float32)}
     jpm = jax.tree_util.tree_map(lambda a: a[1], jp["blocks"]["mamba"])
-    tpm = hymba._layer(tp["blocks"], 1)["mamba"]
+    tpm = hymba._layers(tp["blocks"])[1]["mamba"]
     got = mamba._proj(tpm, torch.from_numpy(xb), tcfg,
                       torch.from_numpy(state["conv"]))
     want = jmamba._proj(jpm, jnp.asarray(xb), jcfg, jnp.asarray(state["conv"]))

@@ -1,7 +1,8 @@
-"""Import guard: the port and ``chip_smoke.py`` never import jax or the JAX
-package ``repro``. Checked twice: by importing every module of
-``repro_torch`` (and ``chip_smoke``) in a fresh interpreter and reading
-``sys.modules``, and by scanning their sources."""
+"""Import guard: the port, its examples (``examples/*_torch.py``) and
+``chip_smoke.py`` never import jax or the JAX package ``repro``. Checked
+twice: by importing every module of ``repro_torch``, every port example and
+``chip_smoke`` in a fresh interpreter and reading ``sys.modules``, and by
+scanning their sources."""
 import os
 import pathlib
 import re
@@ -15,7 +16,8 @@ pytest.importorskip("torch")
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 PORT = REPO / "src" / "repro_torch"
-SOURCES = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
+EXAMPLES = sorted((REPO / "examples").glob("*_torch.py"))
+SOURCES = sorted(PORT.rglob("*.py")) + EXAMPLES + [REPO / "chip_smoke.py"]
 
 
 def _modules():
@@ -25,10 +27,13 @@ def _modules():
 
 def test_importing_the_port_loads_no_jax():
     code = textwrap.dedent(f"""
-        import importlib, sys
+        import importlib, importlib.util, sys
         sys.path[:0] = [{str(REPO / 'src')!r}, {str(REPO)!r}]
         for name in {_modules()!r} + ["chip_smoke"]:
             importlib.import_module(name)
+        for path in {[str(p) for p in EXAMPLES]!r}:
+            spec = importlib.util.spec_from_file_location("example", path)
+            spec.loader.exec_module(importlib.util.module_from_spec(spec))
         bad = sorted(m for m in sys.modules
                      if m == "jax" or m.startswith(("jax.", "jaxlib"))
                      or m == "repro" or m.startswith("repro."))
@@ -48,6 +53,22 @@ def test_sources_name_no_jax_and_no_repro():
                  for p in SOURCES for m in [pat.search(p.read_text())] if m}
     assert not offenders, offenders
     assert len(SOURCES) > 20
+    assert len(EXAMPLES) == 8
+
+
+@pytest.mark.parametrize("module", [
+    "repro_torch.sharding.specs", "repro_torch.sharding.shardwise",
+    "repro_torch.launch.mesh", "repro_torch.launch.analytic",
+    "repro_torch.launch.roofline", "repro_torch.launch.shapes",
+    "repro_torch.launch.dryrun", "repro_torch.launch.perf"])
+def test_launch_tooling_is_guarded(module):
+    """The launch tooling's modules are among those the guards above
+    import and scan; each names the reference module it ports (shardwise,
+    which has none, names the one whose rules it applies)."""
+    assert module in _modules()
+    text = (REPO / "src" / (module.replace(".", "/") + ".py")).read_text()
+    ref = module.replace("repro_torch.", "repro.")
+    assert ref in text or "repro_torch.sharding.shardwise" == module
 
 
 @pytest.mark.parametrize("module", ["repro_torch.serving.diffusion_engine",
