@@ -321,10 +321,12 @@ Phases (any failure raises, so the script exits non-zero):
      the card's name and power limit (``roofline_check``).
  38. the dry-run (``launch/dryrun.py``) on the host in a subprocess that
      sees no card: gemma-2b x decode_32k and olmoe-1b-7b x train_4k on the
-     256- and 512-rank fake meshes: each report's roofline terms (the H100
-     constants), collective counts and seconds, or the error of a
-     configuration this torch's DTensor refuses; gemma-2b x decode_32k on
-     16x16 must be ok (``dryrun_check``).
+     256- and 512-rank fake meshes, xlstm-125m x decode_32k and hymba-1.5b
+     x long_500k (uneven head splits) on 16x16: each report's roofline
+     terms (the H100 constants), collective counts, peak of live local
+     bytes and seconds, or the error of a configuration this torch's
+     DTensor refuses; gemma-2b x decode_32k on 16x16 and the two uneven
+     head splits must be ok (``dryrun_check``).
  39. ``examples/quickstart_torch.py`` on the card (``examples_check``).
  Phases 13 to 15 run after phase 8, before the sdxl-dit paths; phase 16
  after phase 10, 17 after 7, 18 after 16, 19 after 11, 20 after 17, 21
@@ -336,6 +338,7 @@ read just after (on every rank for the multi-rank paths). The
 second-to-last line is the kernels' JSON record, the last line the device
 record.
 """
+import concurrent.futures
 import dataclasses
 import json
 import math
@@ -3880,28 +3883,37 @@ def phase_roofline(ops, dev, smi, hymba_step_s):
 
 
 DRYRUN_LIMIT_S = 120   # a configuration's trace, then written as failed
+# configurations whose heads split unevenly over 'model' (xLSTM 4, Hymba 25)
+UNEVEN_HEADS = {("xlstm-125m", "decode_32k"), ("hymba-1.5b", "long_500k")}
 
 
 def phase_dryrun(smi):
     """The dry-run (repro_torch.launch.dryrun) on this machine's host, a
     subprocess a configuration that sees no card: gemma-2b x decode_32k
-    and olmoe-1b-7b x train_4k on the 256- and 512-rank fake meshes.
-    Prints each report (roofline terms, collective counts, seconds; or the
-    error of a configuration DTensor refused or whose trace took over
-    DRYRUN_LIMIT_S, as the CLI writes it). Fails when the CLI dies without
-    its report (each is deleted before its run, so a report is this run's),
-    when its exit code and the report's ``ok`` disagree, when gemma-2b x
-    decode_32k on 16x16 (the proof that the
-    fake backend and DTensor on meta run here) is not ok, or when an ok
+    and olmoe-1b-7b x train_4k on the 256- and 512-rank fake meshes, and
+    on 16x16 xlstm-125m x decode_32k and hymba-1.5b x long_500k, whose 4
+    and 25 heads split unevenly over 'model' (UNEVEN_HEADS). Prints each
+    report (roofline terms, collective counts, the peak of live local
+    bytes ``temp_size_in_bytes``, seconds; or the error of a configuration
+    DTensor refused or whose trace took over DRYRUN_LIMIT_S, as the CLI
+    writes it). Fails when the CLI dies without its report (each is
+    deleted before its run, so a report is this run's), when its exit code
+    and the report's ``ok`` disagree, when gemma-2b x decode_32k on 16x16
+    (the proof that the fake backend and DTensor on meta run here) is not
+    ok, when an UNEVEN_HEADS configuration is not ok, or when an ok
     report's roofline does not use the H100 constants."""
     repo = os.path.dirname(os.path.abspath(__file__))
     env = {**os.environ, "PYTHONPATH": os.path.join(repo, "src"),
            "CUDA_VISIBLE_DEVICES": ""}
-    out = []
-    for arch, shape, mesh in (("gemma-2b", "decode_32k", "pod16x16"),
-                              ("gemma-2b", "decode_32k", "pod2x16x16"),
-                              ("olmoe-1b-7b", "train_4k", "pod16x16"),
-                              ("olmoe-1b-7b", "train_4k", "pod2x16x16")):
+    configs = (("gemma-2b", "decode_32k", "pod16x16"),
+               ("gemma-2b", "decode_32k", "pod2x16x16"),
+               ("olmoe-1b-7b", "train_4k", "pod16x16"),
+               ("olmoe-1b-7b", "train_4k", "pod2x16x16"),
+               ("xlstm-125m", "decode_32k", "pod16x16"),
+               ("hymba-1.5b", "long_500k", "pod16x16"))
+
+    def run(config):
+        arch, shape, mesh = config
         path = os.path.join(repo, "results", "dryrun_torch",
                             f"{arch}__{shape}__{mesh}.json")
         if os.path.exists(path):        # a report left by an earlier run
@@ -3913,7 +3925,13 @@ def phase_dryrun(smi):
                            + (["--multi-pod"] if mesh == "pod2x16x16" else []),
                            capture_output=True, text=True, env=env, cwd=repo,
                            timeout=600)
-        seconds = time.perf_counter() - t0
+        return path, r, time.perf_counter() - t0
+
+    # all six at once, a process each: they use the host's cores, not the card
+    with concurrent.futures.ThreadPoolExecutor(len(configs)) as pool:
+        runs = list(pool.map(run, configs))
+    out = []
+    for (arch, shape, mesh), (path, r, seconds) in zip(configs, runs):
         died = (f"dryrun {arch} x {shape} x {mesh}: rc {r.returncode}\n"
                 f"{r.stdout[-2000:]}\n{r.stderr[-3000:]}")
         check(r.returncode in (0, 1) and os.path.exists(path),
@@ -3931,6 +3949,8 @@ def phase_dryrun(smi):
                          **{k: roof[k] for k in (
                              "compute_s", "memory_s", "collective_s",
                              "dominant", "raw_hlo_flops")},
+                         "temp_size_in_bytes":
+                             rep["memory_analysis"]["temp_size_in_bytes"],
                          "collective_counts": rep["collective_counts"],
                          "collective_bytes": rep["collective_bytes"],
                          "memory_analysis": rep["memory_analysis"]})
@@ -3942,6 +3962,10 @@ def phase_dryrun(smi):
                   f"dryrun {arch} x {shape} x {mesh}: roofline {roof}")
         else:
             line.update({"seconds": rep.get("seconds"), "error": rep["error"][:600]})
+        if (arch, shape) in UNEVEN_HEADS:
+            # 4 and 25 heads over a 'model' dim of 16: the head split and
+            # merge helpers, ok on every torch
+            check(rep["ok"], died + f"\nreport: {rep}")
         print("dryrun_check", json.dumps(line), flush=True)
         out.append(line)
     proof = out[0]

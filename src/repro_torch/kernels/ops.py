@@ -41,7 +41,8 @@ from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import ref
 from repro_torch.kernels import ssm_scan as ss
 from repro_torch.kernels import stale_kv_attention as skv
-from repro_torch.sharding.shardwise import is_dtensor, shardwise
+from repro_torch.sharding.shardwise import (heads_shardwise, is_dtensor,
+                                            shardwise, stand_in)
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parent / "build"
@@ -559,25 +560,13 @@ def _flash_attention(q, k, v, causal, window, prefix_len):
 
 
 def _flash_attention_sharded(q, k, v, causal, window, prefix_len):
-    """:func:`flash_attention` of DTensors, shard by shard over batch and
-    heads (:func:`repro_torch.sharding.shardwise.shardwise`). Where the
-    query heads are split over a mesh dim that does not divide the KV
-    heads, K and V are broadcast to the query heads first (GQA's
-    ``repeat_kv``), so that each shard holds the KV heads its query heads
-    read."""
-    from torch.distributed.tensor import Shard
-
-    H, K = q.shape[2], k.shape[2]
-    mesh = q.device_mesh
-    if K != H and any(isinstance(p, Shard) and p.dim == 2 and K % mesh.size(m)
-                      for m, p in enumerate(q.placements)):
-        k = k.repeat_interleave(H // K, dim=2)
-        v = v.repeat_interleave(H // K, dim=2)
-    d = (0, 2)
-    return shardwise(lambda q, k, v: (
-        ref.flash_attention_ref if q.is_meta else flash_attention)(
-            q, k, v, causal=causal, window=window, prefix_len=prefix_len),
-        (q, k, v), (d, d, d), (d,))
+    """:func:`flash_attention` of DTensors, shard by shard
+    (:func:`repro_torch.sharding.shardwise.heads_shardwise`); on ``meta`` shards the plain version stands
+    in for the kernel."""
+    mask = dict(causal=causal, window=window, prefix_len=prefix_len)
+    return heads_shardwise(lambda q, k, v: stand_in(
+        lambda *t: ref.flash_attention_ref(*t, **mask), q, k, v) if q.is_meta
+        else flash_attention(q, k, v, **mask), q, k, v)
 
 
 class _FlashAttention(torch.autograd.Function):
@@ -699,7 +688,7 @@ def _ssm_scan_shard(x, dt, b_t, c_t, a, d_skip, h0, *, final_state):
     shards the plain version."""
     if not x.is_meta:
         return ssm_scan(x, dt, b_t, c_t, a, d_skip, h0=h0, final_state=final_state)
-    y, h = ref.ssm_scan_ref(x, dt, b_t, c_t, a, d_skip, h0)
+    y, h = stand_in(ref.ssm_scan_ref, x, dt, b_t, c_t, a, d_skip, h0)
     return (y, h) if final_state else y
 
 

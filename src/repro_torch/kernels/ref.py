@@ -9,6 +9,7 @@ from typing import Optional
 import torch
 
 from repro_torch.models import layers
+from repro_torch.sharding.shardwise import FoldedLoop
 
 #: the finite masked-score sentinel of the reference's kernels
 #: (``repro.kernels.stale_kv_attention.NEG_INF``): exp(NEG_INF - m) is 0 and
@@ -168,12 +169,18 @@ def ssm_scan_ref(x, dt, b_t, c_t, a, d_skip, h0=None):
     a, d_skip = a.float(), d_skip.float()
     h = (torch.zeros(B, Di, b_t.shape[-1], dtype=torch.float32, device=x.device)
          if h0 is None else h0.float())
+    loop = FoldedLoop(S, x)
+    xf, dtf, bf, cf, a, d_skip, h = loop.enter(xf, dtf, bf, cf, a, d_skip, h)
     ys = []
-    for t in range(S):
-        da = torch.exp(dtf[:, t, :, None] * a[None])
-        h = da * h + (dtf[:, t] * xf[:, t])[..., None] * bf[:, t, None, :]
-        ys.append(torch.einsum("bdn,bn->bd", h, cf[:, t]) + d_skip * xf[:, t])
-    return torch.stack(ys, dim=1).to(x.dtype), h
+    with loop:
+        for t in loop.steps:
+            da = torch.exp(dtf[:, t, :, None] * a[None])
+            h = da * h + (dtf[:, t] * xf[:, t])[..., None] * bf[:, t, None, :]
+            ys.append(torch.einsum("bdn,bn->bd", h, cf[:, t]) + d_skip * xf[:, t])
+            h, = loop.carry(h)
+    ys = loop.stack(ys, 1)
+    h, = loop.leave(h)
+    return ys.to(x.dtype), h
 
 
 #: planted faults of :func:`ssm_scan_chunked_ref` at its first chunk

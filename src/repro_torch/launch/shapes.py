@@ -16,6 +16,7 @@ counterpart of ``jax.ShapeDtypeStruct``; parameters come from
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
@@ -25,7 +26,7 @@ from repro_torch.models import encdec, layers
 from repro_torch.models.api import Model, build_model
 from repro_torch.optim import adamw
 from repro_torch.sharding import specs as sh
-from repro_torch.sharding.shardwise import is_dtensor
+from repro_torch.sharding.shardwise import is_dtensor, phase_mark
 
 
 @dataclasses.dataclass(frozen=True)
@@ -81,6 +82,53 @@ def decode_window(cfg, shape: ShapeSpec) -> int:
     return 0
 
 
+def materialised(out, cache):
+    """A serving step's ``(logits, new cache)`` as a compiled step returns
+    them, with no partial sum left. A leaf's partial sum over a mesh dim is
+    reduced onto the dim that the leaf it replaces is split on there (the
+    ``cache_specs`` placements a server holds between steps; for the
+    logits, the batch dim over a batch mesh dim) where that dim still
+    splits evenly, else to a replica. The models place a replaced K/V
+    cache as the cache itself (``layers.placed_like``); the other leaves
+    (SSM and recurrent states) keep the shards the step gives them: the
+    reference's cache rule splits a stacked state's layer dim where the
+    depth divides the batch axes, and the depth probes' depths would then
+    move them differently. On plain tensors, ``out``."""
+    from repro_torch import tree as tree_lib
+
+    logits, new = out
+    if not is_dtensor(logits):
+        return out
+    from torch.distributed.tensor import Replicate, Shard
+
+    batch = sh.batch_axes(logits.device_mesh)
+    by_batch = [Shard(0) if name in batch else Replicate()
+                for name in logits.device_mesh.mesh_dim_names]
+    return (_reduced(logits, by_batch),
+            tree_lib.tree_map(lambda o, i: _reduced(o, i.placements)
+                              if is_dtensor(o) and is_dtensor(i) else o,
+                              new, cache))
+
+
+def _reduced(x, want):
+    """``x`` with each partial sum reduced to ``want``'s placement on its
+    mesh dim (:func:`materialised`)."""
+    from torch.distributed.tensor import Replicate
+
+    if not any(p.is_partial() for p in x.placements):
+        return x
+    mesh = x.device_mesh
+    pl = list(x.placements)
+    for i, (p, w, n) in enumerate(zip(x.placements, want, mesh.shape)):
+        if p.is_partial():
+            d = w.dim if w.is_shard() else None
+            split = math.prod(m for q, m in zip(pl, mesh.shape)
+                              if q.is_shard() and q.dim == d)
+            pl[i] = (w if d is not None and x.shape[d] % (split * n) == 0
+                     else Replicate())
+    return x.redistribute(mesh, pl)
+
+
 def _tree_placements(specs, mesh):
     if isinstance(specs, dict):
         return {k: _tree_placements(v, mesh) for k, v in specs.items()}
@@ -129,11 +177,13 @@ def build_lowerable(arch: str, shape_name: str, cfg=None,
             for p in leaves:
                 p.requires_grad_(True)
             loss = model.loss(params, batch)
+            phase_mark()
             # each gradient reduced to its parameter's placement, as a
             # data-parallel trainer reduces it, before the update reads it
             grads = tree_lib.unflatten(params, [
                 g.redistribute(p.device_mesh, p.placements) if is_dtensor(g) else g
                 for g, p in zip(torch.autograd.grad(loss, leaves), leaves)])
+            phase_mark()
             with torch.no_grad():
                 params, opt_state = adamw.adamw_update(
                     params, grads, opt_state, opt_cfg)
@@ -161,7 +211,8 @@ def build_lowerable(arch: str, shape_name: str, cfg=None,
 
         def prefill_fn(params, batch, cache):
             with torch.no_grad():
-                return model.prefill(params, batch, cache, window=window)
+                return materialised(
+                    model.prefill(params, batch, cache, window=window), cache)
 
         def shardings(mesh):
             return done((param_sp(mesh),
@@ -185,7 +236,8 @@ def build_lowerable(arch: str, shape_name: str, cfg=None,
 
     def decode_fn(params, cache, token):
         with torch.no_grad():
-            return model.decode_step(params, cache, token, window=window)
+            return materialised(
+                model.decode_step(params, cache, token, window=window), cache)
 
     def shardings(mesh):
         return done((param_sp(mesh),

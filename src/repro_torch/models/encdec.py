@@ -23,6 +23,7 @@ import torch
 
 from repro_torch.models import layers
 from repro_torch.models.hymba import _layers, _stack
+from repro_torch.sharding.shardwise import phase_mark
 
 
 def tgt_len_for(src_len: int) -> int:
@@ -65,20 +66,19 @@ def encode(params, cfg, src_embeds):
         x = layers.constrain_residual(x, cfg)
         x = x + layers.bidirectional_attention(
             p["attn"], layers.rms_norm(x, p["ln1"], cfg.norm_eps), cfg)
-        x = x + layers.mlp(p["mlp"], layers.rms_norm(x, p["ln2"], cfg.norm_eps),
-                           cfg.activation)
+        x = layers.grad_as_value(x + layers.mlp(
+            p["mlp"], layers.rms_norm(x, p["ln2"], cfg.norm_eps), cfg.activation))
     return layers.rms_norm(x, params["enc_ln_f"], cfg.norm_eps)
 
 
 def cross_kv(params, cfg, memory):
     """Each decoder layer's cross-attention K/V of ``memory``, stacked:
     (k, v) [L,B,Ss,K,hd]."""
-    B, Ss, _ = memory.shape
     ks, vs = [], []
     for blk in _layers(params["dec_blocks"]):
         p = blk["xattn"]
-        ks.append((memory @ p["wk"]).reshape(B, Ss, cfg.n_kv_heads, cfg.hd))
-        vs.append((memory @ p["wv"]).reshape(B, Ss, cfg.n_kv_heads, cfg.hd))
+        ks.append(layers.split_heads(memory @ p["wk"], (cfg.n_kv_heads, cfg.hd)))
+        vs.append(layers.split_heads(memory @ p["wv"], (cfg.n_kv_heads, cfg.hd)))
     return torch.stack(ks), torch.stack(vs)
 
 
@@ -109,6 +109,7 @@ def decode_forward(params, cfg, tgt_tokens, memory, *, window: int = 0,
     kvs = []
     for i, p in enumerate(_layers(params["dec_blocks"])):
         x, kv = _dec_block(p, x, cfg, (mk[i], mv[i]), window=window)
+        x = layers.grad_as_value(x)
         if return_kv:
             kvs.append(kv)
     if logits_last_only:
@@ -121,6 +122,7 @@ def decode_forward(params, cfg, tgt_tokens, memory, *, window: int = 0,
 def loss_fn(params, cfg, batch):
     """batch: src_embeds [B,Ss,D], tgt_tokens [B,St], labels [B,St]."""
     memory = encode(params, cfg, batch["src_embeds"])
+    phase_mark()
     logits, _, _ = decode_forward(params, cfg, batch["tgt_tokens"], memory)
     return layers.cross_entropy(logits[:, :-1], batch["labels"][:, 1:])
 
@@ -151,6 +153,7 @@ def prefill(params, cfg, src_embeds, tgt_tokens, cache, *, window: int = 0):
     where decode expects them (ring slot ``p % T``; ``layers.ring_kv``).
     The cross K/V replace the cache's."""
     memory = encode(params, cfg, src_embeds)
+    phase_mark()
     logits, (k, v), (mk, mv) = decode_forward(params, cfg, tgt_tokens, memory,
                                               window=window, return_kv=True,
                                               logits_last_only=True)
@@ -161,13 +164,16 @@ def prefill(params, cfg, src_embeds, tgt_tokens, cache, *, window: int = 0):
             k, v = layers.ring_kv(k, T), layers.ring_kv(v, T)
         else:                           # a full cache too short: the last T,
             k, v = k[:, :, S - T:], v[:, :, S - T:]    # and decode raises
-        cache = {**cache, "k": k.to(cache["k"].dtype), "v": v.to(cache["v"].dtype)}
+        cache = {**cache,
+                 "k": layers.placed_like(k.to(cache["k"].dtype), cache["k"]),
+                 "v": layers.placed_like(v.to(cache["v"].dtype), cache["v"])}
     else:
         cache["k"][:, :, :S] = k
         cache["v"][:, :, :S] = v
     dt = cache["mem_k"].dtype
-    return logits[:, -1], {**cache, "mem_k": mk.to(dt), "mem_v": mv.to(dt),
-                           "pos": S}
+    return logits[:, -1], {
+        **cache, "mem_k": layers.placed_like(mk.to(dt), cache["mem_k"]),
+        "mem_v": layers.placed_like(mv.to(dt), cache["mem_v"]), "pos": S}
 
 
 def decode_step(params, cfg, cache, token, *, window: int = 0):

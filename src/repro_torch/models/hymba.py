@@ -111,6 +111,7 @@ def forward(params, cfg, tokens, ssm_states=None, *, window: int = None,
     kvs, states = [], []
     for p, st0 in zip(_layers(params["blocks"]), _layers(ssm_states)):
         x, kv, st = _block(p, x, cfg, st0, window=window)
+        x = layers.grad_as_value(x)
         if return_kv:
             kvs.append(kv)
         states.append(st)
@@ -157,8 +158,10 @@ def prefill(params, cfg, tokens, cache, *, window: int = 0):
     T = cache["k"].shape[2]
     S_tot = k.shape[2]
     if S_tot > T:                                     # ring: meta + last (T-M)
-        cache = {**cache, "k": layers.ring_kv(k, T, M).to(cache["k"].dtype),
-                 "v": layers.ring_kv(v, T, M).to(cache["v"].dtype)}
+        cache = {**cache, "k": layers.placed_like(
+                     layers.ring_kv(k, T, M).to(cache["k"].dtype), cache["k"]),
+                 "v": layers.placed_like(
+                     layers.ring_kv(v, T, M).to(cache["v"].dtype), cache["v"])}
     else:                                             # written in place
         cache["k"][:, :, :S_tot] = k
         cache["v"][:, :, :S_tot] = v

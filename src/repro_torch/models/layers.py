@@ -20,7 +20,8 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import ops
-from repro_torch.sharding.shardwise import is_dtensor
+from repro_torch.sharding.shardwise import (heads_shardwise, is_dtensor,
+                                            strided_shards_search)
 
 
 # ----------------------------------------------------------------------
@@ -113,7 +114,18 @@ def repeat_kv(kv, n_rep: int):
 def attend(q, k, v, *, mask=None, scale: Optional[float] = None):
     """q: [B,S,H,hd]; k,v: [B,T,K,hd] with K | H. mask: broadcastable
     [B,1,S,T] bool. Returns [B,S,H,hd]. fp32 softmax; the probabilities are
-    cast to v's dtype before the product, as in the JAX reference."""
+    cast to v's dtype before the product, as in the JAX reference. On
+    DTensors (the dry-run) on a mesh where strided shards cost a search
+    (``shardwise.strided_shards_search``), and keys not split over T, shard
+    by shard over the K/V's batch and heads (``shardwise.heads_shardwise``), as
+    K6 runs: DTensor would fold batch and split heads into a ``bmm``'s
+    batch dim. (A cache split over T, where its KV heads do not divide
+    'model', keeps DTensor's own split of the scores over T.)"""
+    if (is_dtensor(q) and strided_shards_search(q.device_mesh)
+            and not any(p.is_shard(1) for p in k.placements)):
+        return heads_shardwise(
+            lambda q, k, v: attend(q, k, v, mask=mask, scale=scale), q, k, v,
+            kv_lead=True)
     H, hd = q.shape[2], q.shape[3]
     k = repeat_kv(k, H // k.shape[2])
     v = repeat_kv(v, H // v.shape[2])
@@ -157,10 +169,9 @@ def init_attention(gen: torch.Generator, cfg, d_model: Optional[int] = None,
 
 
 def attention_qkv(p, x, cfg, positions):
-    B, S, _ = x.shape
-    q = (x @ p["wq"]).reshape(B, S, cfg.n_heads, cfg.hd)
-    k = (x @ p["wk"]).reshape(B, S, cfg.n_kv_heads, cfg.hd)
-    v = (x @ p["wv"]).reshape(B, S, cfg.n_kv_heads, cfg.hd)
+    q = split_heads(x @ p["wq"], (cfg.n_heads, cfg.hd))
+    k = split_heads(x @ p["wk"], (cfg.n_kv_heads, cfg.hd))
+    v = split_heads(x @ p["wv"], (cfg.n_kv_heads, cfg.hd))
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
     return q, k, v
@@ -175,36 +186,35 @@ def self_attention(p, x, cfg, *, positions=None, window: int = 0,
     mask of the reference's naive path and of its ``chunked_attend``.
     Returns (out [B, S, D], (k, v) [B, S, K, hd]). Under autograd K6's
     backward is the plain version's."""
-    B, S, _ = x.shape
+    S = x.shape[1]
     if positions is None:
         positions = torch.arange(S, device=x.device)[None, :]
     q, k, v = attention_qkv(p, x, cfg, positions)
     out = ops.flash_attention(q, k, v, causal=True, window=window,
                               prefix_len=prefix_len)
-    return out.reshape(B, S, -1) @ p["wo"], (k, v)
+    return merge_heads(out) @ p["wo"], (k, v)
 
 
 def bidirectional_attention(p, x, cfg, positions=None):
     """Full-sequence attention without a mask (the enc-dec encoder): rope on
     q and k, then K6 in its non-causal form over the S keys. Returns
     [B, S, D]."""
-    B, S, _ = x.shape
+    S = x.shape[1]
     if positions is None:
         positions = torch.arange(S, device=x.device)[None, :]
     q, k, v = attention_qkv(p, x, cfg, positions)
     out = ops.flash_attention(q, k, v, causal=False)
-    return out.reshape(B, S, -1) @ p["wo"]
+    return merge_heads(out) @ p["wo"]
 
 
 def cross_attention(p, x, memory_kv, cfg):
     """x: [B,S,D] queries (no rope) over ``memory_kv`` = (k, v) [B,T,K,hd]
     precomputed from the encoder's output: K6 in its non-causal form at any
     S, the decode's S = 1 included. Returns [B, S, D]."""
-    B, S, _ = x.shape
-    q = (x @ p["wq"]).reshape(B, S, cfg.n_heads, cfg.hd)
+    q = split_heads(x @ p["wq"], (cfg.n_heads, cfg.hd))
     k, v = memory_kv
     out = ops.flash_attention(q, k, v, causal=False)
-    return out.reshape(B, S, -1) @ p["wo"]
+    return merge_heads(out) @ p["wo"]
 
 
 def decode_attention(p, x, cfg, cache_k, cache_v, pos: int, *, window: int = 0,
@@ -223,9 +233,9 @@ def decode_attention(p, x, cfg, cache_k, cache_v, pos: int, *, window: int = 0,
     views in place; returns out [B,1,D]."""
     B = x.shape[0]
     T = cache_k.shape[1]
-    q = (x @ p["wq"]).reshape(B, 1, cfg.n_heads, cfg.hd)
-    k = (x @ p["wk"]).reshape(B, 1, cfg.n_kv_heads, cfg.hd)
-    v = (x @ p["wv"]).reshape(B, 1, cfg.n_kv_heads, cfg.hd)
+    q = split_heads(x @ p["wq"], (cfg.n_heads, cfg.hd))
+    k = split_heads(x @ p["wk"], (cfg.n_kv_heads, cfg.hd))
+    v = split_heads(x @ p["wv"], (cfg.n_kv_heads, cfg.hd))
     posv = torch.full((B, 1), pos, dtype=torch.int32, device=x.device)
     q = apply_rope(q, posv, cfg.rope_theta)
     k = apply_rope(k, posv, cfg.rope_theta)
@@ -245,7 +255,7 @@ def decode_attention(p, x, cfg, cache_k, cache_v, pos: int, *, window: int = 0,
     cache_v[:, slot] = v[:, 0].to(cache_v.dtype)
     valid = (torch.arange(T, device=x.device) < n_valid)[None, None, None, :]
     out = attend(q, cache_k, cache_v, mask=valid)
-    return out.reshape(B, 1, -1) @ p["wo"]
+    return merge_heads(out) @ p["wo"]
 
 
 def ring_kv(kv, T: int, prefix_len: int = 0):
@@ -279,6 +289,155 @@ def constrain_residual(x, cfg):
             "model": Shard(1) if cfg.act_shard == "seqpar" else Replicate()}
     return x.redistribute(x.device_mesh, [want.get(n, Replicate())
                                           for n in x.device_mesh.mesh_dim_names])
+
+
+# ----------------------------------------------------------------------
+# DTensor placements (the dry-run; each passes plain tensors through)
+# ----------------------------------------------------------------------
+#
+# DTensor resolves a placement only one way or refuses it, where GSPMD
+# reshards implicitly: a view that splits or merges a dim whose shards do
+# not divide it is refused, and a fold of [B, S] whose S (or an uneven B)
+# is split yields strided shards, whose redistributions DTensor plans by a
+# graph search that takes minutes an op on a 3-D mesh. The helpers below
+# place such tensors, and their gradients, explicitly.
+
+def split_heads(x, dims):
+    """``[..., prod(dims)] -> [..., *dims]`` (``dims`` e.g. ``(H, hd)``):
+    on a plain tensor, ``reshape``. On a DTensor, a mesh dim that would
+    split the last dim unevenly, or that splits the sequence dim, moves
+    first (:func:`_even_for_view`), and so does one of the gradient's
+    before the backward merges it."""
+    shape = tuple(x.shape[:-1]) + tuple(dims)
+    if not is_dtensor(x):
+        return x.reshape(shape)
+    y = _even_for_view(x, (x.ndim - 1,), dims[0]).reshape(shape)
+    back = tuple(range(x.ndim - 1, y.ndim))
+    return _PlaceGrad.apply(y, lambda g: _even_for_view(g, back, dims[0]))
+
+
+def merge_heads(x, n: int = 2):
+    """``[..., a, b] -> [..., a * b]`` over the last ``n`` dims: on a plain
+    tensor, ``reshape``; on a DTensor, as :func:`split_heads`."""
+    shape = tuple(x.shape[:-n]) + (-1,)
+    if not is_dtensor(x):
+        return x.reshape(shape)
+    lead = x.shape[-n]
+    y = _even_for_view(x, tuple(range(x.ndim - n, x.ndim)), lead).reshape(shape)
+    last = y.ndim - 1
+    return _PlaceGrad.apply(y, lambda g: _even_for_view(g, (last,), lead))
+
+
+def _even_for_view(x, dims, lead: int):
+    """``x`` placed so that DTensor can split or merge ``dims`` (heads and
+    head dim) evenly. In order of preference, a mesh dim that splits one of
+    ``dims`` or the sequence dim (1): (1) splits the first of ``dims``
+    (the heads), where the shards so far still divide ``lead`` (the head
+    count); (2) else replicates. The sequence dim is not kept split: the
+    attention and the recurrences run shard by shard over batch and heads
+    and would gather it again, and the next matmul would fold it into
+    strided shards. Partial sums and shards of the batch dim stay."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    out = list(x.placements)
+    kept = 1
+    for i, (pl, n) in enumerate(zip(x.placements, x.device_mesh.shape)):
+        d = None if pl.is_replicate() or pl.is_partial() else pl.dim
+        if d not in dims and d != 1:
+            continue
+        if lead % (kept * n) == 0 and (d == dims[0] and pl.is_shard()
+                                       or d not in dims):
+            out[i] = Shard(dims[0])
+            kept *= n
+        else:
+            out[i] = Replicate()
+    return x if out == list(x.placements) else x.redistribute(x.device_mesh, out)
+
+
+def grad_as_value(x):
+    """``x``; on a DTensor under autograd on a mesh where strided shards
+    cost a search (``shardwise.strided_shards_search``), its gradient is
+    placed as ``x`` is (where ``x`` is a partial sum: a replica, or the
+    gradient's own partial sum): GSPMD's rule that a cotangent is sharded
+    like its value, applied to each block's output. DTensor's backward of a
+    norm otherwise moves the residual's shards onto the sequence dim, which
+    the next matmul folds into strided shards."""
+    if not (is_dtensor(x) and torch.is_grad_enabled() and x.requires_grad
+            and strided_shards_search(x.device_mesh)):
+        return x
+    from torch.distributed.tensor import Replicate
+
+    mesh, value = x.device_mesh, x.placements      # not x: the closure outlives it
+
+    def place(g):
+        want = [(q if q.is_partial() or q.is_replicate() else Replicate())
+                if p.is_partial() else p for p, q in zip(value, g.placements)]
+        return g if want == list(g.placements) else g.redistribute(mesh, want)
+    return _PlaceGrad.apply(x, place)
+
+
+def tokens_whole(x, grad_only: bool = False):
+    """``x`` [B, ..., D] with no mesh dim splitting its inner token dims
+    (1 to ndim - 2) and none splitting B unevenly (each such mesh dim
+    replicates), and its gradient placed so too; with ``grad_only``, only
+    the gradient. (``launch.dryrun`` applies it around a matmul that folds
+    the token dims, where either split would become a strided shard.)"""
+    if not is_dtensor(x):
+        return x
+    if not grad_only:
+        x = _tokens_whole(x)
+    if torch.is_grad_enabled() and x.requires_grad:
+        x = _PlaceGrad.apply(x, _tokens_whole)
+    return x
+
+
+def _tokens_whole(x):
+    from torch.distributed.tensor import Replicate
+
+    pl, split = list(x.placements), 1
+    for i, (p, n) in enumerate(zip(x.placements, x.device_mesh.shape)):
+        d = None if p.is_replicate() or p.is_partial() else p.dim
+        if d == 0 and p.is_shard() and x.shape[0] % (split * n) == 0:
+            split *= n
+        elif d is not None and d < x.ndim - 1:
+            pl[i] = Replicate()
+    return x if pl == list(x.placements) else x.redistribute(x.device_mesh, pl)
+
+
+class _PlaceGrad(torch.autograd.Function):
+    """The identity; its backward places a DTensor gradient by ``place``."""
+
+    @staticmethod
+    def forward(ctx, y, place):
+        ctx.place = place
+        return y.view_as(y)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (ctx.place(g) if is_dtensor(g) else g), None
+
+
+def placed_like(x, ref):
+    """``x`` redistributed to ``ref``'s placements when both are DTensors
+    (a step's new cache leaf placed as the cache it replaces); else ``x``."""
+    if is_dtensor(x) and is_dtensor(ref) and x.placements != ref.placements:
+        return x.redistribute(ref.device_mesh, ref.placements)
+    return x
+
+
+def elementwise(fn, x):
+    """``fn(x)`` for an elementwise ``fn``; on a DTensor, ``fn`` runs on
+    each rank's shard (partial sums reduced first), for the ops DTensor has
+    no sharding rule for (``logsigmoid``'s backward)."""
+    if not is_dtensor(x):
+        return fn(x)
+    from torch.distributed.tensor import Replicate
+    from torch.distributed.tensor.experimental import local_map
+
+    pl = [Replicate() if p.is_partial() else p for p in x.placements]
+    if pl != list(x.placements):
+        x = x.redistribute(x.device_mesh, pl)
+    return local_map(fn, pl, (pl,), device_mesh=x.device_mesh)(x)
 
 
 # ----------------------------------------------------------------------

@@ -117,6 +117,7 @@ def forward(params, cfg, tokens, *, vision_embeds=None, window: int = 0,
     for p in _layers(params["blocks"]):
         x, kv, a = _block(p, x, cfg, window=window,
                           prefix_len=prefix_len)
+        x = layers.grad_as_value(x)
         aux = aux + a
         if return_kv:
             kvs.append(kv)
@@ -181,7 +182,9 @@ def prefill(params, cfg, tokens, cache, *, vision_embeds=None, window: int = 0):
             k, v = layers.ring_kv(k, T, P), layers.ring_kv(v, T, P)
         else:                           # a full cache too short: the last T,
             k, v = k[:, :, S - T:], v[:, :, S - T:]    # and decode raises
-        cache = {**cache, "k": k.to(cache["k"].dtype), "v": v.to(cache["v"].dtype)}
+        cache = {**cache,
+                 "k": layers.placed_like(k.to(cache["k"].dtype), cache["k"]),
+                 "v": layers.placed_like(v.to(cache["v"].dtype), cache["v"])}
     else:
         cache["k"][:, :, :S] = k
         cache["v"][:, :, :S] = v

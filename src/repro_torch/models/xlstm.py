@@ -25,7 +25,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models import layers
-from repro_torch.sharding.shardwise import shardwise
+from repro_torch.sharding.shardwise import FoldedLoop, shardwise
 
 
 def _d_inner(cfg) -> int:
@@ -130,7 +130,7 @@ def _mlstm_proj(p, xb, cfg, conv_state):
     [B,S,H,dh] f32, logi/logf [B,S,H] f32, z [B,S,Di], the new conv state:
     the last ``ssm_conv - 1`` projected inputs, so that a decode step
     continues a prefill's causal conv)."""
-    B, S, _ = xb.shape
+    S = xb.shape[1]
     Di, H = _d_inner(cfg), cfg.n_heads
     dh = Di // H
     x_br, z = (xb @ p["w_up"]).chunk(2, dim=-1)
@@ -140,35 +140,39 @@ def _mlstm_proj(p, xb, cfg, conv_state):
     W = w.shape[0]
     xc = F.silu(sum(pad[:, i:i + S] * w[i] for i in range(W)))
     new_conv = pad[:, -(W - 1):] if W > 1 else conv_state
-    q = (xc @ p["wq"]).reshape(B, S, H, dh).float() / math.sqrt(dh)
-    k = (xc @ p["wk"]).reshape(B, S, H, dh).float() / math.sqrt(dh)
-    v = (x_br @ p["wv"]).reshape(B, S, H, dh).float()
+    q = layers.split_heads(xc @ p["wq"], (H, dh)).float() / math.sqrt(dh)
+    k = layers.split_heads(xc @ p["wk"], (H, dh)).float() / math.sqrt(dh)
+    v = layers.split_heads(x_br @ p["wv"], (H, dh)).float()
     gates = xc.float() @ p["w_if"] + p["b_if"]
-    logi, logf = gates[..., :H], F.logsigmoid(gates[..., H:])
+    logi, logf = gates[..., :H], layers.elementwise(F.logsigmoid, gates[..., H:])
     return q, k, v, logi, logf, z, new_conv
 
 
 def mlstm_forward(p, x, cfg, state):
     """x: [B,S,D] -> (y [B,S,D], new state). Sequential over S."""
-    B, S, _ = x.shape
     xb = layers.rms_norm(x, p["ln"], cfg.norm_eps)
     q, k, v, logi, logf, z, new_conv = _mlstm_proj(p, xb, cfg, state["conv"])
     bh = (0, 2)                                        # [B, S, H, ...]
     hs, C, n, m = shardwise(
         _mlstm_scan, (q, k, v, logi, logf, state["C"], state["n"], state["m"]),
         (bh,) * 5 + ((0, 1),) * 3, (bh,) + ((0, 1),) * 3)
-    h = hs.reshape(B, S, -1).to(x.dtype) * F.silu(z)
+    h = layers.merge_heads(hs).to(x.dtype) * F.silu(z)
     return x + h @ p["w_down"], {"C": C, "n": n, "m": m, "conv": new_conv}
 
 
 def _mlstm_scan(q, k, v, logi, logf, C, n, m):
     """The recurrence over the S steps: (h [B,S,H,dh], C, n, m)."""
+    loop = FoldedLoop(q.shape[1], q)
+    q, k, v, logi, logf, C, n, m = loop.enter(q, k, v, logi, logf, C, n, m)
     hs = []
-    for t in range(q.shape[1]):
-        C, n, m, h = _mlstm_cell_step(C, n, m, q[:, t], k[:, t], v[:, t],
-                                      logi[:, t], logf[:, t])
-        hs.append(h)
-    return torch.stack(hs, dim=1), C, n, m
+    with loop:
+        for t in loop.steps:
+            C, n, m, h = _mlstm_cell_step(C, n, m, q[:, t], k[:, t], v[:, t],
+                                          logi[:, t], logf[:, t])
+            hs.append(h)
+            C, n, m = loop.carry(C, n, m)
+    hs = loop.stack(hs, 1)
+    return (hs, *loop.leave(C, n, m))
 
 
 # ----------------------------------------------------------------------
@@ -205,31 +209,36 @@ def slstm_forward(p, x, cfg, state):
     """x: [B,S,D] -> (y [B,S,D], new state). The input gates of every step
     are one product (the reference takes ``x_t @ w_x`` a step); the
     recurrence is sequential over S."""
-    B, S, D = x.shape
+    D = x.shape[-1]
     H = cfg.n_heads
     dh = D // H
     xb = layers.rms_norm(x, p["ln"], cfg.norm_eps)
     gx = xb @ p["w_x"] + p["b"].to(xb.dtype)           # [B,S,4D]
     # w_x packs gates as [z|i|f|o] each D wide = H*dh; regroup per head
-    gx = gx.float().reshape(B, S, 4, H, dh).transpose(2, 3).reshape(B, S, H, 4 * dh)
+    gx = layers.merge_heads(
+        layers.split_heads(gx.float(), (4, H, dh)).transpose(2, 3))
     keys = ("c", "n", "h", "m")
     bh, st = (0, 2), (0, 1)
     hs, *new = shardwise(
         _slstm_scan, (gx, p["r_h"].float()) + tuple(state[k] for k in keys),
         (bh, (None, 0)) + (st,) * 4, (bh,) + (st,) * 4)
-    hs = hs.reshape(B, S, D).to(x.dtype)               # [B,S,D]
+    hs = layers.merge_heads(hs).to(x.dtype)            # [B,S,D]
     return x + hs @ p["w_down"], dict(zip(keys, new))
 
 
 def _slstm_scan(gx, r_h, c, n, h, m):
     """The recurrence over the S steps: (h [B,S,H,dh], c, n, h, m)."""
+    loop = FoldedLoop(gx.shape[1], gx)
+    gx, r_h, c, n, h, m = loop.enter(gx, r_h, c, n, h, m)
     state = {"c": c, "n": n, "h": h, "m": m}
     hs = []
-    for t in range(gx.shape[1]):
-        state, h = _slstm_step(r_h, state, gx[:, t])
-        hs.append(h)
-    return (torch.stack(hs, dim=1), state["c"], state["n"], state["h"],
-            state["m"])
+    with loop:
+        for t in loop.steps:
+            state, h = _slstm_step(r_h, state, gx[:, t])
+            hs.append(h)
+            state = dict(zip(state, loop.carry(*state.values())))
+    hs = loop.stack(hs, 1)
+    return (hs, *loop.leave(state["c"], state["n"], state["h"], state["m"]))
 
 
 # ----------------------------------------------------------------------
@@ -254,6 +263,7 @@ def forward(params, cfg, tokens, state=None, *, logits_last_only: bool = False):
     for i, p in enumerate(params["blocks"]):
         fwd = slstm_forward if is_slstm(cfg, i) else mlstm_forward
         x, st = fwd(p, x, cfg, state[i])
+        x = layers.grad_as_value(x)
         new_states.append(st)
     if logits_last_only:
         x = x[:, -1:]

@@ -17,6 +17,7 @@ from typing import Any, Tuple
 import torch
 
 from repro_torch import tree as tree_lib
+from repro_torch.sharding.shardwise import phase_mark
 
 
 @dataclasses.dataclass(frozen=True)
@@ -50,7 +51,9 @@ def adamw_update(params, grads, state, cfg: AdamWConfig, lr_scale=1.0
     """One step: (new params, new state). ``lr_scale`` a number or a 0-d
     tensor (a schedule's value). The step count, the bias corrections and
     the learning rate are 0-d float32 tensors on the CPU, which enter the
-    card's products as numbers (no copy, no synchronization)."""
+    card's products as numbers (no copy, no synchronization). Each leaf's
+    update closes a segment of the dry-run's memory
+    (``shardwise.phase_mark``; nothing outside it)."""
     grads, _ = clip_by_global_norm(grads, cfg.grad_clip)
     count = state["count"] + 1
     b1c = 1.0 - torch.tensor(cfg.b1, dtype=torch.float32) ** count.float()
@@ -69,9 +72,12 @@ def adamw_update(params, grads, state, cfg: AdamWConfig, lr_scale=1.0
         return newp.to(p.dtype), mu, nu
 
     flat_p = tree_lib.leaves(params)
-    out = [upd(p, g, m, n) for p, g, m, n in zip(
-        flat_p, tree_lib.leaves(grads), tree_lib.leaves(state["mu"]),
-        tree_lib.leaves(state["nu"]))]
+    out = []
+    for p, g, m, n in zip(flat_p, tree_lib.leaves(grads),
+                          tree_lib.leaves(state["mu"]),
+                          tree_lib.leaves(state["nu"])):
+        out.append(upd(p, g, m, n))
+        phase_mark()
     new_p = tree_lib.unflatten(params, [o[0] for o in out])
     new_mu = tree_lib.unflatten(params, [o[1] for o in out])
     new_nu = tree_lib.unflatten(params, [o[2] for o in out])

@@ -31,6 +31,15 @@ _NO_SHARDED_FLATTEN = pytest.mark.skipif(
     "sharded sequence dim into the batch (a matmul's or the MoE dispatch's "
     "reshape of [B, S, ...] with S split)")
 
+_NO_ROLL = pytest.mark.skipif(
+    _TORCH < (2, 13), reason="DTensor before torch 2.13 has no sharding "
+    "strategy for aten.roll (a prompt longer than Hymba's ring places its "
+    "K/V with layers.ring_kv)")
+_NO_TWO_MESH_DIM_SPLIT = pytest.mark.skipif(
+    _TORCH < (2, 13), reason="DTensor before torch 2.13 refuses most ops on "
+    "a dim split over two mesh dims (the batch over 'pod' and 'data' of "
+    "the 3-D mesh)")
+
 _PRELUDE = """
 import json, torch
 from torch.distributed.device_mesh import init_device_mesh
@@ -45,7 +54,7 @@ def fake_mesh(shape, names=("data", "model")):
     return init_device_mesh("cuda", shape, mesh_dim_names=names)
 def tally_dict(t):
     return {"flops": t.flops, "bytes": t.bytes, "out_bytes": t.out_bytes,
-            "view_copies": t.view_copies, "coll": t.records()}
+            "peak": t.peak, "view_copies": t.view_copies, "coll": t.records()}
 """
 
 
@@ -107,6 +116,7 @@ def test_report_keys_and_argument_bytes():
     assert rep["ok"] is True and rep["chips"] == 8
     assert rep["memory_analysis"]["argument_size_in_bytes"] == out["want"]
     assert rep["memory_analysis"]["output_size_in_bytes"] > 0
+    assert rep["memory_analysis"]["temp_size_in_bytes"] > 0
     assert rep["cost_analysis"]["flops"] > 0
     assert rep["collective_counts"]["all-reduce"] > 0
     roof = rep["roofline"]
@@ -114,22 +124,42 @@ def test_report_keys_and_argument_bytes():
     assert roof["compute_s"] == roof["flops_per_device"] / 989e12
 
 
-@pytest.mark.parametrize("arch,shape_kind,full", [
-    ("yi-9b", "train", {"n_layers": 4}),
-    pytest.param("olmoe-1b-7b", "train", {"n_layers": 4},
-                 marks=_NO_SHARDED_FLATTEN),
-    ("hymba-1.5b", "prefill", {"n_layers": 4}),
-    ("seamless-m4t-medium", "prefill", {"n_enc_layers": 4, "n_layers": 4}),
-    ("xlstm-125m", "prefill", {"n_layers": 8}),
+_MESH2 = ((2, 4), ("data", "model"))
+_MESH3 = ((2, 2, 4), ("pod", "data", "model"))
+
+
+@pytest.mark.parametrize("arch,shape_kind,full,mesh", [
+    pytest.param("yi-9b", "train", {"n_layers": 8}, _MESH2,
+                 id="yi-9b-train-full0"),
+    pytest.param("olmoe-1b-7b", "train", {"n_layers": 8}, _MESH2,
+                 marks=_NO_SHARDED_FLATTEN, id="olmoe-1b-7b-train-full1"),
+    pytest.param("hymba-1.5b", "prefill", {"n_layers": 7}, _MESH2,
+                 id="hymba-1.5b-prefill-full2"),
+    pytest.param("seamless-m4t-medium", "prefill",
+                 {"n_enc_layers": 7, "n_layers": 8}, _MESH2,
+                 id="seamless-m4t-medium-prefill-full3"),
+    pytest.param("xlstm-125m", "prefill", {"n_layers": 8}, _MESH2,
+                 id="xlstm-125m-prefill-full4"),
+    # the 3-D mesh of the multi-pod production mesh, and the xLSTM's
+    # train step (4 heads: its recurrences' loops folded on meta, the
+    # backward's too)
+    pytest.param("gemma-2b", "train", {"n_layers": 8}, _MESH3,
+                 marks=_NO_TWO_MESH_DIM_SPLIT, id="gemma-2b-train-pod2x2x4"),
+    pytest.param("hymba-1.5b", "train", {"n_layers": 8}, _MESH3,
+                 marks=_NO_TWO_MESH_DIM_SPLIT, id="hymba-1.5b-train-pod2x2x4"),
+    pytest.param("xlstm-125m", "train", {"n_layers": 8}, _MESH2,
+                 id="xlstm-125m-train-full5"),
 ])
-def test_depth_probe_equals_full_trace(arch, shape_kind, full):
+def test_depth_probe_equals_full_trace(arch, shape_kind, full, mesh):
     """The probes' extrapolation equals the full-depth trace: FLOPs,
     output bytes and the collectives' counts and bytes per kind and mesh
-    dim exactly; the bytes accessed within 1% (DTensor's own local helpers
-    in a redistribution, such as an ``arange`` or a ``cat``, do not scale
-    with depth)."""
+    dim exactly; the bytes accessed and the peak of live bytes within 1%
+    (DTensor's own local helpers in a redistribution, such as an
+    ``arange`` or a ``cat``, do not scale with depth; nor does an xLSTM
+    block's live set exactly, whose leaves are a list a block)."""
+    shape, names = mesh
     out = _run(f"""
-        mesh = fake_mesh((2, 4))
+        mesh = fake_mesh({shape!r}, {names!r})
         cfg = shapes._dryrun_cfg({arch!r}).reduced().replace(**{full!r})
         spec = ShapeSpec("tiny", {shape_kind!r}, 32, 4)
         probe = dryrun.probe_step({arch!r}, spec, mesh, cfg)
@@ -144,8 +174,164 @@ def test_depth_probe_equals_full_trace(arch, shape_kind, full):
     for key in ("flops", "out_bytes", "view_copies", "coll"):
         assert probe[key] == whole[key], key
     assert probe["bytes"] == pytest.approx(whole["bytes"], rel=1e-2)
+    assert probe["peak"] == pytest.approx(whole["peak"], rel=1e-2)
+    assert whole["peak"] > 0
     assert whole["coll"]
     assert max(out["depths"]) < sum(full.values())
+
+
+@pytest.mark.parametrize("shape_kind", ["train", "prefill"])
+def test_folded_loop_equals_the_whole_loop(shape_kind):
+    """A reduced xLSTM (an mLSTM and its first sLSTM, 4 heads) over 32
+    steps on a (2, 4) fake mesh, its recurrences folded to two steps on
+    meta (``shardwise.FoldedLoop``) and run step by step: the FLOPs within
+    0.1 % (the first step starts from the initial state) and the peak of
+    live bytes within 1 %. Under autograd every step's saved tensors stay
+    alive to the backward, which the fold counts from its first step's
+    survivors; the prefill keeps each step's output."""
+    out = _run(f"""
+        from repro_torch.sharding import shardwise
+        mesh = fake_mesh((2, 4))
+        cfg = shapes._dryrun_cfg("xlstm-125m").reduced()
+        cfg = cfg.replace(n_layers=cfg.slstm_every)
+        spec = ShapeSpec("tiny", {shape_kind!r}, 32, 4)
+        res = {{}}
+        for fold in (True, False):
+            shardwise.FoldedLoop.FOLD = fold
+            res[str(fold)] = tally_dict(dryrun.trace_step("xlstm-125m", spec,
+                                                          mesh, cfg))
+        print("JSON" + json.dumps(res))
+    """)
+    folded, whole = out["True"], out["False"]
+    assert folded["flops"] == pytest.approx(whole["flops"], rel=1e-3)
+    assert folded["peak"] == pytest.approx(whole["peak"], rel=1e-2)
+    assert whole["peak"] > 0
+
+
+@pytest.mark.parametrize("arch,S,T", [
+    pytest.param("yi-9b", 32, None, id="dense-replaced"),
+    pytest.param("yi-9b", 32, 64, id="dense-in-place"),
+    pytest.param("hymba-1.5b", 96, None, marks=_NO_ROLL, id="hymba-ring"),
+    pytest.param("hymba-1.5b", 32, None, id="hymba-in-place"),
+])
+def test_step_outputs_are_placed_like_the_cache(arch, S, T):
+    """A prefill's outputs hold no partial sum, and its K/V cache comes
+    back placed as it went in (``cache_specs``), both where the prompt
+    replaces the cache's K/V (a dense decoder's prompt as long as its
+    cache, Hymba's longer than its ring) and where it is written in place:
+    the output bytes are the cache's shards by ``cache_specs`` and the
+    logits' shard, not the global K/V of an unreduced partial sum.
+    (Hymba's SSM states keep the shards the step gives them, of the same
+    local size.)"""
+    out = _run(f"""
+        from torch.distributed.tensor.experimental import implicit_replication
+        from repro_torch import tree as tree_lib
+        from repro_torch.models.api import build_model
+        from repro_torch.sharding import specs as sh
+        mesh = fake_mesh((2, 4))
+        dims = {{mesh.get_group(i).group_name: n
+                for i, n in enumerate(mesh.mesh_dim_names)}}
+        def tensors(tree):
+            return [x for x in tree_lib.leaves(tree) if isinstance(x, torch.Tensor)]
+        res = {{}}
+        for arch, S, T in (({arch!r}, {S!r}, {T!r}),):
+            cfg = shapes._dryrun_cfg(arch).reduced()
+            fn, (params, batch, cache), shardings = shapes.build_lowerable(
+                arch, "tiny", cfg=cfg, shape=ShapeSpec("tiny", "prefill", S, 4))
+            if T:
+                cache = build_model(cfg).init_cache(4, T, device="meta")
+            pp, bp, _ = shardings(mesh)
+            specs = sh.cache_specs(cache, mesh)
+            dcache = sh.distribute(cache, shapes._tree_placements(specs, mesh), mesh)
+            dargs = (sh.distribute(params, pp, mesh), sh.distribute(batch, bp, mesh),
+                     dcache)
+            placed_in = [str(dcache[k].placements) for k in ("k", "v")]
+            tally = dryrun.Tally()
+            with dryrun._step_trace_mode(tally, dims), implicit_replication():
+                logits, new = fn(*dargs)
+            kv = {{k: cache[k] for k in ("k", "v")}}
+            want = (dryrun.tree_local_bytes(logits)
+                    + dryrun.tree_local_bytes(sh.distribute(
+                        kv, shapes._tree_placements(
+                            {{k: specs[k] for k in kv}}, mesh), mesh))
+                    + dryrun.tree_local_bytes(new.get("ssm")))
+            res[arch] = {{
+                "in": placed_in, "out": [str(new[k].placements) for k in ("k", "v")],
+                "partial": [str(x.placements) for x in tensors((logits, new))
+                            if any(p.is_partial() for p in x.placements)],
+                "out_bytes": dryrun.tree_local_bytes((logits, new)), "want": want}}
+        print("JSON" + json.dumps(res))
+    """)
+    assert len(out) == 1
+    for case, r in out.items():
+        assert r["out"] == r["in"], case
+        assert r["partial"] == [], case
+        assert r["out_bytes"] == r["want"], case
+
+
+def test_combine_refuses_negative_terms():
+    """The depth extrapolation raises on any negative term: FLOPs, bytes,
+    output bytes, a peak, collective counts or bytes."""
+    from repro_torch.launch import dryrun
+
+    def tally(**kw):
+        t = dryrun.Tally()
+        for k, v in kw.items():
+            setattr(t, k, v)
+        return t
+    fine = dryrun.Tally().combine([(3, tally(out_bytes=10)),
+                                   (-1, tally(out_bytes=30))])
+    assert fine.out_bytes == 0
+    for key in ("flops", "bytes", "out_bytes"):
+        with pytest.raises(RuntimeError, match="negative"):
+            dryrun.Tally().combine([(1, tally(**{key: 10})),
+                                    (-1, tally(**{key: 30}))])
+    with pytest.raises(RuntimeError, match="negative"):
+        dryrun.Tally().combine([(1, tally(segments=[10])),
+                                (-1, tally(segments=[30]))])
+
+
+def test_only_dtensor_errors_are_read_as_its_limits():
+    """A report's error is put behind ``OLD_DTENSOR_LIMITS`` (on a torch
+    before 2.13) only where DTensor raised it: not a fault of the port's
+    own code, nor the trace's time limit."""
+    from torch.distributed.tensor import Shard
+
+    from repro_torch.launch import dryrun
+
+    with pytest.raises(AssertionError) as dtensor:
+        Shard(3)._split_tensor(torch.empty(4), 2)
+    assert dryrun.raised_in_dtensor(dtensor.value)
+    with pytest.raises(TypeError) as ours:
+        dryrun.tree_local_bytes(None, None)
+    assert not dryrun.raised_in_dtensor(ours.value)
+    with pytest.raises(TimeoutError) as late:
+        with dryrun._time_limit(0.01):
+            while True:
+                pass
+    assert not dryrun.raised_in_dtensor(late.value)
+
+
+def test_peak_is_the_hand_count_of_an_mlp():
+    """The recorder's peak of live bytes on a gated MLP's forward (plain
+    ``meta`` tensors, fp32, B S D F = 2 4 8 32): the gate, the up
+    projection, the activation and the product are alive together, 4 x B
+    S F x 4 bytes, more than the three and the output at the end."""
+    from repro_torch.launch import dryrun
+    from repro_torch.models import layers
+
+    B, S, D, F = 2, 4, 8, 32
+    x = torch.empty(B, S, D, device="meta")
+    p = {"w_gate": torch.empty(D, F, device="meta"),
+         "w_up": torch.empty(D, F, device="meta"),
+         "w_down": torch.empty(F, D, device="meta")}
+    tally = dryrun.Tally()
+    tally.hold([x, *p.values()])
+    with dryrun._step_trace_mode(tally, {}):
+        y = layers.mlp(p, x)
+    assert y.shape == (B, S, D)
+    assert tally.peak == 4 * B * S * F * 4
+    assert tally.peak > 3 * B * S * F * 4 + B * S * D * 4
 
 
 def test_row_parallel_w_down_reduces_the_residual_once():
