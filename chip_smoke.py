@@ -283,7 +283,7 @@ Phases (any failure raises, so the script exits non-zero):
      xlstm-125m at full width in bf16 served as phase 15: 4 requests of
      512 tokens, 16 new each, no kernel (``xlstm_serve``).
  33. LM training: ``launch/train.py`` with the reference's defaults
-     (gemma-2b reduced, 50 steps; 2 K6 a step), the loss falls; 3 steps of
+     (gemma-2b reduced, 50 steps; 2 K6 a step), the loss falls; 2 steps of
      hymba-1.5b at full width in bf16, batch 1, 512 tokens (640 rows with
      the meta tokens), K6 and K7 32 times each a forward under autograd:
      seconds a step split into the forward (the loss stamps its end), the
@@ -1127,6 +1127,26 @@ def _expected_launches(result, n_layers):
     return expected
 
 
+def device_kernels(prof):
+    """[(kernel name, device microseconds, launches)] of a finished
+    torch.profiler run, busiest first: each device event's own time,
+    summed by name, as ``key_averages()``'s ``self_device_time_total``
+    gives it (the same list), read from the profiler's raw events:
+    ``key_averages`` first builds its event tree, a Python object an
+    event, and a served request launches some 10^5 kernels."""
+    cuda = torch.autograd.DeviceType.CUDA
+    by = {}
+    for e in prof.profiler.kineto_results.events():
+        if (e.device_type() != cuda or e.is_async()
+                or getattr(e, "is_hidden_event", lambda: False)()
+                or e.start_thread_id() != e.end_thread_id()):
+            continue
+        us, n = by.get(e.name(), (0.0, 0))
+        by[e.name()] = (us + e.duration_ns() / 1e3, n + 1)
+    return sorted(((k, us, n) for k, (us, n) in by.items() if us > 0),
+                  key=lambda k: -k[1])
+
+
 def profile_summary(fn, wall_s, top=12):
     """``fn()`` once under torch.profiler: device time by kernel, the
     device idle share (1 - busy / ``wall_s``, the unprofiled wall time: the
@@ -1137,13 +1157,7 @@ def profile_summary(fn, wall_s, top=12):
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    kernels = []
-    for ev in prof.key_averages():
-        dev_us = getattr(ev, "self_device_time_total",
-                         getattr(ev, "self_cuda_time_total", 0.0))
-        if dev_us > 0 and ev.device_type == torch.autograd.DeviceType.CUDA:
-            kernels.append((ev.key, dev_us, ev.count))
-    kernels.sort(key=lambda k: -k[1])
+    kernels = device_kernels(prof)
     busy_s = sum(us for _, us, _ in kernels) * 1e-6
     named_s = lambda part: sum(us for name, us, _ in kernels
                                if part in name) * 1e-6
@@ -1403,13 +1417,7 @@ def profile_serve_round(pipe, xs, conds, wall_s, top=12):
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         engine.step()
         torch.cuda.synchronize()
-    kernels = []
-    for ev in prof.key_averages():
-        dev_us = getattr(ev, "self_device_time_total",
-                         getattr(ev, "self_cuda_time_total", 0.0))
-        if dev_us > 0 and ev.device_type == torch.autograd.DeviceType.CUDA:
-            kernels.append((ev.key, dev_us, ev.count))
-    kernels.sort(key=lambda k: -k[1])
+    kernels = device_kernels(prof)
     busy_s = sum(us for _, us, _ in kernels) * 1e-6
     by = lambda tag: sum(us for n, us, _ in kernels if tag in n) * 1e-6
     report = engine.rounds[-1]
@@ -3029,13 +3037,7 @@ def device_profile(fn, wall_s, top=12):
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    kernels = []
-    for ev in prof.key_averages():
-        dev_us = getattr(ev, "self_device_time_total",
-                         getattr(ev, "self_cuda_time_total", 0.0))
-        if dev_us > 0 and ev.device_type == torch.autograd.DeviceType.CUDA:
-            kernels.append((ev.key, dev_us, ev.count))
-    kernels.sort(key=lambda k: -k[1])
+    kernels = device_kernels(prof)
     busy_s = sum(us for _, us, _ in kernels) * 1e-6
     by = {name: sum(us for key, us, _ in kernels if name in key) * 1e-6
           for name in ("flash_attention", "ssm_scan")}
@@ -3337,7 +3339,7 @@ K6_NONCAUSAL = [("encoder", 1024, 1024), ("cross", 256, 1024),
 K6_NC_B, K6_NC_H, K6_NC_HD = 4, 16, 64
 SEAMLESS_BATCH, SEAMLESS_SRC, SEAMLESS_NEW = 4, 1024, 16
 XLSTM_REQUESTS, XLSTM_PROMPT, XLSTM_NEW = 4, 512, 16
-HYMBA_TRAIN_SEQ, HYMBA_TRAIN_STEPS = 512, 3
+HYMBA_TRAIN_SEQ, HYMBA_TRAIN_STEPS = 512, 2
 
 
 def k6_noncausal_faults(ref, layers, q, k, v):
@@ -3705,7 +3707,7 @@ def phase_lm_train(ops, dev):
     defaults (gemma-2b reduced, fp32, 50 steps, batch 4, seq 64; K6 once a
     layer of each forward, fp32 body), whose loss must fall; then
     hymba-1.5b at full width in bf16 (1.31 B params), batch 1, 512 tokens
-    behind its 128 meta tokens, 3 AdamW steps through K6 and K7 under
+    behind its 128 meta tokens, 2 AdamW steps through K6 and K7 under
     autograd (32 of each a forward; the backward differentiates the plain
     versions): seconds a step split into the forward, the backward and
     the update, peak memory, a finite loss; then one forward under the
@@ -3839,7 +3841,7 @@ def phase_roofline(ops, dev, smi, hymba_step_s):
     lm_train_check's hymba-1.5b step (batch 1, 512 tokens behind 128 meta
     tokens: 640 rows), each beside the measured seconds of that step at
     full width in bf16 (the median of 3 prefills, of 8 decode steps, of
-    lm_train_check's 3 steps). Weights from SEED."""
+    lm_train_check's 2 steps). Weights from SEED."""
     from repro_torch.configs import get_config
     from repro_torch.launch.shapes import ShapeSpec
     from repro_torch.models import build_model
@@ -3885,6 +3887,10 @@ def phase_roofline(ops, dev, smi, hymba_step_s):
 DRYRUN_LIMIT_S = 120   # a configuration's trace, then written as failed
 # configurations whose heads split unevenly over 'model' (xLSTM 4, Hymba 25)
 UNEVEN_HEADS = {("xlstm-125m", "decode_32k"), ("hymba-1.5b", "long_500k")}
+# a dense step with its tokens split over 'data' and its weights gathered
+# at use: a rank's FLOPs within SHARE_LIMIT times the analytic share
+SHARE_CHECK = ("yi-9b", "prefill_32k", "pod16x16")
+SHARE_LIMIT = 2.0
 
 
 def phase_dryrun(smi):
@@ -3892,16 +3898,21 @@ def phase_dryrun(smi):
     subprocess a configuration that sees no card: gemma-2b x decode_32k
     and olmoe-1b-7b x train_4k on the 256- and 512-rank fake meshes, and
     on 16x16 xlstm-125m x decode_32k and hymba-1.5b x long_500k, whose 4
-    and 25 heads split unevenly over 'model' (UNEVEN_HEADS). Prints each
-    report (roofline terms, collective counts, the peak of live local
-    bytes ``temp_size_in_bytes``, seconds; or the error of a configuration
+    and 25 heads split unevenly over 'model' (UNEVEN_HEADS), and yi-9b x
+    prefill_32k (SHARE_CHECK: a dense step whose tokens are split over
+    'data', its weights gathered at use). Prints each report (roofline
+    terms, a rank's FLOPs over the analytic ``flops_per_device``,
+    collective counts, the peak of live local bytes
+    ``temp_size_in_bytes``, seconds; or the error of a configuration
     DTensor refused or whose trace took over DRYRUN_LIMIT_S, as the CLI
     writes it). Fails when the CLI dies without its report (each is
     deleted before its run, so a report is this run's), when its exit code
     and the report's ``ok`` disagree, when gemma-2b x decode_32k on 16x16
     (the proof that the fake backend and DTensor on meta run here) is not
-    ok, when an UNEVEN_HEADS configuration is not ok, or when an ok
-    report's roofline does not use the H100 constants."""
+    ok, when an UNEVEN_HEADS configuration is not ok, when the SHARE_CHECK
+    configuration is not ok or its FLOPs a rank exceed SHARE_LIMIT times
+    the analytic term, or when an ok report's roofline does not use the
+    H100 constants."""
     repo = os.path.dirname(os.path.abspath(__file__))
     env = {**os.environ, "PYTHONPATH": os.path.join(repo, "src"),
            "CUDA_VISIBLE_DEVICES": ""}
@@ -3910,7 +3921,8 @@ def phase_dryrun(smi):
                ("olmoe-1b-7b", "train_4k", "pod16x16"),
                ("olmoe-1b-7b", "train_4k", "pod2x16x16"),
                ("xlstm-125m", "decode_32k", "pod16x16"),
-               ("hymba-1.5b", "long_500k", "pod16x16"))
+               ("hymba-1.5b", "long_500k", "pod16x16"),
+               SHARE_CHECK)
 
     def run(config):
         arch, shape, mesh = config
@@ -3927,7 +3939,7 @@ def phase_dryrun(smi):
                            timeout=600)
         return path, r, time.perf_counter() - t0
 
-    # all six at once, a process each: they use the host's cores, not the card
+    # all seven at once, a process each: they use the host's cores, not the card
     with concurrent.futures.ThreadPoolExecutor(len(configs)) as pool:
         runs = list(pool.map(run, configs))
     out = []
@@ -3945,6 +3957,8 @@ def phase_dryrun(smi):
         if rep["ok"]:
             roof = rep["roofline"]
             line.update({"chips": rep["chips"], "setup_s": rep["lower_s"],
+                         "flops_over_analytic": rep["cost_analysis"]["flops"]
+                         / roof["flops_per_device"],
                          "trace_s": rep["compile_s"],
                          **{k: roof[k] for k in (
                              "compute_s", "memory_s", "collective_s",
@@ -3966,6 +3980,9 @@ def phase_dryrun(smi):
             # 4 and 25 heads over a 'model' dim of 16: the head split and
             # merge helpers, ok on every torch
             check(rep["ok"], died + f"\nreport: {rep}")
+        if (arch, shape, mesh) == SHARE_CHECK:
+            check(rep["ok"] and line["flops_over_analytic"] <= SHARE_LIMIT,
+                  died + f"\nFLOPs a rank over the analytic term: {line}")
         print("dryrun_check", json.dumps(line), flush=True)
         out.append(line)
     proof = out[0]

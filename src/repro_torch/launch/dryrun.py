@@ -56,6 +56,19 @@ backward too, and what a step keeps alive S times in the peak). A DTensor op wit
 (an error DTensor raised behind :data:`OLD_DTENSOR_LIMITS` on a torch
 before 2.13).
 
+The step splits its tokens over the batch axes as the reference's does:
+a weight is gathered over the mesh dims that split the batch it meets
+(``layers.dense`` and ``layers.embed``, FSDP's unshard at use; GSPMD
+gathers a weight whose d_model the rules split over 'data' there), a
+mesh dim that neither a product's weight nor its input splits takes the
+batch, or else the contraction (``layers.dense``), and a norm reads the
+residual stream split on its batch and whole on every other mesh dim,
+its gradient too (``layers.batch_placed``). Without them DTensor keeps
+the weights split, contracts over their d_model shards and repeats the
+whole batch's attention and FFN on every 'data' rank. A rank's FLOPs
+are its share of the step's (``tools/dryrun_share.py``); its collectives
+stay DTensor's own.
+
 Placements DTensor resolves directly. A split or merge of heads that
 would be uneven first moves the offending shard (``layers.split_heads``).
 On the 3-D mesh, where DTensor plans a strided shard's redistributions by

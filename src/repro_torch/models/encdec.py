@@ -77,8 +77,10 @@ def cross_kv(params, cfg, memory):
     ks, vs = [], []
     for blk in _layers(params["dec_blocks"]):
         p = blk["xattn"]
-        ks.append(layers.split_heads(memory @ p["wk"], (cfg.n_kv_heads, cfg.hd)))
-        vs.append(layers.split_heads(memory @ p["wv"], (cfg.n_kv_heads, cfg.hd)))
+        ks.append(layers.split_heads(layers.dense(memory, p["wk"]),
+                                     (cfg.n_kv_heads, cfg.hd)))
+        vs.append(layers.split_heads(layers.dense(memory, p["wv"]),
+                                     (cfg.n_kv_heads, cfg.hd)))
     return torch.stack(ks), torch.stack(vs)
 
 
@@ -96,7 +98,7 @@ def _dec_block(p, x, cfg, mem_kv, *, window: int = 0):
 
 def _logits(params, cfg, x):
     x = layers.rms_norm(x, params["dec_ln_f"], cfg.norm_eps)
-    return x @ params["head"].to(x.dtype)
+    return layers.dense(x, params["head"].to(x.dtype))
 
 
 def decode_forward(params, cfg, tgt_tokens, memory, *, window: int = 0,
@@ -105,7 +107,7 @@ def decode_forward(params, cfg, tgt_tokens, memory, *, window: int = 0,
     position only with ``logits_last_only``), the self-attention's stacked
     (k, v) [L,B,St,K,hd] or None, the cross K/V (:func:`cross_kv`))."""
     mk, mv = cross_kv(params, cfg, memory)
-    x = params["embed"][tgt_tokens].to(getattr(torch, cfg.dtype))
+    x = layers.embed(params["embed"], tgt_tokens).to(getattr(torch, cfg.dtype))
     kvs = []
     for i, p in enumerate(_layers(params["dec_blocks"])):
         x, kv = _dec_block(p, x, cfg, (mk[i], mv[i]), window=window)
@@ -180,7 +182,7 @@ def decode_step(params, cfg, cache, token, *, window: int = 0):
     """token [B] -> (logits [B, V], the cache). The self-attention K/V are
     updated in place (the reference returns new arrays); ``pos`` is
     replaced."""
-    x = params["embed"][token[:, None]].to(getattr(torch, cfg.dtype))
+    x = layers.embed(params["embed"], token[:, None]).to(getattr(torch, cfg.dtype))
     pos = cache["pos"]
     for i, p in enumerate(_layers(params["dec_blocks"])):
         x = x + layers.decode_attention(

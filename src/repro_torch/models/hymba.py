@@ -104,8 +104,9 @@ def forward(params, cfg, tokens, ssm_states=None, *, window: int = None,
     window = cfg.sliding_window if window is None else window
     if ssm_states is None:
         ssm_states = _stacked_state(cfg, B, tokens.device)
-    x = params["embed"][tokens].to(getattr(torch, cfg.dtype))
-    meta = params["meta"][None].expand((B,) + params["meta"].shape).to(x.dtype)
+    x = layers.embed(params["embed"], tokens).to(getattr(torch, cfg.dtype))
+    meta = layers.unshard(params["meta"], tokens)
+    meta = meta[None].expand((B,) + meta.shape).to(x.dtype)
     x = torch.cat([meta, x], dim=1)
 
     kvs, states = [], []
@@ -119,7 +120,7 @@ def forward(params, cfg, tokens, ssm_states=None, *, window: int = None,
     x = layers.rms_norm(x, params["ln_f"], cfg.norm_eps)
     kvs = ((torch.stack([k for k, _ in kvs]), torch.stack([v for _, v in kvs]))
            if return_kv else None)
-    return x @ params["head"].to(x.dtype), kvs, _stack(states)
+    return layers.dense(x, params["head"].to(x.dtype)), kvs, _stack(states)
 
 
 def loss_fn(params, cfg, batch):
@@ -172,7 +173,7 @@ def decode_step(params, cfg, cache, token, *, window: int = 0):
     """One token [B] -> (logits [B, V], the cache). The cache's K/V are
     updated in place (the reference returns new arrays); its SSM states and
     ``pos`` are replaced."""
-    x = params["embed"][token[:, None]].to(getattr(torch, cfg.dtype))
+    x = layers.embed(params["embed"], token[:, None]).to(getattr(torch, cfg.dtype))
     pos = cache["pos"]
     states = []
     for i, (p, st0) in enumerate(zip(_layers(params["blocks"]),
@@ -186,5 +187,5 @@ def decode_step(params, cfg, cache, token, *, window: int = 0):
         x = _fuse(p, x, a, m, cfg)
         states.append(st)
     x = layers.rms_norm(x, params["ln_f"], cfg.norm_eps)
-    logits = (x @ params["head"].to(x.dtype))[:, 0]
+    logits = layers.dense(x, params["head"].to(x.dtype))[:, 0]
     return logits, {**cache, "ssm": _stack(states), "pos": pos + 1}

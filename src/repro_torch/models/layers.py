@@ -63,7 +63,10 @@ def embed_init(gen: torch.Generator, shape, dtype):
 
 def rms_norm(x, weight, eps: float = 1e-5):
     """RMS norm with the reference's ``(1 + weight)`` scale, computed in
-    float32 and cast back to x's dtype."""
+    float32 and cast back to x's dtype. A DTensor ``x`` is first placed by
+    :func:`batch_placed`: whole on the normalised dim, no partial sums, the
+    batch and sequence splits of the residual stream's owner kept."""
+    x = batch_placed(x)
     x32 = x.float()
     var = x32.square().mean(dim=-1, keepdim=True)
     out = x32 * torch.rsqrt(var + eps) * (1.0 + weight.float())
@@ -169,9 +172,9 @@ def init_attention(gen: torch.Generator, cfg, d_model: Optional[int] = None,
 
 
 def attention_qkv(p, x, cfg, positions):
-    q = split_heads(x @ p["wq"], (cfg.n_heads, cfg.hd))
-    k = split_heads(x @ p["wk"], (cfg.n_kv_heads, cfg.hd))
-    v = split_heads(x @ p["wv"], (cfg.n_kv_heads, cfg.hd))
+    q = split_heads(dense(x, p["wq"]), (cfg.n_heads, cfg.hd))
+    k = split_heads(dense(x, p["wk"]), (cfg.n_kv_heads, cfg.hd))
+    v = split_heads(dense(x, p["wv"]), (cfg.n_kv_heads, cfg.hd))
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
     return q, k, v
@@ -192,7 +195,7 @@ def self_attention(p, x, cfg, *, positions=None, window: int = 0,
     q, k, v = attention_qkv(p, x, cfg, positions)
     out = ops.flash_attention(q, k, v, causal=True, window=window,
                               prefix_len=prefix_len)
-    return merge_heads(out) @ p["wo"], (k, v)
+    return dense(merge_heads(out), p["wo"]), (k, v)
 
 
 def bidirectional_attention(p, x, cfg, positions=None):
@@ -204,17 +207,17 @@ def bidirectional_attention(p, x, cfg, positions=None):
         positions = torch.arange(S, device=x.device)[None, :]
     q, k, v = attention_qkv(p, x, cfg, positions)
     out = ops.flash_attention(q, k, v, causal=False)
-    return merge_heads(out) @ p["wo"]
+    return dense(merge_heads(out), p["wo"])
 
 
 def cross_attention(p, x, memory_kv, cfg):
     """x: [B,S,D] queries (no rope) over ``memory_kv`` = (k, v) [B,T,K,hd]
     precomputed from the encoder's output: K6 in its non-causal form at any
     S, the decode's S = 1 included. Returns [B, S, D]."""
-    q = split_heads(x @ p["wq"], (cfg.n_heads, cfg.hd))
+    q = split_heads(dense(x, p["wq"]), (cfg.n_heads, cfg.hd))
     k, v = memory_kv
     out = ops.flash_attention(q, k, v, causal=False)
-    return merge_heads(out) @ p["wo"]
+    return dense(merge_heads(out), p["wo"])
 
 
 def decode_attention(p, x, cfg, cache_k, cache_v, pos: int, *, window: int = 0,
@@ -233,9 +236,9 @@ def decode_attention(p, x, cfg, cache_k, cache_v, pos: int, *, window: int = 0,
     views in place; returns out [B,1,D]."""
     B = x.shape[0]
     T = cache_k.shape[1]
-    q = split_heads(x @ p["wq"], (cfg.n_heads, cfg.hd))
-    k = split_heads(x @ p["wk"], (cfg.n_kv_heads, cfg.hd))
-    v = split_heads(x @ p["wv"], (cfg.n_kv_heads, cfg.hd))
+    q = split_heads(dense(x, p["wq"]), (cfg.n_heads, cfg.hd))
+    k = split_heads(dense(x, p["wk"]), (cfg.n_kv_heads, cfg.hd))
+    v = split_heads(dense(x, p["wv"]), (cfg.n_kv_heads, cfg.hd))
     posv = torch.full((B, 1), pos, dtype=torch.int32, device=x.device)
     q = apply_rope(q, posv, cfg.rope_theta)
     k = apply_rope(k, posv, cfg.rope_theta)
@@ -255,7 +258,7 @@ def decode_attention(p, x, cfg, cache_k, cache_v, pos: int, *, window: int = 0,
     cache_v[:, slot] = v[:, 0].to(cache_v.dtype)
     valid = (torch.arange(T, device=x.device) < n_valid)[None, None, None, :]
     out = attend(q, cache_k, cache_v, mask=valid)
-    return merge_heads(out) @ p["wo"]
+    return dense(merge_heads(out), p["wo"])
 
 
 def ring_kv(kv, T: int, prefix_len: int = 0):
@@ -280,7 +283,11 @@ def constrain_residual(x, cfg):
     given a DTensor, ``batch`` redistributes it to batch over 'data' and
     ``seqpar`` to batch over 'data' and sequence over 'model', every other
     mesh dim replicated. Plain tensors, and an empty ``act_shard``, pass
-    through."""
+    through. The block's norms keep the batch and sequence splits set here
+    (:func:`batch_placed`); with no ``act_shard`` the stream is split on
+    its batch alone, so on the 2-D mesh ``batch`` pins what the norms
+    would give it (on the 3-D mesh it replicates 'pod', as the
+    reference's spec does)."""
     if not cfg.act_shard or not is_dtensor(x):
         return x
     from torch.distributed.tensor import Replicate, Shard
@@ -331,27 +338,66 @@ def merge_heads(x, n: int = 2):
 def _even_for_view(x, dims, lead: int):
     """``x`` placed so that DTensor can split or merge ``dims`` (heads and
     head dim) evenly. In order of preference, a mesh dim that splits one of
-    ``dims`` or the sequence dim (1): (1) splits the first of ``dims``
-    (the heads), where the shards so far still divide ``lead`` (the head
-    count); (2) else replicates. The sequence dim is not kept split: the
-    attention and the recurrences run shard by shard over batch and heads
-    and would gather it again, and the next matmul would fold it into
-    strided shards. Partial sums and shards of the batch dim stay."""
+    ``dims`` or the sequence dim (1), or holds a partial sum: (1) splits
+    the first of ``dims`` (the heads), where the shards so far still
+    divide ``lead`` (the head count); (2) else splits the batch (dim 0)
+    where that divides, so that the attention or recurrence after it does
+    not repeat its work over that mesh dim; (3) else replicates (a partial
+    sum stays: the shard-by-shard runs reduce it). The sequence dim is not
+    kept split: the attention and the recurrences run shard by shard over
+    batch and heads and would gather it again, and the next matmul would
+    fold it into strided shards. Shards of the batch dim stay."""
     from torch.distributed.tensor import Replicate, Shard
 
     out = list(x.placements)
-    kept = 1
+    kept = 1           # the mesh dims so far that keep or take the heads
     for i, (pl, n) in enumerate(zip(x.placements, x.device_mesh.shape)):
         d = None if pl.is_replicate() or pl.is_partial() else pl.dim
-        if d not in dims and d != 1:
+        if d not in dims and d != 1 and not pl.is_partial():
             continue
-        if lead % (kept * n) == 0 and (d == dims[0] and pl.is_shard()
-                                       or d not in dims):
+        if lead % (kept * n) == 0 and (d == dims[0] or d not in dims):
             out[i] = Shard(dims[0])
             kept *= n
-        else:
+            continue
+        fit = _first_fit(x, out, i, [(0, x.shape[0])])
+        if fit is not None:
+            out[i] = fit
+        elif not pl.is_partial():
             out[i] = Replicate()
     return x if out == list(x.placements) else x.redistribute(x.device_mesh, out)
+
+
+def moved(x, src: int, dst: int):
+    """``x`` with each mesh dim that splits its dim ``src`` splitting dim
+    ``dst`` instead where that divides, else the batch (dim 0) where that
+    divides, else replicated (an sLSTM's gates regrouped a head at a time:
+    the split moves from the gate axis to the heads). Plain tensors pass
+    through."""
+    if not is_dtensor(x):
+        return x
+    from torch.distributed.tensor import Replicate
+
+    out = list(x.placements)
+    for i, pl in enumerate(x.placements):
+        if pl.is_shard(src):
+            fit = _first_fit(x, out, i, [(dst, x.shape[dst]), (0, x.shape[0])])
+            out[i] = Replicate() if fit is None else fit
+    return x if out == list(x.placements) else x.redistribute(x.device_mesh, out)
+
+
+def _first_fit(x, out, i, candidates):
+    """``Shard(d)`` for the first ``(d, size)`` of ``candidates`` whose
+    ``size`` mesh dim ``i`` splits evenly together with the other mesh dims
+    that split dim ``d`` in the placements ``out`` of ``x``; else None."""
+    from torch.distributed.tensor import Shard
+
+    sizes = x.device_mesh.shape
+    for d, size in candidates:
+        split = math.prod(m for j, (p, m) in enumerate(zip(out, sizes))
+                          if j != i and p.is_shard(d))
+        if size % (split * sizes[i]) == 0:
+            return Shard(d)
+    return None
 
 
 def grad_as_value(x):
@@ -425,6 +471,127 @@ def placed_like(x, ref):
     return x
 
 
+def unshard(w, like):
+    """FSDP's unshard at use: the weight ``w`` replicated over every mesh
+    dim that splits ``like``'s batch dim (dim 0 of the tokens or
+    activations that read it), its other placements kept. The rules split a weight's d_model over
+    'data' (``sharding/specs.py``) and a batch over ('pod', 'data'); GSPMD
+    gathers such a weight where it meets a split batch and keeps the tokens
+    split, where DTensor would keep the weight split and repeat the whole
+    batch's work on every 'data' rank. The backward reduces the weight's
+    gradient onto its shards (a reduce-scatter). Where the batch is not
+    split (a batch of one), the weight stays as placed. Plain tensors pass
+    through."""
+    if not (is_dtensor(like) and is_dtensor(w)):
+        return w
+    from torch.distributed.tensor import Replicate
+
+    pl = [Replicate() if b.is_shard(0) and p.is_shard() else p
+          for b, p in zip(like.placements, w.placements)]
+    return w if pl == list(w.placements) else w.redistribute(w.device_mesh, pl)
+
+
+def batch_placed(x, like=None):
+    """``x`` [B, S, ...] as the residual stream is read (at each norm and
+    from the embedding): split on its batch over the batch axes ('pod',
+    'data') and on its sequence wherever its owner split it (the seqpar
+    variant's tokens, ``constrain_residual``'s ``seqpar``), whole on every
+    other mesh dim (partial sums reduced, other shards gathered), and its
+    gradient placed so too. ``like`` (the tokens, for the embedding's rows)
+    gives those splits instead of ``x``. This is GSPMD's placement under
+    FSDP-style weights (:func:`unshard`), where the row-parallel products'
+    partial sums, and their gradients, would otherwise lead DTensor to
+    gather a weight over 'model'. Where neither split is there, ``x``."""
+    if not is_dtensor(x):
+        return x
+    from torch.distributed.tensor import Replicate, Shard
+
+    from repro_torch.sharding.specs import batch_axes
+
+    mesh = x.device_mesh
+    axes = batch_axes(mesh)
+    want = [Shard(0) if p.is_shard(0) and name in axes
+            else Shard(1) if p.is_shard(1) else Replicate()
+            for p, name in zip((x if like is None else like).placements,
+                               mesh.mesh_dim_names)]
+    if want == [Replicate()] * mesh.ndim:
+        return x
+
+    def place(t):
+        return t if list(t.placements) == want else t.redistribute(mesh, want)
+    x = place(x)
+    if torch.is_grad_enabled() and x.requires_grad:
+        x = _PlaceGrad.apply(x, place)
+    return x
+
+
+def dense(x, w):
+    """``x @ w``: activations ``x`` [B, ..., D] times a weight ``w`` [D, F].
+    Given DTensors, ``w`` is gathered where ``x``'s batch is split
+    (:func:`unshard`), and on each other mesh dim:
+
+    - ``w`` split on its output (column-parallel) and ``x`` on its d_model:
+      ``x`` is gathered (no partial sum to reduce);
+    - ``w`` whole, and ``x`` whole or split on its d_model: that dim's work
+      would be repeated, or leave a partial sum, on every rank along it,
+      so ``x``'s batch is split over it where it divides; else, with ``x``
+      whole, the contraction is (a partial sum to reduce, where ``w``'s
+      d_model is not split elsewhere), if that sum is no wider than ``x``
+      or is one token a row (a decode step).
+
+    A split of ``x``'s token dims (the sequence, under ``seqpar`` /
+    ``actseq``) is gathered first: the norm ran on the sequence's shards,
+    the product reads it whole, as Megatron's sequence parallelism
+    all-gathers before a column-parallel product (and torch before 2.13
+    refuses the matmul's flattening of a split sequence dim).
+
+    Plain tensors: ``x @ w``."""
+    if not is_dtensor(x):
+        return x @ w
+    from torch.distributed.tensor import Replicate, Shard
+
+    w = unshard(w, x)
+    tokens = [Replicate() if p.is_shard() and 0 < p.dim < x.ndim - 1 else p
+              for p in x.placements]
+    if tokens != list(x.placements):
+        x = x.redistribute(x.device_mesh, tokens)
+    xp, wp = list(x.placements), list(w.placements)
+    rows = math.prod(x.shape[1:-1])
+    for i, n in enumerate(x.device_mesh.shape):
+        split_d = xp[i].is_shard(x.ndim - 1) and not wp[i].is_shard(w.ndim - 2)
+        if split_d and wp[i].is_shard(w.ndim - 1):
+            xp[i] = Replicate()
+            continue
+        if n == 1 or not (split_d or xp[i] == wp[i] == Replicate()):
+            continue
+        fit = _first_fit(x, xp, i, [(0, x.shape[0])])
+        if fit is not None:
+            xp[i] = fit
+        elif (not split_d and x.shape[-1] % n == 0
+              and (rows == 1 or w.shape[-1] <= w.shape[-2])
+              and not any(p.is_shard(w.ndim - 2) for p in wp)):
+            xp[i], wp[i] = Shard(x.ndim - 1), Shard(w.ndim - 2)
+    if xp != list(x.placements):
+        x = x.redistribute(x.device_mesh, xp)
+    if wp != list(w.placements):
+        w = w.redistribute(w.device_mesh, wp)
+    return x @ w
+
+
+def embed(table, tokens):
+    """``table[tokens]``. Given DTensors whose batch is split, the table is
+    gathered over the batch's mesh dims (:func:`unshard`), the lookup is
+    ``F.embedding`` (torch before 2.13 has sharding rules for its backward,
+    and refuses the backward of an indexing, an ``index_put``, once the
+    tokens are split), and the rows are split as the tokens are
+    (:func:`batch_placed`; the masked partial sum of a vocab split over
+    'model' reduced)."""
+    if not (is_dtensor(tokens) and any(p.is_shard(0) for p in tokens.placements)):
+        return table[tokens]
+    rows = torch.nn.functional.embedding(tokens, unshard(table, tokens))
+    return batch_placed(rows, like=tokens)
+
+
 def elementwise(fn, x):
     """``fn(x)`` for an elementwise ``fn``; on a DTensor, ``fn`` runs on
     each rank's shard (partial sums reduced first), for the ops DTensor has
@@ -460,13 +627,13 @@ def init_mlp(gen: torch.Generator, cfg, d_model: Optional[int] = None,
 def mlp(p, x, activation: str = "swiglu"):
     """Gated MLP: swiglu (SiLU gate) or geglu (GELU gate in its tanh form,
     ``jax.nn.gelu``'s default)."""
-    gate = x @ p["w_gate"]
-    up = x @ p["w_up"]
+    gate = dense(x, p["w_gate"])
+    up = dense(x, p["w_up"])
     if activation == "geglu":
         h = torch.nn.functional.gelu(gate, approximate="tanh") * up
     else:
         h = torch.nn.functional.silu(gate) * up
-    return h @ p["w_down"]
+    return dense(h, p["w_down"])
 
 
 # ----------------------------------------------------------------------

@@ -10,7 +10,10 @@ kernel K6 (``layers.self_attention``; a VLM's vision tokens are its
 decode_attention``, as in the reference. The reference's ``_constrain``
 (a JAX sharding constraint, a no-op without a mesh) is
 ``layers.constrain_residual``: a redistribution of a DTensor residual
-stream at each block's entry when ``cfg.act_shard`` is set.
+stream at each block's entry when ``cfg.act_shard`` is set. On DTensors
+a weight is gathered where it meets a split batch and the tokens stay
+split (``layers.dense``, ``layers.embed``), as GSPMD partitions the
+reference's FSDP-style weights.
 ``loss_fn`` is the training objective; under autograd K6's backward is
 the plain version's.
 
@@ -68,7 +71,7 @@ def init_params(gen: torch.Generator, cfg):
 # ----------------------------------------------------------------------
 
 def _embed(params, cfg, tokens, vision_embeds=None):
-    x = params["embed"][tokens].to(getattr(torch, cfg.dtype))
+    x = layers.embed(params["embed"], tokens).to(getattr(torch, cfg.dtype))
     if cfg.arch_id.startswith("gemma"):
         # sqrt(d_model) in x's dtype (45.25 in bf16 at d_model 2048)
         x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype)
@@ -80,7 +83,7 @@ def _embed(params, cfg, tokens, vision_embeds=None):
 def _logits(params, cfg, x):
     x = layers.rms_norm(x, params["ln_f"], cfg.norm_eps)
     head = params["embed"].T if cfg.tie_embeddings else params["head"]
-    logits = x @ head.to(x.dtype)
+    logits = layers.dense(x, head.to(x.dtype))
     if cfg.logit_softcap:
         logits = torch.tanh(logits / cfg.logit_softcap) * cfg.logit_softcap
     return logits

@@ -66,15 +66,16 @@ def _proj(p, xb, cfg, conv_state):
     depthwise causal conv is the reference's sum over taps, in its order."""
     S = xb.shape[1]
     N = cfg.ssm_state
-    x_br, z = (xb @ p["w_in"]).chunk(2, dim=-1)
+    x_br, z = layers.dense(xb, p["w_in"]).chunk(2, dim=-1)
     pad = torch.cat([conv_state.to(x_br.dtype), x_br], dim=1)
     w = p["conv"]
     W = w.shape[0]
     xc = F.silu(sum(pad[:, i:i + S] * w[i] for i in range(W)))
     new_conv = pad[:, -(W - 1):] if W > 1 else conv_state
-    bc = (xc @ p["w_bc"]).float()
+    bc = layers.dense(xc, p["w_bc"]).float()
     B_t, C_t = bc[..., :N], bc[..., N:]                                # [B,S,N]
-    delta = softplus(((xc @ p["w_dt1"]) @ p["w_dt2"]).float() + p["b_dt"])
+    delta = softplus(layers.dense(layers.dense(xc, p["w_dt1"]), p["w_dt2"]).float()
+                     + p["b_dt"])
     A = -torch.exp(p["A_log"])                                         # [Di,N]
     return xc.float(), z, B_t, C_t, delta, A, new_conv
 
@@ -93,5 +94,5 @@ def mamba_forward(p, xb, cfg, state):
     xc, z, B_t, C_t, delta, A, new_conv = _proj(p, xb, cfg, state["conv"])
     y, h = ops.ssm_scan(xc, delta, B_t, C_t, A, p["D_skip"], h0=state["h"],
                         final_state=True)
-    y = (y.to(xb.dtype) * F.silu(z)) @ p["w_out"]
+    y = layers.dense(y.to(xb.dtype) * F.silu(z), p["w_out"])
     return y, {"h": h, "conv": new_conv}

@@ -55,7 +55,7 @@ def route(p, x, cfg):
     keep [B, S, K] whether that place is within the capacity)."""
     B, S, _ = x.shape
     E, K = cfg.n_experts, cfg.top_k
-    probs = torch.softmax(x.float() @ p["router"], dim=-1)
+    probs = torch.softmax(layers.dense(x.float(), p["router"]), dim=-1)
     gate, idx = torch.topk(probs, K, dim=-1, sorted=True)
     gate = gate / gate.sum(-1, keepdim=True).clamp_min(1e-9)
     # place of each (token, k-slot) in its expert's queue: the pairs before
@@ -81,7 +81,7 @@ def moe_ffn(p, x, cfg):
     src = x[:, :, None].expand(B, S, K, D).reshape(B, S * K, D)
     xe = x.new_zeros(B, E * C + 1, D).scatter(1, cell.expand(B, S * K, D), src)
     xe = xe[:, :E * C].reshape(B, E, C, D)
-    w = p["experts"]
+    w = {k: layers.unshard(v, x) for k, v in p["experts"].items()}
     h = (torch.nn.functional.silu(torch.einsum("becd,edf->becf", xe, w["w_gate"]))
          * torch.einsum("becd,edf->becf", xe, w["w_up"]))
     ye = torch.einsum("becf,efd->becd", h, w["w_down"])           # [B,E,C,D]

@@ -133,17 +133,17 @@ def _mlstm_proj(p, xb, cfg, conv_state):
     S = xb.shape[1]
     Di, H = _d_inner(cfg), cfg.n_heads
     dh = Di // H
-    x_br, z = (xb @ p["w_up"]).chunk(2, dim=-1)
+    x_br, z = layers.dense(xb, p["w_up"]).chunk(2, dim=-1)
     # causal depthwise conv over time (with carried state for decode)
     pad = torch.cat([conv_state.to(x_br.dtype), x_br], dim=1)
     w = p["conv"]                                      # [W, Di]
     W = w.shape[0]
     xc = F.silu(sum(pad[:, i:i + S] * w[i] for i in range(W)))
     new_conv = pad[:, -(W - 1):] if W > 1 else conv_state
-    q = layers.split_heads(xc @ p["wq"], (H, dh)).float() / math.sqrt(dh)
-    k = layers.split_heads(xc @ p["wk"], (H, dh)).float() / math.sqrt(dh)
-    v = layers.split_heads(x_br @ p["wv"], (H, dh)).float()
-    gates = xc.float() @ p["w_if"] + p["b_if"]
+    q = layers.split_heads(layers.dense(xc, p["wq"]), (H, dh)).float() / math.sqrt(dh)
+    k = layers.split_heads(layers.dense(xc, p["wk"]), (H, dh)).float() / math.sqrt(dh)
+    v = layers.split_heads(layers.dense(x_br, p["wv"]), (H, dh)).float()
+    gates = layers.dense(xc.float(), p["w_if"]) + p["b_if"]
     logi, logf = gates[..., :H], layers.elementwise(F.logsigmoid, gates[..., H:])
     return q, k, v, logi, logf, z, new_conv
 
@@ -157,7 +157,7 @@ def mlstm_forward(p, x, cfg, state):
         _mlstm_scan, (q, k, v, logi, logf, state["C"], state["n"], state["m"]),
         (bh,) * 5 + ((0, 1),) * 3, (bh,) + ((0, 1),) * 3)
     h = layers.merge_heads(hs).to(x.dtype) * F.silu(z)
-    return x + h @ p["w_down"], {"C": C, "n": n, "m": m, "conv": new_conv}
+    return x + layers.dense(h, p["w_down"]), {"C": C, "n": n, "m": m, "conv": new_conv}
 
 
 def _mlstm_scan(q, k, v, logi, logf, C, n, m):
@@ -213,17 +213,17 @@ def slstm_forward(p, x, cfg, state):
     H = cfg.n_heads
     dh = D // H
     xb = layers.rms_norm(x, p["ln"], cfg.norm_eps)
-    gx = xb @ p["w_x"] + p["b"].to(xb.dtype)           # [B,S,4D]
+    gx = layers.dense(xb, p["w_x"]) + p["b"].to(xb.dtype)           # [B,S,4D]
     # w_x packs gates as [z|i|f|o] each D wide = H*dh; regroup per head
-    gx = layers.merge_heads(
-        layers.split_heads(gx.float(), (4, H, dh)).transpose(2, 3))
+    gx = layers.moved(layers.split_heads(gx.float(), (4, H, dh)), 2, 3)
+    gx = layers.merge_heads(gx.transpose(2, 3))
     keys = ("c", "n", "h", "m")
     bh, st = (0, 2), (0, 1)
     hs, *new = shardwise(
         _slstm_scan, (gx, p["r_h"].float()) + tuple(state[k] for k in keys),
         (bh, (None, 0)) + (st,) * 4, (bh,) + (st,) * 4)
     hs = layers.merge_heads(hs).to(x.dtype)            # [B,S,D]
-    return x + hs @ p["w_down"], dict(zip(keys, new))
+    return x + layers.dense(hs, p["w_down"]), dict(zip(keys, new))
 
 
 def _slstm_scan(gx, r_h, c, n, h, m):
@@ -258,7 +258,7 @@ def forward(params, cfg, tokens, state=None, *, logits_last_only: bool = False):
     B = tokens.shape[0]
     if state is None:
         state = init_state(cfg, B, tokens.device)
-    x = params["embed"][tokens].to(getattr(torch, cfg.dtype))
+    x = layers.embed(params["embed"], tokens).to(getattr(torch, cfg.dtype))
     new_states = []
     for i, p in enumerate(params["blocks"]):
         fwd = slstm_forward if is_slstm(cfg, i) else mlstm_forward
@@ -268,7 +268,7 @@ def forward(params, cfg, tokens, state=None, *, logits_last_only: bool = False):
     if logits_last_only:
         x = x[:, -1:]
     x = layers.rms_norm(x, params["ln_f"], cfg.norm_eps)
-    return x @ params["head"].to(x.dtype), new_states
+    return layers.dense(x, params["head"].to(x.dtype)), new_states
 
 
 def loss_fn(params, cfg, batch):

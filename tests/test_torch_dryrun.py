@@ -18,27 +18,14 @@ torch = pytest.importorskip("torch")
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 
-# DTensor's sharding propagation before torch 2.13 refuses steps that 2.13
-# traces (torch 2.11 refuses each of these, and the dry-run then writes the
+# DTensor's sharding propagation before torch 2.13 refuses a step that 2.13
+# traces (torch 2.11 refuses this one, and the dry-run then writes the
 # configuration's report as ok: false with DTensor's error).
 _TORCH = tuple(int(x) for x in torch.__version__.split("+")[0].split(".")[:2])
-_NO_SHARD_TO_PARTIAL = pytest.mark.skipif(
-    _TORCH < (2, 13), reason="DTensor before torch 2.13 cannot redistribute "
-    "Shard to Partial: a tied embedding's two gradients (the lookup's "
-    "partial sum and the unembedding's shard) do not add")
-_NO_SHARDED_FLATTEN = pytest.mark.skipif(
-    _TORCH < (2, 13), reason="DTensor before torch 2.13 cannot flatten a "
-    "sharded sequence dim into the batch (a matmul's or the MoE dispatch's "
-    "reshape of [B, S, ...] with S split)")
-
 _NO_ROLL = pytest.mark.skipif(
     _TORCH < (2, 13), reason="DTensor before torch 2.13 has no sharding "
     "strategy for aten.roll (a prompt longer than Hymba's ring places its "
     "K/V with layers.ring_kv)")
-_NO_TWO_MESH_DIM_SPLIT = pytest.mark.skipif(
-    _TORCH < (2, 13), reason="DTensor before torch 2.13 refuses most ops on "
-    "a dim split over two mesh dims (the batch over 'pod' and 'data' of "
-    "the 3-D mesh)")
 
 _PRELUDE = """
 import json, torch
@@ -72,7 +59,34 @@ def _keys(d):
     return {k: sorted(v) if isinstance(v, dict) else None for k, v in d.items()}
 
 
-@_NO_SHARD_TO_PARTIAL
+def _reference_report_keys():
+    """``_keys`` of the reference's dry-run report, from the reference's own
+    code: ``run_one``'s report (``src/repro/launch/dryrun.py:61-77``), its
+    ``memory_analysis`` and ``cost_analysis`` keys as written there, and
+    the keys of ``roofline.build(...).to_dict()`` and of
+    ``roofline.collective_bytes`` (its ``_counts`` the collective counts).
+    ``repro.launch.dryrun`` itself is not imported: it sets ``XLA_FLAGS``
+    to 512 host devices at import."""
+    pytest.importorskip("jax")
+    from repro.launch import roofline as jrl
+
+    coll = jrl.collective_bytes("")
+    roof = jrl.build("xlstm-125m", "decode_32k", "pod16x16", 256, {}, {})
+    keys = dict.fromkeys(("arch", "shape", "mesh", "chips", "ok", "lower_s",
+                          "compile_s"))
+    keys.update({
+        "memory_analysis": sorted((
+            "generated_code_size_in_bytes", "argument_size_in_bytes",
+            "output_size_in_bytes", "temp_size_in_bytes",
+            "alias_size_in_bytes")),
+        "cost_analysis": sorted(("flops", "bytes accessed", "transcendentals")),
+        "collective_bytes": sorted(k for k in coll if k != "_counts"),
+        "collective_counts": sorted(coll["_counts"]),
+        "roofline": sorted(roof.to_dict()),
+    })
+    return keys
+
+
 def test_report_keys_and_argument_bytes():
     """A reduced gemma-2b train step on a (2, 4) fake mesh: the report has
     the keys of the reference's report (every nested dict too), and
@@ -110,9 +124,7 @@ def test_report_keys_and_argument_bytes():
         print("JSON" + json.dumps({"report": rep, "want": want}))
     """)
     rep = out["report"]
-    ref = json.loads((REPO / "results" / "dryrun" /
-                      "xlstm-125m__decode_32k__pod16x16.json").read_text())
-    assert _keys(rep) == _keys(ref)
+    assert _keys(rep) == _reference_report_keys()
     assert rep["ok"] is True and rep["chips"] == 8
     assert rep["memory_analysis"]["argument_size_in_bytes"] == out["want"]
     assert rep["memory_analysis"]["output_size_in_bytes"] > 0
@@ -132,7 +144,7 @@ _MESH3 = ((2, 2, 4), ("pod", "data", "model"))
     pytest.param("yi-9b", "train", {"n_layers": 8}, _MESH2,
                  id="yi-9b-train-full0"),
     pytest.param("olmoe-1b-7b", "train", {"n_layers": 8}, _MESH2,
-                 marks=_NO_SHARDED_FLATTEN, id="olmoe-1b-7b-train-full1"),
+                 id="olmoe-1b-7b-train-full1"),
     pytest.param("hymba-1.5b", "prefill", {"n_layers": 7}, _MESH2,
                  id="hymba-1.5b-prefill-full2"),
     pytest.param("seamless-m4t-medium", "prefill",
@@ -144,9 +156,9 @@ _MESH3 = ((2, 2, 4), ("pod", "data", "model"))
     # train step (4 heads: its recurrences' loops folded on meta, the
     # backward's too)
     pytest.param("gemma-2b", "train", {"n_layers": 8}, _MESH3,
-                 marks=_NO_TWO_MESH_DIM_SPLIT, id="gemma-2b-train-pod2x2x4"),
+                 id="gemma-2b-train-pod2x2x4"),
     pytest.param("hymba-1.5b", "train", {"n_layers": 8}, _MESH3,
-                 marks=_NO_TWO_MESH_DIM_SPLIT, id="hymba-1.5b-train-pod2x2x4"),
+                 id="hymba-1.5b-train-pod2x2x4"),
     pytest.param("xlstm-125m", "train", {"n_layers": 8}, _MESH2,
                  id="xlstm-125m-train-full5"),
 ])
@@ -429,23 +441,48 @@ def test_perf_overrides_give_the_reference_specs():
             assert got_c == want_c
 
 
-@_NO_SHARDED_FLATTEN
 def test_actseq_redistributes_the_residual_stream():
     """actseq on a reduced gemma-2b prefill: the residual stream is split
     over 'model' on its sequence dim at each block, which adds collectives
-    the baseline does not have."""
+    the baseline does not have. Each block's norms read it so split, and so
+    do the Q/K/V products (the norms keep the splits of the stream's
+    owner), as the seqpar variant's embedded tokens are; the baseline's
+    norms read it split on its batch alone. The port counts the FLOPs of
+    products and attention, whose work the baseline already splits over
+    the whole mesh here, so actseq's are no higher."""
     out = _run("""
         from repro_torch.launch import perf
+        from repro_torch.models import layers
         mesh = fake_mesh((2, 4))
         spec = ShapeSpec("prefill_32k", "prefill", 32, 4)
+        seen = []
+        norm, qkv = layers.rms_norm, layers.attention_qkv
+
+        def rms_norm(x, *a):
+            seen.append(("norm", str(layers.batch_placed(x).placements)))
+            return norm(x, *a)
+
+        def attention_qkv(p, x, *a):
+            seen.append(("qkv", str(x.placements)))
+            return qkv(p, x, *a)
+        layers.rms_norm, layers.attention_qkv = rms_norm, attention_qkv
         res = {}
-        for v in ("", "actseq"):
+        for v in ("", "actseq", "seqpar"):
             cfg, kw = perf.variant_overrides("gemma-2b", "prefill_32k",
                                              set(filter(None, [v])),
                                              shapes._dryrun_cfg("gemma-2b").reduced())
+            seen.clear()
             res[v or "base"] = tally_dict(dryrun.trace_step(
                 "gemma-2b", spec, mesh, cfg, **kw))
+            res[v or "base"]["seen"] = list(seen)
+        res["layers"] = cfg.n_layers
         print("JSON" + json.dumps(res))
     """)
     assert out["actseq"]["coll"] != out["base"]["coll"]
     assert out["actseq"]["flops"] <= out["base"]["flops"]
+    whole, batch = "(Shard(dim=0), Replicate())", "(Shard(dim=0), Shard(dim=1))"
+    n = out["layers"]
+    for v, want in (("base", whole), ("actseq", batch), ("seqpar", batch)):
+        # a block's two norms, then its Q/K/V products' input
+        assert out[v]["seen"][:3 * n] == [["norm", want], ["qkv", want],
+                                          ["norm", want]] * n, (v, out[v])

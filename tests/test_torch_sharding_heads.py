@@ -146,15 +146,7 @@ except RuntimeError as e:
 """
 
 
-_TORCH = tuple(int(x) for x in torch.__version__.split("+")[0].split(".")[:2])
-
-
-@pytest.mark.parametrize("helpers", [
-    pytest.param("with", marks=pytest.mark.skipif(
-        _TORCH < (2, 13), reason="DTensor before torch 2.13 refuses this "
-        "step's embedding backward (index_put: 'Shard dim -1 ... must be "
-        "normalized')")),
-    "without"])
+@pytest.mark.parametrize("helpers", ["with", "without"])
 def test_two_heads_trace_only_with_the_helpers(helpers):
     """2 heads over a 'model' dim of 4: the mLSTM's q split of [B, S, 2 *
     256] split over 'model' traces with the helpers; without them DTensor

@@ -1,13 +1,16 @@
 """Tabulate the port's dry-run reports (``repro_torch.launch.dryrun``).
 
-  python tools/dryrun_table.py [results/dryrun_torch] [--against DIR]
+  python tools/dryrun_table.py [results/dryrun_torch] [--against DIR] \
+      [--reference results/dryrun]
 
 Prints a markdown table, an (arch) row and a (shape, mesh) column each:
 an ok configuration's seconds of set-up + trace and its peak of live
 local bytes (``temp_size_in_bytes``, GB), or the error's first words. With
-``--against`` (another run's reports), one line a configuration ok in
-both: FLOPs a rank, collective counts and output bytes, the other run's
-beside this one's.
+``--against`` (another run's reports), two more grids, a configuration
+ok in both: a rank's FLOPs over the analytic ``flops_per_device``, the
+other run's -> this one's (``--reference``: beside them, the JAX
+package's report of the configuration, from its ``launch/dryrun.py``),
+then the peak and the collective bytes.
 """
 from __future__ import annotations
 
@@ -50,22 +53,50 @@ def table(reps: dict) -> str:
     return "\n".join(rows)
 
 
-def compare(new: dict, old: dict) -> str:
-    lines = ["| config | FLOPs a rank | collectives (ag/ar/rs/a2a) | output bytes |",
-             "|---|---|---|---|"]
-    keys = ("all-gather", "all-reduce", "reduce-scatter", "all-to-all")
-    for k in sorted(new):
-        a, b = old.get(k), new[k]
-        if not (a and a["ok"] and b["ok"]):
-            continue
-        ca = "/".join(str(a["collective_counts"][c]) for c in keys)
-        cb = "/".join(str(b["collective_counts"][c]) for c in keys)
-        lines.append(
-            f"| {' '.join(k)} | {a['cost_analysis']['flops']:.4g} -> "
-            f"{b['cost_analysis']['flops']:.4g} | {ca} -> {cb} | "
-            f"{a['memory_analysis']['output_size_in_bytes']} -> "
-            f"{b['memory_analysis']['output_size_in_bytes']} |")
-    return "\n".join(lines)
+def flops_over_analytic(rep) -> float:
+    """A rank's traced FLOPs over the analytic ``flops_per_device``."""
+    return rep["cost_analysis"]["flops"] / rep["roofline"]["flops_per_device"]
+
+
+def _gb(rep, key) -> float:
+    if key == "peak":
+        return rep["memory_analysis"]["temp_size_in_bytes"] / 1e9
+    return rep["collective_bytes"]["total"] / 1e9
+
+
+def compare(new: dict, old: dict, ref: dict = None) -> str:
+    """Two grids like :func:`table`'s, a configuration ok in both runs:
+    a rank's FLOPs over the analytic term, the other run's -> this run's
+    (and in brackets the reference's report of the configuration, where
+    ``ref`` has one), then the peak and the collective bytes, GB."""
+    cols = [(s, m) for s in SHAPES for m in MESHES]
+    head = ["| arch | " + " | ".join(f"{s.split('_')[0]} {m[3:]}"
+                                     for s, m in cols) + " |",
+            "|" + "---|" * (len(cols) + 1)]
+
+    def grid(title, cell):
+        rows = [title, ""] + head
+        for arch in sorted({a for a, _, _ in new}):
+            cells = []
+            for s, m in cols:
+                a, b = old.get((arch, s, m)), new.get((arch, s, m))
+                cells.append(cell(a, b, (ref or {}).get((arch, s, m)))
+                             if a and b and a["ok"] and b["ok"] else "-")
+            rows.append(f"| {arch} | " + " | ".join(cells) + " |")
+        return rows + [""]
+
+    def ratio(a, b, r):
+        out = f"{flops_over_analytic(a):.3g} -> {flops_over_analytic(b):.3g}"
+        return out + (f" [{flops_over_analytic(r):.3g}]" if r and r["ok"] else "")
+
+    def sizes(a, b, r):
+        return "; ".join(f"{_gb(a, k):.3g} -> {_gb(b, k):.3g}"
+                         for k in ("peak", "coll"))
+    return "\n".join(
+        grid("FLOPs a rank over the analytic flops_per_device, other run -> "
+             "this run [reference]:", ratio)
+        + grid("peak of live local bytes (temp_size_in_bytes); collective "
+               "bytes a rank, GB, other run -> this run:", sizes))
 
 
 def main(argv=None):
@@ -74,12 +105,16 @@ def main(argv=None):
         os.path.dirname(__file__), "..", "results", "dryrun_torch"))
     ap.add_argument("--against", default=None,
                     help="another run's reports, compared config by config")
+    ap.add_argument("--reference", default=None,
+                    help="the JAX package's reports (results/dryrun), beside "
+                         "the FLOPs with --against")
     args = ap.parse_args(argv)
     reps = load(args.reports)
     print(table(reps))
     if args.against:
         print()
-        print(compare(reps, load(args.against)))
+        print(compare(reps, load(args.against),
+                      load(args.reference) if args.reference else None))
 
 
 if __name__ == "__main__":
