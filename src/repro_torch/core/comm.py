@@ -41,6 +41,8 @@ from typing import Callable, Dict, Sequence
 import torch
 import torch.distributed as dist
 
+from repro_torch import spans
+
 
 def pad_to(x, rows: int, axis: int = 0):
     """Zero-pad ``x`` along ``axis`` to ``rows`` (no-op if already there)."""
@@ -60,6 +62,29 @@ def _group_size(group, sizes: Sequence[int]) -> int:
     return n
 
 
+def _exchange(x_local, sizes: Sequence[int], axis: int, me: int = 0,
+              padded: bool = True):
+    """The ``exchange`` span of one uneven all-gather while the recorder is
+    on: ``seq`` is this process's call index since the recorder's last
+    take (every rank of a group makes the same calls in the same order, so
+    the ranks' spans of one collective share it), ``bytes_in`` and
+    ``bytes_out`` the wire bytes this rank receives and sends; the
+    ``exchange.calls`` and ``exchange.bytes_in`` counters add them up."""
+    if not spans.enabled():
+        return spans.OFF
+    row = (x_local.numel() // max(x_local.shape[axis], 1)
+           * x_local.element_size())
+    if padded:        # a ring all-gather forwards as many rows as it takes
+        bytes_in = bytes_out = uneven_all_gather_rows(sizes) * row
+    else:             # every other source's real rows; its own to each peer
+        bytes_in = (sum(sizes) - sizes[me]) * row
+        bytes_out = sizes[me] * (len(sizes) - 1) * row
+    seq = spans.count("exchange.calls") - 1
+    spans.count("exchange.bytes_in", bytes_in)
+    return spans.span("exchange", seq=seq, bytes_in=bytes_in,
+                      bytes_out=bytes_out)
+
+
 def uneven_all_gather_padded(x_local, sizes: Sequence[int], group=None,
                              axis: int = 0):
     """Strategy 1: pad to max -> all_gather -> concat valid prefixes.
@@ -67,16 +92,19 @@ def uneven_all_gather_padded(x_local, sizes: Sequence[int], group=None,
     x_local: this rank's slab, ALREADY padded by the caller to max(sizes)
     along ``axis`` (its first sizes[my_rank] entries are real); sizes in
     group-rank order. Returns the concatenation of every rank's valid
-    prefix, [sum(sizes), ...] along ``axis``, on every rank."""
+    prefix, [sum(sizes), ...] along ``axis``, on every rank. On the wire a
+    rank receives (and, in a ring, forwards) :func:`uneven_all_gather_rows`
+    padded rows."""
     n = _group_size(group, sizes)
     if x_local.shape[axis] != max(sizes):
         raise ValueError(f"the local slab has {x_local.shape[axis]} rows on "
                          f"axis {axis}; it must be padded to {max(sizes)}")
-    x = x_local.contiguous()
-    parts = [torch.empty_like(x) for _ in range(n)]
-    dist.all_gather(parts, x, group=group)
-    return torch.cat([parts[i].narrow(axis, 0, sizes[i]) for i in range(n)],
-                     dim=axis)
+    with _exchange(x_local, sizes, axis):
+        x = x_local.contiguous()
+        parts = [torch.empty_like(x) for _ in range(n)]
+        dist.all_gather(parts, x, group=group)
+        return torch.cat([parts[i].narrow(axis, 0, sizes[i])
+                          for i in range(n)], dim=axis)
 
 
 def uneven_all_gather_broadcast(x_local, sizes: Sequence[int], group=None,
@@ -91,19 +119,21 @@ def uneven_all_gather_broadcast(x_local, sizes: Sequence[int], group=None,
                          f"axis {axis}; it must be padded to {max(sizes)}")
     group = group or dist.group.WORLD
     me = dist.get_rank(group)
-    parts = []
-    for src in range(n):
-        if sizes[src] == 0:
-            continue
-        if src == me:
-            buf = x_local.narrow(axis, 0, sizes[src]).contiguous()
-        else:
-            shape = list(x_local.shape)
-            shape[axis] = sizes[src]
-            buf = x_local.new_empty(shape)
-        dist.broadcast(buf, src=dist.get_global_rank(group, src), group=group)
-        parts.append(buf)
-    return torch.cat(parts, dim=axis)
+    with _exchange(x_local, sizes, axis, me, padded=False):
+        parts = []
+        for src in range(n):
+            if sizes[src] == 0:
+                continue
+            if src == me:
+                buf = x_local.narrow(axis, 0, sizes[src]).contiguous()
+            else:
+                shape = list(x_local.shape)
+                shape[axis] = sizes[src]
+                buf = x_local.new_empty(shape)
+            dist.broadcast(buf, src=dist.get_global_rank(group, src),
+                           group=group)
+            parts.append(buf)
+        return torch.cat(parts, dim=axis)
 
 
 def ulysses_scatter_heads(q, group=None):

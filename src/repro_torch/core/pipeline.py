@@ -75,6 +75,7 @@ from typing import Callable, Dict, List, Optional, Protocol, Sequence, Tuple
 
 import torch
 
+from repro_torch import spans
 from repro_torch.configs.diffusion import DiTConfig
 from repro_torch.core import frames as frames_lib
 from repro_torch.core import hetero
@@ -931,6 +932,10 @@ class StadiPipeline:
         planned speeds and ``rebalance_every`` is on, the profiler detects it
         and the remaining steps are re-planned mid-run.
         """
+        with spans.span("generate", backend=self.config.backend):
+            return self._generate(x_T, cond, measured_speeds)
+
+    def _generate(self, x_T, cond, measured_speeds) -> PipelineResult:
         config = self.config
         plan = self.plan()
         check_backend_can_run(plan, config)

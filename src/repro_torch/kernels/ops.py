@@ -22,7 +22,6 @@ every launch of a kernel (once per call on the card).
 """
 from __future__ import annotations
 
-import collections
 import ctypes
 import dataclasses
 import functools
@@ -36,6 +35,7 @@ from typing import Dict
 
 import torch
 
+from repro_torch import spans
 from repro_torch.kernels import cfg_epilogue as cfe
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import ref
@@ -54,16 +54,15 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # launch counters
 # ----------------------------------------------------------------------
 
-_launches: collections.Counter = collections.Counter()
-
-
 def launch_counts() -> Dict[str, int]:
-    """Copy of the process-wide launch counters, by kernel name."""
-    return dict(_launches)
+    """Copy of the process-wide launch counters, by kernel name: the
+    always-on ``launch.`` part of the span recorder's counter table."""
+    return {k[len(spans.LAUNCH):]: n for k, n in spans.counters().items()
+            if k.startswith(spans.LAUNCH)}
 
 
 def reset_launch_counts() -> None:
-    _launches.clear()
+    spans.reset(spans.LAUNCH)
 
 
 # ----------------------------------------------------------------------
@@ -238,7 +237,7 @@ def stale_kv_attention(q, k_fresh, v_fresh, k_stale, v_stale, *,
                          tok_start, hd ** -0.5)
     if err != 0:
         raise RuntimeError(f"stale_kv_attention launch failed: CUDA error {err}")
-    _launches["stale_kv_attention"] += 1
+    spans.count("launch.stale_kv_attention")
     return out
 
 
@@ -333,7 +332,7 @@ def stale_kv_attention_padded(q, k_fresh, v_fresh, k_stale, v_stale,
     if err != 0:
         raise RuntimeError("stale_kv_attention_padded launch failed: CUDA "
                            f"error {err}")
-    _launches["stale_kv_attention_padded"] += 1
+    spans.count("launch.stale_kv_attention_padded")
     return out
 
 
@@ -377,7 +376,7 @@ def stale_kv_attention_guided(q, k_fresh, v_fresh, k_stale, v_stale,
     if err != 0:
         raise RuntimeError("stale_kv_attention_guided launch failed: CUDA "
                            f"error {err}")
-    _launches["stale_kv_attention_guided"] += 1
+    spans.count("launch.stale_kv_attention_guided")
     return out.unflatten(0, (2, q.shape[1]))
 
 
@@ -417,7 +416,7 @@ def lse_attention(q, k, v, valid_len: int):
         err = skv.launch_lse(lib, q, k, v, out, lse, valid_len, hd ** -0.5)
     if err != 0:
         raise RuntimeError(f"lse_attention launch failed: CUDA error {err}")
-    _launches["lse_attention"] += 1
+    spans.count("launch.lse_attention")
     return out, lse
 
 
@@ -494,7 +493,7 @@ def cfg_epilogue(eps_c, eps_u, scale, *, with_delta: bool = True):
                                  lane_n, w)
         if err != 0:
             raise RuntimeError(f"cfg_epilogue launch failed: CUDA error {err}")
-        _launches["cfg_epilogue"] += 1
+        spans.count("launch.cfg_epilogue")
     return (out, delta) if with_delta else out
 
 
@@ -555,7 +554,7 @@ def _flash_attention(q, k, v, causal, window, prefix_len):
                         hd ** -0.5)
     if err != 0:
         raise RuntimeError(f"flash_attention launch failed: CUDA error {err}")
-    _launches["flash_attention"] += 1
+    spans.count("launch.flash_attention")
     return out
 
 
@@ -679,7 +678,7 @@ def _ssm_scan(x, dt, b_t, c_t, a, d_skip, h0, final_state):
             err = ss.launch(lib, x, dt, b_t, c_t, a, d_skip, h0, y, h)
     if err != 0:
         raise RuntimeError(f"ssm_scan launch failed: CUDA error {err}")
-    _launches["ssm_scan"] += 1
+    spans.count("launch.ssm_scan")
     return (y, h) if final_state else y
 
 

@@ -39,6 +39,7 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch import spans
 from repro_torch.configs.diffusion import DiTConfig
 from repro_torch.core import sampler
 from repro_torch.core.guidance import NULL_COND
@@ -456,21 +457,25 @@ def forward_patch(params, cfg: DiTConfig, x_rows, t, cond, row_start: int,
     [L,B,Nl,H,hd] or None).
     """
     rows_tok = x_rows.shape[1] // cfg.patch_size         # token rows in patch
-    h, c = embed_patch(params, cfg, x_rows, t, cond, row_start, frame=frame)
-    tok_start = row_start * cfg.tokens_per_side
-    prompt_ctx = None
-    if getattr(cond, "ndim", 0) >= 3:
-        if not cfg.cross_attn:
-            raise ValueError(
-                "prompt-token cond needs DiTConfig.cross_attn=True "
-                "(see DiTConfig.text_conditioned())")
-        cond = cond.to(h.device)
-        prompt_ctx = (cond[..., :-1], (cond[..., -1] > 0.5)[:, None, None, :])
-    h, kvs = block_stack(params["blocks"], cfg, h, c, tok_start,
-                         buffers=buffers, return_kv=return_kv,
-                         valid_tokens=valid_tokens, attend_fn=attend_fn,
-                         ctx_tokens=ctx_tokens, prompt_ctx=prompt_ctx)
-    return final_head(params, cfg, h, c, rows_tok), kvs
+    with spans.span("forward", batch=x_rows.shape[0],
+                    tokens=valid_tokens or rows_tok * cfg.tokens_per_side):
+        h, c = embed_patch(params, cfg, x_rows, t, cond, row_start,
+                           frame=frame)
+        tok_start = row_start * cfg.tokens_per_side
+        prompt_ctx = None
+        if getattr(cond, "ndim", 0) >= 3:
+            if not cfg.cross_attn:
+                raise ValueError(
+                    "prompt-token cond needs DiTConfig.cross_attn=True "
+                    "(see DiTConfig.text_conditioned())")
+            cond = cond.to(h.device)
+            prompt_ctx = (cond[..., :-1],
+                          (cond[..., -1] > 0.5)[:, None, None, :])
+        h, kvs = block_stack(params["blocks"], cfg, h, c, tok_start,
+                             buffers=buffers, return_kv=return_kv,
+                             valid_tokens=valid_tokens, attend_fn=attend_fn,
+                             ctx_tokens=ctx_tokens, prompt_ctx=prompt_ctx)
+        return final_head(params, cfg, h, c, rows_tok), kvs
 
 
 def forward(params, cfg: DiTConfig, x, t, cond=None, frame=None):
@@ -530,27 +535,31 @@ def forward_patch_cfg(params, cfg: DiTConfig, x_rows, t, cond, row_start: int,
     buffers' layout — [2, L, B, Nl, H, hd] or [L, 2, B, Nl, H, hd] — or
     None)."""
     B = x_rows.shape[0]
-    conds = guidance_conds(cond).to(x_rows.device)
-    if conds.ndim >= 4:                   # prompt tokens [2, B|1, L, Dc+1]
-        rest = conds.shape[2:]
-        conds = conds.expand(2, B, *rest).reshape(2 * B, *rest)
-    else:
-        conds = conds.reshape(2, -1).expand(2, B).reshape(2 * B)
-    if isinstance(t, torch.Tensor) and t.dim():
-        t = torch.cat([t.reshape(-1).expand(B)] * 2)
-    if isinstance(frame, torch.Tensor) and frame.dim():
-        frame = torch.cat([frame.reshape(-1).expand(B)] * 2)
-    if buffers is not None:
-        buffers = tuple(b.movedim(branch_axis, 1).flatten(1, 2)
-                        for b in buffers)
-    eps, kvs = forward_patch(params, cfg, torch.cat([x_rows, x_rows]), t,
-                             conds, row_start, buffers=buffers,
-                             return_kv=return_kv, valid_tokens=valid_tokens,
-                             frame=frame, ctx_tokens=ctx_tokens)
-    if kvs is not None:
-        kvs = tuple(k.unflatten(1, (2, B)).movedim(1, branch_axis)
-                    for k in kvs)
-    return eps.unflatten(0, (2, B)), kvs
+    with spans.span("forward", batch=2 * B,
+                    tokens=valid_tokens or (x_rows.shape[1] // cfg.patch_size
+                                            * cfg.tokens_per_side)):
+        conds = guidance_conds(cond).to(x_rows.device)
+        if conds.ndim >= 4:                   # prompt tokens [2, B|1, L, Dc+1]
+            rest = conds.shape[2:]
+            conds = conds.expand(2, B, *rest).reshape(2 * B, *rest)
+        else:
+            conds = conds.reshape(2, -1).expand(2, B).reshape(2 * B)
+        if isinstance(t, torch.Tensor) and t.dim():
+            t = torch.cat([t.reshape(-1).expand(B)] * 2)
+        if isinstance(frame, torch.Tensor) and frame.dim():
+            frame = torch.cat([frame.reshape(-1).expand(B)] * 2)
+        if buffers is not None:
+            buffers = tuple(b.movedim(branch_axis, 1).flatten(1, 2)
+                            for b in buffers)
+        eps, kvs = forward_patch(params, cfg, torch.cat([x_rows, x_rows]),
+                                 t, conds, row_start, buffers=buffers,
+                                 return_kv=return_kv,
+                                 valid_tokens=valid_tokens, frame=frame,
+                                 ctx_tokens=ctx_tokens)
+        if kvs is not None:
+            kvs = tuple(k.unflatten(1, (2, B)).movedim(1, branch_axis)
+                        for k in kvs)
+        return eps.unflatten(0, (2, B)), kvs
 
 
 def forward_cfg(params, cfg: DiTConfig, x, t, cond, scale):

@@ -89,6 +89,7 @@ from typing import Dict, List, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
+from repro_torch import spans
 from repro_torch.core import buffers as buf_lib
 from repro_torch.core import comm as comm_lib
 from repro_torch.core import events as ir
@@ -140,8 +141,13 @@ class DiffusionRequest:
     finish_round: int = -1
     submit_clock_s: float = 0.0
     modeled_latency_s: float = 0.0
+    # host stamps on the span recorder's clock (``time.time_ns()``): at
+    # submit, at the latest admission, and at retirement, after the device
+    # has finished the request's work; wall_latency_s is done - submit
+    submit_ns: int = 0
+    admit_ns: int = 0
+    done_ns: int = 0
     wall_latency_s: float = 0.0
-    _submit_wall: float = 0.0
 
     @property
     def queue_rounds(self) -> int:
@@ -759,7 +765,7 @@ class DiffusionServingEngine:
                     self._prev_gv = torch.zeros_like(self._gk)
         req.submit_round = len(self.rounds)
         req.submit_clock_s = self.modeled_clock_s
-        req._submit_wall = time.perf_counter()
+        req.submit_ns = time.time_ns()
         self.queue.append(req)
         return req
 
@@ -824,35 +830,40 @@ class DiffusionServingEngine:
                     f"scale {gplan.scale}")
 
     def _admit(self, report: RoundReport) -> None:
-        M_w = self.plan.temporal.m_warmup
-        params, cfg = self.pipeline.params, self.pipeline.model_cfg
-        while self.queue and len(self.active) < self.slots:
-            req = self.queue.pop(0)
-            slot = next(s for s in range(self.slots) if s not in self.active)
-            self._x[slot] = req.x_T[0]
-            if not self._prompt_mode:    # prompt tokens stay on the request
-                self._cond[slot] = req.cond[0]
-            self._scales[slot] = req.cfg_scale if req.guided else 0.0
-            req.fine_step = 0
-            req.admit_round = report.index
-            if M_w == 0:
-                # run_schedule's buffer bootstrap: one full forward at ts[0]
-                # (only its K/V is kept, so a guided one needs no combine)
-                x = self._x[slot:slot + 1]
-                t0 = int(self._ts[0])
-                self.dispatches["bootstrap"] += 1
-                if req.guided:
-                    _, (k2, v2) = dit.forward_patch_cfg(
-                        params, cfg, x, t0, req.cond, 0, branch_axis=1)
-                    self._gk[:, :, slot] = k2[:, :, 0]
-                    self._gv[:, :, slot] = v2[:, :, 0]
-                else:
-                    _, (k, v) = dit.forward_patch(params, cfg, x, t0,
-                                                  req.cond, 0)
-                    self._pub_k[:, slot] = k[:, 0]
-                    self._pub_v[:, slot] = v[:, 0]
-            self.active[slot] = req
-            report.admitted.append((req.uid, slot))
+        with spans.span("engine.admit") as sp:
+            M_w = self.plan.temporal.m_warmup
+            params, cfg = self.pipeline.params, self.pipeline.model_cfg
+            while self.queue and len(self.active) < self.slots:
+                req = self.queue.pop(0)
+                slot = next(s for s in range(self.slots)
+                            if s not in self.active)
+                self._x[slot] = req.x_T[0]
+                if not self._prompt_mode:  # prompt tokens stay on the request
+                    self._cond[slot] = req.cond[0]
+                self._scales[slot] = req.cfg_scale if req.guided else 0.0
+                req.fine_step = 0
+                req.admit_round = report.index
+                req.admit_ns = time.time_ns()
+                if M_w == 0:
+                    # run_schedule's buffer bootstrap: one full forward at
+                    # ts[0] (only its K/V is kept, so a guided one needs no
+                    # combine)
+                    x = self._x[slot:slot + 1]
+                    t0 = int(self._ts[0])
+                    self.dispatches["bootstrap"] += 1
+                    if req.guided:
+                        _, (k2, v2) = dit.forward_patch_cfg(
+                            params, cfg, x, t0, req.cond, 0, branch_axis=1)
+                        self._gk[:, :, slot] = k2[:, :, 0]
+                        self._gv[:, :, slot] = v2[:, :, 0]
+                    else:
+                        _, (k, v) = dit.forward_patch(params, cfg, x, t0,
+                                                      req.cond, 0)
+                        self._pub_k[:, slot] = k[:, 0]
+                        self._pub_v[:, slot] = v[:, 0]
+                self.active[slot] = req
+                report.admitted.append((req.uid, slot))
+            sp.set(admitted=len(report.admitted))
 
     def preempt(self, uid: int) -> bool:
         """Evict an active request back to the FRONT of the queue (it
@@ -920,11 +931,23 @@ class DiffusionServingEngine:
     # ---------------- one scheduling round ----------------
 
     def step(self) -> List[DiffusionRequest]:
-        """One round: admit -> warmup group -> adaptive group(s) -> retire."""
+        """One round: admit -> warmup group -> adaptive group(s) -> retire.
+        The ``engine.round`` span's stamps give the round's ``wall_s``."""
         report = RoundReport(index=len(self.rounds))
-        wall0 = time.perf_counter()
-        if self.frames is not None:
-            return self._frames_round(report, wall0)
+        with spans.timed("engine.round", index=report.index) as rnd:
+            if self.frames is not None:
+                finished = self._frames_round(report)
+                lanes = len(finished)
+            else:
+                finished = self._round(report)
+                lanes = len(report.warmup_lanes) + len(report.adaptive_lanes)
+            rnd.set(lanes=lanes)
+        report.wall_s = rnd.seconds
+        self.completed.extend(finished)
+        self.rounds.append(report)
+        return finished
+
+    def _round(self, report: RoundReport) -> List[DiffusionRequest]:
         if self._pending_plan is not None:
             self._try_install_pending()
         self._admit(report)
@@ -937,21 +960,24 @@ class DiffusionServingEngine:
         report.warmup_lanes, report.adaptive_lanes = warm, adapt
 
         for guided, bucket, lanes in self._by_guided(warm):
-            idx = self._index(lanes)
-            fine = torch.tensor([self.active[s].fine_step for s in lanes])
-            t_from, t_to = self._ts[fine], self._ts[fine + 1]
+            with spans.span("engine.state"):
+                idx = self._index(lanes)
+                fine = torch.tensor([self.active[s].fine_step for s in lanes])
+                t_from, t_to = self._ts[fine], self._ts[fine + 1]
+                x, conds = self._x[idx], self._conds(idx, lanes)
+                scales = self._scales[idx] if guided else None
             n0 = self._forwards()
             if guided:
                 xs, k2s, v2s = self.stepper.warmup_step_guided(
-                    self._x[idx], t_from, t_to, self._conds(idx, lanes),
-                    self._scales[idx])
-                self._x[idx] = xs
-                self._put(self._gk, 2, idx, k2s)
-                self._put(self._gv, 2, idx, v2s)
+                    x, t_from, t_to, conds, scales)
+                with spans.span("engine.state"):
+                    self._x[idx] = xs
+                    self._put(self._gk, 2, idx, k2s)
+                    self._put(self._gv, 2, idx, v2s)
             else:
-                xs, ks, vs = self.stepper.warmup_step(
-                    self._x[idx], t_from, t_to, self._conds(idx, lanes))
-                self._scatter(idx, xs, ks, vs)
+                xs, ks, vs = self.stepper.warmup_step(x, t_from, t_to, conds)
+                with spans.span("engine.state"):
+                    self._scatter(idx, xs, ks, vs)
             self.bucket_dispatches[(guided, bucket)] += self._forwards() - n0
             for s in lanes:
                 self.active[s].fine_step += 1
@@ -964,54 +990,61 @@ class DiffusionServingEngine:
             wants_ctx = getattr(self.stepper, "wants_ctx", False)
             for group, (read_factor, trail_kind, fill, seq_hops,
                         guided, bucket) in self._groups(adapt):
-                idx = self._index(group)
-                conds = self._conds(idx, group)
-                n0 = self._forwards()
-                fine = np.asarray([self.active[s].fine_step for s in group])
                 merge = trail_kind == "full"
                 axis = 2 if guided else 1          # the slot axis of the K/V
                 state = ((self._gk, self._gv) if guided
                          else (self._pub_k, self._pub_v))
                 prev = ((self._prev_gk, self._prev_gv) if guided
                         else (self._prev_k, self._prev_v))
-                bk, bv = (self._take(b, axis, idx, guided) for b in state)
-                # predictive boundary before this group (staged steppers
-                # never read it: their contexts subsume it)
-                if read_factor and not wants_ctx:
-                    bk = buf_lib.extrapolate_arrays(
-                        bk, self._take(prev[0], axis, idx, False), read_factor)
-                    bv = buf_lib.extrapolate_arrays(
-                        bv, self._take(prev[1], axis, idx, False), read_factor)
-                if merge and self._track_prev:
-                    # pre-merge buffers become the extrapolation base (the
-                    # merge below may write the state in place)
-                    for dst, src in zip(prev, state):
-                        self._put(dst, axis, idx, self._take(src, axis, idx,
-                                                             False))
+                with spans.span("engine.state"):
+                    idx = self._index(group)
+                    conds = self._conds(idx, group)
+                    fine = np.asarray([self.active[s].fine_step
+                                       for s in group])
+                    bk, bv = (self._take(b, axis, idx, guided) for b in state)
+                    # predictive boundary before this group (staged
+                    # steppers never read it: their contexts subsume it)
+                    if read_factor and not wants_ctx:
+                        bk = buf_lib.extrapolate_arrays(
+                            bk, self._take(prev[0], axis, idx, False),
+                            read_factor)
+                        bv = buf_lib.extrapolate_arrays(
+                            bv, self._take(prev[1], axis, idx, False),
+                            read_factor)
+                    if merge and self._track_prev:
+                        # pre-merge buffers become the extrapolation base
+                        # (the merge below may write the state in place)
+                        for dst, src in zip(prev, state):
+                            self._put(dst, axis, idx,
+                                      self._take(src, axis, idx, False))
+                    x = self._x[idx]
+                    if wants_ctx and not guided:
+                        if fill:     # pipe refill: contexts <- published
+                            self._put(self._ctx_k, 1, idx, bk)
+                            self._put(self._ctx_v, 1, idx, bv)
+                        ck, cv = (self._take(c, 1, idx, False)
+                                  for c in (self._ctx_k, self._ctx_v))
+                n0 = self._forwards()
                 if guided:           # branch-stacked per-lane CFG state
                     xs, ks, vs = self.stepper.interval_guided(
-                        self._x[idx], fine, conds, self._scales[idx], bk, bv,
+                        x, fine, conds, self._scales[idx], bk, bv,
                         merge=merge)
                 elif wants_ctx:
-                    if fill:         # pipe refill: contexts <- published
-                        self._put(self._ctx_k, 1, idx, bk)
-                        self._put(self._ctx_v, 1, idx, bv)
-                    ck, cv = (self._take(c, 1, idx, False)
-                              for c in (self._ctx_k, self._ctx_v))
                     xs, ks, vs, ck, cv = self.stepper.interval_ctx(
-                        self._x[idx], fine, conds, bk, bv, ck, cv,
-                        merge=merge)
-                    self._put(self._ctx_k, 1, idx, ck)
-                    self._put(self._ctx_v, 1, idx, cv)
+                        x, fine, conds, bk, bv, ck, cv, merge=merge)
                 else:
                     xs, ks, vs = self.stepper.interval(
-                        self._x[idx], fine, conds, bk, bv, merge=merge)
+                        x, fine, conds, bk, bv, merge=merge)
                 self.bucket_dispatches[(guided, bucket)] += \
                     self._forwards() - n0
-                self._x[idx] = xs
-                if merge:
-                    self._put(state[0], axis, idx, ks)
-                    self._put(state[1], axis, idx, vs)
+                with spans.span("engine.state"):
+                    if wants_ctx and not guided:
+                        self._put(self._ctx_k, 1, idx, ck)
+                        self._put(self._ctx_v, 1, idx, cv)
+                    self._x[idx] = xs
+                    if merge:
+                        self._put(state[0], axis, idx, ks)
+                        self._put(state[1], axis, idx, vs)
                 for s in group:
                     self.active[s].fine_step += R
                 placement, cost = self._phase_cost(
@@ -1031,24 +1064,29 @@ class DiffusionServingEngine:
         self.modeled_clock_s += report.modeled_s
         done_slots = [s for s, r in sorted(self.active.items())
                       if r.fine_step >= M_base]
-        if done_slots and self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)   # flush BEFORE stamping wall
-        finished = []
-        for slot in done_slots:
-            req = self.active.pop(slot)
-            req.image = self._x[slot:slot + 1].clone()
-            req.done = True
-            req.finish_round = report.index
-            req.modeled_latency_s = self.modeled_clock_s - req.submit_clock_s
-            req.wall_latency_s = time.perf_counter() - req._submit_wall
-            finished.append(req)
-        self.completed.extend(finished)
-        report.wall_s = time.perf_counter() - wall0
-        self.rounds.append(report)
+        if not done_slots:
+            return []
+        with spans.span("engine.retire", finished=len(done_slots)):
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)  # flush BEFORE stamping
+            now = time.time_ns()
+            finished = [self.active.pop(slot) for slot in done_slots]
+            with spans.span("engine.state"):
+                for slot, req in zip(done_slots, finished):
+                    req.image = self._x[slot:slot + 1].clone()
+            for req in finished:
+                self._retire(req, report, now)
         return finished
 
-    def _frames_round(self, report: RoundReport,
-                      wall0: float) -> List[DiffusionRequest]:
+    def _retire(self, req: DiffusionRequest, report: RoundReport,
+                now: int) -> None:
+        req.done = True
+        req.finish_round = report.index
+        req.modeled_latency_s = self.modeled_clock_s - req.submit_clock_s
+        req.done_ns = now
+        req.wall_latency_s = (now - req.submit_ns) * 1e-9
+
+    def _frames_round(self, report: RoundReport) -> List[DiffusionRequest]:
         """One video round: admit FIFO into free slots, then run every
         admitted clip's whole schedule back to back through the configured
         frame executor. Each clip accrues the frame-priced makespan in turn
@@ -1061,6 +1099,7 @@ class DiffusionServingEngine:
             slot = next(s for s in range(self.slots) if s not in self.active)
             req.fine_step = 0
             req.admit_round = report.index
+            req.admit_ns = time.time_ns()
             self.active[slot] = req
             report.admitted.append((req.uid, slot))
         executor = get_executor(config.backend)
@@ -1073,20 +1112,16 @@ class DiffusionServingEngine:
                 sched=self.pipeline.sched, x_T=req.x_T, cond=req.cond,
                 plan=self.plan, config=config, interval_hook=None)
             self.dispatches["clip"] += 1
-            if self.device.type == "cuda":
-                torch.cuda.synchronize(self.device)
+            with spans.span("engine.retire", finished=1):
+                if self.device.type == "cuda":
+                    torch.cuda.synchronize(self.device)
+                now = time.time_ns()
             report.modeled_s += self._clip_cost_s
             self.modeled_clock_s += self._clip_cost_s
             req.image = image
             req.fine_step = M_base
-            req.done = True
-            req.finish_round = report.index
-            req.modeled_latency_s = self.modeled_clock_s - req.submit_clock_s
-            req.wall_latency_s = time.perf_counter() - req._submit_wall
+            self._retire(req, report, now)
             finished.append(req)
-        self.completed.extend(finished)
-        report.wall_s = time.perf_counter() - wall0
-        self.rounds.append(report)
         return finished
 
     def run_to_completion(self, max_rounds: int = 100_000
